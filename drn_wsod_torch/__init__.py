@@ -1,0 +1,18 @@
+"""drn_wsod_torch: the PyTorch/CUDA port of drn_wsod_tpu for NVIDIA Hopper.
+
+Entry points run on a CUDA device unless the caller passes ``device="cpu"``.
+The port imports nothing of JAX or of the JAX package.
+"""
+
+from .checkpoint import params_from_jax
+from .config import get_cfg
+from .evaluation import make_detect_fn
+from .models import build_model
+from .ops import multiclass_nms, roi_pool_batched
+from .postprocessing import rescale_boxes
+from .structures import WSODBatch
+from .synthetic import synthetic_batch
+
+__all__ = ["WSODBatch", "build_model", "get_cfg", "make_detect_fn",
+           "multiclass_nms", "params_from_jax", "rescale_boxes",
+           "roi_pool_batched", "synthetic_batch"]

@@ -1,0 +1,4 @@
+from .nms import multiclass_nms
+from .roi_pool import roi_pool_batched, roi_pool_plain
+
+__all__ = ["multiclass_nms", "roi_pool_batched", "roi_pool_plain"]

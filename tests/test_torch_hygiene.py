@@ -1,0 +1,56 @@
+"""The port stands alone: no module of ``drn_wsod_torch`` (nor
+``chip_smoke.py``) imports JAX, flax or the JAX package, and its entry
+points refuse to fall back to the CPU silently."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import drn_wsod_torch
+from test_torch_common import TOY, cfg_pair
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "drn_wsod_tpu")
+SOURCES = sorted(str(p.relative_to(ROOT))
+                 for p in (ROOT / "drn_wsod_torch").rglob("*.py")) \
+    + ["chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_source_imports_no_jax(source):
+    bad = sorted(set(_imported_roots(ROOT / source)) & set(FORBIDDEN))
+    assert not bad, f"{source} imports {bad}"
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, drn_wsod_torch, drn_wsod_torch.ops._build; "
+            "print(sorted(m for m in sys.modules "
+            f"if m.split('.')[0] in {FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_refuse_missing_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, cfg = cfg_pair(*TOY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drn_wsod_torch.build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drn_wsod_torch.synthetic_batch(1, 64, 64, 8, 20)
+    model = drn_wsod_torch.build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drn_wsod_torch.make_detect_fn(model, 1e-5, 0.3, 10)
