@@ -15,10 +15,15 @@ Phases (any failure exits non-zero):
   4. the detect path of the flagship config at full width (R50-WS DC5,
      DAN [2048, 4096], 3 OICR branches, bf16, seeded random weights),
      answering detect requests of B=2 704x704 images with P=4096 proposals,
-     with every kernel's launch count read around that run; a per-part
-     time split of one request;
-  5. a small reference: the toy config on the card against the same
-     weights on the CPU (plain versions of the kernels).
+     with every kernel's launch count read around that run. Requests are
+     timed in windows, one client, each request read back before the next
+     is sent: the host clock and CUDA events over each request and over the
+     whole window. Then a per-part split of a few more requests (device ms
+     and the host ms taken to issue each part), with the card's clocks
+     sampled throughout;
+  5. the CUDA tests (``tests/test_torch_cuda.py``: each kernel against its
+     plain version at a small shape, and a toy config on the card against
+     the same weights on the CPU), run by pytest; every test must pass.
 The second-to-last line is a JSON object of per-kernel numbers, the last
 ``{"ok": true, "device": {...}}``.
 """
@@ -26,17 +31,20 @@ The second-to-last line is a JSON object of per-kernel numbers, the last
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 FLAGSHIP = "configs/PascalVOC-Detection/oicr_WSR_50_DC5_1x.yaml"
 B, IMG, P = 2, 704, 4096
-WARMUP, REQUESTS = 2, 5
+WARMUP, REQUESTS, WINDOWS, SPLITS = 2, 5, 3, 5
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 ops/s
 # outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
@@ -47,6 +55,35 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+class ClockSampler:
+    """The card's SM and memory clocks, power draw and temperature, read by
+    ``nvidia-smi`` every 50 ms while the context is open."""
+
+    FIELDS = ("clocks.sm", "clocks.mem", "power.draw", "temperature.gpu")
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={','.join(self.FIELDS)}",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out = self.proc.communicate(timeout=10)[0]
+        rows = []
+        for line in out.splitlines():
+            try:
+                rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                continue
+        self.summary = "no samples" if not rows else ", ".join(
+            f"{name} min {min(col):g} median {statistics.median(col):g} "
+            f"max {max(col):g}"
+            for name, col in zip(self.FIELDS, zip(*rows))) + \
+            f" ({len(rows)} samples)"
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -109,13 +146,38 @@ def roi_pool_bound(feats, boxes, scale, out, spatial_scale: float):
                                        else "operations")
 
 
-def split_request(model, detect, batch) -> dict:
-    """Device time of each part of one request, from CUDA events recorded
-    by hooks on the model's own modules."""
-    marks = {}
+def timed_window(detect, batches):
+    """Closed loop, one client: each request is read back (synchronised)
+    before the next is sent. Returns the outputs, per-request host ms and
+    device ms (CUDA events around each request), and the window's host ms
+    and device ms (first request's start to last request's end)."""
+    starts = [torch.cuda.Event(enable_timing=True) for _ in batches]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in batches]
+    outs, host = [], []
+    t_window = time.perf_counter()
+    for batch, start, end in zip(batches, starts, ends):
+        t = time.perf_counter()
+        start.record()
+        outs.append(detect(batch))
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+    window_host = (time.perf_counter() - t_window) * 1e3
+    device = [a.elapsed_time(b) for a, b in zip(starts, ends)]
+    return outs, host, device, window_host, starts[0].elapsed_time(ends[-1])
+
+
+def split_request(model, detect, batch):
+    """Time of each part of one request, from marks set by hooks on the
+    model's own modules: device ms between CUDA events, and host ms the
+    Python thread took to issue the part (launches are asynchronous, so
+    where a part's host ms reaches its device ms the card waits on the
+    host). Returns (device, host), each {part: ms}."""
+    marks, issued = {}, {}
 
     def mark(name):
         def hook(*_):
+            issued[name] = time.perf_counter()
             marks[name] = torch.cuda.Event(enable_timing=True)
             marks[name].record()
         return hook
@@ -146,8 +208,9 @@ def split_request(model, detect, batch) -> dict:
              "dan_out", "scores_out", "request_out"]
     names = ["preprocess", "backbone", "pool kernel", "DAN fc1", "DAN fc2",
              "heads", "NMS + rescale"]
-    return {n: marks[a].elapsed_time(marks[b])
-            for n, a, b in zip(names, order, order[1:])}
+    spans = list(zip(names, order, order[1:]))
+    return ({n: marks[a].elapsed_time(marks[b]) for n, a, b in spans},
+            {n: (issued[b] - issued[a]) * 1e3 for n, a, b in spans})
 
 
 def main() -> int:
@@ -216,22 +279,28 @@ def main() -> int:
                for s in range(WARMUP + REQUESTS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-
     rp.roi_pool_batched.launches = 0
-    outs, times = [], []
-    for batch in batches:
-        t = time.perf_counter()
-        outs.append(detect(batch))
+    with ClockSampler() as clock_sampler:
+        outs = [detect(batch) for batch in batches[:WARMUP]]
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    launches = {"roi_pool": rp.roi_pool_batched.launches}
+        windows = []
+        for _ in range(WINDOWS):
+            w = timed_window(detect, batches[WARMUP:])
+            outs += w[0]
+            windows.append(w[1:])
+        launches = {"roi_pool": rp.roi_pool_batched.launches}
+        # the per-part split runs after the count is read: its hooks make
+        # these requests differ from a caller's
+        parts = [split_request(model, detect,
+                               batches[WARMUP + i % REQUESTS])
+                 for i in range(SPLITS)]
 
-    n_req = len(batches)
+    n_req = WARMUP + WINDOWS * REQUESTS
     if launches["roi_pool"] != n_req:
         print(f"phase 4: FAIL roi_pool launched {launches['roi_pool']} times "
               f"for {n_req} requests")
         return 1
-    for dets, batch in zip(outs, batches):
+    for dets in outs:
         shapes = {k: tuple(v.shape) for k, v in dets.items()}
         want_shapes = {"boxes": (B, topk, 4), "scores": (B, topk),
                        "classes": (B, topk), "valid": (B, topk),
@@ -248,49 +317,50 @@ def main() -> int:
                 or (dets["classes"][dets["valid"]] >= C).any()):
             print("phase 4: FAIL outputs not finite, empty or out of range")
             return 1
-    timed = times[WARMUP:]
-    img_s = B * len(timed) / sum(timed)
     print(f"phase 4: {n_req} detect requests (B={B}, {IMG}x{IMG}, P={P}, "
           f"R50-WS DC5, DAN [2048, 4096], 3 OICR branches, bf16); "
           f"roi_pool launches {launches['roi_pool']} (one per request); "
           f"outputs finite, shapes {shapes}", flush=True)
-    print(f"phase 4: {img_s:.3f} img/s over {len(timed)} timed requests, "
-          f"request ms median {statistics.median(timed) * 1e3:.3f} "
-          f"(first warm-up {times[0] * 1e3:.1f}); peak memory "
+    for i, (host, device, window_host, window_dev) in enumerate(windows):
+        print(f"phase 4: window {i} of {REQUESTS} requests: "
+              f"{B * REQUESTS / window_dev * 1e3:.3f} img/s by CUDA events "
+              f"({window_dev:.3f} ms), "
+              f"{B * REQUESTS / window_host * 1e3:.3f} img/s by the host "
+              f"clock ({window_host:.3f} ms); request ms device "
+              f"[{', '.join(f'{t:.3f}' for t in device)}], host "
+              f"[{', '.join(f'{t:.3f}' for t in host)}] {tag}", flush=True)
+    print(f"phase 4: peak device memory of the requests "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}",
           flush=True)
-    parts = [split_request(model, detect, batches[-1]) for _ in range(3)]
-    split = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
-    print("phase 4: device ms per part of one request: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-          + f" {tag}", flush=True)
+    for what, runs in (("device", [d for d, _ in parts]),
+                       ("host issue", [h for _, h in parts])):
+        split = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        print(f"phase 4: {what} ms per part, median of {SPLITS} requests "
+              "with hooks: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + "; sum per request ["
+              + ", ".join(f"{sum(r.values()):.3f}" for r in runs)
+              + f"] {tag}", flush=True)
+    print(f"phase 4: card during the requests: {clock_sampler.summary} "
+          f"{tag}", flush=True)
     del model, detect, batches, outs
+    torch.cuda.empty_cache()
 
-    # ---- phase 5: a small input against a reference (the CPU path)
-    small = drn_wsod_torch.get_cfg()
-    small.merge_from_list(["MODEL.RESNETS.DEPTH", "18",
-                           "MODEL.RESNETS.RES2_OUT_CHANNELS", "64",
-                           "MODEL.ROI_BOX_HEAD.DAN_DIM", "[64, 64]",
-                           "MODEL.PIXEL_STD", "[57.4, 57.1, 58.4]",
-                           "MODEL.DTYPE", "float32"])
-    ref_model = drn_wsod_torch.build_model(small, device="cpu")
-    gpu_model = drn_wsod_torch.build_model(small, device=dev)
-    gpu_model.load_state_dict(ref_model.state_dict())
-    batch = drn_wsod_torch.synthetic_batch(2, 64, 64, 64, C, seed=7,
-                                           device="cpu")
-    want = drn_wsod_torch.make_detect_fn(ref_model, 1e-5, 0.3, 20,
-                                         device="cpu")(batch)
-    got = drn_wsod_torch.make_detect_fn(gpu_model, 1e-5, 0.3, 20,
-                                        device=dev)(batch)
-    # float32 on both sides; only the summation order differs
-    g, w = got["all_scores"].cpu(), want["all_scores"]
-    diff = (g - w).abs().max().item()
-    if not ((g - w).abs() <= 1e-5 + 1e-4 * w.abs()).all():
-        print(f"phase 5: FAIL toy scores on the card vs the CPU max|diff| "
-              f"{diff}")
+    # ---- phase 5: the CUDA tests, small inputs against their references
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q",
+         "-p", "no:cacheprovider", "tests/test_torch_cuda.py"],
+        cwd=root, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(root)})
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or not re.fullmatch(
+            r"=* *\d+ passed(, \d+ warnings?)? in .*", summary):
+        print(f"phase 5: FAIL tests/test_torch_cuda.py: {summary}\n"
+              f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
         return 1
-    print(f"phase 5: toy detect on the card matches the CPU reference "
-          f"(rtol 1e-4, atol 1e-5; max|diff| {diff:.3g}) {tag}", flush=True)
+    print(f"phase 5: tests/test_torch_cuda.py on the card: {summary} {tag}",
+          flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "roi_pool", "route": "cuda",

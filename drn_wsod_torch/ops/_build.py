@@ -3,8 +3,7 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``build/drn_wsod_torch/lib<name>.so`` at the root of the checkout, at first
 use. The sources have a plain C interface (no PyTorch headers), so a build
-takes seconds. Every source gets its own ``nvcc`` process, all started
-together. A missing ``nvcc`` or a failed build raises.
+takes seconds. A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -44,24 +43,19 @@ def build_all() -> dict:
              if not library_path(src.stem).exists()
              or library_path(src.stem).stat().st_mtime < src.stat().st_mtime]
     nvcc = _nvcc() if stale else None
-    jobs = {}
+    logs = {}
     for src in stale:
         lib = library_path(src.stem)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs[src.stem] = (proc, tmp, lib)
-    logs, failed = {}, []
-    for name, (proc, tmp, lib) in jobs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode == 0:
-            os.replace(tmp, lib)
-        else:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        logs[src.stem] = proc.stdout
+        if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{logs[name]}")
-    if failed:
-        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
+            raise RuntimeError(f"CUDA build of {src.name} failed (nvcc exit "
+                               f"{proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, lib)
     return logs
 
 

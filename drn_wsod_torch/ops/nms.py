@@ -54,7 +54,9 @@ def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor,
     B, P, C = scores.shape
     class_specific = boxes.dim() == 4
     T = min(per_class_topk, P)
-    neg = torch.tensor(-math.inf, dtype=scores.dtype, device=scores.device)
+    # a fill on the device: torch.tensor(..., device=cuda) copies from
+    # pageable host memory, which waits for all work queued on the stream
+    neg = scores.new_full((), -math.inf)
 
     s = torch.where(valid[..., None] & torch.isfinite(scores)
                     & (scores > score_threshold), scores, neg)

@@ -23,6 +23,9 @@ import torch
 
 from . import _build
 
+# RoIs gathered per step of the plain version (bounds its index tensors)
+_CHUNK = 512
+
 
 def _max_span(size: int, resolution: int) -> int:
     """Largest bin span (cells) on a ``size``-cell axis."""
@@ -94,8 +97,7 @@ def _rmq(lo: torch.Tensor, hi: torch.Tensor, num_levels: int):
 
 
 def roi_pool(features: torch.Tensor, boxes: torch.Tensor,
-             spatial_scale: float, resolution: int = 7,
-             chunk: int = 512) -> torch.Tensor:
+             spatial_scale: float, resolution: int = 7) -> torch.Tensor:
     """Exact RoIPool of one image, plain PyTorch.
 
     features: (H, W, C); boxes: (P, 4) XYXY image coordinates.
@@ -109,8 +111,8 @@ def roi_pool(features: torch.Tensor, boxes: torch.Tensor,
     x1, y1, roi_w, roi_h = map_coords(boxes, spatial_scale)
 
     outs = []
-    for s in range(0, boxes.shape[0], chunk):
-        sl = slice(s, s + chunk)
+    for s in range(0, boxes.shape[0], _CHUNK):
+        sl = slice(s, s + _CHUNK)
         ylo, yhi = bin_edges(y1[sl], roi_h[sl], H, R)
         xlo, xhi = bin_edges(x1[sl], roi_w[sl], W, R)
         ys, y2p, ly = _rmq(ylo, yhi, ky)

@@ -29,8 +29,7 @@ def clip(boxes: torch.Tensor, image_size) -> torch.Tensor:
         h = image_size[..., 0].to(boxes.dtype)
         w = image_size[..., 1].to(boxes.dtype)
     else:
-        h, w = (torch.tensor(float(v), dtype=boxes.dtype, device=boxes.device)
-                for v in image_size)
+        h, w = (boxes.new_full((), float(v)) for v in image_size)
 
     def c(v, hi):
         return torch.minimum(v.clamp(min=0), hi)
