@@ -8,29 +8,43 @@ CUDA toolkit (``nvcc``):
 
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the package from its sources (nvcc);
-  3. each kernel against its plain PyTorch version at the flagship shape
-     (RoIPool: B=2, 87x87x2048 bf16 map, P=4096 RoIs with edge cases and
-     invalid slots), max |diff| must be 0; kernel, plain and bound times;
+  2. build every CUDA kernel of the package from its sources (nvcc, one
+     process per source, in parallel), timed;
+  3. each kernel against its plain PyTorch version at the flagship shape,
+     max |diff| must be 0; kernel, plain and bound times. K1 (batched
+     RoIPool): B=2, 87x87x2048 bf16 maps, P=4096 RoIs with edge cases and
+     invalid slots; K2 (single-image RoIPool) on the first image of the
+     same inputs, in float and in int8 mode;
   4. the detect path of the flagship config at full width (R50-WS DC5,
      DAN [2048, 4096], 3 OICR branches, bf16, seeded random weights),
-     answering detect requests of B=2 704x704 images with P=4096 proposals,
-     with every kernel's launch count read around that run. Requests are
-     timed in windows, one client, each request read back before the next
-     is sent: the host clock and CUDA events over each request and over the
-     whole window. Then a per-part split of a few more requests (device ms
-     and the host ms taken to issue each part), with the card's clocks
-     sampled throughout;
-  5. the CUDA tests (``tests/test_torch_cuda.py``: each kernel against its
-     plain version at a small shape, and a toy config on the card against
-     the same weights on the CPU), run by pytest; every test must pass.
-The second-to-last line is a JSON object of per-kernel numbers, the last
-``{"ok": true, "device": {...}}``.
+     answering detect requests of B=2 704x704 images with P=4096 proposals.
+     Requests are timed in windows, one client, each request read back
+     before the next is sent: the host clock and CUDA events over each
+     request and over the whole window. Then a per-part split of a few more
+     requests (device ms and the host ms taken to issue each part), with the
+     card's clocks sampled throughout;
+  5. the train step of the flagship config at full width (the YAML's
+     solver, dropout 0.5, bf16, B=2, 704x704, P=4096): warm-up steps, then
+     windows of steps timed by CUDA events and the host clock; every loss
+     finite under the JAX package's names, frozen parameters bit-unchanged,
+     trainable ones moved, one K1 launch per step, peak memory, and a
+     per-part split of a few more steps;
+  6. the port's train-step ablation tool (``drn_wsod_torch.tools.
+     ablate_bench``) at its full shape: every line of its table, with K2
+     launched B times per looped call in each mode;
+  7. the CUDA tests (``tests/test_torch_cuda.py``: each kernel against its
+     plain version at a small shape, and toy configs on the card against the
+     same weights on the CPU), run by pytest; every test must pass.
+Every path (4, 5, 6) is run with the kernels' launch counts set to 0 just
+before it and read just after. The second-to-last line is the card's name
+and power limit, the line before it a JSON object of per-kernel numbers,
+the last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -45,9 +59,15 @@ import torch
 FLAGSHIP = "configs/PascalVOC-Detection/oicr_WSR_50_DC5_1x.yaml"
 B, IMG, P = 2, 704, 4096
 WARMUP, REQUESTS, WINDOWS, SPLITS = 2, 5, 3, 5
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_WINDOWS, TRAIN_SPLITS = 2, 5, 3, 3
+ABLATE_ITERS = 3
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 ops/s
 # outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
+
+
+class Fail(Exception):
+    """A phase failed; the message says which and why."""
 
 
 def card() -> str:
@@ -125,20 +145,21 @@ def pool_inputs(dev, generator):
             torch.from_numpy(scale).to(dev))
 
 
-def roi_pool_bound(feats, boxes, scale, out, spatial_scale: float):
+def roi_pool_bound(feats, boxes, scale, out, spatial_scale: float,
+                   epilogue_ops: int = 1):
     """Least time for this call: bytes moved once (map, boxes, scales read;
     output written) over HBM rate, against this data's max comparisons
-    (cells of every bin times channels) plus the epilogue multiplies over
-    the float32 rate. Returns (ms, "bytes" | "operations")."""
+    (cells of every bin times channels) plus ``epilogue_ops`` multiplies per
+    output over the float32 rate. Returns (ms, "bytes" | "operations")."""
     from drn_wsod_torch.ops.roi_pool import bin_edges, map_coords
 
-    _, H, W, C = feats.shape
+    H, W, C = feats.shape[-3:]
     x1, y1, rw, rh = map_coords(boxes.reshape(-1, 4), spatial_scale)
     ylo, yhi = bin_edges(y1, rh, H, 7)
     xlo, xhi = bin_edges(x1, rw, W, 7)
     cells = ((yhi - ylo).clamp(min=0)[:, :, None]
              * (xhi - xlo).clamp(min=0)[:, None, :]).sum().item()
-    ops = cells * C + out.numel()
+    ops = cells * C + epilogue_ops * out.numel()
     nbytes = sum(t.numel() * t.element_size()
                  for t in (feats, boxes, scale, out))
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
@@ -146,19 +167,66 @@ def roi_pool_bound(feats, boxes, scale, out, spatial_scale: float):
                                        else "operations")
 
 
-def timed_window(detect, batches):
-    """Closed loop, one client: each request is read back (synchronised)
-    before the next is sent. Returns the outputs, per-request host ms and
-    device ms (CUDA events around each request), and the window's host ms
-    and device ms (first request's start to last request's end)."""
-    starts = [torch.cuda.Event(enable_timing=True) for _ in batches]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in batches]
+def reset_launches():
+    from drn_wsod_torch.ops import roi_pool as rp
+
+    rp.roi_pool_batched.launches = 0
+    for k in rp.roi_pool_image.launches:
+        rp.roi_pool_image.launches[k] = 0
+
+
+def read_launches() -> dict:
+    from drn_wsod_torch.ops import roi_pool as rp
+
+    return {"roi_pool": rp.roi_pool_batched.launches,
+            **rp.roi_pool_image.launches}
+
+
+class Marks:
+    """CUDA events and host times at named points, set by hooks on the
+    model's own modules; ``split`` turns consecutive marks into per-part
+    device ms and host-issue ms (launches are asynchronous, so where a
+    part's host ms reaches its device ms the card waits on the host)."""
+
+    def __init__(self):
+        self.events, self.issued, self.hooks = {}, {}, []
+
+    def __call__(self, name):
+        def mark(*_):
+            self.issued[name] = time.perf_counter()
+            self.events[name] = torch.cuda.Event(enable_timing=True)
+            self.events[name].record()
+        return mark
+
+    def hook(self, module, before: str, after: str):
+        self.hooks += [module.register_forward_pre_hook(self(before)),
+                       module.register_forward_hook(self(after))]
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+
+    def split(self, order, names):
+        spans = list(zip(names, order, order[1:]))
+        return ({n: self.events[a].elapsed_time(self.events[b])
+                 for n, a, b in spans},
+                {n: (self.issued[b] - self.issued[a]) * 1e3
+                 for n, a, b in spans})
+
+
+def timed_window(run, inputs):
+    """Closed loop, one client: each call is read back (synchronised)
+    before the next is sent. Returns the outputs, per-call host ms and
+    device ms (CUDA events around each call), and the window's host ms and
+    device ms (first call's start to last call's end)."""
+    starts = [torch.cuda.Event(enable_timing=True) for _ in inputs]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in inputs]
     outs, host = [], []
     t_window = time.perf_counter()
-    for batch, start, end in zip(batches, starts, ends):
+    for x, start, end in zip(inputs, starts, ends):
         t = time.perf_counter()
         start.record()
-        outs.append(detect(batch))
+        outs.append(run(x))
         end.record()
         end.synchronize()
         host.append((time.perf_counter() - t) * 1e3)
@@ -167,50 +235,328 @@ def timed_window(detect, batches):
     return outs, host, device, window_host, starts[0].elapsed_time(ends[-1])
 
 
+def print_windows(phase, what, n, windows, tag):
+    for i, (host, device, window_host, window_dev) in enumerate(windows):
+        print(f"{phase}: window {i} of {n} {what}: "
+              f"{B * n / window_dev * 1e3:.3f} img/s by CUDA events "
+              f"({window_dev:.3f} ms), "
+              f"{B * n / window_host * 1e3:.3f} img/s by the host "
+              f"clock ({window_host:.3f} ms); ms each, device "
+              f"[{', '.join(f'{t:.3f}' for t in device)}], host "
+              f"[{', '.join(f'{t:.3f}' for t in host)}] {tag}", flush=True)
+
+
+def print_split(phase, what, parts, tag):
+    for kind, runs in (("device", [d for d, _ in parts]),
+                       ("host issue", [h for _, h in parts])):
+        split = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        print(f"{phase}: {kind} ms per part, median of {len(runs)} {what} "
+              "with hooks: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + "; sum each ["
+              + ", ".join(f"{sum(r.values()):.3f}" for r in runs)
+              + f"] {tag}", flush=True)
+
+
 def split_request(model, detect, batch):
-    """Time of each part of one request, from marks set by hooks on the
-    model's own modules: device ms between CUDA events, and host ms the
-    Python thread took to issue the part (launches are asynchronous, so
-    where a part's host ms reaches its device ms the card waits on the
-    host). Returns (device, host), each {part: ms}."""
-    marks, issued = {}, {}
-
-    def mark(name):
-        def hook(*_):
-            issued[name] = time.perf_counter()
-            marks[name] = torch.cuda.Event(enable_timing=True)
-            marks[name].record()
-        return hook
-
-    hooks = [model.backbone.register_forward_pre_hook(mark("backbone_in")),
-             model.backbone.register_forward_hook(mark("backbone_out")),
-             model.box_head.fc1.register_forward_pre_hook(mark("fc1_in")),
-             model.box_head.fc1.register_forward_hook(mark("fc1_out")),
-             model.box_head.register_forward_hook(mark("dan_out"))]
+    """Per-part device and host-issue ms of one detect request."""
+    marks = Marks()
+    marks.hook(model.backbone, "backbone_in", "backbone_out")
+    marks.hook(model.box_head.fc1, "fc1_in", "fc1_out")
+    marks.hooks.append(model.box_head.register_forward_hook(marks("dan_out")))
     scores_fn = model.inference_scores
 
     def timed_scores(b):
         out = scores_fn(b)
-        mark("scores_out")()
+        marks("scores_out")()
         return out
 
     model.inference_scores = timed_scores
     try:
-        mark("request_in")()
+        marks("request_in")()
         detect(batch)
-        mark("request_out")()
+        marks("request_out")()
         torch.cuda.synchronize()
     finally:
         del model.inference_scores
-        for h in hooks:
-            h.remove()
-    order = ["request_in", "backbone_in", "backbone_out", "fc1_in", "fc1_out",
-             "dan_out", "scores_out", "request_out"]
-    names = ["preprocess", "backbone", "pool kernel", "DAN fc1", "DAN fc2",
-             "heads", "NMS + rescale"]
-    spans = list(zip(names, order, order[1:]))
-    return ({n: marks[a].elapsed_time(marks[b]) for n, a, b in spans},
-            {n: (issued[b] - issued[a]) * 1e3 for n, a, b in spans})
+        marks.remove()
+    return marks.split(
+        ["request_in", "backbone_in", "backbone_out", "fc1_in", "fc1_out",
+         "dan_out", "scores_out", "request_out"],
+        ["preprocess", "backbone", "pool kernel", "DAN fc1", "DAN fc2",
+         "heads", "NMS + rescale"])
+
+
+def split_step(model, tx, step, state, batch):
+    """Per-part device and host-issue ms of one train step."""
+    marks = Marks()
+    marks.hook(model, "forward_in", "forward_out")
+    marks.hook(model.backbone, "backbone_in", "backbone_out")
+    marks.hook(model.box_head, "dan_in", "dan_out")
+    update = tx.update
+
+    def timed_update(*args):
+        marks("update_in")()
+        update(*args)
+        marks("update_out")()
+
+    tx.update = timed_update
+    try:
+        marks("step_in")()
+        step(state, batch, 0)
+        torch.cuda.synchronize()
+    finally:
+        del tx.update
+        marks.remove()
+    return marks.split(
+        ["step_in", "forward_in", "backbone_in", "backbone_out", "dan_in",
+         "dan_out", "forward_out", "update_in", "update_out"],
+        ["set-up", "preprocess", "backbone", "pool kernel", "DAN forward",
+         "heads and losses", "backward", "optimizer"])
+
+
+# ---------------------------------------------------------------- phases
+def phase3_kernels(dev, gen, tag) -> dict:
+    """Every kernel against its plain version at the flagship shape."""
+    from drn_wsod_torch.ops import roi_pool as rp
+
+    feats, boxes, scale = pool_inputs(dev, gen)
+    f0, b0, s0 = feats[0], boxes[0], scale[0]
+    cases = {
+        "roi_pool": (
+            "drn_wsod_torch/ops/csrc/roi_pool.cu",
+            "drn_wsod_tpu/ops/roi_pool_pallas.py:695",
+            lambda: rp.roi_pool_batched(feats, boxes, 0.125, 7, scale),
+            lambda: rp.roi_pool_plain(feats, boxes, 0.125, 7, scale),
+            (feats, boxes, scale), 1),
+        "roi_pool_image": (
+            "drn_wsod_torch/ops/csrc/roi_pool_image.cu",
+            "drn_wsod_tpu/ops/roi_pool_pallas.py:1030",
+            lambda: rp.roi_pool_image(f0, b0, 0.125, 7, s0),
+            lambda: rp.roi_pool_image_plain(f0, b0, 0.125, 7, s0),
+            (f0, b0, s0), 1),
+        "roi_pool_image_int8": (
+            "drn_wsod_torch/ops/csrc/roi_pool_image.cu",
+            "drn_wsod_tpu/ops/roi_pool_pallas.py:1030 (quantize_int8, "
+            ":1097-1108)",
+            lambda: rp.roi_pool_image(f0, b0, 0.125, 7, s0, True),
+            lambda: rp.roi_pool_image_plain(f0, b0, 0.125, 7, s0, True),
+            (f0, b0, s0), 2),
+    }
+    kernels = {}
+    for name, (source, replaces, kernel, plain, args, epi) in cases.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        err = (got.float() - want.float()).abs().max().item()
+        if err != 0.0 or not torch.isfinite(got.float()).all():
+            raise Fail(f"phase 3: {name} kernel vs plain max|diff| {err}")
+        del want
+        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 5)
+        bound_ms, bound_by = roi_pool_bound(*args, got, 0.125, epi)
+        print(f"phase 3: {name} kernel == plain (max|diff| 0.0) at "
+              f"{tuple(args[0].shape)} bf16, P={P}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}); no single PyTorch call computes RoIPool (no "
+              f"torchvision), library n/a {tag}", flush=True)
+        kernels[name] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+        del got
+    return kernels
+
+
+def flagship_cfg():
+    import drn_wsod_torch
+
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_file(FLAGSHIP)
+    cfg.TEST.AUG.ENABLED = False          # TTA is a later slice of the port
+    return cfg
+
+
+def phase4_detect(dev, gen, tag) -> dict:
+    import drn_wsod_torch
+
+    cfg = flagship_cfg()
+    model = drn_wsod_torch.build_model(cfg, device=dev, generator=gen)
+    topk = cfg.TEST.DETECTIONS_PER_IMAGE
+    detect = drn_wsod_torch.make_detect_fn(
+        model, cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST,
+        cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST, topk, device=dev)
+    C = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    batches = [drn_wsod_torch.synthetic_batch(B, IMG, IMG, P, C, seed=s,
+                                              device=dev)
+               for s in range(WARMUP + REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with ClockSampler() as clock_sampler:
+        outs = [detect(batch) for batch in batches[:WARMUP]]
+        torch.cuda.synchronize()
+        windows = []
+        for _ in range(WINDOWS):
+            w = timed_window(detect, batches[WARMUP:])
+            outs += w[0]
+            windows.append(w[1:])
+        launches = read_launches()
+        # the per-part split runs after the count is read: its hooks make
+        # these requests differ from a caller's
+        parts = [split_request(model, detect,
+                               batches[WARMUP + i % REQUESTS])
+                 for i in range(SPLITS)]
+
+    n_req = WARMUP + WINDOWS * REQUESTS
+    if launches["roi_pool"] != n_req:
+        raise Fail(f"phase 4: roi_pool launched {launches['roi_pool']} "
+                   f"times for {n_req} requests")
+    for dets in outs:
+        shapes = {k: tuple(v.shape) for k, v in dets.items()}
+        want_shapes = {"boxes": (B, topk, 4), "scores": (B, topk),
+                       "classes": (B, topk), "valid": (B, topk),
+                       "all_scores": (B, P, C + 1), "all_boxes": (B, P, 4)}
+        if shapes != want_shapes:
+            raise Fail(f"phase 4: output shapes {shapes}")
+        finite = all(torch.isfinite(v.float()).all().item()
+                     for v in dets.values())
+        row_sums = dets["all_scores"].sum(-1)
+        if (not finite or not dets["valid"].any()
+                or (row_sums - 1).abs().max().item() > 1e-4
+                or (dets["scores"] < 0).any() or (dets["scores"] > 1).any()
+                or (dets["classes"][dets["valid"]] >= C).any()):
+            raise Fail("phase 4: outputs not finite, empty or out of range")
+    print(f"phase 4: {n_req} detect requests (B={B}, {IMG}x{IMG}, P={P}, "
+          f"R50-WS DC5, DAN [2048, 4096], 3 OICR branches, bf16); "
+          f"launches {launches} (roi_pool once per request); "
+          f"outputs finite, shapes {shapes}", flush=True)
+    print_windows("phase 4", "requests", REQUESTS, windows, tag)
+    print(f"phase 4: peak device memory of the requests "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}",
+          flush=True)
+    print_split("phase 4", "requests", parts, tag)
+    print(f"phase 4: card during the requests: {clock_sampler.summary} "
+          f"{tag}", flush=True)
+    return launches
+
+
+def phase5_train(dev, gen, tag) -> dict:
+    import drn_wsod_torch
+
+    cfg = flagship_cfg()
+    model = drn_wsod_torch.build_model(cfg, device=dev, generator=gen)
+    tx = drn_wsod_torch.build_optimizer(cfg, model)
+    state = drn_wsod_torch.create_train_state(model, tx)
+    step = drn_wsod_torch.make_train_step(model, tx)
+    C = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    batches = [drn_wsod_torch.synthetic_batch(B, IMG, IMG, P, C, seed=100 + s,
+                                              device=dev)
+               for s in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    start = {n: p.detach().clone() for n, p in trainable.items()}
+    frozen = {n: t.clone() for n, t in model.state_dict().items()
+              if n not in trainable}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with ClockSampler() as clock_sampler:
+        metrics = [step(state, b, 0)[1] for b in batches[:TRAIN_WARMUP]]
+        torch.cuda.synchronize()
+        windows = []
+        for _ in range(TRAIN_WINDOWS):
+            w = timed_window(lambda b: step(state, b, 0)[1],
+                             batches[TRAIN_WARMUP:])
+            metrics += w[0]
+            windows.append(w[1:])
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        parts = [split_step(model, tx, step, state,
+                            batches[TRAIN_WARMUP + i % TRAIN_STEPS])
+                 for i in range(TRAIN_SPLITS)]
+
+    n_steps = TRAIN_WARMUP + TRAIN_WINDOWS * TRAIN_STEPS
+    if launches["roi_pool"] != n_steps:
+        raise Fail(f"phase 5: roi_pool launched {launches['roi_pool']} "
+                   f"times for {n_steps} steps")
+    names = {"loss_cls", "loss_cls_r0", "loss_cls_r1", "loss_cls_r2",
+             "total_loss"}
+    values = [{k: v.item() for k, v in m.items()} for m in metrics]
+    if any(set(v) != names or not all(map(math.isfinite, v.values()))
+           for v in values):
+        raise Fail(f"phase 5: losses not finite or misnamed: {values}")
+    changed = [n for n, t in frozen.items()
+               if not torch.equal(t, model.state_dict()[n])]
+    if changed:
+        raise Fail(f"phase 5: frozen tensors changed: {changed[:5]}")
+    # a parameter moves exactly where its momentum trace is nonzero (the
+    # bbox_pred biases of branches without box regression get neither a
+    # gradient nor weight decay)
+    still = [n for n, p in trainable.items()
+             if torch.equal(p, start[n])
+             != bool((state.opt_state["trace"][n] == 0).all())]
+    moved = [n for n, p in trainable.items() if not torch.equal(p, start[n])]
+    if still or "box_head.fc1.weight" not in moved:
+        raise Fail(f"phase 5: trainable parameters did not move as their "
+                   f"updates say: {still}")
+    first, last = values[0], values[-1]
+    print(f"phase 5: {n_steps} train steps (B={B}, {IMG}x{IMG}, P={P}, "
+          f"flagship solver: BASE_LR {cfg.SOLVER.BASE_LR}, WD "
+          f"{cfg.SOLVER.WEIGHT_DECAY}, BIAS_LR_FACTOR "
+          f"{cfg.SOLVER.BIAS_LR_FACTOR}, dropout "
+          f"{cfg.MODEL.ROI_BOX_HEAD.DROPOUT}, bf16); launches {launches} "
+          f"(roi_pool once per step); losses finite, first step "
+          f"{json.dumps(first)}, last {json.dumps(last)}; "
+          f"{len(frozen)} frozen tensors bit-unchanged; "
+          f"{len(moved)} of {len(trainable)} trainable moved", flush=True)
+    print_windows("phase 5", "steps", TRAIN_STEPS, windows, tag)
+    print(f"phase 5: peak device memory of the steps {peak / 2**30:.2f} GiB "
+          f"{tag}", flush=True)
+    print_split("phase 5", "steps", parts, tag)
+    print(f"phase 5: card during the steps: {clock_sampler.summary} {tag}",
+          flush=True)
+    return launches
+
+
+def phase6_ablate(tag) -> dict:
+    from drn_wsod_torch.tools import ablate_bench
+
+    reset_launches()
+    rows = ablate_bench.run(
+        ABLATE_ITERS, emit=lambda r: print(
+            "phase 6: " + ablate_bench.format_row(r, tag), flush=True))
+    launches = read_launches()
+    calls = {r.name: r.calls for r in rows}
+    for name, key in ((f"K2 pool, looped per image (B={B})",
+                       "roi_pool_image"),
+                      (f"K2 pool, looped per image, int8 (B={B})",
+                       "roi_pool_image_int8")):
+        if launches[key] != B * calls[name]:
+            raise Fail(f"phase 6: {key} launched {launches[key]} times in "
+                       f"{calls[name]} looped calls of B={B}")
+    if launches["roi_pool"] == 0:
+        raise Fail("phase 6: the tool's train steps launched no roi_pool")
+    if not all(math.isfinite(r.ms) and r.ms > 0 for r in rows):
+        raise Fail(f"phase 6: a time is not positive: {rows}")
+    print(f"phase 6: launches {launches} ({B} K2 launches per looped call, "
+          f"in each mode)", flush=True)
+    return launches
+
+
+def phase7_tests(tag) -> None:
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q",
+         "-p", "no:cacheprovider", "tests/test_torch_cuda.py"],
+        cwd=root, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(root)})
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or not re.fullmatch(
+            r"=* *\d+ passed(, \d+ warnings?)? in .*", summary):
+        raise Fail(f"phase 7: tests/test_torch_cuda.py: {summary}\n"
+                   f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    print(f"phase 7: tests/test_torch_cuda.py on the card: {summary} {tag}",
+          flush=True)
 
 
 def main() -> int:
@@ -226,13 +572,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    import drn_wsod_torch
     from drn_wsod_torch.ops import _build
-    from drn_wsod_torch.ops import roi_pool as rp
 
     t0 = time.perf_counter()
     logs = _build.build_all()
-    print(f"phase 2: built {sorted(logs)} in {time.perf_counter() - t0:.2f} s "
+    print(f"phase 2: built {sorted(logs)} in "
+          f"{time.perf_counter() - t0:.2f} s, one nvcc per source in parallel "
           f"{tag}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -241,134 +586,22 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    # ---- phase 3: every kernel against its plain version, flagship shape
-    feats, boxes, scale = pool_inputs(dev, gen)
-    got = rp.roi_pool_batched(feats, boxes, 0.125, 7, scale)
-    torch.cuda.synchronize()
-    want = rp.roi_pool_plain(feats, boxes, 0.125, 7, scale)
-    err = (got.float() - want.float()).abs().max().item()
-    if err != 0.0 or not torch.isfinite(got.float()).all():
-        print(f"phase 3: FAIL roi_pool kernel vs plain max|diff| {err}")
+    try:
+        kernels = phase3_kernels(dev, gen, tag)
+        paths = {}
+        for name, phase in (("detect", lambda: phase4_detect(dev, gen, tag)),
+                            ("train", lambda: phase5_train(dev, gen, tag)),
+                            ("ablate", lambda: phase6_ablate(tag))):
+            paths[name] = phase()
+            torch.cuda.empty_cache()
+        phase7_tests(tag)
+    except Fail as e:
+        print(f"FAIL {e}")
         return 1
-    del want
-    kernel_ms = cuda_ms(lambda: rp.roi_pool_batched(feats, boxes, 0.125, 7,
-                                                    scale), 20)
-    plain_ms = cuda_ms(lambda: rp.roi_pool_plain(feats, boxes, 0.125, 7,
-                                                 scale), 5)
-    bound_ms, bound_by = roi_pool_bound(feats, boxes, scale, got, 0.125)
-    print(f"phase 3: roi_pool kernel == plain (max|diff| 0.0) at "
-          f"{tuple(feats.shape)} bf16, P={P}: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"no single PyTorch call computes RoIPool (no torchvision), "
-          f"library n/a {tag}", flush=True)
-    del feats, boxes, scale, got
-
-    # ---- phase 4: the detect path at full flagship width
-    cfg = drn_wsod_torch.get_cfg()
-    cfg.merge_from_file(FLAGSHIP)
-    cfg.TEST.AUG.ENABLED = False          # TTA is a later slice of the port
-    model = drn_wsod_torch.build_model(cfg, device=dev, generator=gen)
-    topk = cfg.TEST.DETECTIONS_PER_IMAGE
-    detect = drn_wsod_torch.make_detect_fn(
-        model, cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST,
-        cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST, topk, device=dev)
-    C = cfg.MODEL.ROI_HEADS.NUM_CLASSES
-    batches = [drn_wsod_torch.synthetic_batch(B, IMG, IMG, P, C, seed=s,
-                                              device=dev)
-               for s in range(WARMUP + REQUESTS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    rp.roi_pool_batched.launches = 0
-    with ClockSampler() as clock_sampler:
-        outs = [detect(batch) for batch in batches[:WARMUP]]
-        torch.cuda.synchronize()
-        windows = []
-        for _ in range(WINDOWS):
-            w = timed_window(detect, batches[WARMUP:])
-            outs += w[0]
-            windows.append(w[1:])
-        launches = {"roi_pool": rp.roi_pool_batched.launches}
-        # the per-part split runs after the count is read: its hooks make
-        # these requests differ from a caller's
-        parts = [split_request(model, detect,
-                               batches[WARMUP + i % REQUESTS])
-                 for i in range(SPLITS)]
-
-    n_req = WARMUP + WINDOWS * REQUESTS
-    if launches["roi_pool"] != n_req:
-        print(f"phase 4: FAIL roi_pool launched {launches['roi_pool']} times "
-              f"for {n_req} requests")
-        return 1
-    for dets in outs:
-        shapes = {k: tuple(v.shape) for k, v in dets.items()}
-        want_shapes = {"boxes": (B, topk, 4), "scores": (B, topk),
-                       "classes": (B, topk), "valid": (B, topk),
-                       "all_scores": (B, P, C + 1), "all_boxes": (B, P, 4)}
-        if shapes != want_shapes:
-            print(f"phase 4: FAIL output shapes {shapes}")
-            return 1
-        finite = all(torch.isfinite(v.float()).all().item()
-                     for v in dets.values())
-        row_sums = dets["all_scores"].sum(-1)
-        if (not finite or not dets["valid"].any()
-                or (row_sums - 1).abs().max().item() > 1e-4
-                or (dets["scores"] < 0).any() or (dets["scores"] > 1).any()
-                or (dets["classes"][dets["valid"]] >= C).any()):
-            print("phase 4: FAIL outputs not finite, empty or out of range")
-            return 1
-    print(f"phase 4: {n_req} detect requests (B={B}, {IMG}x{IMG}, P={P}, "
-          f"R50-WS DC5, DAN [2048, 4096], 3 OICR branches, bf16); "
-          f"roi_pool launches {launches['roi_pool']} (one per request); "
-          f"outputs finite, shapes {shapes}", flush=True)
-    for i, (host, device, window_host, window_dev) in enumerate(windows):
-        print(f"phase 4: window {i} of {REQUESTS} requests: "
-              f"{B * REQUESTS / window_dev * 1e3:.3f} img/s by CUDA events "
-              f"({window_dev:.3f} ms), "
-              f"{B * REQUESTS / window_host * 1e3:.3f} img/s by the host "
-              f"clock ({window_host:.3f} ms); request ms device "
-              f"[{', '.join(f'{t:.3f}' for t in device)}], host "
-              f"[{', '.join(f'{t:.3f}' for t in host)}] {tag}", flush=True)
-    print(f"phase 4: peak device memory of the requests "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}",
-          flush=True)
-    for what, runs in (("device", [d for d, _ in parts]),
-                       ("host issue", [h for _, h in parts])):
-        split = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-        print(f"phase 4: {what} ms per part, median of {SPLITS} requests "
-              "with hooks: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-              + "; sum per request ["
-              + ", ".join(f"{sum(r.values()):.3f}" for r in runs)
-              + f"] {tag}", flush=True)
-    print(f"phase 4: card during the requests: {clock_sampler.summary} "
-          f"{tag}", flush=True)
-    del model, detect, batches, outs
-    torch.cuda.empty_cache()
-
-    # ---- phase 5: the CUDA tests, small inputs against their references
-    root = Path(__file__).resolve().parent
-    proc = subprocess.run(
-        [sys.executable, "-m", "pytest", "--noconftest", "-q",
-         "-p", "no:cacheprovider", "tests/test_torch_cuda.py"],
-        cwd=root, capture_output=True, text=True,
-        env={**os.environ, "PYTHONPATH": str(root)})
-    summary = (proc.stdout.strip().splitlines() or [""])[-1]
-    if proc.returncode != 0 or not re.fullmatch(
-            r"=* *\d+ passed(, \d+ warnings?)? in .*", summary):
-        print(f"phase 5: FAIL tests/test_torch_cuda.py: {summary}\n"
-              f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
-        return 1
-    print(f"phase 5: tests/test_torch_cuda.py on the card: {summary} {tag}",
-          flush=True)
-
-    print(json.dumps({"kernels": [{
-        "name": "roi_pool", "route": "cuda",
-        "source": "drn_wsod_torch/ops/csrc/roi_pool.cu",
-        "replaces": "drn_wsod_tpu/ops/roi_pool_pallas.py:695",
-        "launches": launches["roi_pool"], "max_abs_err": err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+    for k in kernels.values():
+        k["launches"] = sum(p[k["name"]] for p in paths.values())
+    print(f"launches per path: {json.dumps(paths)}")
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,7 +51,7 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
                            f"(got {name!r})")
         if name in out:
             raise KeyError(f"flax params map twice to {name!r}")
-        v = np.asarray(value, dtype=np.float32)
+        v = np.array(value, dtype=np.float32)     # a writable copy
         if key.endswith(".kernel"):
             if v.ndim == 4:
                 v = v.transpose(3, 2, 0, 1)          # HWIO -> OIHW

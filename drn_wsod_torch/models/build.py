@@ -64,7 +64,8 @@ def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
     if not box.USE_PALLAS_POOLER or cfg.MODEL.BACKBONE.FREEZE_AT < 5:
         raise NotImplementedError(
             "the differentiable pool (for a trainable backbone) is not "
-            "ported yet: ROADMAP.md queue 1, item 7 (training)")
+            "ported yet: ROADMAP.md queue 1, item 13 (CSC and trainable "
+            "backbones)")
 
     backbone = build_ws_resnet_backbone(cfg)
     feature_name = cfg.MODEL.ROI_HEADS.IN_FEATURES[0]
@@ -89,18 +90,25 @@ def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
         pixel_std=tuple(cfg.MODEL.PIXEL_STD),
         dtype=torch.bfloat16 if cfg.MODEL.DTYPE == "bfloat16" else torch.float32,
+        dropout=box.DROPOUT,
+        mean_loss=cfg.WSL.MEAN_LOSS,
+        freeze_backbone=cfg.MODEL.BACKBONE.FREEZE_AT >= 5,
     )
 
 
 def build_model(cfg: CfgNode, device=None,
                 generator: Optional[torch.Generator] = None
                 ) -> GeneralizedRCNNWSL:
-    """Build the configured model in eval mode on ``device`` (CUDA unless
-    the caller names another device; raises where CUDA is absent).
+    """Build the configured model on ``device`` (CUDA unless the caller
+    names another device; raises where CUDA is absent).
 
     Weights are drawn from ``generator`` (default: a generator on the device
-    seeded with 0); load real ones with ``load_state_dict``. Conv and linear
-    weights are kept in ``MODEL.DTYPE``; FrozenBN statistics stay float32.
+    seeded with 0); load real ones with ``load_state_dict``. The frozen
+    backbone's conv weights are stored in ``MODEL.DTYPE`` and take no
+    gradient; FrozenBN statistics stay float32. The heads' parameters stay
+    float32 masters, cast to ``MODEL.DTYPE`` at each use (flax's
+    ``param_dtype`` float32 with ``dtype`` bfloat16), so that SGD updates
+    below bfloat16's resolution are kept.
     """
     dev = resolve_device(device)
     arch = cfg.MODEL.META_ARCHITECTURE
@@ -111,7 +119,9 @@ def build_model(cfg: CfgNode, device=None,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     model.init_weights(generator)
-    for p in model.parameters():
+    for p in model.backbone.parameters():
         p.data = p.data.to(model.dtype)
+    if model.freeze_backbone:
+        model.backbone.requires_grad_(False)
     model.backbone.to(memory_format=torch.channels_last)
     return model.eval()

@@ -1,15 +1,22 @@
-"""GeneralizedRCNNWSL, the WSOD meta-architecture, inference part
-(counterpart of ``drn_wsod_tpu/models/meta_arch.py``).
+"""GeneralizedRCNNWSL, the WSOD meta-architecture (counterpart of
+``drn_wsod_tpu/models/meta_arch.py``).
 
 Backbone over raw NHWC pixels, exact RoIPool over padded proposals with the
 ``(objectness + 1) * mask`` scale fused into the pool's epilogue, the DAN
-neck, then the WSDDN head or the OICR refinement branches. Training (the
-loss arms) comes with the training slice.
+neck, then the WSDDN head or the OICR refinement branches. ``forward``
+returns the training losses of the WSDDN and OICR arms; ``inference_scores``
+the score and box matrices that feed NMS. The CSC, PCL, segmentation,
+Fast R-CNN and Cascade arms are later slices (ROADMAP.md queue 1, items 13
+and 14).
+
+The frozen backbone runs without autograd (the counterpart of
+``stop_gradient``), and the pool kernel is forward-only, as in the JAX
+package: gradients start at the DAN.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -35,7 +42,8 @@ class GeneralizedRCNNWSL(nn.Module):
                  dan_dims: Sequence[int], use_objectness: bool,
                  cls_agnostic_bbox_reg: bool, reg_weights: Sequence[float],
                  pixel_mean: Sequence[float], pixel_std: Sequence[float],
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, dropout: float = 0.5,
+                 mean_loss: bool = True, freeze_backbone: bool = True):
         super().__init__()
         self.backbone = backbone
         self.feature_name = feature_name
@@ -46,16 +54,20 @@ class GeneralizedRCNNWSL(nn.Module):
         self.pooler_resolution = pooler_resolution
         self.use_objectness = use_objectness
         self.reg_weights = tuple(reg_weights)
+        self.num_classes = num_classes
         self.dtype = dtype
+        self.mean_loss = mean_loss
+        self.freeze_backbone = freeze_backbone
         R = pooler_resolution
-        self.box_head = DiscriminativeAdaptionNeck(R * R * feature_channels,
-                                                   dan_dims)
-        self.box_predictor = wsddn_lib.WSDDNOutputLayers(dan_dims[-1],
-                                                         num_classes)
+        self.box_head = DiscriminativeAdaptionNeck(
+            R * R * feature_channels, dan_dims, dropout=dropout, dtype=dtype)
+        self.box_predictor = wsddn_lib.WSDDNOutputLayers(
+            dan_dims[-1], num_classes, dtype=dtype)
         if head_type == "OICR" and refine_k > 0:
             self.box_refinery = nn.ModuleList([
-                oicr_lib.RefinementOutputLayers(dan_dims[-1], num_classes,
-                                                cls_agnostic_bbox_reg)
+                oicr_lib.RefinementOutputLayers(
+                    dan_dims[-1], num_classes, cls_agnostic_bbox_reg,
+                    dtype=dtype)
                 for _ in range(refine_k)])
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean),
                              persistent=False)
@@ -111,12 +123,58 @@ class GeneralizedRCNNWSL(nn.Module):
                                 1.0 / self.feature_stride,
                                 self.pooler_resolution, roi_scale.contiguous())
 
-    def pooled_features(self, feats, proposals, prop_mask, objectness
+    def pooled_features(self, feats, proposals, prop_mask, objectness,
+                        generator: Optional[torch.Generator] = None
                         ) -> torch.Tensor:
-        """RoI pool + objectness scaling + DAN: -> (B, P, D)."""
+        """RoI pool + objectness scaling + DAN: -> (B, P, D). The DAN's
+        dropout runs where a ``generator`` is given (training)."""
         pooled = self.pool(feats, proposals, prop_mask, objectness)
         B, P = pooled.shape[:2]
-        return self.box_head(pooled.reshape(B * P, -1)).reshape(B, P, -1)
+        return self.box_head(pooled.reshape(B * P, -1),
+                             generator).reshape(B, P, -1)
+
+    # ------------------------------------------------------------------ train
+    def forward(self, batch: WSODBatch, *, train: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Training losses of the WSDDN or OICR arm: ``loss_cls``, and per
+        refinement branch ``loss_cls_r{k}`` plus ``loss_box_reg_r{k}`` where
+        ``refine_reg[k]``. ``train`` turns the DAN's dropout on, with masks
+        drawn from ``generator``."""
+        if train and self.box_head.dropout > 0 and generator is None:
+            raise ValueError("training with dropout needs a generator")
+        batch = self.sanitize(batch)
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.freeze_backbone):
+            feats = self.features(batch.image)
+        box_feats = self.pooled_features(
+            feats, batch.proposals, batch.proposal_mask, batch.objectness,
+            generator if train else None)
+
+        scores = self.box_predictor(box_feats, batch.proposal_mask)
+        losses = {"loss_cls": wsddn_lib.wsddn_loss(scores, batch.labels,
+                                                   self.mean_loss)}
+        if self.head_type == "WSDDN" or self.refine_k == 0:
+            return losses
+
+        img_evidence = wsddn_lib.image_probs(scores).detach()
+        prev_scores = scores.detach()
+        for k, branch in enumerate(self.box_refinery):
+            cls_logits, deltas = branch(box_feats)
+            pgt = oicr_lib.mine_pgt(prev_scores, batch.proposals,
+                                    batch.proposal_mask, batch.labels,
+                                    img_evidence)
+            targets = oicr_lib.label_proposals(pgt, batch.proposals,
+                                               batch.proposal_mask)
+            losses[f"loss_cls_r{k}"] = oicr_lib.refinement_loss(cls_logits,
+                                                                targets)
+            if self.refine_reg[k]:
+                losses[f"loss_box_reg_r{k}"] = oicr_lib.refinement_box_loss(
+                    deltas, batch.proposals, targets, batch.proposal_mask,
+                    self.num_classes, self.reg_weights)
+            prev_scores = oicr_lib.branch_probs(
+                cls_logits)[..., :self.num_classes].detach()
+        return losses
 
     # -------------------------------------------------------------- inference
     @torch.inference_mode()

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``build/drn_wsod_torch/lib<name>.so`` at the root of the checkout, at first
 use. The sources have a plain C interface (no PyTorch headers), so a build
-takes seconds. A missing ``nvcc`` or a failed build raises.
+takes seconds; the stale sources build in parallel, one ``nvcc`` each. A
+library is stale when it is older than its source or than any shared header
+(``csrc/*.cuh``). A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -34,28 +36,40 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _stale(src: Path, newest_header: float) -> bool:
+    lib = library_path(src.stem)
+    return (not lib.exists() or lib.stat().st_mtime
+            < max(src.stat().st_mtime, newest_header))
+
+
 def build_all() -> dict:
-    """Compile every source whose library is missing or older than it.
+    """Compile every source whose library is stale, all at once.
     Returns {name: nvcc output} for the sources built by this call (the
     ``-Xptxas -v`` report of registers, shared memory and spills)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    newest_header = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")),
+                        default=0.0)
     stale = [src for src in sorted(CSRC.glob("*.cu"))
-             if not library_path(src.stem).exists()
-             or library_path(src.stem).stat().st_mtime < src.stat().st_mtime]
+             if _stale(src, newest_header)]
     nvcc = _nvcc() if stale else None
-    logs = {}
+    jobs = {}
     for src in stale:
-        lib = library_path(src.stem)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        logs[src.stem] = proc.stdout
+        tmp = library_path(src.stem).with_name(
+            f"lib{src.stem}.so.{os.getpid()}.tmp")
+        jobs[src] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for src, (tmp, proc) in jobs.items():
+        logs[src.stem] = proc.communicate()[0]
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"CUDA build of {src.name} failed (nvcc exit "
-                               f"{proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, lib)
+            failed.append(f"CUDA build of {src.name} failed (nvcc exit "
+                          f"{proc.returncode}):\n{logs[src.stem]}")
+        else:
+            os.replace(tmp, library_path(src.stem))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return logs
 
 

@@ -8,14 +8,9 @@
 // windows and per-RoI tiers exist to feed VMEM tiles and have no
 // counterpart here.
 //
-// Semantics (torchvision RoIPool, bit for bit with the JAX package):
-//   * map coordinates are round_half_even(box * spatial_scale)
-//     (__float2int_rn, never roundf);
-//   * roi_w = max(x2 - x1 + 1, 1), likewise roi_h;
-//   * bin i spans [floor(i*roi/R) + start, ceil((i+1)*roi/R) + start),
-//     clamped to [0, size]; a bin with hi <= lo is empty and pools to 0;
+// Semantics: the bin arithmetic of roi_pool_bins.cuh (shared with K2), then
 //   * out = dtype(max * dtype(roi_scale)), one rounding: the product of two
-//     bf16 values is exact in float32.
+//     bf16 values is exact in float32;
 //   * max propagates NaN, as jnp.maximum and torch.maximum do.
 //
 // Design: one block per (roi, image), the image as the slowest grid index,
@@ -32,42 +27,16 @@
 // re-read from L2 by every RoI that covers them (no separable row max, no
 // shared-memory staging), and there is no TMA.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <algorithm>
+
+#include "roi_pool_bins.cuh"
 
 namespace {
 
-constexpr int kMaxRes = 16;
-
-struct F32 {
-  typedef float T;
-  static constexpr int kVec = 4;
-  __device__ static float load(const T* p, int i) { return p[i]; }
-  __device__ static T store(float v) { return v; }
-  __device__ static float scale(float s) { return s; }
-};
-
-struct BF16 {
-  typedef uint16_t T;
-  static constexpr int kVec = 8;
-  __device__ static float load(const T* p, int i) {
-    return __uint_as_float(static_cast<uint32_t>(p[i]) << 16);
-  }
-  __device__ static T store(float v) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-  }
-  // roi_scale cast to the map's dtype before the multiply
-  __device__ static float scale(float s) {
-    return __bfloat162float(__float2bfloat16_rn(s));
-  }
-};
-
-__device__ __forceinline__ float nan_max(float m, float v) {
-  return (v > m || v != v) ? v : m;
-}
+using drn_roi::BF16;
+using drn_roi::F32;
+using drn_roi::kMaxRes;
+using drn_roi::nan_max;
 
 template <typename D>
 __global__ void roi_pool_kernel(const typename D::T* __restrict__ features,
@@ -84,20 +53,10 @@ __global__ void roi_pool_kernel(const typename D::T* __restrict__ features,
   __shared__ int lo_y[kMaxRes], hi_y[kMaxRes], lo_x[kMaxRes], hi_x[kMaxRes];
   __shared__ float s_scale;
   if (threadIdx.x == 0) {
-    const float* bx = boxes + roi * 4;
-    const int x1 = __float2int_rn(__fmul_rn(bx[0], spatial_scale));
-    const int y1 = __float2int_rn(__fmul_rn(bx[1], spatial_scale));
-    const int x2 = __float2int_rn(__fmul_rn(bx[2], spatial_scale));
-    const int y2 = __float2int_rn(__fmul_rn(bx[3], spatial_scale));
-    const int roi_w = max(x2 - x1 + 1, 1);
-    const int roi_h = max(y2 - y1 + 1, 1);
-    for (int i = 0; i < R; ++i) {
-      lo_y[i] = min(max(i * roi_h / R + y1, 0), H);
-      hi_y[i] = min(max(((i + 1) * roi_h + R - 1) / R + y1, 0), H);
-      lo_x[i] = min(max(i * roi_w / R + x1, 0), W);
-      hi_x[i] = min(max(((i + 1) * roi_w + R - 1) / R + x1, 0), W);
-    }
-    s_scale = D::scale(roi_scale[roi]);
+    drn_roi::bin_edges(boxes + roi * 4, spatial_scale, H, W, R, lo_y, hi_y,
+                       lo_x, hi_x);
+    // roi_scale cast to the map's dtype before the multiply
+    s_scale = D::cast(roi_scale[roi]);
   }
   __syncthreads();
 

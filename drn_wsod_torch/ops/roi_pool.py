@@ -9,9 +9,13 @@ the map; each bin is the exact max over its cells, and an empty (off-map) bin
 is 0. The batched form then multiplies by ``roi_scale`` cast to the map's
 dtype, rounding once (``drn_wsod_tpu/ops/roi_pool_pallas.py:_xla_fallback``).
 
-:func:`roi_pool_batched` runs :func:`roi_pool_plain` on CPU tensors and the
-hand-written kernel ``csrc/roi_pool.cu`` on CUDA tensors. It never falls back
-from the kernel to the plain version.
+:func:`roi_pool_batched` (K1) runs :func:`roi_pool_plain` on CPU tensors and
+the hand-written kernel ``csrc/roi_pool.cu`` on CUDA tensors.
+:func:`roi_pool_image` (K2, one image, with an int8 mode) runs
+:func:`roi_pool_image_plain` on CPU tensors and ``csrc/roi_pool_image.cu`` on
+CUDA tensors; :func:`roi_pool_looped` launches it once per image. No wrapper
+falls back from its kernel to the plain version: a failed build or launch
+raises.
 """
 
 from __future__ import annotations
@@ -19,12 +23,15 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from . import _build
 
 # RoIs gathered per step of the plain version (bounds its index tensors)
 _CHUNK = 512
+# float32(1 / 127), the factor XLA puts in place of a division by 127
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
 
 def _max_span(size: int, resolution: int) -> int:
@@ -146,12 +153,34 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load("roi_pool").drn_roi_pool_forward
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+def _kernel(library: str = "roi_pool", symbol: str = "drn_roi_pool_forward",
+            pointers: int = 4, ints: int = 6):
+    """A kernel's C entry point: ``pointers`` pointers, ``ints`` ints, the
+    spatial scale, the dtype code and the stream."""
+    fn = getattr(_build.load(library), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_aux(features: torch.Tensor, **tensors) -> None:
+    """Boxes, scales: float32, contiguous, on the map's device."""
+    for name, t in tensors.items():
+        if t.dtype != torch.float32 or t.device != features.device:
+            raise TypeError(f"{name} must be float32 on {features.device}, "
+                            f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_map(features: torch.Tensor, rank: int) -> None:
+    if features.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the roi_pool kernels take bfloat16 or float32 maps, "
+                        f"got {features.dtype}")
+    if features.dim() != rank or not features.is_contiguous():
+        raise ValueError(f"features must be a contiguous rank-{rank} "
+                         f"(..., H, W, C) map, got {tuple(features.shape)}")
 
 
 def roi_pool_batched(features: torch.Tensor, boxes: torch.Tensor,
@@ -168,12 +197,7 @@ def roi_pool_batched(features: torch.Tensor, boxes: torch.Tensor,
     if not features.is_cuda:
         return roi_pool_plain(features, boxes, spatial_scale, resolution,
                               roi_scale)
-    if features.dtype not in _DTYPE_CODES:
-        raise TypeError(f"roi_pool kernel takes bfloat16 or float32 maps, "
-                        f"got {features.dtype}")
-    if features.dim() != 4:
-        raise ValueError(f"features must be (B, H, W, C), got "
-                         f"{tuple(features.shape)}")
+    _check_map(features, 4)
     B, H, W, C = features.shape
     if boxes.shape[:1] != (B,) or boxes.dim() != 3 or boxes.shape[2] != 4:
         raise ValueError(f"boxes must be ({B}, P, 4), got {tuple(boxes.shape)}")
@@ -181,14 +205,7 @@ def roi_pool_batched(features: torch.Tensor, boxes: torch.Tensor,
     if tuple(roi_scale.shape) != (B, P):
         raise ValueError(f"roi_scale must be ({B}, {P}), got "
                          f"{tuple(roi_scale.shape)}")
-    for name, t in (("boxes", boxes), ("roi_scale", roi_scale)):
-        if t.dtype != torch.float32 or t.device != features.device:
-            raise TypeError(f"{name} must be float32 on {features.device}, "
-                            f"got {t.dtype} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if not features.is_contiguous():
-        raise ValueError("features must be contiguous (B, H, W, C)")
+    _check_aux(features, boxes=boxes, roi_scale=roi_scale)
     vec = 16 // features.element_size()
     if C % vec or features.data_ptr() % 16:
         raise ValueError(f"the kernel moves 16-byte vectors: C ({C}) must be "
@@ -211,3 +228,133 @@ def roi_pool_batched(features: torch.Tensor, boxes: torch.Tensor,
 
 
 roi_pool_batched.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: one image per launch, float or int8 mode
+# ---------------------------------------------------------------------------
+
+def int8_quantize(features: torch.Tensor):
+    """Per-channel symmetric int8 quantization of an (H, W, C) map:
+    ``ch_scale = max(absmax_c, 1e-6) / 127`` and ``q = clip(round_half_even(
+    f32(features) / ch_scale), -127, 127)``. Returns (q int8, ch_scale (C,)
+    float32). Plain torch ops on either device, as the JAX package leaves
+    them to XLA outside its kernel.
+
+    XLA compiles the division by the constant 127 into a multiply by its
+    float32 reciprocal (which can differ from the quotient in the last
+    bit), so the port multiplies too; the division by ``ch_scale`` is a
+    true float32 division in both."""
+    f = features.float()
+    ch_scale = f.abs().amax(dim=(0, 1)).clamp(min=1e-6) * _INV_127
+    q = torch.round(f / ch_scale).clamp(-127, 127).to(torch.int8)
+    return q, ch_scale
+
+
+def _bin_scale(boxes: torch.Tensor, spatial_scale: float, H: int, W: int,
+               resolution: int, roi_scale: torch.Tensor) -> torch.Tensor:
+    """(P, R, R) float32: ``roi_scale`` on bins that meet the map, 0 on
+    empty ones."""
+    x1, y1, roi_w, roi_h = map_coords(boxes, spatial_scale)
+    ylo, yhi = bin_edges(y1, roi_h, H, resolution)
+    xlo, xhi = bin_edges(x1, roi_w, W, resolution)
+    valid = (yhi > ylo)[:, :, None] & (xhi > xlo)[:, None, :]
+    return roi_scale.float()[:, None, None] * valid.float()
+
+
+def roi_pool_image_plain(features: torch.Tensor, boxes: torch.Tensor,
+                         spatial_scale: float, resolution: int = 7,
+                         roi_scale=None, quantize_int8: bool = False
+                         ) -> torch.Tensor:
+    """The plain version of K2: (H, W, C) + (P, 4) -> (P, R, R, C) in the
+    map's dtype, with bin scale ``roi_scale * (bin nonempty)`` (ones where
+    ``roi_scale`` is None).
+
+    Float mode: ``max * dtype(bin_scale)``. Int8 mode: the max over the
+    :func:`int8_quantize` map, then ``dtype((f32(max) * ch_scale) *
+    bin_scale)``."""
+    H, W, C = features.shape
+    if roi_scale is None:
+        roi_scale = torch.ones(boxes.shape[:1], device=features.device)
+    scale = _bin_scale(boxes, spatial_scale, H, W, resolution,
+                       roi_scale)[..., None]
+    if not quantize_int8:
+        pooled = roi_pool(features, boxes, spatial_scale, resolution)
+        return pooled * scale.to(pooled.dtype)
+    q, ch_scale = int8_quantize(features)
+    m = roi_pool(q, boxes, spatial_scale, resolution)
+    return ((m.float() * ch_scale) * scale).to(features.dtype)
+
+
+def roi_pool_image(features: torch.Tensor, boxes: torch.Tensor,
+                   spatial_scale: float, resolution: int = 7,
+                   roi_scale=None, quantize_int8: bool = False
+                   ) -> torch.Tensor:
+    """Exact single-image RoIPool, the counterpart of
+    ``roi_pool_pallas.py:roi_pool_pallas``: (H, W, C) bfloat16 or float32,
+    contiguous; boxes (P, 4) and roi_scale (P,) or None, float32. Returns
+    (P, R, R, C) in the map's dtype. CPU tensors go through
+    :func:`roi_pool_image_plain`; CUDA tensors launch
+    ``csrc/roi_pool_image.cu`` and add one to
+    ``roi_pool_image.launches["roi_pool_image"]`` (float mode) or
+    ``["roi_pool_image_int8"]`` (int8 mode)."""
+    if not features.is_cuda:
+        return roi_pool_image_plain(features, boxes, spatial_scale,
+                                    resolution, roi_scale, quantize_int8)
+    _check_map(features, 3)
+    H, W, C = features.shape
+    if boxes.dim() != 2 or boxes.shape[1] != 4:
+        raise ValueError(f"boxes must be (P, 4), got {tuple(boxes.shape)}")
+    P = boxes.shape[0]
+    if roi_scale is None:
+        roi_scale = torch.ones((P,), device=features.device)
+    if tuple(roi_scale.shape) != (P,):
+        raise ValueError(f"roi_scale must be ({P},), got "
+                         f"{tuple(roi_scale.shape)}")
+    _check_aux(features, boxes=boxes, roi_scale=roi_scale)
+    vec = 16 if quantize_int8 else 16 // features.element_size()
+    if C % vec or features.data_ptr() % 16:
+        raise ValueError(f"the kernel moves 16-byte vectors: C ({C}) must be "
+                         f"a multiple of {vec} and the map 16-byte aligned")
+    if P == 0:
+        raise ValueError("the kernel takes P >= 1")
+
+    out = torch.empty((P, resolution, resolution, C), dtype=features.dtype,
+                      device=features.device)
+    stream = torch.cuda.current_stream(features.device).cuda_stream
+    code = _DTYPE_CODES[features.dtype]
+    if quantize_int8:
+        q, ch_scale = int8_quantize(features)
+        err = _kernel("roi_pool_image", "drn_roi_pool_image_int8_forward",
+                      5, 5)(q.data_ptr(), ch_scale.data_ptr(),
+                            boxes.data_ptr(), roi_scale.data_ptr(),
+                            out.data_ptr(), H, W, C, P, resolution,
+                            float(spatial_scale), code, stream)
+        name = "roi_pool_image_int8"
+    else:
+        err = _kernel("roi_pool_image", "drn_roi_pool_image_forward",
+                      4, 5)(features.data_ptr(), boxes.data_ptr(),
+                            roi_scale.data_ptr(), out.data_ptr(), H, W, C, P,
+                            resolution, float(spatial_scale), code, stream)
+        name = "roi_pool_image"
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    roi_pool_image.launches[name] += 1
+    return out
+
+
+roi_pool_image.launches = {"roi_pool_image": 0, "roi_pool_image_int8": 0}
+
+
+def roi_pool_looped(features: torch.Tensor, boxes: torch.Tensor,
+                    spatial_scale: float, resolution: int = 7,
+                    roi_scale=None, quantize_int8: bool = False
+                    ) -> torch.Tensor:
+    """(B, H, W, C) + (B, P, 4) [+ (B, P) roi_scale] -> (B, P, R, R, C):
+    one :func:`roi_pool_image` per image, stacked (the counterpart of
+    ``roi_pool_pallas.py:roi_pool_pallas_batched``)."""
+    return torch.stack([
+        roi_pool_image(features[b], boxes[b], spatial_scale, resolution,
+                       None if roi_scale is None else roi_scale[b],
+                       quantize_int8)
+        for b in range(features.shape[0])])

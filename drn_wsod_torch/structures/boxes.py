@@ -53,6 +53,29 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, iou, torch.zeros_like(iou))
 
 
+def get_deltas(src_boxes: torch.Tensor, target_boxes: torch.Tensor,
+               weights=(10.0, 10.0, 5.0, 5.0)) -> torch.Tensor:
+    """Encode target boxes relative to source boxes as (dx, dy, dw, dh);
+    the inverse of :func:`apply_deltas`. (..., 4), (..., 4) -> (..., 4)."""
+    src_w = src_boxes[..., 2] - src_boxes[..., 0]
+    src_h = src_boxes[..., 3] - src_boxes[..., 1]
+    src_cx = src_boxes[..., 0] + 0.5 * src_w
+    src_cy = src_boxes[..., 1] + 0.5 * src_h
+
+    tgt_w = target_boxes[..., 2] - target_boxes[..., 0]
+    tgt_h = target_boxes[..., 3] - target_boxes[..., 1]
+    tgt_cx = target_boxes[..., 0] + 0.5 * tgt_w
+    tgt_cy = target_boxes[..., 1] + 0.5 * tgt_h
+
+    wx, wy, ww, wh = weights
+    eps = 1e-7
+    dx = wx * (tgt_cx - src_cx) / src_w.clamp(min=eps)
+    dy = wy * (tgt_cy - src_cy) / src_h.clamp(min=eps)
+    dw = ww * torch.log(tgt_w.clamp(min=eps) / src_w.clamp(min=eps))
+    dh = wh * torch.log(tgt_h.clamp(min=eps) / src_h.clamp(min=eps))
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
 def apply_deltas(deltas: torch.Tensor, boxes: torch.Tensor,
                  weights=(10.0, 10.0, 5.0, 5.0),
                  scale_clamp: float = _DEFAULT_SCALE_CLAMP) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``drn_wsod_torch`` (nor
-``chip_smoke.py``) imports JAX, flax or the JAX package, and its entry
-points refuse to fall back to the CPU silently."""
+"""The port stands alone: no module of ``drn_wsod_torch`` (its ``tools``
+included, nor ``chip_smoke.py``) imports JAX, flax, optax or the JAX
+package, and its entry points refuse to fall back to the CPU silently."""
 
 import ast
 import subprocess
@@ -14,7 +14,7 @@ import drn_wsod_torch
 from test_torch_common import TOY, cfg_pair
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "drn_wsod_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "drn_wsod_tpu")
 SOURCES = sorted(str(p.relative_to(ROOT))
                  for p in (ROOT / "drn_wsod_torch").rglob("*.py")) \
     + ["chip_smoke.py"]
@@ -35,7 +35,8 @@ def test_source_imports_no_jax(source):
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, drn_wsod_torch, drn_wsod_torch.ops._build; "
+    code = ("import sys, drn_wsod_torch, drn_wsod_torch.ops._build, "
+            "drn_wsod_torch.tools.ablate_bench; "
             "print(sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -54,3 +55,17 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     model = drn_wsod_torch.build_model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         drn_wsod_torch.make_detect_fn(model, 1e-5, 0.3, 10)
+
+
+def test_tools_are_covered():
+    assert "drn_wsod_torch/tools/ablate_bench.py" in SOURCES
+
+
+def test_ablate_bench_refuses_missing_cuda(monkeypatch, capsys):
+    from drn_wsod_torch.tools import ablate_bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert ablate_bench.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ablate_bench.run(1)
