@@ -10,11 +10,13 @@ Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the package from its sources (nvcc, one
      process per source, in parallel), timed;
-  3. each kernel against its plain PyTorch version at the flagship shape,
-     max |diff| must be 0; kernel, plain and bound times. K1 (batched
-     RoIPool): B=2, 87x87x2048 bf16 maps, P=4096 RoIs with edge cases and
-     invalid slots; K2 (single-image RoIPool) on the first image of the
-     same inputs, in float and in int8 mode;
+  3. each kernel against its plain PyTorch version at the shape its path
+     gives it, max |diff| must be 0; kernel, plain and bound times. K1
+     (batched RoIPool): B=2, 87x87x2048 bf16 maps, P=4096 RoIs with edge
+     cases and invalid slots, as the detect and train paths give it; K2
+     (single-image RoIPool, float and int8 mode) looped over the ablation
+     tool's own B=2 88x88x2048 bf16 inputs, and on the edge-case boxes of
+     the first 87x87 image;
   4. the detect path of the flagship config at full width (R50-WS DC5,
      DAN [2048, 4096], 3 OICR branches, bf16, seeded random weights),
      answering detect requests of B=2 704x704 images with P=4096 proposals.
@@ -56,7 +58,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-FLAGSHIP = "configs/PascalVOC-Detection/oicr_WSR_50_DC5_1x.yaml"
 B, IMG, P = 2, 704, 4096
 WARMUP, REQUESTS, WINDOWS, SPLITS = 2, 5, 3, 5
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_WINDOWS, TRAIN_SPLITS = 2, 5, 3, 3
@@ -68,13 +69,6 @@ PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
 
 class Fail(Exception):
     """A phase failed; the message says which and why."""
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 class ClockSampler:
@@ -315,48 +309,81 @@ def split_step(model, tx, step, state, batch):
          "heads and losses", "backward", "optimizer"])
 
 
+def exact(name, got, want) -> float:
+    """max |got - want|; raises unless it is 0 and ``got`` is finite."""
+    err = (got.float() - want.float()).abs().max().item()
+    if err != 0.0 or not torch.isfinite(got.float()).all():
+        raise Fail(f"phase 3: {name} kernel vs plain max|diff| {err}")
+    return err
+
+
 # ---------------------------------------------------------------- phases
 def phase3_kernels(dev, gen, tag) -> dict:
-    """Every kernel against its plain version at the flagship shape."""
+    """Every kernel against its plain version at the shape its path gives
+    it: K1 at the detect and train paths' flagship shape, K2 in both modes
+    on the very inputs the ablation tool (phase 6) pools, built by the
+    tool's own ``pool_inputs``. K2 is also held on the flagship edge-case
+    boxes of one 87x87 image."""
     from drn_wsod_torch.ops import roi_pool as rp
+    from drn_wsod_torch.synthetic import synthetic_batch
+    from drn_wsod_torch.tools import ablate_bench
 
     feats, boxes, scale = pool_inputs(dev, gen)
     f0, b0, s0 = feats[0], boxes[0], scale[0]
+    edge_err = {}
+    for name, int8 in (("roi_pool_image", False),
+                       ("roi_pool_image_int8", True)):
+        edge_err[name] = exact(
+            name, rp.roi_pool_image(f0, b0, 0.125, 7, s0, int8),
+            rp.roi_pool_image_plain(f0, b0, 0.125, 7, s0, int8))
+        print(f"phase 3: {name} kernel == plain (max|diff| 0.0) on the "
+              f"edge-case boxes of one {tuple(f0.shape)} bf16 map, P={P}",
+              flush=True)
+
+    C_cls = ablate_bench.flagship_cfg().MODEL.ROI_HEADS.NUM_CLASSES
+    tf, tb, ts = ablate_bench.pool_inputs(
+        synthetic_batch(B, IMG, IMG, P, C_cls, seed=0, device=dev).proposals,
+        IMG)
+
+    def looped_plain(int8):
+        return torch.stack([rp.roi_pool_image_plain(f, b, 0.125, 7, s, int8)
+                            for f, b, s in zip(tf, tb, ts)])
+
     cases = {
         "roi_pool": (
             "drn_wsod_torch/ops/csrc/roi_pool.cu",
             "drn_wsod_tpu/ops/roi_pool_pallas.py:695",
             lambda: rp.roi_pool_batched(feats, boxes, 0.125, 7, scale),
             lambda: rp.roi_pool_plain(feats, boxes, 0.125, 7, scale),
-            (feats, boxes, scale), 1),
+            (feats, boxes, scale), 1, "one call, the detect and train "
+            "paths' flagship inputs"),
         "roi_pool_image": (
             "drn_wsod_torch/ops/csrc/roi_pool_image.cu",
             "drn_wsod_tpu/ops/roi_pool_pallas.py:1030",
-            lambda: rp.roi_pool_image(f0, b0, 0.125, 7, s0),
-            lambda: rp.roi_pool_image_plain(f0, b0, 0.125, 7, s0),
-            (f0, b0, s0), 1),
+            lambda: rp.roi_pool_looped(tf, tb, 0.125, 7, ts),
+            lambda: looped_plain(False),
+            (tf, tb, ts), 1, f"one roi_pool_looped call ({B} launches), "
+            "the ablation tool's inputs"),
         "roi_pool_image_int8": (
             "drn_wsod_torch/ops/csrc/roi_pool_image.cu",
             "drn_wsod_tpu/ops/roi_pool_pallas.py:1030 (quantize_int8, "
             ":1097-1108)",
-            lambda: rp.roi_pool_image(f0, b0, 0.125, 7, s0, True),
-            lambda: rp.roi_pool_image_plain(f0, b0, 0.125, 7, s0, True),
-            (f0, b0, s0), 2),
+            lambda: rp.roi_pool_looped(tf, tb, 0.125, 7, ts, True),
+            lambda: looped_plain(True),
+            (tf, tb, ts), 2, f"one roi_pool_looped call ({B} launches), "
+            "the ablation tool's inputs"),
     }
     kernels = {}
-    for name, (source, replaces, kernel, plain, args, epi) in cases.items():
+    for name, (source, replaces, kernel, plain, args, epi,
+               what) in cases.items():
         got = kernel()
         torch.cuda.synchronize()
-        want = plain()
-        err = (got.float() - want.float()).abs().max().item()
-        if err != 0.0 or not torch.isfinite(got.float()).all():
-            raise Fail(f"phase 3: {name} kernel vs plain max|diff| {err}")
-        del want
+        err = max(exact(name, got, plain()), edge_err.get(name, 0.0))
         ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 5)
         bound_ms, bound_by = roi_pool_bound(*args, got, 0.125, epi)
         print(f"phase 3: {name} kernel == plain (max|diff| 0.0) at "
-              f"{tuple(args[0].shape)} bf16, P={P}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"{tuple(args[0].shape)} bf16, P={P}, {what}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}); no single PyTorch call computes RoIPool (no "
               f"torchvision), library n/a {tag}", flush=True)
         kernels[name] = {
@@ -368,19 +395,12 @@ def phase3_kernels(dev, gen, tag) -> dict:
     return kernels
 
 
-def flagship_cfg():
-    import drn_wsod_torch
-
-    cfg = drn_wsod_torch.get_cfg()
-    cfg.merge_from_file(FLAGSHIP)
-    cfg.TEST.AUG.ENABLED = False          # TTA is a later slice of the port
-    return cfg
-
-
 def phase4_detect(dev, gen, tag) -> dict:
     import drn_wsod_torch
+    from drn_wsod_torch.tools import ablate_bench
 
-    cfg = flagship_cfg()
+    # TTA is a later slice of the port
+    cfg = ablate_bench.flagship_cfg(overrides=("TEST.AUG.ENABLED", False))
     model = drn_wsod_torch.build_model(cfg, device=dev, generator=gen)
     topk = cfg.TEST.DETECTIONS_PER_IMAGE
     detect = drn_wsod_torch.make_detect_fn(
@@ -443,8 +463,9 @@ def phase4_detect(dev, gen, tag) -> dict:
 
 def phase5_train(dev, gen, tag) -> dict:
     import drn_wsod_torch
+    from drn_wsod_torch.tools import ablate_bench
 
-    cfg = flagship_cfg()
+    cfg = ablate_bench.flagship_cfg()
     model = drn_wsod_torch.build_model(cfg, device=dev, generator=gen)
     tx = drn_wsod_torch.build_optimizer(cfg, model)
     state = drn_wsod_torch.create_train_state(model, tx)
@@ -564,6 +585,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
         return 1
+    from drn_wsod_torch.tools.ablate_bench import card
+
     card_line = card()
     tag = f"[{card_line}]"
     print(f"phase 1: card {card_line}; torch {torch.__version__}, "

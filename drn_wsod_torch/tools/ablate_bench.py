@@ -72,6 +72,23 @@ def flagship_cfg(cfg_file: str = FLAGSHIP, overrides=()):
     return cfg
 
 
+def pool_inputs(proposals: torch.Tensor, H: int, C: int = 2048,
+                seed: int = 1):
+    """The pool rows' inputs, the same for every image of ``proposals``
+    (B, P, 4): a random (H/8, H/8, C) bf16 map drawn from ``seed`` (the
+    tool's own map), the first image's proposals and a roi_scale of ones,
+    each repeated over the batch. Returns (features, boxes, roi_scale)."""
+    B, P, _ = proposals.shape
+    dev = proposals.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Hf = H // 8
+    feats = torch.randn(Hf, Hf, C, device=dev, generator=gen).to(
+        torch.bfloat16)
+    return (feats.expand(B, Hf, Hf, C).contiguous(),
+            proposals[0].expand(B, P, 4).contiguous(),
+            torch.ones(B, P, device=dev))
+
+
 def run(iters: int = 10, device=None, B: int = 2, H: int = 704,
         P: int = 4096, cfg_file: str = FLAGSHIP, overrides=(),
         timer: Callable[[Callable[[], object], int], float] = cuda_ms,
@@ -145,12 +162,7 @@ def run(iters: int = 10, device=None, B: int = 2, H: int = 704,
 
     # ---- the pool kernels alone, at the tool's own map
     C = 2048
-    Hf = H // 8
-    feats = torch.randn(Hf, Hf, C, device=dev, generator=gen).to(
-        torch.bfloat16)
-    feats_b = feats.expand(B, Hf, Hf, C).contiguous()
-    boxes_b = batch.proposals[0].expand(B, P, 4).contiguous()
-    scale_b = torch.ones(B, P, device=dev)
+    feats_b, boxes_b, scale_b = pool_inputs(batch.proposals, H, C)
     measure(f"K1 pool, batched kernel (B={B})",
             lambda: roi_pool_batched(feats_b, boxes_b, 0.125, 7, scale_b))
     measure(f"K2 pool, looped per image (B={B})",
@@ -158,7 +170,7 @@ def run(iters: int = 10, device=None, B: int = 2, H: int = 704,
     measure(f"K2 pool, looped per image, int8 (B={B})",
             lambda: roi_pool_looped(feats_b, boxes_b, 0.125, 7, scale_b,
                                     quantize_int8=True))
-    del feats, feats_b
+    del feats_b
 
     # ---- fc1 alone
     D = cfg.MODEL.ROI_BOX_HEAD.DAN_DIM[0]

@@ -54,6 +54,20 @@ def test_calls_and_derived_row(rows):
     assert per_step.calls == 0 and per_step.ms == total.ms / 10
 
 
+def test_pool_inputs_repeat_one_image_from_the_seed():
+    # chip_smoke.py holds K2 against its plain version on these inputs, so
+    # the same arguments must give the same tensors
+    proposals = torch.rand(2, 16, 4) * 64
+    feats, boxes, scale = ablate_bench.pool_inputs(proposals, 64, C=16)
+    again = ablate_bench.pool_inputs(proposals, 64, C=16)
+    assert feats.shape == (2, 8, 8, 16) and feats.dtype == torch.bfloat16
+    assert all(torch.equal(a, b) for a, b in zip((feats, boxes, scale),
+                                                 again))
+    assert torch.equal(feats[0], feats[1]) and feats.is_contiguous()
+    assert torch.equal(boxes, proposals[0].expand(2, 16, 4))
+    assert torch.equal(scale, torch.ones(2, 16))
+
+
 def test_row_format_carries_the_card():
     row = ablate_bench.Row("FC1 fwd alone", 4.125, 11)
     line = ablate_bench.format_row(row, "[NVIDIA H100 80GB HBM3, 700.00 W]")
