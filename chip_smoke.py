@@ -9,14 +9,20 @@ CUDA toolkit (``nvcc``):
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the package from its sources (nvcc, one
-     process per source, in parallel), timed;
+     process per source, in parallel), timed, with each kernel's registers,
+     spills and shared memory (``-Xptxas -v``);
   3. each kernel against its plain PyTorch version at the shape its path
      gives it, max |diff| must be 0; kernel, plain and bound times. K1
      (batched RoIPool): B=2, 87x87x2048 bf16 maps, P=4096 RoIs with edge
      cases and invalid slots, as the detect and train paths give it; K2
      (single-image RoIPool, float and int8 mode) looped over the ablation
      tool's own B=2 88x88x2048 bf16 inputs, and on the edge-case boxes of
-     the first 87x87 image;
+     the first 87x87 image; K3 (banded RoIPool) against its plain version
+     and against K1 on the banded probe's own inputs at its four buckets
+     (B=1, P=4096, 88^2 to 192^2 x 2048 bf16), and on the edge-case boxes
+     of K1's inputs; K4 (narrow-dtype max) bit for bit in each of its six
+     dtypes, on the dtype probe's input and on seeded random bit patterns,
+     with ``torch.maximum`` of the halves timed beside it where torch has it;
   4. the detect path of the flagship config at full width (R50-WS DC5,
      DAN [2048, 4096], 3 OICR branches, bf16, seeded random weights),
      answering detect requests of B=2 704x704 images with P=4096 proposals.
@@ -34,10 +40,16 @@ Phases (any failure exits non-zero):
   6. the port's train-step ablation tool (``drn_wsod_torch.tools.
      ablate_bench``) at its full shape: every line of its table, with K2
      launched B times per looped call in each mode;
-  7. the CUDA tests (``tests/test_torch_cuda.py``: each kernel against its
+  7. the port's banded-pool probe (``drn_wsod_torch.tools.
+     pool_banded_probe``) at its four buckets: classic (K1) against banded
+     (K3) device ms, max |diff| 0, one K1 launch per classic call and one
+     launch of each of K3's two kernels per banded call;
+  8. the port's dtype probe (``drn_wsod_torch.tools.mosaic_dtype_probe``):
+     every dtype OK, one K4 launch each;
+  9. the CUDA tests (``tests/test_torch_cuda.py``: each kernel against its
      plain version at a small shape, and toy configs on the card against the
      same weights on the CPU), run by pytest; every test must pass.
-Every path (4, 5, 6) is run with the kernels' launch counts set to 0 just
+Every path (4-8) is run with the kernels' launch counts set to 0 just
 before it and read just after. The second-to-last line is the card's name
 and power limit, the line before it a JSON object of per-kernel numbers,
 the last ``{"ok": true, "device": {...}}``.
@@ -62,6 +74,7 @@ B, IMG, P = 2, 704, 4096
 WARMUP, REQUESTS, WINDOWS, SPLITS = 2, 5, 3, 5
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_WINDOWS, TRAIN_SPLITS = 2, 5, 3, 3
 ABLATE_ITERS = 3
+PROBE_ITERS = 10
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 ops/s
 # outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
@@ -114,6 +127,25 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, calls: int) -> float:
+    """Device ms per call of ``fn`` with its host issue hidden: after a
+    warm-up call, ``calls`` calls are queued behind a sleep of about 50 ms
+    on the stream, so the card runs them back to back; CUDA events around
+    the calls. For work that takes the host about as long to issue as the
+    card to run (K3's partition, K4's tiny launches)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def pool_inputs(dev, generator):
     """Flagship-shaped RoIPool inputs: the synthetic-batch box distribution
     at 704 px with edge cases mixed in, and some invalid slots."""
@@ -145,14 +177,10 @@ def roi_pool_bound(feats, boxes, scale, out, spatial_scale: float,
     output written) over HBM rate, against this data's max comparisons
     (cells of every bin times channels) plus ``epilogue_ops`` multiplies per
     output over the float32 rate. Returns (ms, "bytes" | "operations")."""
-    from drn_wsod_torch.ops.roi_pool import bin_edges, map_coords
+    from drn_wsod_torch.ops.roi_pool import bin_cells
 
     H, W, C = feats.shape[-3:]
-    x1, y1, rw, rh = map_coords(boxes.reshape(-1, 4), spatial_scale)
-    ylo, yhi = bin_edges(y1, rh, H, 7)
-    xlo, xhi = bin_edges(x1, rw, W, 7)
-    cells = ((yhi - ylo).clamp(min=0)[:, :, None]
-             * (xhi - xlo).clamp(min=0)[:, None, :]).sum().item()
+    cells = bin_cells(boxes, spatial_scale, H, W).sum().item()
     ops = cells * C + epilogue_ops * out.numel()
     nbytes = sum(t.numel() * t.element_size()
                  for t in (feats, boxes, scale, out))
@@ -161,19 +189,30 @@ def roi_pool_bound(feats, boxes, scale, out, spatial_scale: float,
                                        else "operations")
 
 
+def _launch_counts():
+    """The wrappers' per-kernel launch counters (dicts)."""
+    from drn_wsod_torch.ops import narrow_max as nm
+    from drn_wsod_torch.ops import roi_pool as rp
+
+    return (rp.roi_pool_image.launches, rp.roi_pool_banded.launches,
+            nm.narrow_max.launches)
+
+
 def reset_launches():
     from drn_wsod_torch.ops import roi_pool as rp
 
     rp.roi_pool_batched.launches = 0
-    for k in rp.roi_pool_image.launches:
-        rp.roi_pool_image.launches[k] = 0
+    for counts in _launch_counts():
+        for k in counts:
+            counts[k] = 0
 
 
 def read_launches() -> dict:
     from drn_wsod_torch.ops import roi_pool as rp
 
-    return {"roi_pool": rp.roi_pool_batched.launches,
-            **rp.roi_pool_image.launches}
+    image, banded, narrow = _launch_counts()
+    return {"roi_pool": rp.roi_pool_batched.launches, **image, **banded,
+            **{f"narrow_max_{k}": v for k, v in narrow.items()}}
 
 
 class Marks:
@@ -317,6 +356,14 @@ def exact(name, got, want) -> float:
     return err
 
 
+def kernel_entry(name, source, replaces, err, ms, plain_ms, bound,
+                 library_ms=None) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------- phases
 def phase3_kernels(dev, gen, tag) -> dict:
     """Every kernel against its plain version at the shape its path gives
@@ -386,12 +433,127 @@ def phase3_kernels(dev, gen, tag) -> dict:
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}); no single PyTorch call computes RoIPool (no "
               f"torchvision), library n/a {tag}", flush=True)
-        kernels[name] = {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+        kernels[name] = kernel_entry(name, source, replaces, err, ms,
+                                     plain_ms, (bound_ms, bound_by))
         del got
+    kernels["roi_pool_banded"] = phase3_banded(feats, boxes, scale, tag)
+    del feats, tf
+    kernels.update(phase3_narrow_max(dev, tag))
+    return kernels
+
+
+def phase3_banded(feats, boxes, scale, tag) -> dict:
+    """K3 against its plain version and against K1: on K1's flagship
+    edge-case inputs, then at each bucket of the banded probe on the
+    probe's own inputs (its boxes drawn in its order). Times at each bucket;
+    the JSON entry holds the 1536 bucket's, the one K3 exists for."""
+    from drn_wsod_torch.ops import roi_pool as rp
+    from drn_wsod_torch.tools import pool_banded_probe
+
+    got = rp.roi_pool_banded(feats, boxes, 0.125, 7, scale)
+    torch.cuda.synchronize()
+    err = max(exact("roi_pool_banded", got,
+                    rp.roi_pool_banded_plain(feats, boxes, 0.125, 7, scale)),
+              exact("roi_pool_banded (against K1)", got,
+                    rp.roi_pool_batched(feats, boxes, 0.125, 7, scale)))
+    del got
+    print(f"phase 3: roi_pool_banded kernel == plain == roi_pool kernel "
+          f"(max|diff| 0.0) on the edge-case boxes of {tuple(feats.shape)} "
+          f"bf16, P={P}", flush=True)
+    rs = np.random.RandomState(0)
+    for S in pool_banded_probe.BUCKETS:
+        f, b, s = pool_banded_probe.bucket_inputs(rs, S, feats.device)
+        part = rp.band_partition(b, 0.125, f.shape[1])
+        ct = rp.band_tile(f)
+
+        def kernel():
+            return rp.roi_pool_banded(f, b, 0.125, 7, s)
+
+        def plain():
+            return rp.roi_pool_banded_plain(f, b, 0.125, 7, s)
+
+        def k1():
+            return rp.roi_pool_batched(f, b, 0.125, 7, s)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        err = max(err, exact(f"roi_pool_banded at {S}", got, plain()),
+                  exact(f"roi_pool_banded at {S} (against K1)", got, k1()))
+        ms, k1_ms = queued_ms(kernel, 20), queued_ms(k1, 20)
+        single_ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+        split_ms = queued_ms(lambda: rp.band_partition(b, 0.125, f.shape[1]),
+                             20)
+        bound = roi_pool_bound(f, b, s, got, 0.125)
+        print(f"phase 3: roi_pool_banded kernel == plain == roi_pool kernel "
+              f"(max|diff| 0.0) at bucket {S}, {tuple(f.shape)} bf16, "
+              f"P={P}, the probe's boxes, {part.short.sum().item()} short "
+              f"RoIs in {part.num_bands} bands, channel tile {ct} (a band "
+              f"of {min(48, f.shape[1]) * f.shape[2] * ct * 2} B of shared "
+              f"memory): kernel {ms:.4f} ms per call queued (partition "
+              f"{split_ms:.4f} of it; {single_ms:.4f} a single call, its "
+              f"host issue included), K1 {k1_ms:.4f} ms queued, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
+              f"library n/a, as K1 {tag}", flush=True)
+        del got, f
+    return kernel_entry(
+        "roi_pool_banded", "drn_wsod_torch/ops/csrc/roi_pool_banded.cu",
+        "drn_wsod_tpu/ops/roi_pool_pallas.py:948 (_banded_launch :897, "
+        "pallas_call :927)", err, ms, plain_ms, bound)
+
+
+def phase3_narrow_max(dev, tag) -> dict:
+    """K4 in each dtype, bit for bit against its plain version on the dtype
+    probe's input and on seeded random bit patterns of the same (16, 512)
+    shape; device ms per launch over 200 queued launches (and the host's
+    rate, 200 launches issued with the card idle), and ``torch.maximum`` of
+    the halves where torch has it for the dtype."""
+    from drn_wsod_torch.ops import narrow_max as nm
+    from drn_wsod_torch.tools.ablate_bench import cuda_ms as per_call_ms
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    kernels = {}
+    for kind in nm.KINDS:
+        probe_x = nm.probe_input(kind, dev)
+        raw = torch.randint(0, 256, (16, probe_x[0].numel()
+                                     * probe_x.element_size()),
+                            generator=gen, device=dev, dtype=torch.uint8)
+        for what, x in (("probe input", probe_x),
+                        ("random bits", raw.view(nm.DTYPES[kind]))):
+            got = nm.narrow_max(x, kind)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.uint8),
+                               nm.narrow_max_plain(x, kind).view(
+                                   torch.uint8)):
+                raise Fail(f"phase 3: narrow_max {kind} kernel differs from "
+                           f"plain on the {what}")
+        x = raw.view(nm.DTYPES[kind])
+        ms = queued_ms(lambda: nm.narrow_max(x, kind), 200)
+        host_ms = per_call_ms(lambda: nm.narrow_max(x, kind), 200)
+        plain_ms = queued_ms(lambda: nm.narrow_max_plain(x, kind), 200)
+        lo, hi = x[:8], x[8:]
+        try:
+            torch.maximum(lo, hi)
+        except (RuntimeError, NotImplementedError) as e:
+            library_ms, library = None, f"n/a ({str(e).splitlines()[0]})"
+        else:
+            library_ms = queued_ms(lambda: torch.maximum(lo, hi), 200)
+            library = (f"{library_ms:.5f} ms queued, "
+                       f"{per_call_ms(lambda: torch.maximum(lo, hi), 200):.5f}"
+                       f" issued")
+        if kind == "int4":
+            library_ms, library = None, "n/a (torch has no int4 dtype)"
+        nbytes = 1.5 * x.numel() * x.element_size()
+        bound = (nbytes / PEAK_BYTES_S * 1e3, "bytes")
+        print(f"phase 3: narrow_max_{kind} kernel == plain bit for bit on "
+              f"the probe input and on random bits, {tuple(x.shape)} "
+              f"{x.dtype}: kernel {ms:.5f} ms queued ({host_ms:.5f} issued "
+              f"with the card idle), plain {plain_ms:.5f} ms queued, bound "
+              f"{bound[0]:.2e} ms (bytes, {nbytes:.0f} B), torch.maximum "
+              f"{library} {tag}", flush=True)
+        kernels[f"narrow_max_{kind}"] = kernel_entry(
+            f"narrow_max_{kind}", "drn_wsod_torch/ops/csrc/narrow_max.cu",
+            "tools/mosaic_dtype_probe.py:18 (pallas_call :27)", 0.0, ms,
+            plain_ms, bound, library_ms)
     return kernels
 
 
@@ -564,7 +726,47 @@ def phase6_ablate(tag) -> dict:
     return launches
 
 
-def phase7_tests(tag) -> None:
+def phase7_banded_probe(tag) -> dict:
+    from drn_wsod_torch.tools import pool_banded_probe
+
+    reset_launches()
+    rows = pool_banded_probe.run(
+        pool_banded_probe.BUCKETS, PROBE_ITERS,
+        emit=lambda r: print("\n".join(
+            "phase 7: " + line
+            for line in pool_banded_probe.format_bucket(r, tag)), flush=True))
+    launches = read_launches()
+    calls = sum(r.calls for r in rows)
+    want = {"roi_pool": calls, "roi_pool_banded": calls,
+            "roi_pool_banded_rest": calls}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise Fail(f"phase 7: launches {got} for {calls} calls of each path")
+    if any(r.max_diff != 0.0 for r in rows):
+        raise Fail(f"phase 7: classic and banded differ: {rows}")
+    print(f"phase 7: launches {launches} ({calls} calls of each path: one "
+          f"K1 launch per classic call, one launch of each K3 kernel per "
+          f"banded call)", flush=True)
+    return launches
+
+
+def phase8_dtype_probe(tag) -> dict:
+    from drn_wsod_torch.tools import mosaic_dtype_probe
+
+    reset_launches()
+    rows = mosaic_dtype_probe.run(emit=lambda kind, result: print(
+        f"phase 8: {kind:16s} {result} {tag}", flush=True))
+    launches = read_launches()
+    bad = [(k, r) for k, r in rows
+           if r != "OK" or launches[f"narrow_max_{k}"] != 1]
+    if bad:
+        raise Fail(f"phase 8: {bad}; launches {launches}")
+    print(f"phase 8: launches {launches} (one K4 launch per dtype)",
+          flush=True)
+    return launches
+
+
+def phase9_tests(tag) -> None:
     root = Path(__file__).resolve().parent
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q",
@@ -574,9 +776,9 @@ def phase7_tests(tag) -> None:
     summary = (proc.stdout.strip().splitlines() or [""])[-1]
     if proc.returncode != 0 or not re.fullmatch(
             r"=* *\d+ passed(, \d+ warnings?)? in .*", summary):
-        raise Fail(f"phase 7: tests/test_torch_cuda.py: {summary}\n"
+        raise Fail(f"phase 9: tests/test_torch_cuda.py: {summary}\n"
                    f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
-    print(f"phase 7: tests/test_torch_cuda.py on the card: {summary} {tag}",
+    print(f"phase 9: tests/test_torch_cuda.py on the card: {summary} {tag}",
           flush=True)
 
 
@@ -614,15 +816,24 @@ def main() -> int:
         paths = {}
         for name, phase in (("detect", lambda: phase4_detect(dev, gen, tag)),
                             ("train", lambda: phase5_train(dev, gen, tag)),
-                            ("ablate", lambda: phase6_ablate(tag))):
+                            ("ablate", lambda: phase6_ablate(tag)),
+                            ("banded_probe", lambda: phase7_banded_probe(tag)),
+                            ("dtype_probe", lambda: phase8_dtype_probe(tag))):
             paths[name] = phase()
             torch.cuda.empty_cache()
-        phase7_tests(tag)
+        phase9_tests(tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1
+    # K3 is two kernels, both launched once per call
+    counted = {"roi_pool_banded": ("roi_pool_banded", "roi_pool_banded_rest")}
     for k in kernels.values():
-        k["launches"] = sum(p[k["name"]] for p in paths.values())
+        k["launches"] = sum(p[c] for p in paths.values()
+                            for c in counted.get(k["name"], (k["name"],)))
+    idle = [k["name"] for k in kernels.values() if k["launches"] == 0]
+    if idle:
+        print(f"FAIL no path launched {idle}")
+        return 1
     print(f"launches per path: {json.dumps(paths)}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line)

@@ -8,10 +8,10 @@
 // windows and per-RoI tiers exist to feed VMEM tiles and have no
 // counterpart here.
 //
-// Semantics: the bin arithmetic of roi_pool_bins.cuh (shared with K2), then
-//   * out = dtype(max * dtype(roi_scale)), one rounding: the product of two
-//     bf16 values is exact in float32;
-//   * max propagates NaN, as jnp.maximum and torch.maximum do.
+// Semantics: the bin arithmetic and per-bin max of roi_pool_bins.cuh
+// (shared with K2 and K3), then out = dtype(max * dtype(roi_scale)), one
+// rounding: the product of two bf16 values is exact in float32. The kernel
+// body is roi_pool_bins.cuh:batched_kernel, which K3's rest launch shares.
 //
 // Design: one block per (roi, image), the image as the slowest grid index,
 // so one image's map (87*87*2048*2 B ~ 31 MB at the flagship shape) stays
@@ -36,66 +36,14 @@ namespace {
 using drn_roi::BF16;
 using drn_roi::F32;
 using drn_roi::kMaxRes;
-using drn_roi::nan_max;
-
-template <typename D>
-__global__ void roi_pool_kernel(const typename D::T* __restrict__ features,
-                                const float* __restrict__ boxes,
-                                const float* __restrict__ roi_scale,
-                                typename D::T* __restrict__ out, int H, int W,
-                                int C, int P, int R, float spatial_scale) {
-  typedef typename D::T T;
-  constexpr int V = D::kVec;
-  const int p = blockIdx.x;
-  const int b = blockIdx.y;
-  const long roi = static_cast<long>(b) * P + p;
-
-  __shared__ int lo_y[kMaxRes], hi_y[kMaxRes], lo_x[kMaxRes], hi_x[kMaxRes];
-  __shared__ float s_scale;
-  if (threadIdx.x == 0) {
-    drn_roi::bin_edges(boxes + roi * 4, spatial_scale, H, W, R, lo_y, hi_y,
-                       lo_x, hi_x);
-    // roi_scale cast to the map's dtype before the multiply
-    s_scale = D::cast(roi_scale[roi]);
-  }
-  __syncthreads();
-
-  const T* map = features + static_cast<long>(b) * H * W * C;
-  T* dst = out + roi * R * R * C;
-  for (int c = threadIdx.x * V; c < C; c += blockDim.x * V) {
-    for (int ph = 0; ph < R; ++ph) {
-      for (int pw = 0; pw < R; ++pw) {
-        const float kNegInf = -__int_as_float(0x7f800000);
-        float m[V];
-        const bool empty = hi_y[ph] <= lo_y[ph] || hi_x[pw] <= lo_x[pw];
-#pragma unroll
-        for (int j = 0; j < V; ++j) m[j] = empty ? 0.f : kNegInf;
-        for (int y = lo_y[ph]; y < hi_y[ph]; ++y) {
-          for (int x = lo_x[pw]; x < hi_x[pw]; ++x) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(
-                map + (static_cast<long>(y) * W + x) * C + c);
-            const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-            for (int j = 0; j < V; ++j) m[j] = nan_max(m[j], D::load(v, j));
-          }
-        }
-        uint4 packed;
-        T* o = reinterpret_cast<T*>(&packed);
-#pragma unroll
-        for (int j = 0; j < V; ++j) o[j] = D::store(m[j] * s_scale);
-        *reinterpret_cast<uint4*>(dst + (ph * R + pw) * C + c) = packed;
-      }
-    }
-  }
-}
 
 template <typename D>
 int launch(const void* features, const float* boxes, const float* roi_scale,
            void* out, int B, int H, int W, int C, int P, int R,
            float spatial_scale, cudaStream_t stream) {
   const int threads = std::min(C / D::kVec, 256);
-  roi_pool_kernel<D><<<dim3(P, B), threads, 0, stream>>>(
-      static_cast<const typename D::T*>(features), boxes, roi_scale,
+  drn_roi::batched_kernel<D><<<dim3(P, B), threads, 0, stream>>>(
+      static_cast<const typename D::T*>(features), boxes, roi_scale, nullptr,
       static_cast<typename D::T*>(out), H, W, C, P, R, spatial_scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,8 @@
 // 16-sublane windows, mask tables and VMEM-sized channel tiles have no
 // counterpart here.
 //
-// Semantics: the bin arithmetic of roi_pool_bins.cuh (shared with K1), then
+// Semantics: the bin arithmetic of roi_pool_bins.cuh (shared with K1 and K3;
+// float mode shares its per-bin max, pool_bin, too), then
 // per bin scale = roi_scale * (bin nonempty), in float32, and
 //   * float mode (bf16 or float32 map): out = dtype(max * dtype(bin_scale)),
 //     one rounding: the product of two bf16 values is exact in float32;
@@ -43,7 +44,6 @@ namespace {
 using drn_roi::BF16;
 using drn_roi::F32;
 using drn_roi::kMaxRes;
-using drn_roi::nan_max;
 
 // Bin edges of RoI p and its per-bin float32 scale roi_scale * nonempty,
 // cast by Cast (the map's dtype in float mode, float32 in int8 mode).
@@ -75,7 +75,6 @@ __global__ void roi_pool_image_kernel(const typename D::T* __restrict__ map,
                                       typename D::T* __restrict__ out, int H,
                                       int W, int C, int R,
                                       float spatial_scale) {
-  typedef typename D::T T;
   constexpr int V = D::kVec;
   const int p = blockIdx.x;
   __shared__ int lo_y[kMaxRes], hi_y[kMaxRes], lo_x[kMaxRes], hi_x[kMaxRes];
@@ -83,30 +82,14 @@ __global__ void roi_pool_image_kernel(const typename D::T* __restrict__ map,
   block_bins<D>(boxes, roi_scale, p, spatial_scale, H, W, R, lo_y, hi_y, lo_x,
                 hi_x, bin_scale);
 
-  T* dst = out + static_cast<long>(p) * R * R * C;
+  typename D::T* dst = out + static_cast<long>(p) * R * R * C;
   for (int c = threadIdx.x * V; c < C; c += blockDim.x * V) {
     for (int ph = 0; ph < R; ++ph) {
       for (int pw = 0; pw < R; ++pw) {
-        const float kNegInf = -__int_as_float(0x7f800000);
-        const bool empty = hi_y[ph] <= lo_y[ph] || hi_x[pw] <= lo_x[pw];
-        float m[V];
-#pragma unroll
-        for (int j = 0; j < V; ++j) m[j] = empty ? 0.f : kNegInf;
-        for (int y = lo_y[ph]; y < hi_y[ph]; ++y) {
-          for (int x = lo_x[pw]; x < hi_x[pw]; ++x) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(
-                map + (static_cast<long>(y) * W + x) * C + c);
-            const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-            for (int j = 0; j < V; ++j) m[j] = nan_max(m[j], D::load(v, j));
-          }
-        }
-        const float s = bin_scale[ph * R + pw];
-        uint4 packed;
-        T* o = reinterpret_cast<T*>(&packed);
-#pragma unroll
-        for (int j = 0; j < V; ++j) o[j] = D::store(m[j] * s);
-        *reinterpret_cast<uint4*>(dst + (ph * R + pw) * C + c) = packed;
+        drn_roi::pool_bin<D>(map + c, static_cast<long>(W) * C, C, lo_y[ph],
+                             hi_y[ph], lo_x[pw], hi_x[pw],
+                             bin_scale[ph * R + pw],
+                             dst + (ph * R + pw) * C + c);
       }
     }
   }

@@ -13,7 +13,10 @@ dtype, rounding once (``drn_wsod_tpu/ops/roi_pool_pallas.py:_xla_fallback``).
 the hand-written kernel ``csrc/roi_pool.cu`` on CUDA tensors.
 :func:`roi_pool_image` (K2, one image, with an int8 mode) runs
 :func:`roi_pool_image_plain` on CPU tensors and ``csrc/roi_pool_image.cu`` on
-CUDA tensors; :func:`roi_pool_looped` launches it once per image. No wrapper
+CUDA tensors; :func:`roi_pool_looped` launches it once per image.
+:func:`roi_pool_banded` (K3, reached from ``roi_pool_batched(...,
+allow_banded=True)``) runs :func:`roi_pool_banded_plain` on CPU tensors and
+the two launches of ``csrc/roi_pool_banded.cu`` on CUDA tensors. No wrapper
 falls back from its kernel to the plain version: a failed build or launch
 raises.
 """
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -92,6 +96,19 @@ def map_coords(boxes: torch.Tensor, spatial_scale: float):
     return (x1, y1, (x2 - x1 + 1).clamp(min=1), (y2 - y1 + 1).clamp(min=1))
 
 
+def bin_cells(boxes: torch.Tensor, spatial_scale: float, H: int, W: int,
+              resolution: int = 7) -> torch.Tensor:
+    """Map cells each RoI's R x R bins cover, summed over its bins: the
+    cell reads an exact pool of the RoI makes per channel. (..., 4) ->
+    (...) int64."""
+    x1, y1, roi_w, roi_h = map_coords(boxes.reshape(-1, 4), spatial_scale)
+    ylo, yhi = bin_edges(y1, roi_h, H, resolution)
+    xlo, xhi = bin_edges(x1, roi_w, W, resolution)
+    cells = ((yhi - ylo).clamp(min=0).sum(-1)
+             * (xhi - xlo).clamp(min=0).sum(-1))
+    return cells.reshape(boxes.shape[:-1])
+
+
 def _rmq(lo: torch.Tensor, hi: torch.Tensor, num_levels: int):
     """The two power-of-two windows [lo, lo + 2^k) and [hi - 2^k, hi) that
     cover [lo, hi), k = floor(log2(span)): returns (lo, pos2, k)."""
@@ -111,14 +128,21 @@ def roi_pool(features: torch.Tensor, boxes: torch.Tensor,
     Returns (P, R, R, C) in ``features.dtype``. Each bin max is the max of
     four lookups in the sparse range-max tables (the formulation of
     ``drn_wsod_tpu/ops/roi_align.py:roi_pool``)."""
+    return _pool_cells(features, *map_coords(boxes, spatial_scale),
+                       resolution)
+
+
+def _pool_cells(features: torch.Tensor, x1: torch.Tensor, y1: torch.Tensor,
+                roi_w: torch.Tensor, roi_h: torch.Tensor,
+                resolution: int) -> torch.Tensor:
+    """:func:`roi_pool` of RoIs given in map cells (:func:`map_coords`)."""
     H, W, C = features.shape
     R = resolution
     ky, kx = _num_levels(H, R), _num_levels(W, R)
     flat = _max_tables(features, ky, kx).reshape(-1, C)
-    x1, y1, roi_w, roi_h = map_coords(boxes, spatial_scale)
 
     outs = []
-    for s in range(0, boxes.shape[0], _CHUNK):
+    for s in range(0, x1.shape[0], _CHUNK):
         sl = slice(s, s + _CHUNK)
         ylo, yhi = bin_edges(y1[sl], roi_h[sl], H, R)
         xlo, xhi = bin_edges(x1[sl], roi_w[sl], W, R)
@@ -183,20 +207,11 @@ def _check_map(features: torch.Tensor, rank: int) -> None:
                          f"(..., H, W, C) map, got {tuple(features.shape)}")
 
 
-def roi_pool_batched(features: torch.Tensor, boxes: torch.Tensor,
-                     spatial_scale: float, resolution: int,
-                     roi_scale: torch.Tensor) -> torch.Tensor:
-    """Exact batched RoIPool with the per-RoI scale fused into the epilogue.
-
-    features: (B, H, W, C) bfloat16 or float32, contiguous; boxes: (B, P, 4)
-    float32; roi_scale: (B, P) float32. Returns (B, P, R, R, C) in the map's
-    dtype. CPU tensors go through :func:`roi_pool_plain`; CUDA tensors
-    launch the kernel (replaces ``roi_pool_pallas.py:roi_pool_pallas_grid``)
-    and add one to ``roi_pool_batched.launches``.
-    """
-    if not features.is_cuda:
-        return roi_pool_plain(features, boxes, spatial_scale, resolution,
-                              roi_scale)
+def _check_batched(features: torch.Tensor, boxes: torch.Tensor,
+                   roi_scale: torch.Tensor) -> None:
+    """What the batched kernels (K1, K3) take: a contiguous (B, H, W, C)
+    bfloat16 or float32 map, 16-byte aligned, C a whole number of 16-byte
+    vectors; (B, P, 4) boxes and (B, P) roi_scale, float32 on its device."""
     _check_map(features, 4)
     B, H, W, C = features.shape
     if boxes.shape[:1] != (B,) or boxes.dim() != 3 or boxes.shape[2] != 4:
@@ -213,6 +228,35 @@ def roi_pool_batched(features: torch.Tensor, boxes: torch.Tensor,
     if B == 0 or P == 0 or B > 65535:
         raise ValueError(f"the kernel takes 1 <= B <= 65535 and P >= 1, "
                          f"got B={B}, P={P}")
+
+
+def roi_pool_batched(features: torch.Tensor, boxes: torch.Tensor,
+                     spatial_scale: float, resolution: int,
+                     roi_scale: torch.Tensor,
+                     allow_banded: bool = False) -> torch.Tensor:
+    """Exact batched RoIPool with the per-RoI scale fused into the epilogue.
+
+    features: (B, H, W, C) bfloat16 or float32, contiguous; boxes: (B, P, 4)
+    float32; roi_scale: (B, P) float32. Returns (B, P, R, R, C) in the map's
+    dtype. CPU tensors go through :func:`roi_pool_plain`; CUDA tensors
+    launch the kernel (replaces ``roi_pool_pallas.py:roi_pool_pallas_grid``)
+    and add one to ``roi_pool_batched.launches``.
+
+    ``allow_banded=True`` takes the banded path, :func:`roi_pool_banded`
+    (K3), whatever the map's size: the flag alone decides. The JAX package
+    takes it only where its VMEM model shrinks the channel tile fourfold
+    (``roi_pool_pallas.py:732``), which has no meaning on the card; the
+    output is the same either way. The model never sets the flag.
+    """
+    if allow_banded:
+        return roi_pool_banded(features, boxes, spatial_scale, resolution,
+                               roi_scale)
+    if not features.is_cuda:
+        return roi_pool_plain(features, boxes, spatial_scale, resolution,
+                              roi_scale)
+    _check_batched(features, boxes, roi_scale)
+    B, H, W, C = features.shape
+    P = boxes.shape[1]
 
     out = torch.empty((B, P, resolution, resolution, C),
                       dtype=features.dtype, device=features.device)
@@ -358,3 +402,177 @@ def roi_pool_looped(features: torch.Tensor, boxes: torch.Tensor,
                        None if roi_scale is None else roi_scale[b],
                        quantize_int8)
         for b in range(features.shape[0])])
+
+
+# ---------------------------------------------------------------------------
+# K3: banded, short RoIs pooled from a band of rows staged in shared memory
+# ---------------------------------------------------------------------------
+
+# bands hold the range-max levels {1, 2, 4} in the JAX package: a short
+# RoI's y-bins span at most 2^3 - 1 rows (roi_pool_pallas.py:980, :828-834)
+_LV_SMALL = 3
+# dynamic shared memory a block may use on an H100 (sm_90)
+SMEM_PER_BLOCK = 232448
+
+
+class BandPartition(NamedTuple):
+    """The RoI partition of the banded pool, all on the boxes' device.
+
+    short, band, band_start: (B, P); order: (B * P,) int32, the flat RoI
+    indices ``b * P + p`` with the short ones first, grouped by (image,
+    band) in RoI order, then the rest; run_start: (B * NB + 1,) int32, run
+    ``g = b * NB + k`` being ``order[run_start[g]:run_start[g + 1]]``."""
+    short: torch.Tensor
+    band: torch.Tensor
+    band_start: torch.Tensor
+    order: torch.Tensor
+    run_start: torch.Tensor
+    num_bands: int
+    stride: int
+
+
+def band_partition(boxes: torch.Tensor, spatial_scale: float, H: int,
+                   resolution: int = 7, small_h: int = 24,
+                   band_rows: int = 48) -> BandPartition:
+    """Which RoIs of (B, P, 4) boxes pool from a band of ``band_rows`` map
+    rows, and from which: the rule and geometry of
+    ``roi_pool_pallas.py:_pack_banded`` (:816-834). Band k starts at row
+    ``clip(k * stride, 0, max(H - band_rows, 0))``, stride = band_rows -
+    small_h, and a RoI belongs to band ``clip(y1, 0, H - 1) // stride``. A
+    RoI is short when its clamped height is at most ``small_h``, it fits in
+    its band, and each of its y-bins spans at most 7 rows (range-max level
+    <= 2, on the unclamped y1 and height, as :828-829). JAX then caps the
+    short RoIs at P padded slots (:850); the port has no slots and no cap.
+
+    Torch ops on the boxes' device, with no host read: the runs' lengths
+    stay on the device, where the band kernel reads them."""
+    stride = band_rows - small_h
+    if stride < 1 or small_h < 1:
+        raise ValueError(f"need 1 <= small_h < band_rows, got small_h="
+                         f"{small_h}, band_rows={band_rows}")
+    B, P = boxes.shape[:2]
+    NB = -(-H // stride)
+    x1, y1, roi_w, roi_h = map_coords(boxes, spatial_scale)
+    y1c = y1.clamp(0, H - 1)
+    y2c = (y1 + roi_h - 1).clamp(0, H - 1)
+    band = y1c // stride
+    band_start = (band * stride).clamp(0, max(H - band_rows, 0))
+    ylo, yhi = bin_edges(y1.reshape(-1), roi_h.reshape(-1), H, resolution)
+    spans_ok = ((yhi - ylo) < (1 << _LV_SMALL)).all(-1).reshape(B, P)
+    short = ((y2c - y1c + 1 <= small_h) & (y2c < band_start + band_rows)
+             & spans_ok)
+
+    images = torch.arange(B, device=boxes.device)[:, None]
+    key = torch.where(short, images * NB + band, B * NB).reshape(-1)
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    counts = torch.zeros(B * NB + 1, dtype=torch.int64,
+                         device=boxes.device).index_add_(
+        0, key, torch.ones_like(key))
+    run_start = torch.cat([counts.new_zeros(1),
+                           counts[:-1].cumsum(0)]).to(torch.int32)
+    return BandPartition(short, band, band_start, order, run_start, NB,
+                         stride)
+
+
+def roi_pool_banded_plain(features: torch.Tensor, boxes: torch.Tensor,
+                          spatial_scale: float, resolution: int,
+                          roi_scale: torch.Tensor, small_h: int = 24,
+                          band_rows: int = 48) -> torch.Tensor:
+    """The plain version of K3: each short RoI (:func:`band_partition`)
+    pooled from its band ``features[b, bs:bs + rows]`` (rows = min(band_rows,
+    H)) with its y-coordinates shifted into the band and clamped to it,
+    every other RoI from the full map, then K1's epilogue. Equal to
+    :func:`roi_pool_plain` (the shift and the clamps are where a banded
+    kernel goes wrong)."""
+    B, H, W, C = features.shape
+    R = resolution
+    part = band_partition(boxes, spatial_scale, H, R, small_h, band_rows)
+    rows = min(band_rows, H)
+    x1, y1, roi_w, roi_h = map_coords(boxes, spatial_scale)
+    out = torch.empty((B, boxes.shape[1], R, R, C), dtype=features.dtype,
+                      device=features.device)
+    for b in range(B):
+        groups = [(~part.short[b], 0, features[b])]
+        for k in range(part.num_bands):
+            bs = min(k * part.stride, max(H - band_rows, 0))
+            groups.append((part.short[b] & (part.band[b] == k), bs,
+                           features[b, bs:bs + rows]))
+        for mask, bs, rows_map in groups:
+            idx = mask.nonzero()[:, 0]
+            if idx.numel():
+                out[b, idx] = _pool_cells(rows_map, x1[b, idx],
+                                          y1[b, idx] - bs, roi_w[b, idx],
+                                          roi_h[b, idx], R)
+    return out * roi_scale.to(out.dtype)[:, :, None, None, None]
+
+
+def band_tile(features: torch.Tensor, band_rows: int = 48) -> int:
+    """K3's channel tile: the most channels (a power of two times the
+    16-byte vector, dividing C) whose band, min(band_rows, H) x W x CT,
+    fits :data:`SMEM_PER_BLOCK`. Raises where not even one vector does."""
+    B, H, W, C = features.shape
+    vec = 16 // features.element_size()
+    band_bytes = min(band_rows, H) * W * features.element_size()
+    if band_bytes * vec > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"a band of {min(band_rows, H)} x {W} cells x {vec} channels "
+            f"takes {band_bytes * vec} bytes, more than the "
+            f"{SMEM_PER_BLOCK} of shared memory a block may use")
+    ct = vec
+    while C % (2 * ct) == 0 and band_bytes * 2 * ct <= SMEM_PER_BLOCK:
+        ct *= 2
+    return ct
+
+
+def roi_pool_banded(features: torch.Tensor, boxes: torch.Tensor,
+                    spatial_scale: float, resolution: int = 7,
+                    roi_scale=None, small_h: int = 24,
+                    band_rows: int = 48) -> torch.Tensor:
+    """Exact batched RoIPool in two launches, the counterpart of
+    ``roi_pool_pallas.py:roi_pool_pallas_banded``: the arguments and result
+    of :func:`roi_pool_batched` (roi_scale None: ones). CPU tensors go
+    through :func:`roi_pool_banded_plain`. CUDA tensors launch
+    ``csrc/roi_pool_banded.cu`` twice, the short RoIs from bands staged in
+    shared memory and the rest from the full map, and add one to
+    ``roi_pool_banded.launches["roi_pool_banded"]`` and one to
+    ``["roi_pool_banded_rest"]``. No host read: the partition stays on the
+    card."""
+    if roi_scale is None:
+        roi_scale = torch.ones(boxes.shape[:2], device=features.device)
+    if not features.is_cuda:
+        return roi_pool_banded_plain(features, boxes, spatial_scale,
+                                     resolution, roi_scale, small_h,
+                                     band_rows)
+    _check_batched(features, boxes, roi_scale)
+    B, H, W, C = features.shape
+    P = boxes.shape[1]
+    ct = band_tile(features, band_rows)
+    part = band_partition(boxes, spatial_scale, H, resolution, small_h,
+                          band_rows)
+    is_short = part.short.to(torch.uint8)
+    out = torch.empty((B, P, resolution, resolution, C),
+                      dtype=features.dtype, device=features.device)
+    stream = torch.cuda.current_stream(features.device).cuda_stream
+    code = _DTYPE_CODES[features.dtype]
+    err = _kernel("roi_pool_banded", "drn_roi_pool_banded_forward", 6, 10)(
+        features.data_ptr(), boxes.data_ptr(), roi_scale.data_ptr(),
+        part.order.data_ptr(), part.run_start.data_ptr(), out.data_ptr(),
+        B, H, W, C, P, resolution, part.num_bands, part.stride, band_rows,
+        ct, float(spatial_scale), code, stream)
+    if err != 0:
+        raise RuntimeError(f"roi_pool_banded kernel launch failed: CUDA "
+                           f"error {err}")
+    roi_pool_banded.launches["roi_pool_banded"] += 1
+    err = _kernel("roi_pool_banded", "drn_roi_pool_banded_rest_forward", 5,
+                  6)(features.data_ptr(), boxes.data_ptr(),
+                     roi_scale.data_ptr(), is_short.data_ptr(),
+                     out.data_ptr(), B, H, W, C, P, resolution,
+                     float(spatial_scale), code, stream)
+    if err != 0:
+        raise RuntimeError(f"roi_pool_banded_rest kernel launch failed: CUDA "
+                           f"error {err}")
+    roi_pool_banded.launches["roi_pool_banded_rest"] += 1
+    return out
+
+
+roi_pool_banded.launches = {"roi_pool_banded": 0, "roi_pool_banded_rest": 0}

@@ -36,7 +36,10 @@ def test_source_imports_no_jax(source):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, drn_wsod_torch, drn_wsod_torch.ops._build, "
-            "drn_wsod_torch.tools.ablate_bench; "
+            "drn_wsod_torch.ops.narrow_max, "
+            "drn_wsod_torch.tools.ablate_bench, "
+            "drn_wsod_torch.tools.pool_banded_probe, "
+            "drn_wsod_torch.tools.mosaic_dtype_probe; "
             "print(sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -58,7 +61,9 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
 
 
 def test_tools_are_covered():
-    assert "drn_wsod_torch/tools/ablate_bench.py" in SOURCES
+    for tool in ("ablate_bench", "pool_banded_probe", "mosaic_dtype_probe"):
+        assert f"drn_wsod_torch/tools/{tool}.py" in SOURCES
+    assert "drn_wsod_torch/ops/narrow_max.py" in SOURCES
 
 
 def test_ablate_bench_refuses_missing_cuda(monkeypatch, capsys):
