@@ -14,7 +14,10 @@ Phases (any failure exits non-zero):
   3. each kernel against its plain PyTorch version at the shape its path
      gives it, max |diff| must be 0; kernel, plain and bound times. K1
      (batched RoIPool): B=2, 87x87x2048 bf16 maps, P=4096 RoIs with edge
-     cases and invalid slots, as the detect and train paths give it; K2
+     cases and invalid slots, as the detect and train paths give it, with
+     its cell reads (each RoI cell once, and bin by bin), its read rate,
+     and its time with the RoIs in RoI order beside the top-row order the
+     wrapper launches them in; K2
      (single-image RoIPool, float and int8 mode) looped over the ablation
      tool's own B=2 88x88x2048 bf16 inputs, and on the edge-case boxes of
      the first 87x87 image; K3 (banded RoIPool) against its plain version
@@ -22,7 +25,8 @@ Phases (any failure exits non-zero):
      (B=1, P=4096, 88^2 to 192^2 x 2048 bf16), and on the edge-case boxes
      of K1's inputs; K4 (narrow-dtype max) bit for bit in each of its six
      dtypes, on the dtype probe's input and on seeded random bit patterns,
-     with ``torch.maximum`` of the halves timed beside it where torch has it;
+     with ``torch.maximum`` of the halves timed beside it where torch has it,
+     and the wrapper's host issue split into its parts;
   4. the detect path of the flagship config at full width (R50-WS DC5,
      DAN [2048, 4096], 3 OICR branches, bf16, seeded random weights),
      answering detect requests of B=2 704x704 images with P=4096 proposals.
@@ -146,9 +150,70 @@ def queued_ms(fn, calls: int) -> float:
     return start.elapsed_time(end) / calls
 
 
-def pool_inputs(dev, generator):
-    """Flagship-shaped RoIPool inputs: the synthetic-batch box distribution
-    at 704 px with edge cases mixed in, and some invalid slots."""
+def host_us(fn, calls: int) -> float:
+    """Host us per call to issue ``fn``, ``time.perf_counter`` over
+    ``calls`` calls issued with the card idle (few enough that the launch
+    queue never fills, so the host never waits on the card)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def identity_order(boxes):
+    """(B, P) int32 0..P-1 in each row on the boxes' device: K1's launch
+    with its blocks taking the RoIs in RoI order."""
+    B, P = boxes.shape[:2]
+    return torch.arange(P, dtype=torch.int32,
+                        device=boxes.device).expand(B, P).contiguous()
+
+
+def ptxas_report(log: str):
+    """(kernel, [ptxas lines]) for each kernel of one source's build log:
+    its registers, spills and stack; names demangled by the toolkit's
+    ``cu++filt`` where it has one."""
+    from drn_wsod_torch.ops import _build
+
+    entries, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = entries.setdefault(m.group(1), [])
+        elif cur is not None and ("registers" in line or "spill" in line):
+            cur.append(line.split("ptxas info    :")[-1].strip())
+    names = list(entries)
+    try:
+        tool = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+        out = subprocess.run([tool, *names], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.splitlines()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        out = names
+    if len(out) != len(names):
+        out = names
+    return [(_without_params(label), entries[n])
+            for label, n in zip(out, names)]
+
+
+def _without_params(label: str) -> str:
+    """A demangled kernel name without ``void`` and its parameter list
+    (the last parenthesised group; template arguments such as ``(int)7``
+    stay)."""
+    label = label.removeprefix("void ")
+    depth = 0
+    for i in range(len(label) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(label[i], 0)
+        if depth == 0:
+            return label[:i] if label.endswith(")") else label
+    return label
+
+
+def pool_boxes():
+    """The flagship RoIPool inputs' boxes (B, P, 4) and roi_scale (B, P),
+    on the CPU: the synthetic-batch box distribution at 704 px with edge
+    cases mixed in, and some invalid slots."""
     from drn_wsod_torch.synthetic import synthetic_batch
 
     batch = synthetic_batch(B, IMG, IMG, P, 20, seed=1, device="cpu")
@@ -165,10 +230,16 @@ def pool_inputs(dev, generator):
     mask = rng.uniform(0, 1, (B, P)) > 0.05
     mask[:, -256:] = False                                     # padded tail
     scale = ((obj + 1.0) * mask).astype(np.float32)
+    return torch.from_numpy(boxes), torch.from_numpy(scale)
+
+
+def pool_inputs(dev, generator):
+    """Flagship-shaped RoIPool inputs: random (B, 87, 87, 2048) bf16 maps
+    and :func:`pool_boxes`, on ``dev``."""
+    boxes, scale = pool_boxes()
     feats = torch.randn(B, 87, 87, 2048, device=dev, generator=generator,
                         dtype=torch.float32).to(torch.bfloat16)
-    return (feats, torch.from_numpy(boxes).to(dev),
-            torch.from_numpy(scale).to(dev))
+    return feats, boxes.to(dev), scale.to(dev)
 
 
 def roi_pool_bound(feats, boxes, scale, out, spatial_scale: float,
@@ -436,10 +507,58 @@ def phase3_kernels(dev, gen, tag) -> dict:
         kernels[name] = kernel_entry(name, source, replaces, err, ms,
                                      plain_ms, (bound_ms, bound_by))
         del got
+    phase3_k1_reads(feats, boxes, scale, kernels["roi_pool"]["ms"], tag)
     kernels["roi_pool_banded"] = phase3_banded(feats, boxes, scale, tag)
     del feats, tf
     kernels.update(phase3_narrow_max(dev, tag))
     return kernels
+
+
+def cell_reads_gb(feats, boxes):
+    """K1's cell reads per call, GB: each RoI's clamped cells once
+    (``roi_cells``, what its body reads) and every bin's cells
+    (``bin_cells``, what a pool that reads each bin separately reads)."""
+    from drn_wsod_torch.ops import roi_pool as rp
+
+    H, W, C = feats.shape[-3:]
+    return tuple(count(boxes, 0.125, H, W).sum().item() * C
+                 * feats.element_size() / 1e9
+                 for count in (rp.roi_cells, rp.bin_cells))
+
+
+def phase3_k1_reads(feats, boxes, scale, ms, tag) -> None:
+    """K1 at the flagship shape: its cell reads and read rate, its time
+    queued (calls back to back, the host's issue hidden) beside phase 3's
+    single call ``ms``, and the same launch with the RoIs in RoI order
+    instead of the top-row order (``top_row_order``, timed alone too):
+    exact either way."""
+    from drn_wsod_torch.ops import roi_pool as rp
+
+    def k1():
+        return rp.roi_pool_batched(feats, boxes, 0.125, 7, scale)
+
+    ident = identity_order(boxes)
+
+    def roi_order():
+        return rp._launch_batched(feats, boxes, 0.125, 7, scale, ident)
+
+    exact("roi_pool in RoI order", roi_order(),
+          rp.roi_pool_plain(feats, boxes, 0.125, 7, scale))
+    queued, roi_order_queued = queued_ms(k1, 20), queued_ms(roi_order, 20)
+    roi_order_ms = cuda_ms(roi_order, 20)
+    sort_ms = queued_ms(lambda: rp.top_row_order(boxes), 20)
+    sort_us, k1_us = (host_us(fn, 100) for fn in
+                      (lambda: rp.top_row_order(boxes), k1))
+    once, bins = cell_reads_gb(feats, boxes)
+    print(f"phase 3: roi_pool cell reads per call {once:.2f} GB, each RoI "
+          f"cell once (roi_cells; {bins:.2f} GB bin by bin, bin_cells): in "
+          f"the top-row order {queued:.4f} ms queued ({once / queued:.2f} "
+          f"GB/ms; a single call {ms:.4f} ms, the order alone {sort_ms:.4f} "
+          f"ms queued); in RoI order {roi_order_queued:.4f} ms queued ("
+          f"{once / roi_order_queued:.2f} GB/ms; a single call "
+          f"{roi_order_ms:.4f} ms), exact; host issue, us per call over "
+          f"100 calls: the order {sort_us:.3f} of the wrapper's "
+          f"{k1_us:.3f} {tag}", flush=True)
 
 
 def phase3_banded(feats, boxes, scale, tag) -> dict:
@@ -475,11 +594,20 @@ def phase3_banded(feats, boxes, scale, tag) -> dict:
         def k1():
             return rp.roi_pool_batched(f, b, 0.125, 7, s)
 
+        ident = identity_order(b)
+
+        def k1_roi_order():
+            return rp._launch_batched(f, b, 0.125, 7, s, ident)
+
         got = kernel()
         torch.cuda.synchronize()
         err = max(err, exact(f"roi_pool_banded at {S}", got, plain()),
-                  exact(f"roi_pool_banded at {S} (against K1)", got, k1()))
+                  exact(f"roi_pool_banded at {S} (against K1)", got, k1()),
+                  exact(f"roi_pool_banded at {S} (against K1 in RoI order)",
+                        got, k1_roi_order()))
         ms, k1_ms = queued_ms(kernel, 20), queued_ms(k1, 20)
+        k1_roi_order_ms = queued_ms(k1_roi_order, 20)
+        once, bins = cell_reads_gb(f, b)
         single_ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
         split_ms = queued_ms(lambda: rp.band_partition(b, 0.125, f.shape[1]),
                              20)
@@ -491,14 +619,78 @@ def phase3_banded(feats, boxes, scale, tag) -> dict:
               f"of {min(48, f.shape[1]) * f.shape[2] * ct * 2} B of shared "
               f"memory): kernel {ms:.4f} ms per call queued (partition "
               f"{split_ms:.4f} of it; {single_ms:.4f} a single call, its "
-              f"host issue included), K1 {k1_ms:.4f} ms queued, plain "
-              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
-              f"library n/a, as K1 {tag}", flush=True)
+              f"host issue included), K1 {k1_ms:.4f} ms queued ("
+              f"{once / k1_ms:.2f} GB/ms of {once:.2f} GB of reads each RoI "
+              f"cell once; {bins:.2f} GB bin by bin), K1 in RoI order "
+              f"{k1_roi_order_ms:.4f} ms queued ({once / k1_roi_order_ms:.2f}"
+              f" GB/ms), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}); library n/a, as K1 {tag}", flush=True)
         del got, f
     return kernel_entry(
         "roi_pool_banded", "drn_wsod_torch/ops/csrc/roi_pool_banded.cu",
         "drn_wsod_tpu/ops/roi_pool_pallas.py:948 (_banded_launch :897, "
         "pallas_call :927)", err, ms, plain_ms, bound)
+
+
+def k4_issue_split(x, kind, calls: int = 1000) -> dict:
+    """Host us per call of each part of K4's wrapper, ``time.perf_counter``
+    over ``calls`` calls each (the card idle at the start of each part):
+    its checks, its allocation, the raw stream lookup (and the
+    ``torch.cuda.current_stream`` object it replaced), the ctypes call with
+    its launch and without it (a call the C side refuses), the whole
+    wrapper, and ``torch.maximum`` of the halves where torch has it."""
+    from drn_wsod_torch.ops import _build
+    from drn_wsod_torch.ops import narrow_max as nm
+
+    spec = nm._SPECS[kind]
+    device = x.get_device()
+    shape = (x.shape[0] >> 1, *x.shape[1:])
+    out = x.new_empty(shape)
+    fn = nm._kernel()
+    args = (x.data_ptr(), out.data_ptr(), x.nbytes // 2, spec[1],
+            _build.raw_stream(device))
+    lo, hi = x[:shape[0]], x[shape[0]:]
+    parts = {
+        "checks": lambda: nm._half_bytes(x, kind, spec),
+        "new_empty": lambda: x.new_empty(shape),
+        "raw stream": lambda: _build.raw_stream(device),
+        "torch.cuda.current_stream": lambda: torch.cuda.current_stream(
+            device).cuda_stream,
+        "ctypes call and launch": lambda: fn(*args),
+        # the C side refuses a half of 0 bytes before any CUDA call
+        "ctypes call alone": lambda: fn(args[0], args[1], 0, *args[3:]),
+        "wrapper": lambda: nm.narrow_max(x, kind),
+        "torch.maximum": lambda: torch.maximum(lo, hi)}
+    split = {}
+    for name, part in parts.items():
+        try:
+            part()
+        except (RuntimeError, NotImplementedError):
+            continue                    # torch.maximum: no such kernel
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            part()
+        split[name] = (time.perf_counter() - t) / calls * 1e6
+        torch.cuda.synchronize()
+    if kind == "int4":
+        split.pop("torch.maximum", None)    # torch has no int4 dtype
+    return split
+
+
+def issued_ms(fns: dict, calls: int = 200, turns: int = 5) -> dict:
+    """Per-call device ms of each of ``fns`` issued with the card idle
+    (``ablate_bench.cuda_ms``: CUDA events around ``calls`` calls, so the
+    host's issue rate), taken in turns ``turns`` times; the median of each.
+    Host times on a shared machine drift, so versions compared are timed
+    in alternation."""
+    from drn_wsod_torch.tools.ablate_bench import cuda_ms as per_call_ms
+
+    runs = {name: [] for name in fns}
+    for _ in range(turns):
+        for name, fn in fns.items():
+            runs[name].append(per_call_ms(fn, calls))
+    return {name: statistics.median(r) for name, r in runs.items()}
 
 
 def phase3_narrow_max(dev, tag) -> dict:
@@ -508,7 +700,6 @@ def phase3_narrow_max(dev, tag) -> dict:
     rate, 200 launches issued with the card idle), and ``torch.maximum`` of
     the halves where torch has it for the dtype."""
     from drn_wsod_torch.ops import narrow_max as nm
-    from drn_wsod_torch.tools.ablate_bench import cuda_ms as per_call_ms
 
     gen = torch.Generator(device=dev).manual_seed(4)
     kernels = {}
@@ -528,26 +719,35 @@ def phase3_narrow_max(dev, tag) -> dict:
                            f"plain on the {what}")
         x = raw.view(nm.DTYPES[kind])
         ms = queued_ms(lambda: nm.narrow_max(x, kind), 200)
-        host_ms = per_call_ms(lambda: nm.narrow_max(x, kind), 200)
         plain_ms = queued_ms(lambda: nm.narrow_max_plain(x, kind), 200)
         lo, hi = x[:8], x[8:]
+        issue = {"kernel": lambda: nm.narrow_max(x, kind)}
         try:
             torch.maximum(lo, hi)
         except (RuntimeError, NotImplementedError) as e:
             library_ms, library = None, f"n/a ({str(e).splitlines()[0]})"
         else:
             library_ms = queued_ms(lambda: torch.maximum(lo, hi), 200)
+            issue["torch.maximum"] = lambda: torch.maximum(lo, hi)
+        issued = issued_ms(issue)
+        host_ms = issued["kernel"]
+        if "torch.maximum" in issued:
             library = (f"{library_ms:.5f} ms queued, "
-                       f"{per_call_ms(lambda: torch.maximum(lo, hi), 200):.5f}"
-                       f" issued")
+                       f"{issued['torch.maximum']:.5f} issued")
         if kind == "int4":
             library_ms, library = None, "n/a (torch has no int4 dtype)"
+        split = k4_issue_split(x, kind)
+        print(f"phase 3: narrow_max_{kind} host issue, us per call over "
+              f"1000 calls (time.perf_counter): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + f" {tag}", flush=True)
         nbytes = 1.5 * x.numel() * x.element_size()
         bound = (nbytes / PEAK_BYTES_S * 1e3, "bytes")
         print(f"phase 3: narrow_max_{kind} kernel == plain bit for bit on "
               f"the probe input and on random bits, {tuple(x.shape)} "
               f"{x.dtype}: kernel {ms:.5f} ms queued ({host_ms:.5f} issued "
-              f"with the card idle), plain {plain_ms:.5f} ms queued, bound "
+              f"with the card idle, median of 5 turns with torch.maximum's), "
+              f"plain {plain_ms:.5f} ms queued, bound "
               f"{bound[0]:.2e} ms (bytes, {nbytes:.0f} B), torch.maximum "
               f"{library} {tag}", flush=True)
         kernels[f"narrow_max_{kind}"] = kernel_entry(
@@ -805,9 +1005,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s, one nvcc per source in parallel "
           f"{tag}", flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for kernel, lines in ptxas_report(log):
+            print(f"  {name}: {kernel}: {'; '.join(lines)}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

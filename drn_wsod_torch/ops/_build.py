@@ -6,6 +6,12 @@ use. The sources have a plain C interface (no PyTorch headers), so a build
 takes seconds; the stale sources build in parallel, one ``nvcc`` each. A
 library is stale when it is older than its source or than any shared header
 (``csrc/*.cuh``). A missing ``nvcc`` or a failed build raises.
+
+The wrappers issue their launches alike, through helpers that keep the
+host's per-call work small: :func:`bind` sets a C entry point's prototype
+once, and :func:`stream_of` (:data:`raw_stream` for a device index) reads
+the raw handle of PyTorch's current stream without building a
+``torch.cuda.Stream`` object.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "drn_wsod_torch"
@@ -74,7 +82,33 @@ def build_all() -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The built library ``csrc/<name>.cu``, building the sources first."""
+def load(name: str) -> ctypes.PyDLL:
+    """The built library ``csrc/<name>.cu``, building the sources first.
+    Loaded as a ``PyDLL``: its calls keep the GIL, since a launch returns
+    in microseconds and dropping and retaking the GIL costs about as
+    much."""
     build_all()
-    return ctypes.CDLL(str(library_path(name)))
+    return ctypes.PyDLL(str(library_path(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def bind(library: str, symbol: str, *argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of ``csrc/<library>.cu`` with its
+    prototype set once (``argtypes``; the result a C int, the CUDA error
+    code): ctypes then converts plain Python ints at each call."""
+    fn = getattr(load(library), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# PyTorch's current stream on a CUDA device (an index), as the raw
+# cudaStream_t: no torch.cuda.Stream object is built. A CUDA build of
+# PyTorch has it; a CPU build, whose tensors never reach a kernel, does not.
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw ``cudaStream_t`` (an int) of PyTorch's current stream on the
+    CUDA device of ``t``."""
+    return raw_stream(t.get_device())

@@ -20,7 +20,10 @@
 //
 // Bound: bytes. The probe's (16, 512) input and (8, 512) output move 24 KB
 // in bf16, 12 KB in the byte types and 6 KB in int4: a few nanoseconds at
-// 3.35 TB/s against a launch of some microseconds.
+// 3.35 TB/s against a launch of some microseconds. So the launch is the
+// cost, and most of it is the host's: the wrapper's checks, its output
+// allocation and the call into this library take longer than the card
+// takes to run the kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -113,13 +116,19 @@ __global__ void narrow_max_kernel(const uint4* __restrict__ in,
                       word_max<E>(a.z, b.z), word_max<E>(a.w, b.w));
 }
 
+// cudaLaunchKernel itself, whose result is the launch's error: one runtime
+// call per launch (the launch is all this kernel's time costs, so the host
+// path is kept short: see ops/narrow_max.py)
 template <typename E>
 int launch(const void* in, void* out, int n_vec, cudaStream_t stream) {
   constexpr int kThreads = 256;
-  narrow_max_kernel<E><<<(n_vec + kThreads - 1) / kThreads, kThreads, 0,
-                         stream>>>(static_cast<const uint4*>(in),
-                                   static_cast<uint4*>(out), n_vec);
-  return static_cast<int>(cudaGetLastError());
+  const uint4* src = static_cast<const uint4*>(in);
+  uint4* dst = static_cast<uint4*>(out);
+  void* args[] = {&src, &dst, &n_vec};
+  return static_cast<int>(cudaLaunchKernel(
+      reinterpret_cast<const void*>(&narrow_max_kernel<E>),
+      dim3((n_vec + kThreads - 1) / kThreads), dim3(kThreads), args, 0,
+      stream));
 }
 
 }  // namespace

@@ -26,8 +26,9 @@
 // edges are computed band-locally (start y1 - bs, rows clamped to the band,
 // rows = min(band_rows, H)), as the plain version
 // roi_pool.py:roi_pool_banded_plain computes them.
-// Rest launch: roi_pool_bins.cuh:batched_kernel (K1's body) with the short
-// RoIs skipped.
+// Rest launch: K1's launch (roi_pool_bins.cuh:batched_kernel, which reads
+// each cell of a RoI once, its blocks taking the RoIs in the top-row order)
+// with the short RoIs skipped.
 //
 // Semantics as K1 (roi_pool_bins.cuh): round-half-even coordinates, max
 // propagating NaN, 0 for an empty bin, out = dtype(max * dtype(roi_scale)).
@@ -128,19 +129,6 @@ int launch_band(const void* features, const float* boxes,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename D>
-int launch_rest(const void* features, const float* boxes,
-                const float* roi_scale, const uint8_t* is_short, void* out,
-                int B, int H, int W, int C, int P, int R, float spatial_scale,
-                cudaStream_t stream) {
-  drn_roi::batched_kernel<D>
-      <<<dim3(P, B), std::min(C / D::kVec, 256), 0, stream>>>(
-          static_cast<const typename D::T*>(features), boxes, roi_scale,
-          is_short, static_cast<typename D::T*>(out), H, W, C, P, R,
-          spatial_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Band launch. features (B, H, W, C), boxes (B, P, 4) float32, roi_scale
@@ -174,20 +162,26 @@ extern "C" int drn_roi_pool_banded_forward(
 }
 
 // Rest launch: every RoI whose is_short (B, P) uint8 entry is 0, from the
-// full map; the other arguments as drn_roi_pool_forward (roi_pool.cu).
+// full map, its blocks taking the RoIs in `order`; the other arguments as
+// drn_roi_pool_forward (roi_pool.cu).
 extern "C" int drn_roi_pool_banded_rest_forward(
     const void* features, const void* boxes, const void* roi_scale,
-    const void* is_short, void* out, int B, int H, int W, int C, int P, int R,
-    float spatial_scale, int dtype, void* stream) {
-  if (R < 1 || R > kMaxRes || (dtype != 0 && dtype != 1)) {
+    const void* order, const void* is_short, void* out, int B, int H, int W,
+    int C, int P, int R, float spatial_scale, int dtype, void* stream) {
+  if (R < 1 || R > kMaxRes || (dtype != 0 && dtype != 1) ||
+      order == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* bx = static_cast<const float*>(boxes);
   const float* sc = static_cast<const float*>(roi_scale);
+  const int* ord = static_cast<const int*>(order);
   const uint8_t* skip = static_cast<const uint8_t*>(is_short);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_rest<BF16>(features, bx, sc, skip, out, B, H, W,
-                                        C, P, R, spatial_scale, s)
-                    : launch_rest<F32>(features, bx, sc, skip, out, B, H, W,
-                                       C, P, R, spatial_scale, s);
+  return dtype == 1
+             ? drn_roi::launch_batched<BF16>(features, bx, sc, ord, skip, out,
+                                             B, H, W, C, P, R, spatial_scale,
+                                             s)
+             : drn_roi::launch_batched<F32>(features, bx, sc, ord, skip, out,
+                                            B, H, W, C, P, R, spatial_scale,
+                                            s);
 }

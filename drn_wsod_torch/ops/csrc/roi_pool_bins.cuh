@@ -1,6 +1,6 @@
-// Bin arithmetic, element types and the per-bin max shared by the RoIPool
-// kernels (roi_pool.cu, roi_pool_image.cu, roi_pool_banded.cu), so that they
-// cannot drift apart.
+// Bin arithmetic, element types, the per-bin max and the batched body shared
+// by the RoIPool kernels (roi_pool.cu, roi_pool_image.cu, roi_pool_banded.cu),
+// so that they cannot drift apart.
 //
 // Semantics (torchvision RoIPool, bit for bit with the JAX package's
 // drn_wsod_tpu/ops/roi_align.py:roi_pool and its Pallas kernels):
@@ -65,15 +65,38 @@ __device__ __forceinline__ float nan_max(float m, float v) {
 struct F32 {
   typedef float T;
   static constexpr int kVec = 4;  // elements per 16-byte vector
+  static constexpr uint32_t kNegInfWord = 0xff800000u;  // -inf
   __device__ static float load(const T* p, int i) { return p[i]; }
   __device__ static T store(float v) { return v; }
   // a float32 value in the map's dtype, as a float
   __device__ static float cast(float s) { return s; }
+  // lane-wise max of two 16-byte vectors, NaN propagating
+  __device__ static uint4 vmax(uint4 a, uint4 b) {
+    return make_uint4(lane_max(a.x, b.x), lane_max(a.y, b.y),
+                      lane_max(a.z, b.z), lane_max(a.w, b.w));
+  }
+  // the epilogue: each lane (0 where the bin is empty) times `scale`
+  __device__ static uint4 scaled(uint4 m, float scale, bool empty) {
+    return make_uint4(scaled_lane(m.x, scale, empty),
+                      scaled_lane(m.y, scale, empty),
+                      scaled_lane(m.z, scale, empty),
+                      scaled_lane(m.w, scale, empty));
+  }
+
+ private:
+  __device__ static uint32_t lane_max(uint32_t a, uint32_t b) {
+    return __float_as_uint(nan_max(__uint_as_float(a), __uint_as_float(b)));
+  }
+  __device__ static uint32_t scaled_lane(uint32_t m, float scale,
+                                         bool empty) {
+    return __float_as_uint((empty ? 0.f : __uint_as_float(m)) * scale);
+  }
 };
 
 struct BF16 {
   typedef uint16_t T;
   static constexpr int kVec = 8;
+  static constexpr uint32_t kNegInfWord = 0xff80ff80u;  // two bf16 -inf
   __device__ static float load(const T* p, int i) {
     return __uint_as_float(static_cast<uint32_t>(p[i]) << 16);
   }
@@ -82,6 +105,35 @@ struct BF16 {
   }
   __device__ static float cast(float s) {
     return __bfloat162float(__float2bfloat16_rn(s));
+  }
+  // lane-wise max of two 16-byte vectors in bf16 itself, two lanes per
+  // instruction (__hmax2_nan: NaN propagating); a max needs no widening
+  __device__ static uint4 vmax(uint4 a, uint4 b) {
+    return make_uint4(pair_max(a.x, b.x), pair_max(a.y, b.y),
+                      pair_max(a.z, b.z), pair_max(a.w, b.w));
+  }
+  // the epilogue: each lane widened to float32 (0 where the bin is empty)
+  // times `scale` (a bf16 value, so the product is exact), rounded once
+  __device__ static uint4 scaled(uint4 m, float scale, bool empty) {
+    return make_uint4(scaled_pair(m.x, scale, empty),
+                      scaled_pair(m.y, scale, empty),
+                      scaled_pair(m.z, scale, empty),
+                      scaled_pair(m.w, scale, empty));
+  }
+
+ private:
+  __device__ static uint32_t pair_max(uint32_t a, uint32_t b) {
+    const __nv_bfloat162 r =
+        __hmax2_nan(reinterpret_cast<const __nv_bfloat162&>(a),
+                    reinterpret_cast<const __nv_bfloat162&>(b));
+    return reinterpret_cast<const uint32_t&>(r);
+  }
+  __device__ static uint32_t scaled_pair(uint32_t m, float scale,
+                                         bool empty) {
+    const float lo = empty ? 0.f : __uint_as_float(m << 16);
+    const float hi = empty ? 0.f : __uint_as_float(m & 0xffff0000u);
+    const __nv_bfloat162 r = __floats2bfloat162_rn(lo * scale, hi * scale);
+    return reinterpret_cast<const uint32_t&>(r);
   }
 };
 
@@ -118,25 +170,99 @@ __device__ __forceinline__ void pool_bin(const typename D::T* src,
   *reinterpret_cast<uint4*>(dst) = packed;
 }
 
-// Batched RoIPool from global memory: one block per (roi, image), the image
-// as the slowest grid index; out = dtype(max * dtype(roi_scale)). A RoI
-// whose `skip` entry is nonzero is left to another launch (skip may be
-// null). K1 (roi_pool.cu) launches it with no skip list, K3's rest launch
-// (roi_pool_banded.cu) with the band launch's RoIs skipped.
+// ---------------------------------------------------------------------------
+// The batched body (K1, and K3's rest launch): each cell of a RoI read once
+// per 16-byte channel vector.
+//
+// Consecutive bins overlap by at most one cell: bin i+1 starts no earlier
+// than the last cell of bin i (floor((i+1)r/R) >= ceil((i+1)r/R) - 1, and
+// clamping keeps it), and neither edge ever decreases with i. So a walk over
+// the bins in order meets a cell it has read before only as the last cell
+// it read: along x the row walk keeps the last vector it loaded, along y
+// the bin walk keeps the last row's R row-bin maxima (4 * RMax 32-bit
+// registers), and nothing is read twice.
+// ---------------------------------------------------------------------------
+
+// -inf in every lane of a 16-byte vector of D's elements
 template <typename D>
-__global__ void batched_kernel(const typename D::T* __restrict__ features,
-                               const float* __restrict__ boxes,
-                               const float* __restrict__ roi_scale,
-                               const uint8_t* __restrict__ skip,
-                               typename D::T* __restrict__ out, int H, int W,
-                               int C, int P, int R, float spatial_scale) {
-  constexpr int V = D::kVec;
-  const int p = blockIdx.x;
+__device__ __forceinline__ uint4 lowest() {
+  const uint32_t w = D::kNegInfWord;
+  return make_uint4(w, w, w, w);
+}
+
+// Cells a bin loads at once: its loads go out together (predicated off past
+// the bin's end), so a bin of a few cells waits on memory once, not once
+// per cell. Four was the fastest at the flagship shape on an H100 against
+// batches of 6 and 8 and a loop unrolled by 4 or 8 (PERF.md).
+constexpr int kLoadBatch = 4;
+
+// The row-bin maxima of one map row: rm[pw] = the max over the row's cells
+// [lo_x[pw], hi_x[pw]) of the vector at row[x * pitch], -inf where the bin
+// is empty. Each cell is loaded once: a cell shared by two x-bins is the
+// last one the previous bin loaded.
+template <typename D, int RMax>
+__device__ __forceinline__ void row_bin_max(const uint4* row, int pitch,
+                                            int R, const int* lo_x,
+                                            const int* hi_x, uint4 (&rm)[RMax]) {
+  uint4 last = lowest<D>();
+  int last_x = -1;
+#pragma unroll
+  for (int pw = 0; pw < RMax; ++pw) {
+    if (pw >= R) break;
+    int x = lo_x[pw];
+    const int hi = hi_x[pw];
+    uint4 m = lowest<D>();
+    if (x < hi) {
+      if (x == last_x) {
+        m = last;
+        ++x;
+      }
+      for (; x < hi; x += kLoadBatch) {
+        uint4 v[kLoadBatch];
+#pragma unroll
+        for (int j = 0; j < kLoadBatch; ++j) {
+          v[j] = x + j < hi ? row[(x + j) * pitch] : lowest<D>();
+        }
+#pragma unroll
+        for (int j = 0; j < kLoadBatch; ++j) {
+          m = D::vmax(m, v[j]);
+          if (x + j == hi - 1) last = v[j];
+        }
+      }
+      last_x = hi - 1;
+    }
+    rm[pw] = m;
+  }
+}
+
+// Batched RoIPool from global memory: one block per (RoI, image), the image
+// as the slowest grid index; out = dtype(max * dtype(roi_scale)). Block
+// (i, b) pools RoI p = order[b * P + i] of image b into out[b, p]. A RoI
+// whose `skip` entry (flat index b * P + p) is
+// nonzero is left to another launch (skip may be null). Each thread owns
+// 16-byte channel vectors c, c + blockDim.x, ... and walks the y-bins in
+// order, each y-bin's rows in order and each row's x-bins in order (the
+// header comment above); the y-bin's R bin maxima and the kept row's R
+// row-bin maxima stay in registers, and no register cap is set: more
+// blocks per SM, fewer loads in flight each, was slower. R <= RMax; K1
+// (roi_pool.cu) launches it with the top-row order and no skip list, K3's
+// rest launch (roi_pool_banded.cu) with the same order and the band
+// launch's RoIs skipped.
+template <typename D, int RMax>
+__global__ void __launch_bounds__(256)
+    batched_kernel(const uint4* __restrict__ features,
+                   const float* __restrict__ boxes,
+                   const float* __restrict__ roi_scale,
+                   const int* __restrict__ order,
+                   const uint8_t* __restrict__ skip,
+                   uint4* __restrict__ out, int H, int W, int nvec, int P,
+                   int R, float spatial_scale) {
   const int b = blockIdx.y;
+  const int p = order[static_cast<long>(b) * P + blockIdx.x];
   const long roi = static_cast<long>(b) * P + p;
   if (skip != nullptr && skip[roi]) return;
 
-  __shared__ int lo_y[kMaxRes], hi_y[kMaxRes], lo_x[kMaxRes], hi_x[kMaxRes];
+  __shared__ int lo_y[RMax], hi_y[RMax], lo_x[RMax], hi_x[RMax];
   __shared__ float s_scale;
   if (threadIdx.x == 0) {
     bin_edges(boxes + roi * 4, spatial_scale, H, W, R, lo_y, hi_y, lo_x,
@@ -145,17 +271,64 @@ __global__ void batched_kernel(const typename D::T* __restrict__ features,
     s_scale = D::cast(roi_scale[roi]);
   }
   __syncthreads();
+  const float scale = s_scale;
 
-  const typename D::T* map = features + static_cast<long>(b) * H * W * C;
-  typename D::T* dst = out + roi * R * R * C;
-  for (int c = threadIdx.x * V; c < C; c += blockDim.x * V) {
+  const uint4* map = features + static_cast<long>(b) * H * W * nvec;
+  const long row_pitch = static_cast<long>(W) * nvec;
+  uint4* dst = out + roi * R * R * nvec;
+  for (int c = threadIdx.x; c < nvec; c += blockDim.x) {
+    uint4 keep[RMax];     // row-bin maxima of row kept_y
+    int kept_y = -1;
     for (int ph = 0; ph < R; ++ph) {
-      for (int pw = 0; pw < R; ++pw) {
-        pool_bin<D>(map + c, static_cast<long>(W) * C, C, lo_y[ph], hi_y[ph],
-                    lo_x[pw], hi_x[pw], s_scale, dst + (ph * R + pw) * C + c);
+      int y = lo_y[ph];
+      const int hi = hi_y[ph];
+      uint4 acc[RMax];
+#pragma unroll
+      for (int pw = 0; pw < RMax; ++pw) acc[pw] = lowest<D>();
+      if (y < hi && y == kept_y) {
+#pragma unroll
+        for (int pw = 0; pw < RMax; ++pw) acc[pw] = keep[pw];
+        ++y;
+      }
+      for (; y < hi; ++y) {
+        row_bin_max<D, RMax>(map + y * row_pitch + c, nvec, R, lo_x, hi_x,
+                             keep);
+#pragma unroll
+        for (int pw = 0; pw < RMax; ++pw) acc[pw] = D::vmax(acc[pw], keep[pw]);
+        kept_y = y;
+      }
+      const bool empty_y = hi_y[ph] <= lo_y[ph];
+#pragma unroll
+      for (int pw = 0; pw < RMax; ++pw) {
+        if (pw >= R) break;
+        dst[(ph * R + pw) * nvec + c] = D::scaled(
+            acc[pw], scale, empty_y || hi_x[pw] <= lo_x[pw]);
       }
     }
   }
+}
+
+// Launches batched_kernel for R <= kMaxRes: the register arrays are sized
+// 7 for R <= 7 (the box head's resolution) and kMaxRes above. Returns the
+// launch's cudaGetLastError().
+template <typename D>
+int launch_batched(const void* features, const float* boxes,
+                   const float* roi_scale, const int* order,
+                   const uint8_t* skip, void* out, int B, int H, int W, int C,
+                   int P, int R, float spatial_scale, cudaStream_t stream) {
+  const int nvec = C / D::kVec;
+  const dim3 grid(P, B);
+  const int threads = nvec < 256 ? nvec : 256;
+  const uint4* f = static_cast<const uint4*>(features);
+  uint4* o = static_cast<uint4*>(out);
+  if (R <= 7) {
+    batched_kernel<D, 7><<<grid, threads, 0, stream>>>(
+        f, boxes, roi_scale, order, skip, o, H, W, nvec, P, R, spatial_scale);
+  } else {
+    batched_kernel<D, kMaxRes><<<grid, threads, 0, stream>>>(
+        f, boxes, roi_scale, order, skip, o, H, W, nvec, P, R, spatial_scale);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace drn_roi

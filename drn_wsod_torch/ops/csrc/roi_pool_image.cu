@@ -31,9 +31,10 @@
 //
 // Bound at the flagship shape (P=4096, 87x87x2048 bf16, one image): writing
 // the (4096, 49, 2048) bf16 output is 822 MB, ~0.25 ms at 3.35 TB/s; the
-// map adds 31 MB. Bytes written bound it in both modes. Left on the table,
-// as in K1: each bin's cells are re-read from L2 by every RoI and bin that
-// covers them, no shared-memory staging, no TMA.
+// map adds 31 MB. Bytes written bound it in both modes. Left on the table:
+// each bin's cells are re-read from L2 by every RoI and bin that covers
+// them (K1's body, roi_pool_bins.cuh:batched_kernel, reads each RoI cell
+// once), no shared-memory staging, no TMA.
 
 #include <algorithm>
 

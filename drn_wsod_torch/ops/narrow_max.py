@@ -87,42 +87,59 @@ def narrow_max_plain(x: torch.Tensor, kind: str) -> torch.Tensor:
     return bits.view(x.dtype)
 
 
+# kind -> (its torch dtype, the kernel's kind code)
+_SPECS = {kind: (DTYPES[kind], code) for code, kind in enumerate(KINDS)}
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    fn = _build.load("narrow_max").drn_narrow_max
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.bind("narrow_max", "drn_narrow_max", ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p)
+
+
+def _half_bytes(x: torch.Tensor, kind: str, spec) -> int:
+    """Every check of :func:`narrow_max`, each made once: the bytes of a
+    half of ``x`` where the kernel takes it (a contiguous CUDA tensor of
+    the kind's dtype, an even first axis, a half of whole 16-byte vectors,
+    16-byte aligned); 0 for a CPU tensor, which the plain version takes;
+    raises on anything else."""
+    if spec is None:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    if x.dtype is not spec[0]:
+        raise TypeError(f"{kind} data must be {spec[0]}, got {x.dtype}")
+    if not x.dim() or x.shape[0] & 1 or not x.is_contiguous():
+        raise ValueError(f"need a contiguous tensor with an even first axis, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_cuda:
+        return 0
+    half_bytes = x.nbytes >> 1
+    if not half_bytes or (half_bytes | x.data_ptr()) & 15:
+        raise ValueError(f"the kernel moves 16-byte vectors: a half of "
+                         f"{half_bytes} bytes must be a positive multiple "
+                         f"of 16 and 16-byte aligned")
+    return half_bytes
 
 
 def narrow_max(x: torch.Tensor, kind: str) -> torch.Tensor:
     """The max of the two halves of a contiguous (2h, ...) tensor of
     ``kind`` (int4: packed uint8). CPU tensors take the plain version; CUDA
     tensors launch the kernel, which moves 16-byte vectors: a half must be a
-    whole number of them, 16-byte aligned."""
-    if kind not in KINDS:
-        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
-    if x.dtype != DTYPES[kind]:
-        raise TypeError(f"{kind} data must be {DTYPES[kind]}, got {x.dtype}")
-    if x.dim() < 1 or x.shape[0] % 2 or not x.is_contiguous():
-        raise ValueError(f"need a contiguous tensor with an even first axis, "
-                         f"got {tuple(x.shape)}")
-    if not x.is_cuda:
+    whole number of them, 16-byte aligned.
+
+    The kernel's time is its launch, so the host path is short: one pass
+    of checks (:func:`_half_bytes`), one allocation, and a C entry point
+    and a stream getter bound once."""
+    spec = _SPECS.get(kind)
+    half_bytes = _half_bytes(x, kind, spec)
+    if not half_bytes:
         return narrow_max_plain(x, kind)
-    half_bytes = x.numel() // 2 * x.element_size()
-    if half_bytes == 0 or half_bytes % 16 or x.data_ptr() % 16:
-        raise ValueError(f"the kernel moves 16-byte vectors: a half of "
-                         f"{half_bytes} bytes must be a positive multiple "
-                         f"of 16 and 16-byte aligned")
-    out = torch.empty((x.shape[0] // 2,) + tuple(x.shape[1:]),
-                      dtype=x.dtype, device=x.device)
-    err = _kernel()(x.data_ptr(), out.data_ptr(), half_bytes,
-                    KINDS.index(kind),
-                    torch.cuda.current_stream(x.device).cuda_stream)
+    out = x.new_empty((x.shape[0] >> 1, *x.shape[1:]))
+    err = _kernel()(x.data_ptr(), out.data_ptr(), half_bytes, spec[1],
+                    _build.raw_stream(x.get_device()))
     if err != 0:
-        raise RuntimeError(f"narrow_max kernel launch failed ({kind}): CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"narrow_max kernel launch failed ({kind}): "
+                           f"CUDA error {err}")
     narrow_max.launches[kind] += 1
     return out
 

@@ -109,6 +109,30 @@ def bin_cells(boxes: torch.Tensor, spatial_scale: float, H: int, W: int,
     return cells.reshape(boxes.shape[:-1])
 
 
+def roi_cells(boxes: torch.Tensor, spatial_scale: float, H: int, W: int
+              ) -> torch.Tensor:
+    """Map cells of each RoI clamped to the map, each counted once: the
+    cell reads per channel of a pool that reads every cell of a RoI once
+    (K1's body, ``csrc/roi_pool_bins.cuh:batched_kernel``). The R x R bins
+    together cover exactly these cells, so this is at most
+    :func:`bin_cells`. (..., 4) -> (...) int64."""
+    x1, y1, roi_w, roi_h = map_coords(boxes.reshape(-1, 4), spatial_scale)
+    w = (x1 + roi_w).clamp(0, W) - x1.clamp(0, W)
+    h = (y1 + roi_h).clamp(0, H) - y1.clamp(0, H)
+    return (w.clamp(min=0) * h.clamp(min=0)).reshape(boxes.shape[:-1])
+
+
+def top_row_order(boxes: torch.Tensor) -> torch.Tensor:
+    """(B, P, 4) boxes -> (B, P) int32: each image's RoIs in the order of
+    their top edge (y1), the order in which the blocks of K1 (and of K3's
+    rest launch) take them, so that the RoIs running together share map
+    rows and those rows stay in L2 while they run. On an H100 this halves
+    K1's time at the eval buckets whose maps outgrow L2 (PERF.md). Torch
+    ops on the boxes' device, no host read; any permutation gives the same
+    output."""
+    return boxes[..., 1].argsort(dim=1).to(torch.int32)
+
+
 def _rmq(lo: torch.Tensor, hi: torch.Tensor, num_levels: int):
     """The two power-of-two windows [lo, lo + 2^k) and [hi - 2^k, hi) that
     cover [lo, hi), k = floor(log2(span)): returns (lo, pos2, k)."""
@@ -178,14 +202,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 @functools.lru_cache(maxsize=None)
 def _kernel(library: str = "roi_pool", symbol: str = "drn_roi_pool_forward",
-            pointers: int = 4, ints: int = 6):
+            pointers: int = 5, ints: int = 6):
     """A kernel's C entry point: ``pointers`` pointers, ``ints`` ints, the
     spatial scale, the dtype code and the stream."""
-    fn = getattr(_build.load(library), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.bind(library, symbol,
+                       *([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
 
 
 def _check_aux(features: torch.Tensor, **tensors) -> None:
@@ -255,16 +277,28 @@ def roi_pool_batched(features: torch.Tensor, boxes: torch.Tensor,
         return roi_pool_plain(features, boxes, spatial_scale, resolution,
                               roi_scale)
     _check_batched(features, boxes, roi_scale)
+    return _launch_batched(features, boxes, spatial_scale, resolution,
+                           roi_scale, top_row_order(boxes))
+
+
+def _launch_batched(features: torch.Tensor, boxes: torch.Tensor,
+                    spatial_scale: float, resolution: int,
+                    roi_scale: torch.Tensor,
+                    order: torch.Tensor) -> torch.Tensor:
+    """K1's launch on checked inputs, its blocks taking each image's RoIs
+    in ``order`` ((B, P) int32, contiguous, each row a permutation of
+    0..P-1, on the map's device); adds one to
+    ``roi_pool_batched.launches``. The output is the same for every
+    order."""
     B, H, W, C = features.shape
     P = boxes.shape[1]
-
     out = torch.empty((B, P, resolution, resolution, C),
                       dtype=features.dtype, device=features.device)
     err = _kernel()(
         features.data_ptr(), boxes.data_ptr(), roi_scale.data_ptr(),
-        out.data_ptr(), B, H, W, C, P, resolution, float(spatial_scale),
-        _DTYPE_CODES[features.dtype],
-        torch.cuda.current_stream(features.device).cuda_stream)
+        order.data_ptr(), out.data_ptr(), B, H, W, C, P, resolution,
+        float(spatial_scale), _DTYPE_CODES[features.dtype],
+        _build.stream_of(features))
     if err != 0:
         raise RuntimeError(f"roi_pool kernel launch failed: CUDA error {err}")
     roi_pool_batched.launches += 1
@@ -365,7 +399,7 @@ def roi_pool_image(features: torch.Tensor, boxes: torch.Tensor,
 
     out = torch.empty((P, resolution, resolution, C), dtype=features.dtype,
                       device=features.device)
-    stream = torch.cuda.current_stream(features.device).cuda_stream
+    stream = _build.stream_of(features)
     code = _DTYPE_CODES[features.dtype]
     if quantize_int8:
         q, ch_scale = int8_quantize(features)
@@ -533,7 +567,8 @@ def roi_pool_banded(features: torch.Tensor, boxes: torch.Tensor,
     of :func:`roi_pool_batched` (roi_scale None: ones). CPU tensors go
     through :func:`roi_pool_banded_plain`. CUDA tensors launch
     ``csrc/roi_pool_banded.cu`` twice, the short RoIs from bands staged in
-    shared memory and the rest from the full map, and add one to
+    shared memory and the rest from the full map as K1 launches them (its
+    body, in the top-row order), and add one to
     ``roi_pool_banded.launches["roi_pool_banded"]`` and one to
     ``["roi_pool_banded_rest"]``. No host read: the partition stays on the
     card."""
@@ -552,7 +587,7 @@ def roi_pool_banded(features: torch.Tensor, boxes: torch.Tensor,
     is_short = part.short.to(torch.uint8)
     out = torch.empty((B, P, resolution, resolution, C),
                       dtype=features.dtype, device=features.device)
-    stream = torch.cuda.current_stream(features.device).cuda_stream
+    stream = _build.stream_of(features)
     code = _DTYPE_CODES[features.dtype]
     err = _kernel("roi_pool_banded", "drn_roi_pool_banded_forward", 6, 10)(
         features.data_ptr(), boxes.data_ptr(), roi_scale.data_ptr(),
@@ -563,11 +598,12 @@ def roi_pool_banded(features: torch.Tensor, boxes: torch.Tensor,
         raise RuntimeError(f"roi_pool_banded kernel launch failed: CUDA "
                            f"error {err}")
     roi_pool_banded.launches["roi_pool_banded"] += 1
-    err = _kernel("roi_pool_banded", "drn_roi_pool_banded_rest_forward", 5,
+    order = top_row_order(boxes)
+    err = _kernel("roi_pool_banded", "drn_roi_pool_banded_rest_forward", 6,
                   6)(features.data_ptr(), boxes.data_ptr(),
-                     roi_scale.data_ptr(), is_short.data_ptr(),
-                     out.data_ptr(), B, H, W, C, P, resolution,
-                     float(spatial_scale), code, stream)
+                     roi_scale.data_ptr(), order.data_ptr(),
+                     is_short.data_ptr(), out.data_ptr(), B, H, W, C, P,
+                     resolution, float(spatial_scale), code, stream)
     if err != 0:
         raise RuntimeError(f"roi_pool_banded_rest kernel launch failed: CUDA "
                            f"error {err}")

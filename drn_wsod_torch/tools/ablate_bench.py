@@ -37,7 +37,7 @@ FLAGSHIP = str(Path(__file__).resolve().parents[2] / "configs"
 @dataclasses.dataclass
 class Row:
     name: str
-    ms: float      # device ms per call
+    ms: float      # ms per call by CUDA events (host issue included)
     calls: int     # calls made, warm-up included (0: a derived row)
 
 
@@ -50,7 +50,7 @@ def card() -> str:
 
 
 def cuda_ms(fn: Callable[[], object], iters: int) -> float:
-    """Device ms per call of ``fn``: one warm-up call, then CUDA events
+    """ms per call of ``fn`` by CUDA events: one warm-up call, then events
     around ``iters`` calls."""
     fn()
     start = torch.cuda.Event(enable_timing=True)

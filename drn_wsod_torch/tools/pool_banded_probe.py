@@ -13,7 +13,8 @@ across the buckets in order, so the boxes equal the JAX tool's), a random
 short-RoI fraction by the JAX tool's rule (height / 8 <= 24 cells), the
 fraction the band launch takes (``band_partition``) and its share of the
 cell reads (every bin's cells times the channels, ``bin_cells``: what K3 can
-move off K1's reads), the device ms of
+move off K1's reads), the reads of a pool that reads each RoI cell once
+(``roi_cells``: what K1's body reads), the device ms of
 ``roi_pool_batched`` (classic, K1) and of ``roi_pool_batched(...,
 allow_banded=True)`` (banded, K3) by CUDA events, the speedup, and
 ``max |classic - banded|``, which must be 0: the tool exits 1 otherwise.
@@ -73,6 +74,7 @@ class Bucket:
     banded_ms: float
     max_diff: float
     calls: int             # calls of each path, warm-up and compare included
+    cell_reads_gb: float   # each RoI's clamped cells once (K1): x C x 2 B
 
     @property
     def speedup(self) -> float:
@@ -88,7 +90,7 @@ def run(buckets: Sequence[int] = BUCKETS, iters: int = 10, device=None,
     warm-up call plus ``iters`` calls."""
     from drn_wsod_torch.device import resolve_device
     from drn_wsod_torch.ops.roi_pool import (band_partition, bin_cells,
-                                             roi_pool_batched)
+                                             roi_cells, roi_pool_batched)
 
     dev = resolve_device(device)
     rs = np.random.RandomState(0)
@@ -99,6 +101,8 @@ def run(buckets: Sequence[int] = BUCKETS, iters: int = 10, device=None,
         part = band_partition(boxes, 0.125, feats.shape[1])
         cells = bin_cells(boxes, 0.125, feats.shape[1], feats.shape[2])
         total = cells.sum().item()
+        nbytes = C * feats.element_size() / 1e9
+        once = roi_cells(boxes, 0.125, feats.shape[1], feats.shape[2])
 
         def classic():
             return roi_pool_batched(feats, boxes, 0.125, 7, scale)
@@ -112,8 +116,8 @@ def run(buckets: Sequence[int] = BUCKETS, iters: int = 10, device=None,
         row = Bucket(S, feats.shape[1], float((hcells <= 24).mean()),
                      part.short.float().mean().item(),
                      cells[part.short].sum().item() / total,
-                     total * C * feats.element_size() / 1e9, t_c, t_b, diff,
-                     iters + 2)
+                     total * nbytes, t_c, t_b, diff, iters + 2,
+                     once.sum().item() * nbytes)
         out.append(row)
         if emit is not None:
             emit(row)
@@ -126,8 +130,10 @@ def format_bucket(row: Bucket, tag: str) -> List[str]:
         f"--- bucket {row.size} (map {row.map}): short-roi (<=24 cells) "
         f"fraction {row.short_frac:.0%}, band launch {row.banded_frac:.0%} "
         f"({row.banded_reads:.1%} of the {row.reads_gb:.2f} GB of cell "
-        f"reads) {tag}",
+        f"reads bin by bin; {row.cell_reads_gb:.2f} GB each RoI cell once) "
+        f"{tag}",
         f"  {'classic (K1, roi_pool_batched)':50s} {row.classic_ms:8.3f} ms "
+        f"({row.cell_reads_gb / row.classic_ms:.2f} GB/ms of cell reads) "
         f"{tag}",
         f"  {'banded (K3, 48-row bands + tall rest)':50s} "
         f"{row.banded_ms:8.3f} ms {tag}",

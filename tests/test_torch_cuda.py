@@ -1,6 +1,7 @@
-"""CUDA-only tests: the hand-written RoIPool kernels (K1 batched, K2 single
-image in float and int8 modes, K3 banded) and the narrow-dtype max (K4)
-against their plain versions on the card, and the toy detect path and train
+"""CUDA-only tests: the hand-written RoIPool kernels (K1 batched, whose
+body reads each RoI cell once; K2 single image in float and int8 modes; K3
+banded) and the narrow-dtype max (K4) against their plain versions on the
+card, and the toy detect path and train
 steps on the card against the CPU. They skip where no CUDA device exists
 (the kernels have no CPU mode); run them on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py``."""
@@ -62,6 +63,89 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         rp.roi_pool_batched(feat[..., :4].contiguous(), boxes, 0.125, 7, scale)
     with pytest.raises(TypeError):
         rp.roi_pool_batched(feat, boxes.cpu(), 0.125, 7, scale)
+
+
+def _equal_by_value(got, want):
+    """Equal by value (an empty bin may be -0.0 on one side), NaN where the
+    plain version gives NaN."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(torch.where(nan, 0, got), torch.where(nan, 0, want))
+
+
+def _k1_inputs(dev, dtype, case, B=2, C=24, P=128, seed=11):
+    """Boxes in exact cells (8 px each, scale 1/8) for K1's walk: RoIs of
+    1-6 cells (one cell in many bins); 8-20 cells (adjacent bins share a
+    row and a column); tall and wide ones on a 192x192 map; partly and
+    wholly off the map; and NaN cells."""
+    g = np.random.RandomState(seed)
+    H = W = 192 if case == "tall_wide" else 20
+    feat = torch.from_numpy(g.randn(B, H, W, C).astype(np.float32))
+    if case == "tiny":
+        w, h = g.randint(1, 7, (2, B, P))
+    elif case == "tall_wide":
+        long_, short = g.randint(100, 193, (B, P)), g.randint(1, 11, (B, P))
+        tall = g.uniform(0, 1, (B, P)) < 0.5
+        w, h = np.where(tall, short, long_), np.where(tall, long_, short)
+    else:
+        w, h = g.randint(8, 21, (2, B, P))
+    x1 = g.randint(0, W - w + 1)
+    y1 = g.randint(0, H - h + 1)
+    if case == "off_map":
+        x1 = g.randint(-25, W + 5, (B, P))
+        y1 = g.randint(-25, H + 5, (B, P))
+        x1[:, :4], y1[:, :4] = [-40, W + 3, 2, 5], [3, 4, -40, H + 9]
+    boxes = 8.0 * np.stack([x1, y1, x1 + w - 1, y1 + h - 1], -1)
+    if case == "nan":
+        feat[torch.from_numpy(g.uniform(0, 1, (B, H, W)) < 0.02)] = np.nan
+        feat[torch.from_numpy(g.uniform(0, 1, feat.shape) < 0.01)] = np.nan
+    scale = g.uniform(1, 2, (B, P)) * (g.uniform(0, 1, (B, P)) > 0.2)
+    return (feat.to(dtype).to(dev),
+            torch.from_numpy(boxes.astype(np.float32)).to(dev),
+            torch.from_numpy(scale.astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("case", ["tiny", "shared_edges", "tall_wide",
+                                  "off_map", "nan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_kernel_reads_each_cell_once_matches_plain(cuda, dtype, case):
+    feat, boxes, scale = _k1_inputs(cuda, dtype, case)
+    before = rp.roi_pool_batched.launches
+    got = rp.roi_pool_batched(feat, boxes, 0.125, 7, scale)
+    torch.cuda.synchronize()
+    assert rp.roi_pool_batched.launches == before + 1
+    _equal_by_value(got, rp.roi_pool_plain(feat, boxes, 0.125, 7, scale))
+    if case == "nan":
+        assert got.isnan().any()
+
+
+@pytest.mark.parametrize("C", [8, 24, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_kernel_channel_widths(cuda, dtype, C):
+    feat, boxes, scale = _k1_inputs(cuda, dtype, "shared_edges", C=C, P=48)
+    got = rp.roi_pool_batched(feat, boxes, 0.125, 7, scale)
+    _equal_by_value(got, rp.roi_pool_plain(feat, boxes, 0.125, 7, scale))
+
+
+def test_kernel_any_roi_order_and_other_resolutions(cuda):
+    """B = 3: RoI order, the top-row order and a random permutation per
+    image give the plain output; resolutions 3 and 14 (the wider register
+    arrays) too."""
+    feat, boxes, scale = _k1_inputs(cuda, torch.bfloat16, "off_map", B=3)
+    want = rp.roi_pool_plain(feat, boxes, 0.125, 7, scale)
+    perm = torch.stack([torch.randperm(128, generator=torch.Generator()
+                                       .manual_seed(b)) for b in range(3)])
+    roi_order = torch.arange(128).expand(3, 128)
+    for order in (roi_order, rp.top_row_order(boxes), perm):
+        order = order.to(device=cuda, dtype=torch.int32).contiguous()
+        got = rp._launch_batched(feat, boxes, 0.125, 7, scale, order)
+        _equal_by_value(got, want)
+    for R in (3, 14):
+        _equal_by_value(rp.roi_pool_batched(feat, boxes, 0.125, R, scale),
+                        rp.roi_pool_plain(feat, boxes, 0.125, R, scale))
 
 
 def test_toy_detect_on_cuda_matches_cpu(cuda):

@@ -137,6 +137,23 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
         nm.narrow_max(nm.probe_input("int8"), "int2")
 
 
+@pytest.mark.parametrize("kind", nm.KINDS)
+def test_wrapper_checks_once_and_sends_cpu_tensors_plain(kind):
+    """One pass of checks: a CPU tensor goes to the plain version, also at
+    a size the kernel would refuse (halves of 3 elements); what no version
+    takes (a 0-d or non-contiguous tensor) raises."""
+    spec = nm._SPECS[kind]
+    x = nm.probe_input(kind)
+    assert nm._half_bytes(x, kind, spec) == 0
+    small = x[:, :3].contiguous()
+    assert nm._half_bytes(small, kind, spec) == 0
+    assert torch.equal(nm.narrow_max(small, kind).view(torch.uint8),
+                       nm.narrow_max_plain(small, kind).view(torch.uint8))
+    for bad in (x.t(), x[0, 0]):
+        with pytest.raises(ValueError):
+            nm.narrow_max(bad, kind)
+
+
 def test_dtype_probe_on_the_cpu_runs_every_dtype():
     lines = []
     rows = mosaic_dtype_probe.run(device="cpu",

@@ -114,17 +114,23 @@ def test_fractions_follow_both_rules(rows):
         assert r.banded_reads == pytest.approx(
             sum(c for c, s in zip(cells, short) if s) / sum(cells))
         assert r.reads_gb == pytest.approx(sum(cells) * 8 * 2 / 1e9)
+        once = rp.roi_cells(torch.from_numpy(boxes), 0.125, r.map, r.map)
+        assert r.cell_reads_gb == pytest.approx(
+            once.sum().item() * 8 * 2 / 1e9)
+        assert 0.0 < r.cell_reads_gb <= r.reads_gb
 
 
 def test_lines_carry_the_card():
     row = probe.Bucket(1536, 192, 0.41, 0.40, 0.17, 37.9, 17.0, 18.5, 0.0,
-                       12)
+                       12, 30.1)
     lines = probe.format_bucket(row, "[NVIDIA H100 80GB HBM3, 700.00 W]")
     assert len(lines) == 5
     assert all(line.endswith("[NVIDIA H100 80GB HBM3, 700.00 W]")
                for line in lines)
     assert lines[0].startswith("--- bucket 1536 (map 192)")
-    assert "(17.0% of the 37.90 GB of cell reads)" in lines[0]
+    assert ("(17.0% of the 37.90 GB of cell reads bin by bin; 30.10 GB "
+            "each RoI cell once)") in lines[0]
+    assert "17.000 ms (1.77 GB/ms of cell reads)" in lines[1]
     assert "speedup 0.92x" in lines[3]
     assert "max |classic - banded| on the card: 0.0" in lines[4]
 
