@@ -22,8 +22,10 @@ Phases (any failure exits non-zero):
      tool's own B=2 88x88x2048 bf16 inputs, and on the edge-case boxes of
      the first 87x87 image; K3 (banded RoIPool) against its plain version
      and against K1 on the banded probe's own inputs at its four buckets
-     (B=1, P=4096, 88^2 to 192^2 x 2048 bf16), and on the edge-case boxes
-     of K1's inputs; K4 (narrow-dtype max) bit for bit in each of its six
+     (B=1, P=4096, 88^2 to 192^2 x 2048 bf16), with its time split into the
+     partition, the band launch (beside its own bound), the top-row order
+     and the rest launch, and on the edge-case boxes of K1's inputs; K4
+     (narrow-dtype max) bit for bit in each of its six
      dtypes, on the dtype probe's input and on seeded random bit patterns,
      with ``torch.maximum`` of the halves timed beside it where torch has it,
      and the wrapper's host issue split into its parts;
@@ -561,11 +563,25 @@ def phase3_k1_reads(feats, boxes, scale, ms, tag) -> None:
           f"{k1_us:.3f} {tag}", flush=True)
 
 
+def band_launch_bound(f, part, resolution=7, band_rows=48):
+    """Least time of K3's band launch alone: the short RoIs' outputs
+    written once and the staged bands (one per nonempty run, all channels)
+    read once, at HBM rate. Returns (ms, output bytes, band bytes)."""
+    H, W, C = f.shape[-3:]
+    runs = (part.run_start.diff() > 0).sum().item()
+    out_b = part.short.sum().item() * resolution ** 2 * C * f.element_size()
+    band_b = runs * min(band_rows, H) * W * C * f.element_size()
+    return (out_b + band_b) / PEAK_BYTES_S * 1e3, out_b, band_b
+
+
 def phase3_banded(feats, boxes, scale, tag) -> dict:
     """K3 against its plain version and against K1: on K1's flagship
     edge-case inputs, then at each bucket of the banded probe on the
-    probe's own inputs (its boxes drawn in its order). Times at each bucket;
-    the JSON entry holds the 1536 bucket's, the one K3 exists for."""
+    probe's own inputs (its boxes drawn in its order), with K3's time split
+    into its parts: the partition, the band launch (beside its own bound),
+    the top-row order and the rest launch, each queued alone. Times at each
+    bucket; the JSON entry holds the 1536 bucket's, the one K3 exists
+    for."""
     from drn_wsod_torch.ops import roi_pool as rp
     from drn_wsod_torch.tools import pool_banded_probe
 
@@ -583,7 +599,8 @@ def phase3_banded(feats, boxes, scale, tag) -> dict:
     for S in pool_banded_probe.BUCKETS:
         f, b, s = pool_banded_probe.bucket_inputs(rs, S, feats.device)
         part = rp.band_partition(b, 0.125, f.shape[1])
-        ct = rp.band_tile(f)
+        tile = rp.band_tile(f)
+        order = rp.top_row_order(b)
 
         def kernel():
             return rp.roi_pool_banded(f, b, 0.125, 7, s)
@@ -609,23 +626,46 @@ def phase3_banded(feats, boxes, scale, tag) -> dict:
         k1_roi_order_ms = queued_ms(k1_roi_order, 20)
         once, bins = cell_reads_gb(f, b)
         single_ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
-        split_ms = queued_ms(lambda: rp.band_partition(b, 0.125, f.shape[1]),
-                             20)
+        out = torch.full_like(got, float("nan"))
+        parts = {
+            "partition": lambda: rp.band_partition(b, 0.125, f.shape[1]),
+            "band launch": lambda: rp._launch_band(
+                f, b, 0.125, 7, s, part, tile, 48, out),
+            "top_row_order": lambda: rp.top_row_order(b),
+            "rest launch": lambda: rp._launch_rest(
+                f, b, 0.125, 7, s, order, part.short, out)}
+        split = {name: queued_ms(fn, 20) for name, fn in parts.items()}
+        exact(f"roi_pool_banded at {S} (its two launches alone)", out, got)
+        band_ms, out_b, band_b = band_launch_bound(f, part)
         bound = roi_pool_bound(f, b, s, got, 0.125)
+        vec = 16 // f.element_size()
+        band_smem = min(48, f.shape[1]) * rp.band_pitch(
+            f.shape[2], tile.ct // vec) * 16
+        longest = part.run_start.diff().max().item()
         print(f"phase 3: roi_pool_banded kernel == plain == roi_pool kernel "
               f"(max|diff| 0.0) at bucket {S}, {tuple(f.shape)} bf16, "
               f"P={P}, the probe's boxes, {part.short.sum().item()} short "
-              f"RoIs in {part.num_bands} bands, channel tile {ct} (a band "
-              f"of {min(48, f.shape[1]) * f.shape[2] * ct * 2} B of shared "
-              f"memory): kernel {ms:.4f} ms per call queued (partition "
-              f"{split_ms:.4f} of it; {single_ms:.4f} a single call, its "
-              f"host issue included), K1 {k1_ms:.4f} ms queued ("
+              f"RoIs in {part.num_bands} bands (the longest run "
+              f"{longest}), channel tile {tile.ct}, RoI chunk {tile.chunk} "
+              f"(a band of {band_smem} B and a table of "
+              f"{rp.table_bytes(7, tile.chunk)} B of shared memory): kernel "
+              f"{ms:.4f} ms per call queued ({single_ms:.4f} a single call, "
+              f"its host issue included), K1 {k1_ms:.4f} ms queued ("
               f"{once / k1_ms:.2f} GB/ms of {once:.2f} GB of reads each RoI "
               f"cell once; {bins:.2f} GB bin by bin), K1 in RoI order "
               f"{k1_roi_order_ms:.4f} ms queued ({once / k1_roi_order_ms:.2f}"
               f" GB/ms), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
               f"({bound[1]}); library n/a, as K1 {tag}", flush=True)
-        del got, f
+        print(f"phase 3: roi_pool_banded parts at bucket {S}, ms per call "
+              f"queued, each alone: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; sum {sum(split.values()):.4f} of K3's {ms:.4f} (K1 "
+              f"{k1_ms:.4f}, K3 / K1 {ms / k1_ms:.3f}); the band launch's "
+              f"bound {band_ms:.4f} ms (bytes: {out_b / 1e6:.0f} MB of short "
+              f"RoI outputs, {band_b / 1e6:.0f} MB of staged bands), "
+              f"bound / time {band_ms / split['band launch']:.1%} {tag}",
+              flush=True)
+        del got, out, f
     return kernel_entry(
         "roi_pool_banded", "drn_wsod_torch/ops/csrc/roi_pool_banded.cu",
         "drn_wsod_tpu/ops/roi_pool_pallas.py:948 (_banded_launch :897, "

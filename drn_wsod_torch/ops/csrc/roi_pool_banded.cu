@@ -17,15 +17,27 @@
 // RoIs (flat index b * P + p) grouped by (image, band), and run g = b * NB +
 // k is order[run_start[g] : run_start[g + 1]].
 //
-// Band launch: one block per (channel tile, band, image). It reads its run's
-// bounds from device memory (the number of short RoIs per band is known
-// only on the card, so the grid is fixed and a block with an empty run
-// exits), stages rows [bs, bs + rows) x W x CT channels of the map into
-// dynamic shared memory once, and pools every bin of every RoI of the run
-// from there: threads walk (RoI, bin, 16-byte vector) work items. The bin
-// edges are computed band-locally (start y1 - bs, rows clamped to the band,
-// rows = min(band_rows, H)), as the plain version
-// roi_pool.py:roi_pool_banded_plain computes them.
+// Band launch: one block per (channel tile, band, image), 512 threads (256
+// at R > 7, for the wider register arrays). It reads its run's bounds from
+// device memory (the number of short RoIs per band is known only on the
+// card, so the grid is fixed and a block with an empty run exits), then
+// stages rows [bs, bs + rows) x W x CT channels of the map into dynamic
+// shared memory once, each thread keeping kStageBatch 16-byte loads in
+// flight before it stores them. A staged row is padded to a pitch of
+// band_pitch() vectors, so that the rows of one RoI's y-bins, which the
+// threads of a warp walk side by side, start on different banks. The run
+// is then taken in chunks of at most `chunk` RoIs: the block writes a RoI
+// table into shared memory behind the band (each RoI's flat output index,
+// its scale cast to the map's dtype, and its R band-local y-edges and R
+// x-edges, computed once per RoI and bin), and after one barrier the work
+// loop reads shared memory only. A work item is (RoI of the chunk, y-bin,
+// 16-byte vector): for each of the y-bin's rows (at most 7 for a short RoI)
+// it takes the row's R row-bin maxima with K1's row walk
+// (roi_pool_bins.cuh:row_bin_max, which reads each cell of the row once),
+// folds them into R accumulators, and stores the R outputs with K1's
+// epilogue and empty flags. Only a row shared by two y-bins is read twice.
+// The y-edges are band-local (start y1 - bs, clamped to rows = min(band_rows,
+// H)), as the plain version roi_pool.py:roi_pool_banded_plain computes them.
 // Rest launch: K1's launch (roi_pool_bins.cuh:batched_kernel, which reads
 // each cell of a RoI once, its blocks taking the RoIs in the top-row order)
 // with the short RoIs skipped.
@@ -33,13 +45,16 @@
 // Semantics as K1 (roi_pool_bins.cuh): round-half-even coordinates, max
 // propagating NaN, 0 for an empty bin, out = dtype(max * dtype(roi_scale)).
 //
-// Bound: as K1, the output (B, P, R, R, C) written once; at the probe's
-// 1536 bucket (B=1, P=4096, 192x192x2048 bf16) 822 MB plus the 151 MB map,
-// ~0.29 ms at 3.35 TB/s. The band launch reads each band once per channel
-// tile, about (band_rows / stride) = 2x the map. Left on the table: 16-byte
-// global reads at a C-element stride when staging (CT is 8-16 bf16 channels
-// at these widths), scattered 16-byte output stores, no TMA, and one block
-// per SM when a band takes more than half the shared memory.
+// Bound of the band launch alone: the short RoIs' outputs written once plus
+// the staged bands read once, at 3.35 TB/s. At the pool probe's buckets
+// (B=1, P=4096, bf16, 2048 channels) that is 617 / 452 / 411 / 337 MB of
+// outputs and 69 / 160 / 220 / 302 MB of bands from the 704 to the 1536
+// bucket, about 0.2 ms at each. Left on the table: the band is staged with
+// plain loads at a C-element stride (no cp.async or TMA, and staging does
+// not overlap the walk: one block fills an SM's shared memory), each block
+// rebuilds the RoI table of every chunk for its channel tile, the items of
+// a warp walk RoIs of different widths, and the 16-byte output stores are
+// scattered.
 
 #include <algorithm>
 
@@ -51,22 +66,41 @@ using drn_roi::BF16;
 using drn_roi::F32;
 using drn_roi::kMaxRes;
 
-constexpr int kThreads = 256;
+// 16-byte loads each thread keeps in flight while it stages the band
+constexpr int kStageBatch = 8;
 
-template <typename D>
-__global__ void band_kernel(const typename D::T* __restrict__ features,
-                            const float* __restrict__ boxes,
-                            const float* __restrict__ roi_scale,
-                            const int* __restrict__ order,
-                            const int* __restrict__ run_start,
-                            typename D::T* __restrict__ out, int H, int W,
-                            int C, int R, int NB, int stride, int band_rows,
-                            int CT, float spatial_scale) {
+// threads of a band block: the register arrays sized 7 fit 128 registers
+// at 512 threads; those sized kMaxRes take 256 threads
+__host__ __device__ constexpr int band_threads(int rmax) {
+  return rmax <= 7 ? 512 : 256;
+}
+
+// 16-byte vectors per staged band row: W * nv padded to nv modulo 8, so
+// that consecutive rows start nv vectors apart on the 8 16-byte bank groups.
+// roi_pool.py:band_pitch mirrors it.
+__host__ __device__ int band_pitch(int W, int nv) {
+  return W * nv + ((nv - W * nv) % 8 + 8) % 8;
+}
+
+// bytes of one RoI's table entry: 4R int edges, its output index and scale.
+// roi_pool.py:table_bytes mirrors it.
+__host__ __device__ int table_entry_bytes(int R) { return 16 * R + 8; }
+
+template <typename D, int RMax>
+__global__ void __launch_bounds__(band_threads(RMax))
+    band_kernel(const typename D::T* __restrict__ features,
+                const float* __restrict__ boxes,
+                const float* __restrict__ roi_scale,
+                const int* __restrict__ order,
+                const int* __restrict__ run_start, uint4* __restrict__ out,
+                int H, int W, int C, int R, int NB, int stride,
+                int band_rows, int CT, int chunk, float spatial_scale) {
   typedef typename D::T T;
   constexpr int V = D::kVec;
-  extern __shared__ uint4 band_vec[];  // (rows, W, CT / V) 16-byte vectors
+  // the band, (rows, pitch) 16-byte vectors, then the RoI table
+  extern __shared__ uint4 band_vec[];
   const int n_ct = C / CT;
-  const int c0 = (blockIdx.x % n_ct) * CT;
+  const int tile = blockIdx.x % n_ct;
   const int k = blockIdx.x / n_ct;
   const int b = blockIdx.y;
   const int first = run_start[b * NB + k];
@@ -76,40 +110,96 @@ __global__ void band_kernel(const typename D::T* __restrict__ features,
   const int rows = min(band_rows, H);
   const int bs = min(k * stride, max(H - band_rows, 0));
   const int nv = CT / V;
-  const T* src = features + (static_cast<long>(b) * H + bs) * W * C;
-  for (int i = threadIdx.x; i < rows * W * nv; i += blockDim.x) {
-    band_vec[i] = *reinterpret_cast<const uint4*>(
-        src + static_cast<long>(i / nv) * C + c0 + (i % nv) * V);
+  const int wv = W * nv;
+  const int pitch = band_pitch(W, nv);
+  const T* src = features + (static_cast<long>(b) * H + bs) * W * C +
+                 tile * CT;
+  const int n_stage = rows * wv;
+  for (int i0 = threadIdx.x; i0 < n_stage; i0 += kStageBatch * blockDim.x) {
+    uint4 v[kStageBatch];
+#pragma unroll
+    for (int j = 0; j < kStageBatch; ++j) {
+      const int i = i0 + j * blockDim.x;
+      if (i < n_stage) {
+        v[j] = *reinterpret_cast<const uint4*>(
+            src + static_cast<long>(i / nv) * C + (i % nv) * V);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kStageBatch; ++j) {
+      const int i = i0 + j * blockDim.x;
+      if (i < n_stage) band_vec[(i / wv) * pitch + i % wv] = v[j];
+    }
   }
-  __syncthreads();
 
-  const T* band = reinterpret_cast<const T*>(band_vec);
-  const int per_roi = R * R * nv;
-  const int work = (last - first) * per_roi;
-  for (int w = threadIdx.x; w < work; w += blockDim.x) {
-    const int roi = order[first + w / per_roi];
-    const int bin = (w % per_roi) / nv;
-    const int v = w % nv;
-    const drn_roi::Cells r =
-        drn_roi::roi_cells(boxes + static_cast<long>(roi) * 4, spatial_scale);
-    int lo_y, hi_y, lo_x, hi_x;
-    drn_roi::bin_range(r.y1 - bs, r.h, bin / R, R, rows, &lo_y, &hi_y);
-    drn_roi::bin_range(r.x1, r.w, bin % R, R, W, &lo_x, &hi_x);
-    drn_roi::pool_bin<D>(
-        band + v * V, static_cast<long>(W) * CT, CT, lo_y, hi_y, lo_x, hi_x,
-        D::cast(roi_scale[roi]),
-        out + (static_cast<long>(roi) * R * R + bin) * C + c0 + v * V);
+  // the RoI table: per RoI, lo_y[R] hi_y[R] lo_x[R] hi_x[R], then the
+  // output indices and the scales of the chunk
+  int* t_edges = reinterpret_cast<int*>(band_vec + rows * pitch);
+  int* t_roi = t_edges + 4 * R * chunk;
+  float* t_scale = reinterpret_cast<float*>(t_roi + chunk);
+  const int nvec = C / V;
+  const int out_v = tile * nv;
+  for (int c = first; c < last; c += chunk) {
+    const int n = min(chunk, last - c);
+    for (int t = threadIdx.x; t < n * R; t += blockDim.x) {
+      const int j = t / R;
+      const int i = t - j * R;
+      const int roi = order[c + j];
+      const drn_roi::Cells r =
+          drn_roi::roi_cells(boxes + static_cast<long>(roi) * 4, spatial_scale);
+      int* e = t_edges + j * 4 * R;
+      drn_roi::bin_range(r.y1 - bs, r.h, i, R, rows, e + i, e + R + i);
+      drn_roi::bin_range(r.x1, r.w, i, R, W, e + 2 * R + i, e + 3 * R + i);
+      if (i == 0) {
+        t_roi[j] = roi;
+        t_scale[j] = D::cast(roi_scale[roi]);
+      }
+    }
+    __syncthreads();  // the band (first chunk) and the table are written
+
+    const int per_roi = R * nv;
+    for (int w = threadIdx.x; w < n * per_roi; w += blockDim.x) {
+      const int j = w / per_roi;
+      const int ph = (w - j * per_roi) / nv;
+      const int v = w - j * per_roi - ph * nv;
+      const int* e = t_edges + j * 4 * R;
+      const int lo_y = e[ph];
+      const int hi_y = e[R + ph];
+      uint4 acc[RMax];
+#pragma unroll
+      for (int pw = 0; pw < RMax; ++pw) acc[pw] = drn_roi::lowest<D>();
+      for (int y = lo_y; y < hi_y; ++y) {
+        uint4 rm[RMax];
+        drn_roi::row_bin_max<D, RMax>(band_vec + y * pitch + v, nv, R,
+                                      e + 2 * R, e + 3 * R, rm);
+#pragma unroll
+        for (int pw = 0; pw < RMax; ++pw) acc[pw] = D::vmax(acc[pw], rm[pw]);
+      }
+      const bool empty_y = hi_y <= lo_y;
+      const float scale = t_scale[j];
+      uint4* dst = out + (static_cast<long>(t_roi[j]) * R + ph) * R * nvec +
+                   out_v + v;
+#pragma unroll
+      for (int pw = 0; pw < RMax; ++pw) {
+        if (pw >= R) break;
+        dst[pw * nvec] = D::scaled(acc[pw], scale,
+                                   empty_y || e[3 * R + pw] <= e[2 * R + pw]);
+      }
+    }
+    __syncthreads();  // the table is read before the next chunk's is written
   }
 }
 
-template <typename D>
-int launch_band(const void* features, const float* boxes,
-                const float* roi_scale, const int* order,
-                const int* run_start, void* out, int B, int H, int W, int C,
-                int R, int NB, int stride, int band_rows, int CT,
-                float spatial_scale, cudaStream_t stream) {
-  const long smem = static_cast<long>(std::min(band_rows, H)) * W * CT *
-                    sizeof(typename D::T);
+template <typename D, int RMax>
+int launch_band_r(const void* features, const float* boxes,
+                  const float* roi_scale, const int* order,
+                  const int* run_start, void* out, int B, int H, int W, int C,
+                  int R, int NB, int stride, int band_rows, int CT, int chunk,
+                  float spatial_scale, cudaStream_t stream) {
+  const long smem =
+      static_cast<long>(std::min(band_rows, H)) *
+          band_pitch(W, CT / D::kVec) * 16 +
+      static_cast<long>(chunk) * table_entry_bytes(R);
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
@@ -118,15 +208,32 @@ int launch_band(const void* features, const float* boxes,
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(band_kernel<D>,
+  err = cudaFuncSetAttribute(band_kernel<D, RMax>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  band_kernel<D><<<dim3(NB * (C / CT), B), kThreads, smem, stream>>>(
-      static_cast<const typename D::T*>(features), boxes, roi_scale, order,
-      run_start, static_cast<typename D::T*>(out), H, W, C, R, NB, stride,
-      band_rows, CT, spatial_scale);
+  band_kernel<D, RMax>
+      <<<dim3(NB * (C / CT), B), band_threads(RMax), smem, stream>>>(
+          static_cast<const typename D::T*>(features), boxes, roi_scale,
+          order, run_start, static_cast<uint4*>(out), H, W, C, R, NB, stride,
+          band_rows, CT, chunk, spatial_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename D>
+int launch_band(const void* features, const float* boxes,
+                const float* roi_scale, const int* order,
+                const int* run_start, void* out, int B, int H, int W, int C,
+                int R, int NB, int stride, int band_rows, int CT, int chunk,
+                float spatial_scale, cudaStream_t stream) {
+  return R <= 7 ? launch_band_r<D, 7>(features, boxes, roi_scale, order,
+                                      run_start, out, B, H, W, C, R, NB,
+                                      stride, band_rows, CT, chunk,
+                                      spatial_scale, stream)
+                : launch_band_r<D, kMaxRes>(features, boxes, roi_scale, order,
+                                            run_start, out, B, H, W, C, R, NB,
+                                            stride, band_rows, CT, chunk,
+                                            spatial_scale, stream);
 }
 
 }  // namespace
@@ -134,17 +241,20 @@ int launch_band(const void* features, const float* boxes,
 // Band launch. features (B, H, W, C), boxes (B, P, 4) float32, roi_scale
 // (B, P) float32, order (B * P,) int32, run_start (B * NB + 1,) int32,
 // out (B, P, R, R, C); all contiguous on one device. CT divides C and is a
-// multiple of the 16-byte vector; the band (min(band_rows, H), W, CT) must
-// fit the device's shared memory per block. dtype: 0 = float32,
-// 1 = bfloat16. Returns a CUDA error code (0 on success).
+// multiple of the 16-byte vector; a block takes its run `chunk` RoIs at a
+// time, and the band (min(band_rows, H) rows of band_pitch vectors) plus
+// the table of `chunk` RoIs must fit the device's shared memory per block
+// (roi_pool.py:band_tile picks both). dtype: 0 = float32, 1 = bfloat16.
+// Returns a CUDA error code (0 on success).
 extern "C" int drn_roi_pool_banded_forward(
     const void* features, const void* boxes, const void* roi_scale,
     const void* order, const void* run_start, void* out, int B, int H, int W,
-    int C, int P, int R, int NB, int stride, int band_rows, int CT,
+    int C, int P, int R, int NB, int stride, int band_rows, int CT, int chunk,
     float spatial_scale, int dtype, void* stream) {
   const int vec = dtype == 1 ? BF16::kVec : F32::kVec;
   if (R < 1 || R > kMaxRes || (dtype != 0 && dtype != 1) || P < 1 ||
-      stride < 1 || band_rows < 1 || CT < vec || CT % vec || C % CT) {
+      stride < 1 || band_rows < 1 || CT < vec || CT % vec || C % CT ||
+      chunk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* bx = static_cast<const float*>(boxes);
@@ -154,11 +264,11 @@ extern "C" int drn_roi_pool_banded_forward(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
              ? launch_band<BF16>(features, bx, sc, ord, runs, out, B, H, W, C,
-                                 R, NB, stride, band_rows, CT, spatial_scale,
-                                 s)
+                                 R, NB, stride, band_rows, CT, chunk,
+                                 spatial_scale, s)
              : launch_band<F32>(features, bx, sc, ord, runs, out, B, H, W, C,
-                                R, NB, stride, band_rows, CT, spatial_scale,
-                                s);
+                                R, NB, stride, band_rows, CT, chunk,
+                                spatial_scale, s);
 }
 
 // Rest launch: every RoI whose is_short (B, P) uint8 entry is 0, from the

@@ -447,6 +447,8 @@ def roi_pool_looped(features: torch.Tensor, boxes: torch.Tensor,
 _LV_SMALL = 3
 # dynamic shared memory a block may use on an H100 (sm_90)
 SMEM_PER_BLOCK = 232448
+# most RoIs a block of K3's band launch holds in its RoI table at once
+RUN_CHUNK = 128
 
 
 class BandPartition(NamedTuple):
@@ -540,22 +542,54 @@ def roi_pool_banded_plain(features: torch.Tensor, boxes: torch.Tensor,
     return out * roi_scale.to(out.dtype)[:, :, None, None, None]
 
 
-def band_tile(features: torch.Tensor, band_rows: int = 48) -> int:
-    """K3's channel tile: the most channels (a power of two times the
-    16-byte vector, dividing C) whose band, min(band_rows, H) x W x CT,
-    fits :data:`SMEM_PER_BLOCK`. Raises where not even one vector does."""
+class BandTile(NamedTuple):
+    """How K3's band launch cuts its work: ``ct`` channels per block, and
+    at most ``chunk`` RoIs in the block's RoI table at once."""
+    ct: int
+    chunk: int
+
+
+def band_pitch(W: int, nv: int) -> int:
+    """16-byte vectors per staged band row of ``nv`` vectors a cell: W * nv
+    padded to nv modulo 8, so that consecutive rows start on different
+    shared-memory banks (``csrc/roi_pool_banded.cu:band_pitch``)."""
+    return W * nv + (nv - W * nv) % 8
+
+
+def table_bytes(resolution: int, rois: int) -> int:
+    """Shared memory of the band launch's RoI table for ``rois`` RoIs: 4R
+    int32 bin edges, the output index and the scale of each
+    (``csrc/roi_pool_banded.cu:table_entry_bytes``)."""
+    return rois * (16 * resolution + 8)
+
+
+def band_tile(features: torch.Tensor, band_rows: int = 48,
+              resolution: int = 7) -> BandTile:
+    """K3's channel tile and RoI chunk: the most channels (a power of two
+    times the 16-byte vector, dividing C) whose band, min(band_rows, H)
+    rows of :func:`band_pitch` vectors, fits :data:`SMEM_PER_BLOCK` beside
+    a table of :data:`RUN_CHUNK` RoIs; the chunk is then the most RoIs, up
+    to :data:`RUN_CHUNK`, whose table fits beside that band. Raises where
+    not even one vector of band plus a one-RoI table fits."""
     B, H, W, C = features.shape
     vec = 16 // features.element_size()
-    band_bytes = min(band_rows, H) * W * features.element_size()
-    if band_bytes * vec > SMEM_PER_BLOCK:
+    rows = min(band_rows, H)
+
+    def band_bytes(ct):
+        return rows * band_pitch(W, ct // vec) * 16
+
+    need = band_bytes(vec) + table_bytes(resolution, 1)
+    if need > SMEM_PER_BLOCK:
         raise ValueError(
-            f"a band of {min(band_rows, H)} x {W} cells x {vec} channels "
-            f"takes {band_bytes * vec} bytes, more than the "
-            f"{SMEM_PER_BLOCK} of shared memory a block may use")
+            f"a band of {rows} x {W} cells x {vec} channels and a one-RoI "
+            f"table take {need} bytes, more than the {SMEM_PER_BLOCK} of "
+            f"shared memory a block may use")
     ct = vec
-    while C % (2 * ct) == 0 and band_bytes * 2 * ct <= SMEM_PER_BLOCK:
+    while (C % (2 * ct) == 0 and band_bytes(2 * ct)
+           + table_bytes(resolution, RUN_CHUNK) <= SMEM_PER_BLOCK):
         ct *= 2
-    return ct
+    left = SMEM_PER_BLOCK - band_bytes(ct)
+    return BandTile(ct, min(RUN_CHUNK, left // table_bytes(resolution, 1)))
 
 
 def roi_pool_banded(features: torch.Tensor, boxes: torch.Tensor,
@@ -567,11 +601,9 @@ def roi_pool_banded(features: torch.Tensor, boxes: torch.Tensor,
     of :func:`roi_pool_batched` (roi_scale None: ones). CPU tensors go
     through :func:`roi_pool_banded_plain`. CUDA tensors launch
     ``csrc/roi_pool_banded.cu`` twice, the short RoIs from bands staged in
-    shared memory and the rest from the full map as K1 launches them (its
-    body, in the top-row order), and add one to
-    ``roi_pool_banded.launches["roi_pool_banded"]`` and one to
-    ``["roi_pool_banded_rest"]``. No host read: the partition stays on the
-    card."""
+    shared memory (:func:`_launch_band`) and the rest from the full map as
+    K1 launches them, its body in the top-row order (:func:`_launch_rest`).
+    No host read: the partition stays on the card."""
     if roi_scale is None:
         roi_scale = torch.ones(boxes.shape[:2], device=features.device)
     if not features.is_cuda:
@@ -579,36 +611,59 @@ def roi_pool_banded(features: torch.Tensor, boxes: torch.Tensor,
                                      resolution, roi_scale, small_h,
                                      band_rows)
     _check_batched(features, boxes, roi_scale)
-    B, H, W, C = features.shape
-    P = boxes.shape[1]
-    ct = band_tile(features, band_rows)
-    part = band_partition(boxes, spatial_scale, H, resolution, small_h,
-                          band_rows)
-    is_short = part.short.to(torch.uint8)
-    out = torch.empty((B, P, resolution, resolution, C),
+    tile = band_tile(features, band_rows, resolution)
+    part = band_partition(boxes, spatial_scale, features.shape[1], resolution,
+                          small_h, band_rows)
+    out = torch.empty((*boxes.shape[:2], resolution, resolution,
+                       features.shape[3]),
                       dtype=features.dtype, device=features.device)
-    stream = _build.stream_of(features)
-    code = _DTYPE_CODES[features.dtype]
-    err = _kernel("roi_pool_banded", "drn_roi_pool_banded_forward", 6, 10)(
+    _launch_band(features, boxes, spatial_scale, resolution, roi_scale, part,
+                 tile, band_rows, out)
+    _launch_rest(features, boxes, spatial_scale, resolution, roi_scale,
+                 top_row_order(boxes), part.short, out)
+    return out
+
+
+def _launch_band(features: torch.Tensor, boxes: torch.Tensor,
+                 spatial_scale: float, resolution: int,
+                 roi_scale: torch.Tensor, part: BandPartition,
+                 tile: BandTile, band_rows: int, out: torch.Tensor) -> None:
+    """K3's band launch on checked inputs: the short RoIs of ``part`` pooled
+    into ``out`` from bands staged in shared memory, cut as ``tile`` says;
+    adds one to ``roi_pool_banded.launches["roi_pool_banded"]``."""
+    B, H, W, C = features.shape
+    err = _kernel("roi_pool_banded", "drn_roi_pool_banded_forward", 6, 11)(
         features.data_ptr(), boxes.data_ptr(), roi_scale.data_ptr(),
         part.order.data_ptr(), part.run_start.data_ptr(), out.data_ptr(),
-        B, H, W, C, P, resolution, part.num_bands, part.stride, band_rows,
-        ct, float(spatial_scale), code, stream)
+        B, H, W, C, boxes.shape[1], resolution, part.num_bands, part.stride,
+        band_rows, tile.ct, tile.chunk, float(spatial_scale),
+        _DTYPE_CODES[features.dtype], _build.stream_of(features))
     if err != 0:
         raise RuntimeError(f"roi_pool_banded kernel launch failed: CUDA "
                            f"error {err}")
     roi_pool_banded.launches["roi_pool_banded"] += 1
-    order = top_row_order(boxes)
+
+
+def _launch_rest(features: torch.Tensor, boxes: torch.Tensor,
+                 spatial_scale: float, resolution: int,
+                 roi_scale: torch.Tensor, order: torch.Tensor,
+                 short: torch.Tensor, out: torch.Tensor) -> None:
+    """K3's rest launch on checked inputs: every RoI whose ``short`` entry
+    ((B, P) bool, contiguous: one 0/1 byte each) is False, pooled into
+    ``out`` by K1's body, its blocks taking the RoIs in ``order`` (as
+    :func:`_launch_batched`); adds one to
+    ``roi_pool_banded.launches["roi_pool_banded_rest"]``."""
+    B, H, W, C = features.shape
     err = _kernel("roi_pool_banded", "drn_roi_pool_banded_rest_forward", 6,
                   6)(features.data_ptr(), boxes.data_ptr(),
                      roi_scale.data_ptr(), order.data_ptr(),
-                     is_short.data_ptr(), out.data_ptr(), B, H, W, C, P,
-                     resolution, float(spatial_scale), code, stream)
+                     short.data_ptr(), out.data_ptr(), B, H, W, C,
+                     boxes.shape[1], resolution, float(spatial_scale),
+                     _DTYPE_CODES[features.dtype], _build.stream_of(features))
     if err != 0:
         raise RuntimeError(f"roi_pool_banded_rest kernel launch failed: CUDA "
                            f"error {err}")
     roi_pool_banded.launches["roi_pool_banded_rest"] += 1
-    return out
 
 
 roi_pool_banded.launches = {"roi_pool_banded": 0, "roi_pool_banded_rest": 0}

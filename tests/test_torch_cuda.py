@@ -345,11 +345,88 @@ def test_banded_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):           # a band beyond shared memory
         wide = torch.zeros(1, 48, 400, 8, dtype=torch.bfloat16, device=cuda)
         rp.roi_pool_banded(wide, boxes[:1], 0.25, 7, scale[:1])
+    # a band that fits alone (5 rows of 2905 vectors: 232400 B) but not
+    # beside a one-RoI table
+    wide = torch.zeros(1, 5, 2905, 8, dtype=torch.bfloat16, device=cuda)
+    for R in (7, 16):
+        with pytest.raises(ValueError, match="table"):
+            rp.roi_pool_banded(wide, boxes[:1], 0.25, R, scale[:1])
     with pytest.raises(ValueError):           # stride band_rows - small_h < 1
         rp.roi_pool_banded(feat, boxes, 0.25, 7, scale, small_h=12,
                            band_rows=12)
     with pytest.raises(TypeError):
         rp.roi_pool_banded(feat, boxes.cpu(), 0.25, 7, scale)
+
+
+def _band_cells(dev, dtype, case, seed=5):
+    """Boxes in exact cells (8 px each, scale 1/8) for the band launch's
+    walk, default 24/48 bands: RoIs of 1-6 cells (one cell in several bins
+    of both axes); one band's run of 3 RoI chunks and more; RoIs in the
+    last bands, whose start is clamped to H - 48; a 30-row map (the band
+    is the whole map); R = 16; and NaN cells with RoIs partly off the map
+    (empty bins). Returns (features, boxes, roi_scale, R)."""
+    g = np.random.RandomState(seed)
+    B, H, W, C, P, R = 2, 100, 40, 16, 96, 7
+    w, h = g.randint(1, 7, (2, B, P))
+    lo_y, lo_x = 0, 0
+    if case == "long_run":
+        B, P = 1, 3 * rp.RUN_CHUNK + 5
+        w, h = g.randint(1, 31, (B, P)), g.randint(1, 21, (B, P))
+    elif case == "short_map":
+        H = 30
+        h = g.randint(1, 25, (B, P))
+    elif case == "res16":
+        R = 16
+        w, h = g.randint(1, 21, (2, B, P))
+    elif case == "nan_empty":
+        w, h = g.randint(1, 13, (2, B, P))
+        lo_y = lo_x = -8
+    feat = torch.from_numpy(g.randn(B, H, W, C).astype(np.float32))
+    y1 = g.randint(lo_y, H - h + 1)
+    x1 = g.randint(lo_x, W - w + 1)
+    if case == "long_run":
+        y1 = g.randint(0, 24 - h + 1)                 # all in band 0
+    elif case == "last_band":
+        y1 = g.randint(70, H, (B, P))
+    boxes = 8.0 * np.stack([x1, y1, x1 + w - 1, y1 + h - 1], -1)
+    if case == "nan_empty":
+        feat[torch.from_numpy(g.uniform(0, 1, (B, H, W)) < 0.03)] = np.nan
+    scale = g.uniform(1, 2, (B, P)) * (g.uniform(0, 1, (B, P)) > 0.2)
+    return (feat.to(dtype).to(dev),
+            torch.from_numpy(boxes.astype(np.float32)).to(dev),
+            torch.from_numpy(scale.astype(np.float32)).to(dev), R)
+
+
+@pytest.mark.parametrize("case", ["narrow", "long_run", "last_band",
+                                  "short_map", "res16", "nan_empty"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_band_walk_matches_plain_and_k1(cuda, dtype, case):
+    """The band launch's walk from the RoI table, bit for bit against the
+    banded plain version and against K1, where it turns: bins sharing
+    cells, the chunk loop, the clamped last band, a map shorter than a
+    band, the wider register arrays, NaN and empty bins."""
+    feat, boxes, scale, R = _band_cells(cuda, dtype, case)
+    H = feat.shape[1]
+    part = rp.band_partition(boxes, 0.125, H, R)
+    assert part.short.float().mean().item() > 0.9
+    if case == "long_run":
+        runs = part.run_start.diff()
+        assert runs.max().item() > 2 * rp.band_tile(feat, 48, R).chunk
+    if case == "last_band":
+        clamped = part.short & (part.band * part.stride > H - 48)
+        assert clamped.any() and (part.band_start[clamped] == H - 48).all()
+    before = dict(rp.roi_pool_banded.launches)
+    got = rp.roi_pool_banded(feat, boxes, 0.125, R, scale)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in
+            rp.roi_pool_banded.launches.items()} == {
+        "roi_pool_banded": 1, "roi_pool_banded_rest": 1}
+    _equal_by_value(got, rp.roi_pool_banded_plain(feat, boxes, 0.125, R,
+                                                  scale))
+    _equal_by_value(got, rp.roi_pool_batched(feat, boxes, 0.125, R, scale))
+    if case == "nan_empty":
+        assert got.isnan().any() and (got == 0).any()
 
 
 def test_banded_pool_never_waits_on_the_card(cuda):

@@ -236,7 +236,7 @@ def test_band_tile_fits_shared_memory():
     """K3's channel tile at the probe's maps and the refusal of a band that
     cannot hold one 16-byte vector."""
     def tile(H, W, C, dtype=torch.bfloat16):
-        return port_pool.band_tile(torch.empty(1, H, W, C, dtype=dtype))
+        return port_pool.band_tile(torch.empty(1, H, W, C, dtype=dtype)).ct
 
     assert [tile(S // 8, S // 8, 2048) for S in (704, 1088, 1280, 1536)] \
         == [16, 16, 8, 8]
@@ -247,6 +247,68 @@ def test_band_tile_fits_shared_memory():
         assert 48 * W * ct * 2 <= port_pool.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="shared memory"):
         tile(48, 400, 8)
+
+
+@pytest.mark.parametrize("resolution", [7, 16])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("bucket", [704, 1088, 1280, 1536])
+def test_band_and_table_fit_shared_memory(bucket, dtype, resolution):
+    """At the probe's maps the band (rows of ``band_pitch`` vectors) plus
+    the RoI table of a chunk fit a block's shared memory, the chunk holds
+    at least one RoI and at most RUN_CHUNK, and the tile is the widest that
+    fits beside a full chunk's table."""
+    tdt = DTYPES[dtype][0]
+    S = bucket // 8
+    feat = torch.empty(1, S, S, 2048, dtype=tdt)
+    vec = 16 // feat.element_size()
+    ct, chunk = port_pool.band_tile(feat, 48, resolution)
+
+    def band(ct):
+        return 48 * port_pool.band_pitch(S, ct // vec) * 16
+
+    assert ct % vec == 0 and 2048 % ct == 0 and ct & (ct - 1) == 0
+    assert 1 <= chunk <= port_pool.RUN_CHUNK
+    assert (band(ct) + port_pool.table_bytes(resolution, chunk)
+            <= port_pool.SMEM_PER_BLOCK)
+    assert (band(2 * ct) + port_pool.table_bytes(resolution,
+                                                 port_pool.RUN_CHUNK)
+            > port_pool.SMEM_PER_BLOCK)
+
+
+def test_band_tile_refuses_a_band_without_room_for_a_table():
+    """5 rows of 2905 one-vector cells (232400 B) fit alone, not beside one
+    RoI's table; a smaller chunk is taken where a full one does not fit."""
+    feat = torch.empty(1, 5, 2905, 8, dtype=torch.bfloat16)
+    assert 5 * port_pool.band_pitch(2905, 1) * 16 <= port_pool.SMEM_PER_BLOCK
+    for R in (7, 16):
+        with pytest.raises(ValueError, match="table"):
+            port_pool.band_tile(feat, 48, R)
+    assert port_pool.band_tile(feat, 48, 1) == (8, 2)
+    assert port_pool.band_tile(torch.empty(1, 13, 11, 32)) == (
+        32, port_pool.RUN_CHUNK)
+
+
+@pytest.mark.parametrize("W", [11, 88, 136, 160, 192, 2905])
+@pytest.mark.parametrize("nv", [1, 2, 4, 8])
+def test_band_pitch_staggers_rows(W, nv):
+    """A staged row is padded by fewer than 8 vectors to nv modulo 8, so
+    consecutive rows of one cell start on different 16-byte bank groups."""
+    pitch = port_pool.band_pitch(W, nv)
+    assert W * nv <= pitch < W * nv + 8
+    assert pitch % 8 == nv % 8
+    assert len({(y * pitch) % 8 for y in range(8)}) == 8 // min(nv, 8)
+
+
+def test_probe_704_runs_outgrow_one_chunk():
+    """The pool probe's 704 bucket gives the band launch runs of several
+    RoI chunks, so that chip_smoke.py turns the chunk loop on the card."""
+    boxes = torch.from_numpy(_probe_boxes(704))
+    part = _port_partition(boxes.numpy(), 0.125, 88, 24, 48)
+    chunk = port_pool.band_tile(torch.empty(1, 88, 88, 2048,
+                                            dtype=torch.bfloat16)).chunk
+    runs = part.run_start.diff()
+    assert runs.max().item() > 2 * chunk
+    assert (runs > chunk).sum().item() >= 2
 
 
 def test_partition_refuses_empty_stride():
