@@ -139,8 +139,8 @@ struct BF16 {
 
 // One bin of one 16-byte channel vector: the max over rows [lo_y, hi_y) and
 // columns [lo_x, hi_x) of the vector at src + y * row_pitch + x * col_pitch
-// (global memory or a staged band in shared memory), times `scale` (a value
-// of the map's dtype, as a float), stored as 16 bytes at dst.
+// (K2's float mode, from global memory), times `scale` (a value of the
+// map's dtype, as a float), stored as 16 bytes at dst.
 template <typename D>
 __device__ __forceinline__ void pool_bin(const typename D::T* src,
                                          long row_pitch, int col_pitch,

@@ -9,7 +9,7 @@
 // counterpart here.
 //
 // Semantics: the bin arithmetic of roi_pool_bins.cuh (shared with K1 and K3;
-// float mode shares its per-bin max, pool_bin, too), then
+// float mode takes its per-bin max, pool_bin, too), then
 // per bin scale = roi_scale * (bin nonempty), in float32, and
 //   * float mode (bf16 or float32 map): out = dtype(max * dtype(bin_scale)),
 //     one rounding: the product of two bf16 values is exact in float32;

@@ -447,8 +447,9 @@ def roi_pool_looped(features: torch.Tensor, boxes: torch.Tensor,
 _LV_SMALL = 3
 # dynamic shared memory a block may use on an H100 (sm_90)
 SMEM_PER_BLOCK = 232448
-# most RoIs a block of K3's band launch holds in its RoI table at once
-RUN_CHUNK = 128
+# most RoIs a block of K3's band launch holds in its RoI table at once, and
+# the fewest its channel tile must leave room for
+RUN_CHUNK, MIN_CHUNK = 512, 64
 
 
 class BandPartition(NamedTuple):
@@ -551,16 +552,16 @@ class BandTile(NamedTuple):
 
 def band_pitch(W: int, nv: int) -> int:
     """16-byte vectors per staged band row of ``nv`` vectors a cell: W * nv
-    padded to nv modulo 8, so that consecutive rows start on different
-    shared-memory banks (``csrc/roi_pool_banded.cu:band_pitch``)."""
+    padded to nv modulo 8, so that rows read side by side start on
+    different shared-memory banks (``csrc/roi_pool_banded.cu:band_pitch``)."""
     return W * nv + (nv - W * nv) % 8
 
 
 def table_bytes(resolution: int, rois: int) -> int:
-    """Shared memory of the band launch's RoI table for ``rois`` RoIs: 4R
-    int32 bin edges, the output index and the scale of each
-    (``csrc/roi_pool_banded.cu:table_entry_bytes``)."""
-    return rois * (16 * resolution + 8)
+    """Shared memory of the band launch's RoI table for ``rois`` RoIs: 2R
+    int16 (lo, hi) bin pairs, the output index and the scale of each, and
+    a 16-byte counter (``csrc/roi_pool_banded.cu:table_bytes``)."""
+    return rois * (8 * resolution + 8) + 16
 
 
 def band_tile(features: torch.Tensor, band_rows: int = 48,
@@ -568,7 +569,7 @@ def band_tile(features: torch.Tensor, band_rows: int = 48,
     """K3's channel tile and RoI chunk: the most channels (a power of two
     times the 16-byte vector, dividing C) whose band, min(band_rows, H)
     rows of :func:`band_pitch` vectors, fits :data:`SMEM_PER_BLOCK` beside
-    a table of :data:`RUN_CHUNK` RoIs; the chunk is then the most RoIs, up
+    a table of :data:`MIN_CHUNK` RoIs; the chunk is then the most RoIs, up
     to :data:`RUN_CHUNK`, whose table fits beside that band. Raises where
     not even one vector of band plus a one-RoI table fits."""
     B, H, W, C = features.shape
@@ -586,10 +587,10 @@ def band_tile(features: torch.Tensor, band_rows: int = 48,
             f"shared memory a block may use")
     ct = vec
     while (C % (2 * ct) == 0 and band_bytes(2 * ct)
-           + table_bytes(resolution, RUN_CHUNK) <= SMEM_PER_BLOCK):
+           + table_bytes(resolution, MIN_CHUNK) <= SMEM_PER_BLOCK):
         ct *= 2
-    left = SMEM_PER_BLOCK - band_bytes(ct)
-    return BandTile(ct, min(RUN_CHUNK, left // table_bytes(resolution, 1)))
+    left = SMEM_PER_BLOCK - band_bytes(ct) - table_bytes(resolution, 0)
+    return BandTile(ct, min(RUN_CHUNK, left // (8 * resolution + 8)))
 
 
 def roi_pool_banded(features: torch.Tensor, boxes: torch.Tensor,
