@@ -1,6 +1,7 @@
-// Bin arithmetic, element types, the per-bin max and the batched body shared
-// by the RoIPool kernels (roi_pool.cu, roi_pool_image.cu, roi_pool_banded.cu),
-// so that they cannot drift apart.
+// Bin arithmetic, element types and the batched body shared by the RoIPool
+// kernels (roi_pool.cu, roi_pool_image.cu, roi_pool_banded.cu), so that they
+// cannot drift apart. The body walks each RoI cell once (below); K1, K3's
+// rest launch and both modes of K2 run it, each with its own epilogue.
 //
 // Semantics (torchvision RoIPool, bit for bit with the JAX package's
 // drn_wsod_tpu/ops/roi_align.py:roi_pool and its Pallas kernels):
@@ -62,8 +63,12 @@ __device__ __forceinline__ float nan_max(float m, float v) {
   return (v > m || v != v) ? v : m;
 }
 
+// Element types of a map. Each names its element T, the vector V a thread
+// moves per cell (kVec elements), -inf in every lane of a 32-bit word, and
+// vmax, the lane-wise max of two vectors.
 struct F32 {
   typedef float T;
+  typedef uint4 V;
   static constexpr int kVec = 4;  // elements per 16-byte vector
   static constexpr uint32_t kNegInfWord = 0xff800000u;  // -inf
   __device__ static float load(const T* p, int i) { return p[i]; }
@@ -95,6 +100,7 @@ struct F32 {
 
 struct BF16 {
   typedef uint16_t T;
+  typedef uint4 V;
   static constexpr int kVec = 8;
   static constexpr uint32_t kNegInfWord = 0xff80ff80u;  // two bf16 -inf
   __device__ static float load(const T* p, int i) {
@@ -137,57 +143,54 @@ struct BF16 {
   }
 };
 
-// One bin of one 16-byte channel vector: the max over rows [lo_y, hi_y) and
-// columns [lo_x, hi_x) of the vector at src + y * row_pitch + x * col_pitch
-// (K2's float mode, from global memory), times `scale` (a value of the
-// map's dtype, as a float), stored as 16 bytes at dst.
-template <typename D>
-__device__ __forceinline__ void pool_bin(const typename D::T* src,
-                                         long row_pitch, int col_pitch,
-                                         int lo_y, int hi_y, int lo_x,
-                                         int hi_x, float scale,
-                                         typename D::T* dst) {
-  typedef typename D::T T;
-  constexpr int V = D::kVec;
-  const float kNegInf = -__int_as_float(0x7f800000);
-  const bool empty = hi_y <= lo_y || hi_x <= lo_x;
-  float m[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) m[j] = empty ? 0.f : kNegInf;
-  for (int y = lo_y; y < hi_y; ++y) {
-    for (int x = lo_x; x < hi_x; ++x) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          src + y * row_pitch + static_cast<long>(x) * col_pitch);
-      const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < V; ++j) m[j] = nan_max(m[j], D::load(v, j));
-    }
-  }
-  uint4 packed;
-  T* o = reinterpret_cast<T*>(&packed);
-#pragma unroll
-  for (int j = 0; j < V; ++j) o[j] = D::store(m[j] * scale);
-  *reinterpret_cast<uint4*>(dst) = packed;
+// lane-wise signed max of packed int8 words
+__device__ __forceinline__ uint4 vmaxs4(uint4 a, uint4 b) {
+  return make_uint4(__vmaxs4(a.x, b.x), __vmaxs4(a.y, b.y),
+                    __vmaxs4(a.z, b.z), __vmaxs4(a.w, b.w));
+}
+__device__ __forceinline__ uint2 vmaxs4(uint2 a, uint2 b) {
+  return make_uint2(__vmaxs4(a.x, b.x), __vmaxs4(a.y, b.y));
 }
 
+// A map quantized to int8 (K2's int8 mode), moved as Vec: 16 values per
+// 16-byte uint4 or 8 per 8-byte uint2. -128 stands for -inf: it lies below
+// every quantized value, which are clipped to [-127, 127]. The epilogue is
+// the caller's (roi_pool_image.cu).
+template <typename Vec>
+struct I8 {
+  typedef int8_t T;
+  typedef Vec V;
+  static constexpr int kVec = sizeof(Vec);
+  static constexpr uint32_t kNegInfWord = 0x80808080u;
+  __device__ static Vec vmax(Vec a, Vec b) { return vmaxs4(a, b); }
+};
+
 // ---------------------------------------------------------------------------
-// The batched body (K1, and K3's rest launch): each cell of a RoI read once
-// per 16-byte channel vector.
+// The batched body (K1, K3's rest launch, and both modes of K2): each cell
+// of a RoI read once per channel vector.
 //
 // Consecutive bins overlap by at most one cell: bin i+1 starts no earlier
 // than the last cell of bin i (floor((i+1)r/R) >= ceil((i+1)r/R) - 1, and
 // clamping keeps it), and neither edge ever decreases with i. So a walk over
 // the bins in order meets a cell it has read before only as the last cell
 // it read: along x the row walk keeps the last vector it loaded, along y
-// the bin walk keeps the last row's R row-bin maxima (4 * RMax 32-bit
+// the bin walk keeps the last row's R row-bin maxima (RMax vectors in
 // registers), and nothing is read twice.
 // ---------------------------------------------------------------------------
 
-// -inf in every lane of a 16-byte vector of D's elements
+__device__ __forceinline__ void splat(uint32_t w, uint4* v) {
+  *v = make_uint4(w, w, w, w);
+}
+__device__ __forceinline__ void splat(uint32_t w, uint2* v) {
+  *v = make_uint2(w, w);
+}
+
+// -inf in every lane of a vector of D's elements
 template <typename D>
-__device__ __forceinline__ uint4 lowest() {
-  const uint32_t w = D::kNegInfWord;
-  return make_uint4(w, w, w, w);
+__device__ __forceinline__ typename D::V lowest() {
+  typename D::V v;
+  splat(D::kNegInfWord, &v);
+  return v;
 }
 
 // Cells a bin loads at once: its loads go out together (predicated off past
@@ -201,24 +204,26 @@ constexpr int kLoadBatch = 4;
 // is empty. Each cell is loaded once: a cell shared by two x-bins is the
 // last one the previous bin loaded.
 template <typename D, int RMax>
-__device__ __forceinline__ void row_bin_max(const uint4* row, int pitch,
-                                            int R, const int* lo_x,
-                                            const int* hi_x, uint4 (&rm)[RMax]) {
-  uint4 last = lowest<D>();
+__device__ __forceinline__ void row_bin_max(const typename D::V* row,
+                                            int pitch, int R, const int* lo_x,
+                                            const int* hi_x,
+                                            typename D::V (&rm)[RMax]) {
+  typedef typename D::V V;
+  V last = lowest<D>();
   int last_x = -1;
 #pragma unroll
   for (int pw = 0; pw < RMax; ++pw) {
     if (pw >= R) break;
     int x = lo_x[pw];
     const int hi = hi_x[pw];
-    uint4 m = lowest<D>();
+    V m = lowest<D>();
     if (x < hi) {
       if (x == last_x) {
         m = last;
         ++x;
       }
       for (; x < hi; x += kLoadBatch) {
-        uint4 v[kLoadBatch];
+        V v[kLoadBatch];
 #pragma unroll
         for (int j = 0; j < kLoadBatch; ++j) {
           v[j] = x + j < hi ? row[(x + j) * pitch] : lowest<D>();
@@ -235,28 +240,50 @@ __device__ __forceinline__ void row_bin_max(const uint4* row, int pitch,
   }
 }
 
+// An epilogue of batched_kernel says what a bin's max becomes. It names
+// kStores, the 16-byte stores per input vector; factor(roi_scale), the
+// RoI's scale as the epilogue takes it (once per block); lane(c), what a
+// thread keeps for its vector c; and store(dst, m, scale, empty, lane),
+// which writes the kStores vectors at dst (m is -inf where the bin is
+// empty). Scaled is K1's: out = dtype(max * dtype(roi_scale)), the max 0
+// where the bin is empty, in the map's dtype. roi_pool_image.cu holds K2's
+// int8 epilogue.
+template <typename D>
+struct Scaled {
+  static constexpr int kStores = 1;
+  struct Lane {};
+  // roi_scale cast to the map's dtype before the multiply
+  __device__ static float factor(float s) { return D::cast(s); }
+  __device__ Lane lane(int) const { return Lane(); }
+  __device__ static void store(uint4* dst, uint4 m, float scale, bool empty,
+                               Lane) {
+    *dst = D::scaled(m, scale, empty);
+  }
+};
+
 // Batched RoIPool from global memory: one block per (RoI, image), the image
-// as the slowest grid index; out = dtype(max * dtype(roi_scale)). Block
-// (i, b) pools RoI p = order[b * P + i] of image b into out[b, p]. A RoI
+// as the slowest grid index. Block (i, b) pools RoI p = order[b * P + i] of
+// image b into out[b, p], through the epilogue `epi`. A RoI
 // whose `skip` entry (flat index b * P + p) is
 // nonzero is left to another launch (skip may be null). Each thread owns
-// 16-byte channel vectors c, c + blockDim.x, ... and walks the y-bins in
+// channel vectors c, c + blockDim.x, ... and walks the y-bins in
 // order, each y-bin's rows in order and each row's x-bins in order (the
 // header comment above); the y-bin's R bin maxima and the kept row's R
 // row-bin maxima stay in registers, and no register cap is set: more
 // blocks per SM, fewer loads in flight each, was slower. R <= RMax; K1
 // (roi_pool.cu) launches it with the top-row order and no skip list, K3's
 // rest launch (roi_pool_banded.cu) with the same order and the band
-// launch's RoIs skipped.
-template <typename D, int RMax>
+// launch's RoIs skipped, K2 (roi_pool_image.cu) with B = 1.
+template <typename D, int RMax, typename Epi>
 __global__ void __launch_bounds__(256)
-    batched_kernel(const uint4* __restrict__ features,
+    batched_kernel(const typename D::V* __restrict__ features,
                    const float* __restrict__ boxes,
                    const float* __restrict__ roi_scale,
                    const int* __restrict__ order,
                    const uint8_t* __restrict__ skip,
                    uint4* __restrict__ out, int H, int W, int nvec, int P,
-                   int R, float spatial_scale) {
+                   int R, float spatial_scale, Epi epi) {
+  typedef typename D::V V;
   const int b = blockIdx.y;
   const int p = order[static_cast<long>(b) * P + blockIdx.x];
   const long roi = static_cast<long>(b) * P + p;
@@ -267,22 +294,22 @@ __global__ void __launch_bounds__(256)
   if (threadIdx.x == 0) {
     bin_edges(boxes + roi * 4, spatial_scale, H, W, R, lo_y, hi_y, lo_x,
               hi_x);
-    // roi_scale cast to the map's dtype before the multiply
-    s_scale = D::cast(roi_scale[roi]);
+    s_scale = Epi::factor(roi_scale[roi]);
   }
   __syncthreads();
   const float scale = s_scale;
 
-  const uint4* map = features + static_cast<long>(b) * H * W * nvec;
+  const V* map = features + static_cast<long>(b) * H * W * nvec;
   const long row_pitch = static_cast<long>(W) * nvec;
-  uint4* dst = out + roi * R * R * nvec;
+  uint4* dst = out + roi * R * R * nvec * Epi::kStores;
   for (int c = threadIdx.x; c < nvec; c += blockDim.x) {
-    uint4 keep[RMax];     // row-bin maxima of row kept_y
+    const typename Epi::Lane lane = epi.lane(c);
+    V keep[RMax];     // row-bin maxima of row kept_y
     int kept_y = -1;
     for (int ph = 0; ph < R; ++ph) {
       int y = lo_y[ph];
       const int hi = hi_y[ph];
-      uint4 acc[RMax];
+      V acc[RMax];
 #pragma unroll
       for (int pw = 0; pw < RMax; ++pw) acc[pw] = lowest<D>();
       if (y < hi && y == kept_y) {
@@ -301,32 +328,36 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
       for (int pw = 0; pw < RMax; ++pw) {
         if (pw >= R) break;
-        dst[(ph * R + pw) * nvec + c] = D::scaled(
-            acc[pw], scale, empty_y || hi_x[pw] <= lo_x[pw]);
+        Epi::store(dst + ((ph * R + pw) * nvec + c) * Epi::kStores, acc[pw],
+                   scale, empty_y || hi_x[pw] <= lo_x[pw], lane);
       }
     }
   }
 }
 
 // Launches batched_kernel for R <= kMaxRes: the register arrays are sized
-// 7 for R <= 7 (the box head's resolution) and kMaxRes above. Returns the
-// launch's cudaGetLastError().
-template <typename D>
+// 7 for R <= 7 (the box head's resolution) and kMaxRes above. C is a whole
+// number of D's vectors; `out` takes Epi::kStores 16-byte vectors per input
+// vector. Returns the launch's cudaGetLastError().
+template <typename D, typename Epi = Scaled<D>>
 int launch_batched(const void* features, const float* boxes,
                    const float* roi_scale, const int* order,
                    const uint8_t* skip, void* out, int B, int H, int W, int C,
-                   int P, int R, float spatial_scale, cudaStream_t stream) {
+                   int P, int R, float spatial_scale, cudaStream_t stream,
+                   Epi epi = Epi()) {
   const int nvec = C / D::kVec;
   const dim3 grid(P, B);
   const int threads = nvec < 256 ? nvec : 256;
-  const uint4* f = static_cast<const uint4*>(features);
+  const typename D::V* f = static_cast<const typename D::V*>(features);
   uint4* o = static_cast<uint4*>(out);
   if (R <= 7) {
-    batched_kernel<D, 7><<<grid, threads, 0, stream>>>(
-        f, boxes, roi_scale, order, skip, o, H, W, nvec, P, R, spatial_scale);
+    batched_kernel<D, 7, Epi><<<grid, threads, 0, stream>>>(
+        f, boxes, roi_scale, order, skip, o, H, W, nvec, P, R, spatial_scale,
+        epi);
   } else {
-    batched_kernel<D, kMaxRes><<<grid, threads, 0, stream>>>(
-        f, boxes, roi_scale, order, skip, o, H, W, nvec, P, R, spatial_scale);
+    batched_kernel<D, kMaxRes, Epi><<<grid, threads, 0, stream>>>(
+        f, boxes, roi_scale, order, skip, o, H, W, nvec, P, R, spatial_scale,
+        epi);
   }
   return static_cast<int>(cudaGetLastError());
 }

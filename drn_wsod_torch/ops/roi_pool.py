@@ -12,8 +12,9 @@ dtype, rounding once (``drn_wsod_tpu/ops/roi_pool_pallas.py:_xla_fallback``).
 :func:`roi_pool_batched` (K1) runs :func:`roi_pool_plain` on CPU tensors and
 the hand-written kernel ``csrc/roi_pool.cu`` on CUDA tensors.
 :func:`roi_pool_image` (K2, one image, with an int8 mode) runs
-:func:`roi_pool_image_plain` on CPU tensors and ``csrc/roi_pool_image.cu`` on
-CUDA tensors; :func:`roi_pool_looped` launches it once per image.
+:func:`roi_pool_image_plain` on CPU tensors and ``csrc/roi_pool_image.cu`` (K1's
+body at B = 1) on CUDA tensors; :func:`roi_pool_looped` launches it once per
+image, each into its slice of one output.
 :func:`roi_pool_banded` (K3, reached from ``roi_pool_batched(...,
 allow_banded=True)``) runs :func:`roi_pool_banded_plain` on CPU tensors and
 the two launches of ``csrc/roi_pool_banded.cu`` on CUDA tensors. No wrapper
@@ -379,8 +380,25 @@ def roi_pool_image(features: torch.Tensor, boxes: torch.Tensor,
     if not features.is_cuda:
         return roi_pool_image_plain(features, boxes, spatial_scale,
                                     resolution, roi_scale, quantize_int8)
+    out = torch.empty((boxes.shape[0], resolution, resolution,
+                       features.shape[-1]),
+                      dtype=features.dtype, device=features.device)
+    _pool_image_into(out, features, boxes, spatial_scale, resolution,
+                     roi_scale, quantize_int8)
+    return out
+
+
+roi_pool_image.launches = {"roi_pool_image": 0, "roi_pool_image_int8": 0}
+
+
+def _pool_image_into(out: torch.Tensor, features: torch.Tensor,
+                     boxes: torch.Tensor, spatial_scale: float,
+                     resolution: int, roi_scale, quantize_int8: bool) -> None:
+    """:func:`roi_pool_image` of a CUDA (H, W, C) map written into ``out``
+    ((P, R, R, C) in the map's dtype, contiguous: a slice of a batched
+    output, or a fresh tensor); int8 mode quantizes this map alone."""
     _check_map(features, 3)
-    H, W, C = features.shape
+    C = features.shape[2]
     if boxes.dim() != 2 or boxes.shape[1] != 4:
         raise ValueError(f"boxes must be (P, 4), got {tuple(boxes.shape)}")
     P = boxes.shape[0]
@@ -396,32 +414,60 @@ def roi_pool_image(features: torch.Tensor, boxes: torch.Tensor,
                          f"a multiple of {vec} and the map 16-byte aligned")
     if P == 0:
         raise ValueError("the kernel takes P >= 1")
-
-    out = torch.empty((P, resolution, resolution, C), dtype=features.dtype,
-                      device=features.device)
-    stream = _build.stream_of(features)
-    code = _DTYPE_CODES[features.dtype]
+    order = _image_order(boxes)
     if quantize_int8:
         q, ch_scale = int8_quantize(features)
-        err = _kernel("roi_pool_image", "drn_roi_pool_image_int8_forward",
-                      5, 5)(q.data_ptr(), ch_scale.data_ptr(),
-                            boxes.data_ptr(), roi_scale.data_ptr(),
-                            out.data_ptr(), H, W, C, P, resolution,
-                            float(spatial_scale), code, stream)
-        name = "roi_pool_image_int8"
+        _launch_image(q, boxes, spatial_scale, resolution, roi_scale, order,
+                      out, ch_scale)
     else:
-        err = _kernel("roi_pool_image", "drn_roi_pool_image_forward",
-                      4, 5)(features.data_ptr(), boxes.data_ptr(),
-                            roi_scale.data_ptr(), out.data_ptr(), H, W, C, P,
-                            resolution, float(spatial_scale), code, stream)
+        _launch_image(features, boxes, spatial_scale, resolution, roi_scale,
+                      order, out)
+
+
+@functools.lru_cache(maxsize=8)
+def _roi_order(P: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(P, dtype=torch.int32, device=device)
+
+
+def _image_order(boxes: torch.Tensor) -> torch.Tensor:
+    """(P, 4) boxes -> (P,) int32: the order in which K2's blocks take one
+    image's RoIs. RoI order, made once per P and device: one image's map
+    stays in L2 in any order (PERF.md)."""
+    return _roi_order(boxes.shape[0], boxes.device)
+
+
+def _launch_image(features: torch.Tensor, boxes: torch.Tensor,
+                  spatial_scale: float, resolution: int,
+                  roi_scale: torch.Tensor, order: torch.Tensor,
+                  out: torch.Tensor, ch_scale=None,
+                  lane_bytes: int = 16) -> None:
+    """K2's launch on checked inputs into ``out``, its blocks taking the
+    RoIs in ``order`` ((P,) int32, a permutation of 0..P-1). Float mode
+    where ``ch_scale`` is None (``features`` the map); int8 mode otherwise
+    (``features`` the quantized map ``q``, ``ch_scale`` its (C,) scales,
+    ``out``'s dtype the output's, each thread moving ``lane_bytes`` int8
+    channels). Adds one to ``roi_pool_image.launches``."""
+    H, W, C = features.shape
+    P = boxes.shape[0]
+    code = _DTYPE_CODES[out.dtype]
+    stream = _build.stream_of(features)
+    if ch_scale is None:
         name = "roi_pool_image"
+        err = _kernel("roi_pool_image", "drn_roi_pool_image_forward", 5, 5)(
+            features.data_ptr(), boxes.data_ptr(), roi_scale.data_ptr(),
+            order.data_ptr(), out.data_ptr(), H, W, C, P, resolution,
+            float(spatial_scale), code, stream)
+    else:
+        name = "roi_pool_image_int8"
+        err = _kernel("roi_pool_image", "drn_roi_pool_image_int8_forward", 6,
+                      6)(features.data_ptr(), ch_scale.data_ptr(),
+                         boxes.data_ptr(), roi_scale.data_ptr(),
+                         order.data_ptr(), out.data_ptr(), H, W, C, P,
+                         resolution, lane_bytes, float(spatial_scale), code,
+                         stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     roi_pool_image.launches[name] += 1
-    return out
-
-
-roi_pool_image.launches = {"roi_pool_image": 0, "roi_pool_image_int8": 0}
 
 
 def roi_pool_looped(features: torch.Tensor, boxes: torch.Tensor,
@@ -429,13 +475,29 @@ def roi_pool_looped(features: torch.Tensor, boxes: torch.Tensor,
                     roi_scale=None, quantize_int8: bool = False
                     ) -> torch.Tensor:
     """(B, H, W, C) + (B, P, 4) [+ (B, P) roi_scale] -> (B, P, R, R, C):
-    one :func:`roi_pool_image` per image, stacked (the counterpart of
-    ``roi_pool_pallas.py:roi_pool_pallas_batched``)."""
-    return torch.stack([
-        roi_pool_image(features[b], boxes[b], spatial_scale, resolution,
-                       None if roi_scale is None else roi_scale[b],
-                       quantize_int8)
-        for b in range(features.shape[0])])
+    one :func:`roi_pool_image` per image (the counterpart of
+    ``roi_pool_pallas.py:roi_pool_pallas_batched``), each quantizing its
+    own image in int8 mode. On CUDA tensors each image's launch writes
+    straight into its slice of one output; CPU tensors stack the plain
+    version's images."""
+    if not features.is_cuda:
+        return torch.stack([
+            roi_pool_image(features[b], boxes[b], spatial_scale, resolution,
+                           None if roi_scale is None else roi_scale[b],
+                           quantize_int8)
+            for b in range(features.shape[0])])
+    _check_map(features, 4)
+    B, H, W, C = features.shape
+    if boxes.dim() != 3 or boxes.shape[0] != B:
+        raise ValueError(f"boxes must be ({B}, P, 4), got "
+                         f"{tuple(boxes.shape)}")
+    out = torch.empty((B, boxes.shape[1], resolution, resolution, C),
+                      dtype=features.dtype, device=features.device)
+    for b in range(B):
+        _pool_image_into(out[b], features[b], boxes[b], spatial_scale,
+                         resolution, None if roi_scale is None else
+                         roi_scale[b], quantize_int8)
+    return out
 
 
 # ---------------------------------------------------------------------------

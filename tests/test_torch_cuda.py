@@ -1,6 +1,6 @@
 """CUDA-only tests: the hand-written RoIPool kernels (K1 batched, whose
-body reads each RoI cell once; K2 single image in float and int8 modes; K3
-banded) and the narrow-dtype max (K4) against their plain versions on the
+body reads each RoI cell once; K2 single image in float and int8 modes, on
+K1's body; K3 banded) and the narrow-dtype max (K4) against their plain versions on the
 card, and the toy detect path and train
 steps on the card against the CPU. They skip where no CUDA device exists
 (the kernels have no CPU mode); run them on a GPU machine with
@@ -205,6 +205,158 @@ def test_image_kernel_rejects_what_it_does_not_take(cuda):
                           quantize_int8=True)
     with pytest.raises(TypeError):
         rp.roi_pool_image(feat[0], boxes[0].cpu(), 0.125, 7)
+
+
+_IMAGE_CASES = [pytest.param(case, q, id=f"{case}-{'int8' if q else 'float'}")
+                for case in ("tiny", "shared_edges", "tall_wide", "off_map",
+                             "nan")
+                for q in (False, True) if not (q and case == "nan")]
+
+
+def _image_mode(quantize_int8):
+    return "roi_pool_image_int8" if quantize_int8 else "roi_pool_image"
+
+
+@pytest.mark.parametrize("case,quantize_int8", _IMAGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_image_kernel_reads_each_cell_once_matches_plain(cuda, dtype, case,
+                                                         quantize_int8):
+    """K2 on K1's walk, each image alone (the first with its roi_scale, the
+    second with None) and looped, against the plain version by value: one
+    cell in many bins, bins sharing a row and a column, tall and wide RoIs,
+    RoIs off the map, NaN cells (float mode: int8 of NaN is outside both
+    packages' contract). Int8 mode moves 16 channels, so C = 48."""
+    feat, boxes, scale = _k1_inputs(cuda, dtype, case,
+                                    C=48 if quantize_int8 else 24)
+    name = _image_mode(quantize_int8)
+    for b, rs in ((0, scale[0]), (1, None)):
+        before = rp.roi_pool_image.launches[name]
+        got = rp.roi_pool_image(feat[b], boxes[b], 0.125, 7, rs,
+                                quantize_int8)
+        torch.cuda.synchronize()
+        assert rp.roi_pool_image.launches[name] == before + 1
+        _equal_by_value(got, rp.roi_pool_image_plain(
+            feat[b], boxes[b], 0.125, 7, rs, quantize_int8))
+    before = rp.roi_pool_image.launches[name]
+    looped = rp.roi_pool_looped(feat, boxes, 0.125, 7, scale, quantize_int8)
+    torch.cuda.synchronize()
+    assert rp.roi_pool_image.launches[name] == before + 2
+    for b in range(2):
+        _equal_by_value(looped[b], rp.roi_pool_image_plain(
+            feat[b], boxes[b], 0.125, 7, scale[b], quantize_int8))
+    if case == "nan":
+        assert looped.isnan().any()
+
+
+@pytest.mark.parametrize("quantize_int8,C", [(False, 8), (False, 24),
+                                             (False, 2048), (True, 16),
+                                             (True, 48), (True, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_image_kernel_channel_widths(cuda, dtype, quantize_int8, C):
+    feat, boxes, scale = _k1_inputs(cuda, dtype, "shared_edges", C=C, P=48)
+    got = rp.roi_pool_image(feat[0], boxes[0], 0.125, 7, scale[0],
+                            quantize_int8)
+    _equal_by_value(got, rp.roi_pool_image_plain(
+        feat[0], boxes[0], 0.125, 7, scale[0], quantize_int8))
+
+
+@pytest.mark.parametrize("quantize_int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("R", [3, 14])
+def test_image_kernel_other_resolutions(cuda, R, quantize_int8):
+    """R = 3 and 14 (the wider register arrays), zero scales included."""
+    for dtype in (torch.float32, torch.bfloat16):
+        feat, boxes, scale = _k1_inputs(cuda, dtype, "off_map", C=48)
+        assert (scale == 0).any()
+        got = rp.roi_pool_image(feat[0], boxes[0], 0.125, R, scale[0],
+                                quantize_int8)
+        _equal_by_value(got, rp.roi_pool_image_plain(
+            feat[0], boxes[0], 0.125, R, scale[0], quantize_int8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_image_kernel_float_mode_equals_k1_at_one_image(cuda, dtype):
+    """Float mode is K1's launch at B = 1: the same values as K1 on one
+    image, empty bins and zero scales included."""
+    feat, boxes, scale = _k1_inputs(cuda, dtype, "off_map")
+    for b in range(2):
+        _equal_by_value(
+            rp.roi_pool_image(feat[b], boxes[b], 0.125, 7, scale[b]),
+            rp.roi_pool_batched(feat[b:b + 1], boxes[b:b + 1], 0.125, 7,
+                                scale[b:b + 1])[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_image_kernel_any_order_and_lane_width(cuda, dtype):
+    """Any order of the RoIs (RoI order, the top-row order, a permutation)
+    gives the plain output in both modes, and int8 mode's 8-byte lanes
+    give what its 16-byte lanes give."""
+    feat, boxes, scale = _k1_inputs(cuda, dtype, "shared_edges", C=48)
+    f, b, s = feat[0], boxes[0], scale[0]
+    q, ch_scale = rp.int8_quantize(f)
+    want = {False: rp.roi_pool_image_plain(f, b, 0.125, 7, s),
+            True: rp.roi_pool_image_plain(f, b, 0.125, 7, s, True)}
+    perm = torch.randperm(128, generator=torch.Generator().manual_seed(0))
+    for order in (rp._image_order(b), rp.top_row_order(b[None])[0], perm):
+        order = order.to(device=cuda, dtype=torch.int32).contiguous()
+        out = torch.full_like(want[False], float("nan"))
+        rp._launch_image(f, b, 0.125, 7, s, order, out)
+        _equal_by_value(out, want[False])
+        for lanes in (16, 8):
+            out = torch.full_like(want[True], float("nan"))
+            rp._launch_image(q, b, 0.125, 7, s, order, out, ch_scale, lanes)
+            _equal_by_value(out, want[True])
+
+
+def test_looped_int8_quantizes_each_image_alone(cuda):
+    """Two images whose absmax differ 10x: each keeps its own ch_scale,
+    as the JAX package quantizes inside each per-image call."""
+    feat, boxes, scale = _k1_inputs(cuda, torch.bfloat16, "shared_edges",
+                                    C=48)
+    feat[1] *= 10
+    before = rp.roi_pool_image.launches["roi_pool_image_int8"]
+    got = rp.roi_pool_looped(feat, boxes, 0.125, 7, scale, True)
+    torch.cuda.synchronize()
+    assert rp.roi_pool_image.launches["roi_pool_image_int8"] == before + 2
+    for b in range(2):
+        _equal_by_value(got[b], rp.roi_pool_image_plain(
+            feat[b], boxes[b], 0.125, 7, scale[b], True))
+    assert (rp.int8_quantize(feat[1])[1] > 5 * rp.int8_quantize(feat[0])[1]
+            ).all()
+
+
+@pytest.mark.parametrize("quantize_int8", [False, True], ids=["float", "int8"])
+def test_looped_writes_into_one_output(cuda, monkeypatch, quantize_int8):
+    """On the card the looped form allocates its (B, P, R, R, C) output once
+    and stacks nothing: its peak is the output and one image's
+    quantization, not two outputs."""
+    feat, boxes, scale = _k1_inputs(cuda, torch.bfloat16, "shared_edges",
+                                    B=3, C=2048, P=64)
+    rp.roi_pool_looped(feat, boxes, 0.125, 7, scale, quantize_int8)
+
+    def no_stack(*args, **kwargs):
+        raise AssertionError("roi_pool_looped stacked its images")
+
+    monkeypatch.setattr(torch, "stack", no_stack)
+    torch.cuda.synchronize()
+    quant = 0
+    if quantize_int8:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rp.int8_quantize(feat[0])
+        quant = torch.cuda.max_memory_allocated() - base
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = rp.roi_pool_looped(feat, boxes, 0.125, 7, scale, quantize_int8)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= 1.05 * (got.nbytes + quant)
+    monkeypatch.undo()
+    for b in range(3):
+        _equal_by_value(got[b], rp.roi_pool_image_plain(
+            feat[b], boxes[b], 0.125, 7, scale[b], quantize_int8))
 
 
 def test_toy_train_steps_on_cuda_match_cpu(cuda):

@@ -128,6 +128,67 @@ def test_looped_matches_per_image_and_batched(quantize_int8):
         _assert_equal_by_value(got, want.float().numpy())
 
 
+def _equal_by_value_nan(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Equal by value (-0.0 == 0.0), NaN exactly where ``want`` is NaN."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(torch.where(nan, 0, got), torch.where(nan, 0, want))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", CASES)
+def test_float_mode_equals_batched_plain_at_one_image(case, dtype):
+    """K2's float mode scales each bin by dtype(roi_scale * nonempty); K1's
+    body zeroes an empty bin's max and scales by dtype(roi_scale). The two
+    agree by value, the identity on which K2's kernel runs K1's body at
+    B = 1: here on the edge-case boxes with roi_scale holding 0, negative
+    values and +-inf (an empty bin is then 0 * inf = NaN on both sides)."""
+    tdt, _ = DTYPES[dtype]
+    feat, boxes, scale, roi_scale = _image(case, 70 + CASES.index(case))
+    # wholly and partly off the map (empty bins), each with every scale
+    extra = np.array([[-400, -400, -300, -300], [-100, -100, 40, 40]] * 4,
+                     np.float32)
+    boxes = np.concatenate([boxes, extra])
+    roi_scale = np.concatenate([roi_scale, np.repeat(np.array(
+        [0.0, -1.5, np.inf, -np.inf], np.float32), 2)])
+    roi_scale[:4] = [0.0, -1.5, np.inf, -np.inf]
+    roi_scale[4::5] = -roi_scale[4::5]
+    f = torch.from_numpy(feat).to(tdt)
+    b, rs = torch.from_numpy(boxes), torch.from_numpy(roi_scale)
+    got = port_pool.roi_pool_image_plain(f, b, scale, 7, rs)
+    want = port_pool.roi_pool_plain(f[None], b[None], scale, 7, rs[None])[0]
+    _equal_by_value_nan(got, want)
+    assert got.isnan().any() and got.isinf().any() and (got == 0).any()
+
+
+@pytest.mark.parametrize("with_scale", [True, False],
+                         ids=["roi_scale", "no_scale"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_looped_int8_quantizes_each_image_alone(dtype, with_scale):
+    """roi_pool_looped in int8 mode against the JAX package's per-image
+    composition on two images whose absmax differ 10x: each image keeps
+    its own ch_scale (roi_pool_pallas_batched calls roi_pool_pallas, which
+    quantizes inside, once per image)."""
+    tdt, jdt = DTYPES[dtype]
+    feat, boxes, scale, roi_scale = _inputs("off_map", seed=80)
+    feat = np.concatenate([feat, feat[..., ::-1]], -1).astype(np.float32)
+    feat[1] *= 10.0
+    rs = roi_scale if with_scale else None
+    got = port_pool.roi_pool_looped(
+        torch.from_numpy(feat).to(tdt), torch.from_numpy(boxes), scale, 7,
+        None if rs is None else torch.from_numpy(rs), quantize_int8=True)
+    assert got.dtype == tdt
+    for i in range(feat.shape[0]):
+        want = _jax_int8_pool(jnp.asarray(feat[i], jdt), jnp.asarray(boxes[i]),
+                              scale, None if rs is None else jnp.asarray(rs[i]))
+        _assert_equal_by_value(got[i], want)
+    # one ch_scale over the batch would give another answer
+    _, s0 = port_pool.int8_quantize(torch.from_numpy(feat[0]).to(tdt))
+    _, s1 = port_pool.int8_quantize(torch.from_numpy(feat[1]).to(tdt))
+    assert (s1 > 5 * s0).all()
+
+
 def test_cpu_call_does_not_count_a_launch():
     feat, boxes, scale, roi_scale = _image("random", 0)
     before = dict(port_pool.roi_pool_image.launches)
