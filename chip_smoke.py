@@ -25,10 +25,10 @@ Phases (any failure exits non-zero):
      (B=1, P=4096, 88^2 to 192^2 x 2048 bf16), with its time split into the
      partition, the band launch (beside its own bound), the top-row order
      and the rest launch, and on the edge-case boxes of K1's inputs; K2's
-     time split into one image's quantization, one launch (in RoI and in
-     top-row order; int8 mode with 16- and 8-byte lanes) and the looped
-     call beside K1's B=2 call, each queued alone, and the looped call's
-     peak memory against its output plus one image's quantization; K4
+     time split into one image's quantization, its top-row order, one
+     launch (in the top-row order and in RoI order) and the looped call
+     beside K1's B=2 call, each queued alone, and the looped call's peak
+     memory against its output plus one image's quantization; K4
      (narrow-dtype max) bit for bit in each of its six
      dtypes, on the dtype probe's input and on seeded random bit patterns,
      with ``torch.maximum`` of the halves timed beside it where torch has it,
@@ -581,38 +581,34 @@ def looped_peak_mb(fn) -> float:
 
 def phase3_k2_split(tf, tb, ts, tag) -> None:
     """K2's time on the ablation tool's inputs, each part queued alone:
-    ``int8_quantize`` of one image, one launch (in RoI order, the
-    wrapper's, and in the top-row order; int8 mode with 16- and 8-byte
-    lanes), the whole ``roi_pool_looped`` call, and K1's B=2 call on the
-    same inputs beside them; each variant exact against the plain version.
+    ``int8_quantize`` of one image, ``top_row_order`` of one image's boxes,
+    one launch (in the top-row order the wrapper passes, and in RoI
+    order), the whole ``roi_pool_looped`` call, and K1's B=2 call on the
+    same inputs beside them; each launch exact against the plain version.
     Then the peak memory of one looped call, which must stay within 5% of
     its output plus one image's quantization."""
     from drn_wsod_torch.ops import roi_pool as rp
 
     f, b, s = tf[0], tb[0], ts[0]
     q, ch_scale = rp.int8_quantize(f)
-    orders = {"RoI order": rp._image_order(b),
-              "top-row order": rp.top_row_order(b[None])[0]}
+    orders = {"top-row order": rp.top_row_order(b[None])[0],
+              "RoI order": identity_order(b[None])[0]}
     out = torch.empty((b.shape[0], 7, 7, f.shape[2]), dtype=f.dtype,
                       device=f.device)
     k1_ms = queued_ms(lambda: rp.roi_pool_batched(tf, tb, 0.125, 7, ts), 20)
+    order_ms = queued_ms(lambda: rp.top_row_order(b[None]), 20)
     for int8 in (False, True):
+        name = "roi_pool_image_int8" if int8 else "roi_pool_image"
         want = rp.roi_pool_image_plain(f, b, 0.125, 7, s, int8)
         launches = {}
         for oname, order in orders.items():
-            for lanes in ((16, 8) if int8 else (16,)):
-                def launch():
-                    if int8:
-                        rp._launch_image(q, b, 0.125, 7, s, order, out,
-                                         ch_scale, lanes)
-                    else:
-                        rp._launch_image(f, b, 0.125, 7, s, order, out)
-                out.fill_(float("nan"))
-                launch()
-                exact(f"K2 {'int8' if int8 else 'float'} one launch, {oname}"
-                      f", {lanes}-byte lanes", out, want)
-                what = oname + (f", {lanes}-byte lanes" if int8 else "")
-                launches[what] = queued_ms(launch, 20)
+            def launch():
+                rp._launch_image(q if int8 else f, b, 0.125, 7, s, order, out,
+                                 ch_scale if int8 else None)
+            out.fill_(float("nan"))
+            launch()
+            exact(f"{name} one launch in {oname}", out, want)
+            launches[oname] = queued_ms(launch, 20)
 
         def looped():
             return rp.roi_pool_looped(tf, tb, 0.125, 7, ts, int8)
@@ -622,12 +618,12 @@ def phase3_k2_split(tf, tb, ts, tag) -> None:
         quant_mb = looped_peak_mb(lambda: rp.int8_quantize(f)) if int8 else 0.0
         out_mb = (tf.shape[0] * out.numel() * out.element_size()) / 1e6
         peak_mb = looped_peak_mb(looped)
-        name = "roi_pool_image_int8" if int8 else "roi_pool_image"
         print(f"phase 3: {name} split, ms per call queued (20 calls behind a "
               f"sleep), the ablation tool's {tuple(tf.shape)} bf16 inputs, "
               f"P={b.shape[0]}: int8_quantize of one image "
-              + (f"{quant_ms:.4f}" if int8 else "n/a") + "; one launch alone "
-              + ", ".join(f"{k} {v:.4f}" for k, v in launches.items())
+              + (f"{quant_ms:.4f}" if int8 else "n/a")
+              + f"; top_row_order of one image {order_ms:.4f}; one launch "
+              "alone " + ", ".join(f"{k} {v:.4f}" for k, v in launches.items())
               + f"; the looped call (B={tf.shape[0]}, {tf.shape[0]} launches) "
               f"{looped_ms:.4f}; K1's B={tf.shape[0]} call on the same inputs "
               f"{k1_ms:.4f} (looped / K1 {looped_ms / k1_ms:.3f}) {tag}",

@@ -1,7 +1,12 @@
 // Bin arithmetic, element types and the batched body shared by the RoIPool
 // kernels (roi_pool.cu, roi_pool_image.cu, roi_pool_banded.cu), so that they
 // cannot drift apart. The body walks each RoI cell once (below); K1, K3's
-// rest launch and both modes of K2 run it, each with its own epilogue.
+// rest launch and both modes of K2 run it, each with its own epilogue
+// (Scaled here, roi_pool_image.cu's Dequant for K2's int8 mode). Its bound
+// is the output's bytes (0.255 ms an image at the ablation tool's 822 MB of
+// bf16 output, at 3.35 TB/s), but it reads each RoI cell once per channel
+// from L2 and that read rate sets its time; what is left on the table is
+// reading the cells that overlapping RoIs share once, not once per RoI.
 //
 // Semantics (torchvision RoIPool, bit for bit with the JAX package's
 // drn_wsod_tpu/ops/roi_align.py:roi_pool and its Pallas kernels):
@@ -63,18 +68,20 @@ __device__ __forceinline__ float nan_max(float m, float v) {
   return (v > m || v != v) ? v : m;
 }
 
-// Element types of a map. Each names its element T, the vector V a thread
-// moves per cell (kVec elements), -inf in every lane of a 32-bit word, and
-// vmax, the lane-wise max of two vectors.
+// Element types of a map. Each names its element T, the elements kVec in
+// the 16-byte vector a thread moves per cell, -inf in every lane of a
+// 32-bit word, and vmax, the lane-wise max of two vectors.
 struct F32 {
   typedef float T;
-  typedef uint4 V;
   static constexpr int kVec = 4;  // elements per 16-byte vector
   static constexpr uint32_t kNegInfWord = 0xff800000u;  // -inf
-  __device__ static float load(const T* p, int i) { return p[i]; }
-  __device__ static T store(float v) { return v; }
   // a float32 value in the map's dtype, as a float
   __device__ static float cast(float s) { return s; }
+  // kVec float32 values as one 16-byte vector
+  __device__ static uint4 pack(const float* x) {
+    return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]),
+                      __float_as_uint(x[2]), __float_as_uint(x[3]));
+  }
   // lane-wise max of two 16-byte vectors, NaN propagating
   __device__ static uint4 vmax(uint4 a, uint4 b) {
     return make_uint4(lane_max(a.x, b.x), lane_max(a.y, b.y),
@@ -100,17 +107,16 @@ struct F32 {
 
 struct BF16 {
   typedef uint16_t T;
-  typedef uint4 V;
   static constexpr int kVec = 8;
   static constexpr uint32_t kNegInfWord = 0xff80ff80u;  // two bf16 -inf
-  __device__ static float load(const T* p, int i) {
-    return __uint_as_float(static_cast<uint32_t>(p[i]) << 16);
-  }
-  __device__ static T store(float v) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-  }
   __device__ static float cast(float s) {
     return __bfloat162float(__float2bfloat16_rn(s));
+  }
+  // kVec float32 values as one 16-byte vector, each rounded to nearest
+  // even, two per conversion
+  __device__ static uint4 pack(const float* x) {
+    return make_uint4(pair(x[0], x[1]), pair(x[2], x[3]), pair(x[4], x[5]),
+                      pair(x[6], x[7]));
   }
   // lane-wise max of two 16-byte vectors in bf16 itself, two lanes per
   // instruction (__hmax2_nan: NaN propagating); a max needs no widening
@@ -138,59 +144,46 @@ struct BF16 {
                                          bool empty) {
     const float lo = empty ? 0.f : __uint_as_float(m << 16);
     const float hi = empty ? 0.f : __uint_as_float(m & 0xffff0000u);
-    const __nv_bfloat162 r = __floats2bfloat162_rn(lo * scale, hi * scale);
+    return pair(lo * scale, hi * scale);
+  }
+  __device__ static uint32_t pair(float lo, float hi) {
+    const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
     return reinterpret_cast<const uint32_t&>(r);
   }
 };
 
-// lane-wise signed max of packed int8 words
-__device__ __forceinline__ uint4 vmaxs4(uint4 a, uint4 b) {
-  return make_uint4(__vmaxs4(a.x, b.x), __vmaxs4(a.y, b.y),
-                    __vmaxs4(a.z, b.z), __vmaxs4(a.w, b.w));
-}
-__device__ __forceinline__ uint2 vmaxs4(uint2 a, uint2 b) {
-  return make_uint2(__vmaxs4(a.x, b.x), __vmaxs4(a.y, b.y));
-}
-
-// A map quantized to int8 (K2's int8 mode), moved as Vec: 16 values per
-// 16-byte uint4 or 8 per 8-byte uint2. -128 stands for -inf: it lies below
-// every quantized value, which are clipped to [-127, 127]. The epilogue is
-// the caller's (roi_pool_image.cu).
-template <typename Vec>
+// A map quantized to int8 (K2's int8 mode): 16 values per 16-byte vector,
+// the max four __vmaxs4 on packed words. -128 stands for -inf: it lies
+// below every quantized value, which are clipped to [-127, 127]. The
+// epilogue is the caller's (roi_pool_image.cu).
 struct I8 {
   typedef int8_t T;
-  typedef Vec V;
-  static constexpr int kVec = sizeof(Vec);
+  static constexpr int kVec = 16;
   static constexpr uint32_t kNegInfWord = 0x80808080u;
-  __device__ static Vec vmax(Vec a, Vec b) { return vmaxs4(a, b); }
+  __device__ static uint4 vmax(uint4 a, uint4 b) {
+    return make_uint4(__vmaxs4(a.x, b.x), __vmaxs4(a.y, b.y),
+                      __vmaxs4(a.z, b.z), __vmaxs4(a.w, b.w));
+  }
 };
 
 // ---------------------------------------------------------------------------
 // The batched body (K1, K3's rest launch, and both modes of K2): each cell
-// of a RoI read once per channel vector.
+// of a RoI read once per 16-byte channel vector.
 //
 // Consecutive bins overlap by at most one cell: bin i+1 starts no earlier
 // than the last cell of bin i (floor((i+1)r/R) >= ceil((i+1)r/R) - 1, and
 // clamping keeps it), and neither edge ever decreases with i. So a walk over
 // the bins in order meets a cell it has read before only as the last cell
 // it read: along x the row walk keeps the last vector it loaded, along y
-// the bin walk keeps the last row's R row-bin maxima (RMax vectors in
+// the bin walk keeps the last row's R row-bin maxima (4 * RMax 32-bit
 // registers), and nothing is read twice.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void splat(uint32_t w, uint4* v) {
-  *v = make_uint4(w, w, w, w);
-}
-__device__ __forceinline__ void splat(uint32_t w, uint2* v) {
-  *v = make_uint2(w, w);
-}
-
-// -inf in every lane of a vector of D's elements
+// -inf in every lane of a 16-byte vector of D's elements
 template <typename D>
-__device__ __forceinline__ typename D::V lowest() {
-  typename D::V v;
-  splat(D::kNegInfWord, &v);
-  return v;
+__device__ __forceinline__ uint4 lowest() {
+  const uint32_t w = D::kNegInfWord;
+  return make_uint4(w, w, w, w);
 }
 
 // Cells a bin loads at once: its loads go out together (predicated off past
@@ -204,26 +197,24 @@ constexpr int kLoadBatch = 4;
 // is empty. Each cell is loaded once: a cell shared by two x-bins is the
 // last one the previous bin loaded.
 template <typename D, int RMax>
-__device__ __forceinline__ void row_bin_max(const typename D::V* row,
-                                            int pitch, int R, const int* lo_x,
-                                            const int* hi_x,
-                                            typename D::V (&rm)[RMax]) {
-  typedef typename D::V V;
-  V last = lowest<D>();
+__device__ __forceinline__ void row_bin_max(const uint4* row, int pitch,
+                                            int R, const int* lo_x,
+                                            const int* hi_x, uint4 (&rm)[RMax]) {
+  uint4 last = lowest<D>();
   int last_x = -1;
 #pragma unroll
   for (int pw = 0; pw < RMax; ++pw) {
     if (pw >= R) break;
     int x = lo_x[pw];
     const int hi = hi_x[pw];
-    V m = lowest<D>();
+    uint4 m = lowest<D>();
     if (x < hi) {
       if (x == last_x) {
         m = last;
         ++x;
       }
       for (; x < hi; x += kLoadBatch) {
-        V v[kLoadBatch];
+        uint4 v[kLoadBatch];
 #pragma unroll
         for (int j = 0; j < kLoadBatch; ++j) {
           v[j] = x + j < hi ? row[(x + j) * pitch] : lowest<D>();
@@ -266,7 +257,7 @@ struct Scaled {
 // image b into out[b, p], through the epilogue `epi`. A RoI
 // whose `skip` entry (flat index b * P + p) is
 // nonzero is left to another launch (skip may be null). Each thread owns
-// channel vectors c, c + blockDim.x, ... and walks the y-bins in
+// 16-byte channel vectors c, c + blockDim.x, ... and walks the y-bins in
 // order, each y-bin's rows in order and each row's x-bins in order (the
 // header comment above); the y-bin's R bin maxima and the kept row's R
 // row-bin maxima stay in registers, and no register cap is set: more
@@ -276,14 +267,13 @@ struct Scaled {
 // launch's RoIs skipped, K2 (roi_pool_image.cu) with B = 1.
 template <typename D, int RMax, typename Epi>
 __global__ void __launch_bounds__(256)
-    batched_kernel(const typename D::V* __restrict__ features,
+    batched_kernel(const uint4* __restrict__ features,
                    const float* __restrict__ boxes,
                    const float* __restrict__ roi_scale,
                    const int* __restrict__ order,
                    const uint8_t* __restrict__ skip,
                    uint4* __restrict__ out, int H, int W, int nvec, int P,
                    int R, float spatial_scale, Epi epi) {
-  typedef typename D::V V;
   const int b = blockIdx.y;
   const int p = order[static_cast<long>(b) * P + blockIdx.x];
   const long roi = static_cast<long>(b) * P + p;
@@ -299,17 +289,17 @@ __global__ void __launch_bounds__(256)
   __syncthreads();
   const float scale = s_scale;
 
-  const V* map = features + static_cast<long>(b) * H * W * nvec;
+  const uint4* map = features + static_cast<long>(b) * H * W * nvec;
   const long row_pitch = static_cast<long>(W) * nvec;
   uint4* dst = out + roi * R * R * nvec * Epi::kStores;
   for (int c = threadIdx.x; c < nvec; c += blockDim.x) {
     const typename Epi::Lane lane = epi.lane(c);
-    V keep[RMax];     // row-bin maxima of row kept_y
+    uint4 keep[RMax];     // row-bin maxima of row kept_y
     int kept_y = -1;
     for (int ph = 0; ph < R; ++ph) {
       int y = lo_y[ph];
       const int hi = hi_y[ph];
-      V acc[RMax];
+      uint4 acc[RMax];
 #pragma unroll
       for (int pw = 0; pw < RMax; ++pw) acc[pw] = lowest<D>();
       if (y < hi && y == kept_y) {
@@ -337,8 +327,8 @@ __global__ void __launch_bounds__(256)
 
 // Launches batched_kernel for R <= kMaxRes: the register arrays are sized
 // 7 for R <= 7 (the box head's resolution) and kMaxRes above. C is a whole
-// number of D's vectors; `out` takes Epi::kStores 16-byte vectors per input
-// vector. Returns the launch's cudaGetLastError().
+// number of 16-byte vectors; `out` takes Epi::kStores 16-byte vectors per
+// input vector. Returns the launch's cudaGetLastError().
 template <typename D, typename Epi = Scaled<D>>
 int launch_batched(const void* features, const float* boxes,
                    const float* roi_scale, const int* order,
@@ -348,7 +338,7 @@ int launch_batched(const void* features, const float* boxes,
   const int nvec = C / D::kVec;
   const dim3 grid(P, B);
   const int threads = nvec < 256 ? nvec : 256;
-  const typename D::V* f = static_cast<const typename D::V*>(features);
+  const uint4* f = static_cast<const uint4*>(features);
   uint4* o = static_cast<uint4*>(out);
   if (R <= 7) {
     batched_kernel<D, 7, Epi><<<grid, threads, 0, stream>>>(

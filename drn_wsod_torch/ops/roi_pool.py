@@ -323,10 +323,12 @@ def int8_quantize(features: torch.Tensor):
     XLA compiles the division by the constant 127 into a multiply by its
     float32 reciprocal (which can differ from the quotient in the last
     bit), so the port multiplies too; the division by ``ch_scale`` is a
-    true float32 division in both."""
-    f = features.float()
-    ch_scale = f.abs().amax(dim=(0, 1)).clamp(min=1e-6) * _INV_127
-    q = torch.round(f / ch_scale).clamp(-127, 127).to(torch.int8)
+    true float32 division in both. The absmax is taken in the map's own
+    dtype (exact) and the division reads it there, so no float32 copy of
+    the map is made."""
+    ch_scale = features.abs().amax(dim=(0, 1)).float().clamp(min=1e-6) \
+        * _INV_127
+    q = torch.round(features / ch_scale).clamp_(-127, 127).to(torch.int8)
     return q, ch_scale
 
 
@@ -414,7 +416,7 @@ def _pool_image_into(out: torch.Tensor, features: torch.Tensor,
                          f"a multiple of {vec} and the map 16-byte aligned")
     if P == 0:
         raise ValueError("the kernel takes P >= 1")
-    order = _image_order(boxes)
+    order = top_row_order(boxes[None])[0]
     if quantize_int8:
         q, ch_scale = int8_quantize(features)
         _launch_image(q, boxes, spatial_scale, resolution, roi_scale, order,
@@ -424,29 +426,16 @@ def _pool_image_into(out: torch.Tensor, features: torch.Tensor,
                       order, out)
 
 
-@functools.lru_cache(maxsize=8)
-def _roi_order(P: int, device: torch.device) -> torch.Tensor:
-    return torch.arange(P, dtype=torch.int32, device=device)
-
-
-def _image_order(boxes: torch.Tensor) -> torch.Tensor:
-    """(P, 4) boxes -> (P,) int32: the order in which K2's blocks take one
-    image's RoIs. RoI order, made once per P and device: one image's map
-    stays in L2 in any order (PERF.md)."""
-    return _roi_order(boxes.shape[0], boxes.device)
-
-
 def _launch_image(features: torch.Tensor, boxes: torch.Tensor,
                   spatial_scale: float, resolution: int,
                   roi_scale: torch.Tensor, order: torch.Tensor,
-                  out: torch.Tensor, ch_scale=None,
-                  lane_bytes: int = 16) -> None:
+                  out: torch.Tensor, ch_scale=None) -> None:
     """K2's launch on checked inputs into ``out``, its blocks taking the
-    RoIs in ``order`` ((P,) int32, a permutation of 0..P-1). Float mode
-    where ``ch_scale`` is None (``features`` the map); int8 mode otherwise
-    (``features`` the quantized map ``q``, ``ch_scale`` its (C,) scales,
-    ``out``'s dtype the output's, each thread moving ``lane_bytes`` int8
-    channels). Adds one to ``roi_pool_image.launches``."""
+    RoIs in ``order`` ((P,) int32, a permutation of 0..P-1; the wrapper
+    passes the top-row order, as K1's does). Float mode where ``ch_scale``
+    is None (``features`` the map); int8 mode otherwise (``features`` the
+    quantized map ``q``, ``ch_scale`` its (C,) scales, ``out``'s dtype the
+    output's). Adds one to ``roi_pool_image.launches``."""
     H, W, C = features.shape
     P = boxes.shape[0]
     code = _DTYPE_CODES[out.dtype]
@@ -460,11 +449,10 @@ def _launch_image(features: torch.Tensor, boxes: torch.Tensor,
     else:
         name = "roi_pool_image_int8"
         err = _kernel("roi_pool_image", "drn_roi_pool_image_int8_forward", 6,
-                      6)(features.data_ptr(), ch_scale.data_ptr(),
+                      5)(features.data_ptr(), ch_scale.data_ptr(),
                          boxes.data_ptr(), roi_scale.data_ptr(),
                          order.data_ptr(), out.data_ptr(), H, W, C, P,
-                         resolution, lane_bytes, float(spatial_scale), code,
-                         stream)
+                         resolution, float(spatial_scale), code, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     roi_pool_image.launches[name] += 1

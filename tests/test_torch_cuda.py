@@ -290,25 +290,22 @@ def test_image_kernel_float_mode_equals_k1_at_one_image(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
-def test_image_kernel_any_order_and_lane_width(cuda, dtype):
-    """Any order of the RoIs (RoI order, the top-row order, a permutation)
-    gives the plain output in both modes, and int8 mode's 8-byte lanes
-    give what its 16-byte lanes give."""
+def test_image_kernel_any_order(cuda, dtype):
+    """Any order of the RoIs (RoI order, the top-row order the wrapper
+    passes, a permutation) gives the plain output in both modes."""
     feat, boxes, scale = _k1_inputs(cuda, dtype, "shared_edges", C=48)
     f, b, s = feat[0], boxes[0], scale[0]
     q, ch_scale = rp.int8_quantize(f)
-    want = {False: rp.roi_pool_image_plain(f, b, 0.125, 7, s),
-            True: rp.roi_pool_image_plain(f, b, 0.125, 7, s, True)}
     perm = torch.randperm(128, generator=torch.Generator().manual_seed(0))
-    for order in (rp._image_order(b), rp.top_row_order(b[None])[0], perm):
+    for order in (torch.arange(128), rp.top_row_order(b[None])[0], perm):
         order = order.to(device=cuda, dtype=torch.int32).contiguous()
-        out = torch.full_like(want[False], float("nan"))
-        rp._launch_image(f, b, 0.125, 7, s, order, out)
-        _equal_by_value(out, want[False])
-        for lanes in (16, 8):
-            out = torch.full_like(want[True], float("nan"))
-            rp._launch_image(q, b, 0.125, 7, s, order, out, ch_scale, lanes)
-            _equal_by_value(out, want[True])
+        for int8 in (False, True):
+            out = torch.full((128, 7, 7, 48), float("nan"), dtype=dtype,
+                             device=cuda)
+            rp._launch_image(q if int8 else f, b, 0.125, 7, s, order, out,
+                             ch_scale if int8 else None)
+            _equal_by_value(out, rp.roi_pool_image_plain(f, b, 0.125, 7, s,
+                                                         int8))
 
 
 def test_looped_int8_quantizes_each_image_alone(cuda):
