@@ -323,11 +323,11 @@ def int8_quantize(features: torch.Tensor):
     XLA compiles the division by the constant 127 into a multiply by its
     float32 reciprocal (which can differ from the quotient in the last
     bit), so the port multiplies too; the division by ``ch_scale`` is a
-    true float32 division in both. The absmax is taken in the map's own
-    dtype (exact) and the division reads it there, so no float32 copy of
-    the map is made."""
-    ch_scale = features.abs().amax(dim=(0, 1)).float().clamp(min=1e-6) \
-        * _INV_127
+    true float32 division in both. The absmax is max(max, -min) from one
+    ``aminmax`` pass in the map's own dtype (exact), and the division reads
+    the map there, so no float32 copy of it is made."""
+    lo, hi = torch.aminmax(features.reshape(-1, features.shape[-1]), dim=0)
+    ch_scale = torch.maximum(hi, -lo).float().clamp(min=1e-6) * _INV_127
     q = torch.round(features / ch_scale).clamp_(-127, 127).to(torch.int8)
     return q, ch_scale
 
