@@ -11,7 +11,7 @@
 // Semantics: the bin arithmetic of roi_pool_bins.cuh (shared with K2 and
 // K3), then out = dtype(max * dtype(roi_scale)), one rounding: the product
 // of two bf16 values is exact in float32. The kernel body is
-// roi_pool_bins.cuh:batched_kernel, which K3's rest launch shares.
+// roi_pool_bins.cuh:batched_kernel, which K3's rest launch and K2 share.
 //
 // Bound at the flagship shape (B=2, P=4096, 87x87x2048 bf16): writing the
 // (2, 4096, 49, 2048) bf16 output is 1.64 GB, ~0.49 ms at 3.35 TB/s;
