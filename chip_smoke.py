@@ -58,8 +58,18 @@ Phases (any failure exits non-zero):
      every dtype OK, one K4 launch each;
   9. the CUDA tests (``tests/test_torch_cuda.py``: each kernel against its
      plain version at a small shape, and toy configs on the card against the
-     same weights on the CPU), run by pytest; every test must pass.
-Every path (4-8) is run with the kernels' launch counts set to 0 just
+     same weights on the CPU), run by pytest; every test must pass;
+ 10. the flagship's eval protocol ("eval"): ``GeneralizedRCNNWithTTAAVG.
+     detect_image`` at full width with the YAML's TTA (8 scales x flip,
+     MAX_SIZE 4000, views built on the device), P=4096 VOC-like proposals,
+     on 2 warm-up and 8 timed VOC07-sized u8 images drawn from a seed (the
+     JPEG decode is the one step left out): ms per image by CUDA events and
+     the host clock, views and bucket groups per image, one K1 launch per
+     group, a per-part split of each timed image, peak memory, K1 against
+     its plain version on the largest group's own inputs (B=4, the 1216
+     bucket's 2048-channel bf16 maps), detections finite and inside their
+     images, and the VOC evaluator's AP and CorLoc finite in [0, 100].
+Every path (4-8, 10) is run with the kernels' launch counts set to 0 just
 before it and read just after. The second-to-last line is the card's name
 and power limit, the line before it a JSON object of per-kernel numbers,
 the last ``{"ok": true, "device": {...}}``.
@@ -85,6 +95,12 @@ WARMUP, REQUESTS, WINDOWS, SPLITS = 2, 5, 3, 5
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_WINDOWS, TRAIN_SPLITS = 2, 5, 3, 3
 ABLATE_ITERS = 3
 PROBE_ITERS = 10
+# the eval phase's VOC07-test-like images, (H, W): 500x375, 375x500,
+# 500x333, 333x500, 500x500, 486x500, 500x281 and 400x500 (W x H); the two
+# warm-up images take the first two sizes
+EVAL_SIZES = ((375, 500), (500, 375), (333, 500), (500, 333), (500, 500),
+              (500, 486), (281, 500), (500, 400))
+EVAL_WARMUP = 2
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 ops/s
 # outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
@@ -293,19 +309,22 @@ def read_launches() -> dict:
 
 
 class Marks:
-    """CUDA events and host times at named points, set by hooks on the
-    model's own modules; ``split`` turns consecutive marks into per-part
-    device ms and host-issue ms (launches are asynchronous, so where a
-    part's host ms reaches its device ms the card waits on the host)."""
+    """CUDA events and host times at named points in the order they are
+    reached, set by hooks on the model's own modules; ``split`` sums each
+    span between consecutive points into the part its starting point opens
+    (a point reached once per TTA bucket group adds the groups' spans):
+    per-part device ms and host-issue ms (launches are asynchronous, so
+    where a part's host ms reaches its device ms the card waits on the
+    host)."""
 
     def __init__(self):
-        self.events, self.issued, self.hooks = {}, {}, []
+        self.marks, self.hooks = [], []
 
     def __call__(self, name):
         def mark(*_):
-            self.issued[name] = time.perf_counter()
-            self.events[name] = torch.cuda.Event(enable_timing=True)
-            self.events[name].record()
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.marks.append((name, event, time.perf_counter()))
         return mark
 
     def hook(self, module, before: str, after: str):
@@ -316,12 +335,14 @@ class Marks:
         for h in self.hooks:
             h.remove()
 
-    def split(self, order, names):
-        spans = list(zip(names, order, order[1:]))
-        return ({n: self.events[a].elapsed_time(self.events[b])
-                 for n, a, b in spans},
-                {n: (self.issued[b] - self.issued[a]) * 1e3
-                 for n, a, b in spans})
+    def split(self, parts: dict):
+        """``parts`` maps each point but the last to the part it opens."""
+        device = dict.fromkeys(parts.values(), 0.0)
+        host = dict.fromkeys(parts.values(), 0.0)
+        for (a, ea, ha), (_, eb, hb) in zip(self.marks, self.marks[1:]):
+            device[parts[a]] += ea.elapsed_time(eb)
+            host[parts[a]] += (hb - ha) * 1e3
+        return device, host
 
 
 def timed_window(run, inputs):
@@ -390,11 +411,11 @@ def split_request(model, detect, batch):
     finally:
         del model.inference_scores
         marks.remove()
-    return marks.split(
-        ["request_in", "backbone_in", "backbone_out", "fc1_in", "fc1_out",
-         "dan_out", "scores_out", "request_out"],
-        ["preprocess", "backbone", "pool kernel", "DAN fc1", "DAN fc2",
-         "heads", "NMS + rescale"])
+    return marks.split({
+        "request_in": "preprocess", "backbone_in": "backbone",
+        "backbone_out": "pool kernel", "fc1_in": "DAN fc1",
+        "fc1_out": "DAN fc2", "dan_out": "heads",
+        "scores_out": "NMS + rescale"})
 
 
 def split_step(model, tx, step, state, batch):
@@ -418,18 +439,54 @@ def split_step(model, tx, step, state, batch):
     finally:
         del tx.update
         marks.remove()
-    return marks.split(
-        ["step_in", "forward_in", "backbone_in", "backbone_out", "dan_in",
-         "dan_out", "forward_out", "update_in", "update_out"],
-        ["set-up", "preprocess", "backbone", "pool kernel", "DAN forward",
-         "heads and losses", "backward", "optimizer"])
+    return marks.split({
+        "step_in": "set-up", "forward_in": "preprocess",
+        "backbone_in": "backbone", "backbone_out": "pool kernel",
+        "dan_in": "DAN forward", "dan_out": "heads and losses",
+        "forward_out": "backward", "update_in": "optimizer"})
 
 
-def exact(name, got, want) -> float:
+def split_tta(model, tta, image, record):
+    """Per-part device and host-issue ms of one TTA image, summed over its
+    bucket groups: set-up (the uploads), view build (the device views and
+    preprocess), backbone, K1 (with the map's layout and the RoI scales),
+    DAN, heads (with the sums over views), finalize with NMS (and the host
+    copy of the detections)."""
+    from drn_wsod_torch import tta as tta_mod
+
+    marks = Marks()
+    marks.hook(model.backbone, "backbone_in", "backbone_out")
+    marks.hook(model.box_head, "dan_in", "dan_out")
+    build, finalize = tta_mod._device_view_batch, tta._finalize
+
+    def timed_build(*args):
+        marks("view_in")()
+        return build(*args)
+
+    def timed_finalize(*args):
+        marks("finalize_in")()
+        return finalize(*args)
+
+    tta_mod._device_view_batch, tta._finalize = timed_build, timed_finalize
+    try:
+        marks("request_in")()
+        tta.detect_image(image, record)
+        marks("request_out")()
+        torch.cuda.synchronize()
+    finally:
+        tta_mod._device_view_batch, tta._finalize = build, finalize
+        marks.remove()
+    return marks.split({
+        "request_in": "set-up", "view_in": "view build",
+        "backbone_in": "backbone", "backbone_out": "K1", "dan_in": "DAN",
+        "dan_out": "heads", "finalize_in": "finalize + NMS"})
+
+
+def exact(name, got, want, phase: int = 3) -> float:
     """max |got - want|; raises unless it is 0 and ``got`` is finite."""
     err = (got.float() - want.float()).abs().max().item()
     if err != 0.0 or not torch.isfinite(got.float()).all():
-        raise Fail(f"phase 3: {name} kernel vs plain max|diff| {err}")
+        raise Fail(f"phase {phase}: {name} kernel vs plain max|diff| {err}")
     return err
 
 
@@ -876,7 +933,7 @@ def phase4_detect(dev, gen, tag) -> dict:
     import drn_wsod_torch
     from drn_wsod_torch.tools import ablate_bench
 
-    # TTA is a later slice of the port
+    # B=2 batches without TTA; phase 10 runs the flagship's TTA protocol
     cfg = ablate_bench.flagship_cfg(overrides=("TEST.AUG.ENABLED", False))
     model = drn_wsod_torch.build_model(cfg, device=dev, generator=gen)
     topk = cfg.TEST.DETECTIONS_PER_IMAGE
@@ -1097,6 +1154,244 @@ def phase9_tests(tag) -> None:
           flush=True)
 
 
+def eval_image(rs, H, W, index, P=P, C=20):
+    """A u8 (H, W, 3) image drawn from ``rs`` and its record: P VOC-like
+    proposals (log-uniform sides, inside the image, XYXY, objectness
+    descending) and 1-3 GT boxes of random classes."""
+    image = rs.randint(0, 256, (H, W, 3)).astype(np.uint8)
+    w = np.exp(rs.uniform(np.log(8), np.log(W), P))
+    h = np.clip(w * np.exp(rs.uniform(-1, 1, P)), 8, H)
+    x1 = rs.uniform(0, W - w)
+    y1 = rs.uniform(0, H - h)
+    boxes = np.stack([x1, y1, x1 + w - 1, y1 + h - 1], 1).astype(np.float32)
+    gt = []
+    for _ in range(rs.randint(1, 4)):
+        i = rs.randint(P)
+        gt.append({"category_id": int(rs.randint(C)),
+                   "bbox": [float(v) for v in boxes[i]], "difficult": 0})
+    return image, {
+        "image_id": f"{index:06d}", "height": H, "width": W,
+        "proposal_boxes": boxes,
+        "proposal_objectness_logits": np.sort(
+            rs.uniform(-1, 1, P)).astype(np.float32)[::-1].copy(),
+        "annotations": gt}
+
+
+def view_build_ms(tta, image, record, bucket: int) -> dict:
+    """Device ms of one bucket group's view build alone (median of 5 calls
+    each): ``_device_view_batch`` whole, and one view's ``scale_linear``
+    (the resize's two float32 products) and ``weight_mat`` pair."""
+    from drn_wsod_torch import tta as tta_mod
+    from drn_wsod_torch.ops.resize import scale_linear, weight_mat
+
+    dev = tta.device
+    H0, W0 = image.shape[:2]
+    rb = int(np.ceil(max(H0, W0) / 256) * 256)
+    raw = torch.from_numpy(np.pad(image, ((0, rb - H0), (0, rb - W0),
+                                          (0, 0)), mode="edge")).to(dev)
+    views = tta.groups((H0, W0))[bucket]
+    P = tta.num_proposals
+    boxes = torch.zeros(P, 4, device=dev)
+    mask = torch.ones(P, dtype=torch.bool, device=dev)
+    nh, nw, _ = views[0]
+    sy = torch.full((), nh / H0, device=dev)
+    sx = torch.full((), nw / W0, device=dev)
+    rawf = raw.float()
+    return {
+        f"_device_view_batch ({len(views)} views)": cuda_ms(
+            lambda: tta_mod._device_view_batch(
+                raw, (H0, W0), [(h, w) for h, w, _ in views],
+                [f for _, _, f in views], bucket, boxes, mask,
+                torch.zeros(P, device=dev), torch.zeros(20, device=dev)), 5),
+        "scale_linear (one view)": cuda_ms(
+            lambda: scale_linear(rawf, (bucket, bucket), sy, sx), 5),
+        "weight_mat pair (one view)": cuda_ms(
+            lambda: (weight_mat(rb, bucket, sy), weight_mat(rb, bucket, sx)),
+            5)}
+
+
+def phase10_eval(dev, gen, tag) -> dict:
+    """The flagship's own eval protocol (TTA-AVG over 8 scales x flip, one
+    NMS, VOC AP and CorLoc) through ``GeneralizedRCNNWithTTAAVG.
+    detect_image`` at full width on VOC-sized images: per image ms by CUDA
+    events and the host clock, views, groups, K1 launches (one per group),
+    then a per-part split of each timed image, K1 against its plain version
+    on the largest group's own inputs, and the evaluator's metrics."""
+    import drn_wsod_torch
+    from drn_wsod_torch.data.datasets.voc import VOC_CLASS_NAMES
+    from drn_wsod_torch.models import meta_arch
+    from drn_wsod_torch.ops import roi_pool as rp
+    from drn_wsod_torch.tools import ablate_bench
+
+    cfg = ablate_bench.flagship_cfg()
+    aug = cfg.TEST.AUG
+    if not (aug.ENABLED and aug.DEVICE_VIEWS and aug.FLIP
+            and len(aug.MIN_SIZES) == 8 and aug.MAX_SIZE == 4000):
+        raise Fail(f"phase 10: the flagship's TEST.AUG is not its YAML's: "
+                   f"{aug}")
+    model = drn_wsod_torch.build_model(cfg, device=dev, generator=gen)
+    tta = drn_wsod_torch.GeneralizedRCNNWithTTAAVG(cfg, model, device=dev)
+    C = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    topk = cfg.TEST.DETECTIONS_PER_IMAGE
+    rs = np.random.RandomState(7)
+    images = [eval_image(rs, H, W, i) for i, (H, W) in
+              enumerate(EVAL_SIZES[:EVAL_WARMUP] + EVAL_SIZES)]
+    groups = {}
+    for image, record in images:
+        groups[record["image_id"]] = {
+            b: len(v) for b, v in tta.groups(image.shape[:2]).items()}
+    if groups["000000"] != {704: 2, 896: 4, 1216: 4, 1280: 2, 1408: 2,
+                            1536: 2}:
+        raise Fail(f"phase 10: 500x375 groups {groups['000000']}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows, outs = [], []
+    with ClockSampler() as clock_sampler:
+        for image, record in images:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            before = rp.roi_pool_batched.launches
+            t = time.perf_counter()
+            start.record()
+            outs.append(tta.detect_image(image, record))
+            end.record()
+            end.synchronize()
+            rows.append(((time.perf_counter() - t) * 1e3,
+                         start.elapsed_time(end),
+                         rp.roi_pool_batched.launches - before))
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        # the per-part split runs after the count is read: its hooks make
+        # these images differ from a caller's
+        parts = [split_tta(model, tta, *im) for im in images[EVAL_WARMUP:]]
+
+    for (image, record), (_, _, k1), dets in zip(images, rows, outs):
+        H, W = image.shape[:2]
+        n_groups = len(groups[record["image_id"]])
+        if k1 != n_groups:
+            raise Fail(f"phase 10: image {record['image_id']} ({W}x{H}): "
+                       f"K1 launched {k1} times for {n_groups} groups")
+        b, v = dets["boxes"], dets["valid"]
+        if ({k: a.shape for k, a in dets.items()} != {
+                "boxes": (topk, 4), "scores": (topk,), "classes": (topk,),
+                "valid": (topk,), "all_scores": (P, C + 1),
+                "all_boxes": (P, 4)}
+                or not all(np.isfinite(a.astype(np.float64)).all()
+                           for a in dets.values())
+                or not v.any() or (b[v] < 0).any()
+                or (b[v][:, [0, 2]] > W).any() or (b[v][:, [1, 3]] > H).any()
+                or (dets["classes"][v] >= C).any()):
+            raise Fail(f"phase 10: image {record['image_id']} ({W}x{H}): "
+                       "detections not finite, empty or outside the image")
+    if launches["roi_pool"] != sum(r[2] for r in rows):
+        raise Fail(f"phase 10: launches {launches}")
+
+    evaluator = drn_wsod_torch.PascalVOCDetectionEvaluator(
+        VOC_CLASS_NAMES, {r["image_id"]: r["annotations"]
+                          for _, r in images[EVAL_WARMUP:]}, 2007)
+    for (_, record), dets in zip(images[EVAL_WARMUP:], outs[EVAL_WARMUP:]):
+        evaluator.process_single(record["image_id"], dets["boxes"],
+                                 dets["scores"], dets["classes"],
+                                 dets["valid"])
+    res = evaluator.evaluate()
+    metrics = {**{k: res["bbox"][k] for k in ("AP", "AP50", "AP75")},
+               **{k: res["bbox CorLoc"][k] for k in ("CL", "CL50", "CL75")}}
+    if not all(math.isfinite(x) and 0.0 <= x <= 100.0
+               for x in metrics.values()):
+        raise Fail(f"phase 10: evaluator metrics {metrics}")
+
+    # K1 on the largest group's own inputs: the 500x375 image's 1216 bucket
+    # (the larger of its two 4-view groups; 2048-channel bf16 maps, the
+    # views' own proposals)
+    captured = {}
+    pool = meta_arch.roi_pool_batched
+
+    def capture(feats, boxes, spatial_scale, R, roi_scale):
+        if feats.shape[0] == 4:
+            captured[feats.shape[1]] = (feats.clone(), boxes.clone(),
+                                        roi_scale.clone())
+        return pool(feats, boxes, spatial_scale, R, roi_scale)
+
+    meta_arch.roi_pool_batched = capture
+    try:
+        tta.detect_image(*images[0])
+    finally:
+        meta_arch.roi_pool_batched = pool
+    feats, boxes, scale = captured[max(captured)]
+
+    def k1():
+        return rp.roi_pool_batched(feats, boxes, 0.125, 7, scale)
+
+    def plain():
+        return rp.roi_pool_plain(feats, boxes, 0.125, 7, scale)
+
+    got = k1()
+    torch.cuda.synchronize()
+    err = exact("roi_pool at the 1216 TTA group", got, plain(), phase=10)
+    ms, plain_ms = queued_ms(k1, 20), cuda_ms(plain, 3)
+    bound_ms, bound_by = roi_pool_bound(feats, boxes, scale, got, 0.125)
+    k1_shape = (tuple(feats.shape), tuple(boxes.shape))
+    del got, captured, feats
+    views_ms = view_build_ms(tta, *images[0], 1216)
+
+    timed = rows[EVAL_WARMUP:]
+    for (image, record), (host, device, k1n), (dev_p, host_p) in zip(
+            images[EVAL_WARMUP:], timed, parts):
+        H, W = image.shape[:2]
+        g = groups[record["image_id"]]
+        print(f"phase 10: image {record['image_id']} {W}x{H}: "
+              f"{sum(g.values())} views in {len(g)} groups "
+              f"{json.dumps(g)}, K1 launches {k1n}; {device:.3f} ms by CUDA "
+              f"events, {host:.3f} ms by the host clock; split (hooked "
+              "run), device ms: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in dev_p.items())
+              + f" (sum {sum(dev_p.values()):.3f}); host-issue ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in host_p.items())
+              + f" {tag}", flush=True)
+    dev_ms = [r[1] for r in timed]
+    host_ms = [r[0] for r in timed]
+    med = {k: statistics.median(p[0][k] for p in parts) for k in parts[0][0]}
+    print(f"phase 10: {len(images)} images ({EVAL_WARMUP} warm-up) through "
+          f"GeneralizedRCNNWithTTAAVG.detect_image, flagship at full width "
+          f"(R50-WS DC5, DAN [2048, 4096], 3 OICR branches, bf16, seeded "
+          f"random weights), TTA-AVG {len(aug.MIN_SIZES)} scales x flip, "
+          f"MAX_SIZE {aug.MAX_SIZE}, views on the device, P={P}, "
+          f"{topk} detections per image; launches {launches} (K1 once per "
+          f"group: {sum(r[2] for r in rows)} for "
+          f"{sum(len(g) for g in groups.values())} groups); detections "
+          f"finite and inside their images", flush=True)
+    print(f"phase 10: ms per image over the {len(timed)} timed images: by "
+          f"CUDA events median {statistics.median(dev_ms):.3f}, mean "
+          f"{statistics.mean(dev_ms):.3f} (min {min(dev_ms):.3f}, max "
+          f"{max(dev_ms):.3f}); by the host clock median "
+          f"{statistics.median(host_ms):.3f}, mean "
+          f"{statistics.mean(host_ms):.3f}; warm-up "
+          f"{', '.join(f'{r[1]:.3f}' for r in rows[:EVAL_WARMUP])} ms; "
+          f"peak device memory {peak / 2**30:.2f} GiB; device ms per part, "
+          f"median over the timed images: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in med.items()) + f" {tag}",
+          flush=True)
+    print(f"phase 10: roi_pool kernel == plain (max|diff| {err}) on the "
+          f"1216 group's own inputs (the 500x375 image's 4 views: map "
+          f"{k1_shape[0]} bf16, boxes {k1_shape[1]}): kernel {ms:.4f} ms "
+          f"queued, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) {tag}",
+          flush=True)
+    print(f"phase 10: view build alone, the 500x375 image's 1216 group ("
+          f"raw image edge-padded to 512x512), ms by CUDA events: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in views_ms.items())
+          + f" {tag}", flush=True)
+    print(f"phase 10: VOC evaluator on the {len(timed)} timed images: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+          + " (finite, in [0, 100]; random weights and synthetic GT: the "
+          "values mean nothing)", flush=True)
+    print(f"phase 10: card during the images: {clock_sampler.summary} {tag}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -1136,6 +1431,7 @@ def main() -> int:
             paths[name] = phase()
             torch.cuda.empty_cache()
         phase9_tests(tag)
+        paths["eval"] = phase10_eval(dev, gen, tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1

@@ -1,20 +1,26 @@
-"""The detect function (counterpart of
-``drn_wsod_tpu/evaluation/evaluator.py:make_detect_fn``).
+"""The detect function and the dataset inference loop (counterpart of
+``drn_wsod_tpu/evaluation/evaluator.py``: ``make_detect_fn``,
+``inference_on_dataset``, ``gather_and_evaluate``).
 
-The mask and keypoint arms, ``inference_on_dataset`` and the VOC evaluator
-come with later slices of the port.
+The mask and keypoint arms come with ROADMAP.md queue 1, item 14, the dense
+evaluation loops with item 15, the gather across processes with item 16.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import logging
+import time
+from typing import Callable, Dict, Iterable, Tuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..ops.nms import multiclass_nms
 from ..postprocessing import rescale_boxes
 from ..structures.batch import WSODBatch
+
+logger = logging.getLogger(__name__)
 
 
 def make_detect_fn(model, score_thresh: float, nms_thresh: float,
@@ -48,3 +54,57 @@ def make_detect_fn(model, score_thresh: float, nms_thresh: float,
         return dets
 
     return detect
+
+
+def inference_on_dataset(detect: Callable[[WSODBatch], Dict[str, torch.Tensor]],
+                         loader: Iterable[Tuple[WSODBatch, int]], evaluator,
+                         records) -> Dict:
+    """Run ``detect`` (the model closed over, as :func:`make_detect_fn`
+    returns it) over ``loader``'s (batch, n_real) pairs, feed each real
+    image's detections to ``evaluator`` and evaluate.
+
+    ``records`` are the loader's dataset records, indexed by each batch's
+    ``image_id``. The time per image is logged: each batch is timed from
+    the call to the host copy of its detections (the copy waits for the
+    device), the first batch (warm-up) left out.
+    """
+    evaluator.reset()
+    total_images = 0
+    total_time = 0.0
+    warmup = 1
+    n_batches = 0
+    for batch, n_real in loader:
+        t0 = time.perf_counter()
+        dets = detect(batch)
+        host = {k: dets[k].cpu().numpy()
+                for k in ("boxes", "scores", "classes", "valid")}
+        dt = time.perf_counter() - t0
+        n_batches += 1
+        if n_batches > warmup:
+            total_time += dt
+            total_images += n_real
+        ids = np.asarray(batch.image_id.cpu())
+        for i in range(n_real):
+            record = records[int(ids[i])]
+            evaluator.process_single(
+                str(record["image_id"]), host["boxes"][i], host["scores"][i],
+                host["classes"][i], host["valid"][i])
+
+    if total_images:
+        logger.info(
+            f"Inference: {total_time / total_images:.4f} s/img "
+            f"({total_images / max(total_time, 1e-9):.2f} img/s)")
+    return gather_and_evaluate(evaluator)
+
+
+def gather_and_evaluate(evaluator) -> Dict:
+    """Evaluate the predictions of this process. A process group of more
+    than one process would need them gathered first, which is not ported
+    yet (ROADMAP.md queue 1, item 16), so it raises."""
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized() and \
+            torch.distributed.get_world_size() > 1:
+        raise NotImplementedError(
+            "gathering predictions across processes is not ported yet: "
+            "ROADMAP.md queue 1, item 16 (multi-device)")
+    return evaluator.evaluate()

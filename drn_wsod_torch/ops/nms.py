@@ -18,7 +18,7 @@ is a stable descending sort, sliced.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -29,6 +29,44 @@ def _top(x: torch.Tensor, k: int):
     """Top-k along the last dim, ties to the lower index."""
     values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
     return values[..., :k], indices[..., :k]
+
+
+def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             iou_threshold: float, iou: Optional[torch.Tensor] = None,
+             max_iters: Optional[int] = None) -> torch.Tensor:
+    """Greedy NMS keep-mask (counterpart of
+    ``drn_wsod_tpu/ops/nms.py:nms_mask``), batched over leading dims.
+
+    Args:
+      boxes: (..., N, 4) XYXY.
+      scores: (..., N).
+      valid: (..., N) bool candidates; padded slots False.
+      iou_threshold: a pair above it (strictly) suppresses.
+      iou: optional precomputed (..., N, N) IoU matrix; broadcasts against
+        the leading dims of ``scores``.
+      max_iters: Jacobi rounds, min(32, N) by default.
+
+    Ranks are a stable ascending sort of ``-scores`` with invalid slots
+    last, as ``jnp.argsort(-s, stable=True)`` ranks them.
+
+    Returns: (..., N) bool keep mask.
+    """
+    if iou is None:
+        iou = pairwise_iou(boxes, boxes)
+    n = boxes.shape[-2]
+    iters = max_iters if max_iters is not None else min(32, n)
+    s = torch.where(valid, scores, scores.new_full((), -math.inf))
+    order = torch.sort(-s, dim=-1, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(n, device=order.device).expand_as(order))
+    earlier = rank[..., None, :] < rank[..., :, None]       # j strictly before i
+    sup = ((iou > iou_threshold) & earlier & valid[..., None, :]
+           & valid[..., :, None]).to(torch.float32)
+    keep = valid
+    for _ in range(iters):
+        hit = torch.matmul(sup, keep.to(torch.float32)[..., None])[..., 0]
+        keep = valid & ~(hit > 0.5)
+    return keep
 
 
 def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor,

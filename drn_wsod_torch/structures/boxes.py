@@ -1,4 +1,5 @@
-"""Box utilities over ``(..., 4)`` XYXY tensors.
+"""Box utilities over ``(..., 4)`` XYXY tensors, and the host-side box mode
+and dedup helpers of the data path.
 
 Counterpart of ``drn_wsod_tpu/structures/boxes.py``: the same formulas in the
 same order, so float32 results agree with the JAX package to the last bit
@@ -7,11 +8,46 @@ wherever both backends round the same way.
 
 from __future__ import annotations
 
+import enum
 import math
 
+import numpy as np
 import torch
 
 _DEFAULT_SCALE_CLAMP = math.log(1000.0 / 16)
+
+
+class BoxMode(enum.IntEnum):
+    """The box modes of precomputed proposal files (the subset of
+    Detectron2's ``BoxMode`` the JAX package keeps)."""
+
+    XYXY_ABS = 0
+    XYWH_ABS = 1
+
+    @staticmethod
+    def convert(box, from_mode: "BoxMode", to_mode: "BoxMode"):
+        """Convert (..., 4) host boxes between the two modes."""
+        if from_mode == to_mode:
+            return box
+        box = np.asarray(box)
+        if from_mode == BoxMode.XYWH_ABS and to_mode == BoxMode.XYXY_ABS:
+            x, y, w, h = box[..., 0], box[..., 1], box[..., 2], box[..., 3]
+            return np.stack([x, y, x + w, y + h], axis=-1)
+        if from_mode == BoxMode.XYXY_ABS and to_mode == BoxMode.XYWH_ABS:
+            x1, y1, x2, y2 = box[..., 0], box[..., 1], box[..., 2], box[..., 3]
+            return np.stack([x1, y1, x2 - x1, y2 - y1], axis=-1)
+        raise NotImplementedError(f"{from_mode} -> {to_mode}")
+
+
+def unique_boxes_mask(boxes_np: np.ndarray, scale: float = 1.0) -> np.ndarray:
+    """Host-side dedup mask of (N, 4) boxes, first occurrence kept: boxes
+    that round to the same integers (after ``scale``) are duplicates."""
+    v = np.array([1, 1e3, 1e6, 1e9])
+    hashes = np.round(boxes_np * scale) @ v
+    _, index = np.unique(hashes, return_index=True)
+    mask = np.zeros(len(boxes_np), dtype=bool)
+    mask[np.sort(index)] = True
+    return mask
 
 
 def area(boxes: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """CUDA-only tests: the hand-written RoIPool kernels (K1 batched, whose
 body reads each RoI cell once; K2 single image in float and int8 modes, on
 K1's body; K3 banded) and the narrow-dtype max (K4) against their plain versions on the
-card, and the toy detect path and train
+card, and the toy detect path, TTA and train
 steps on the card against the CPU. They skip where no CUDA device exists
 (the kernels have no CPU mode); run them on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py``."""
@@ -167,6 +167,88 @@ def test_toy_detect_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(got["all_scores"].cpu().numpy(),
                                want["all_scores"].numpy(),
                                rtol=1e-4, atol=1e-5)
+
+
+def _tta_record(H=45, W=61, n=80, seed=0):
+    """A u8 image and a record of ``n`` proposals inside it, for the TTA."""
+    g = np.random.RandomState(seed)
+    image = g.randint(0, 256, (H, W, 3)).astype(np.uint8)
+    x1 = g.uniform(0, W - 10, n)
+    y1 = g.uniform(0, H - 10, n)
+    boxes = np.stack([x1, y1, np.minimum(x1 + g.uniform(4, 40, n), W - 1),
+                      np.minimum(y1 + g.uniform(4, 30, n), H - 1)], 1)
+    return image, {"proposal_boxes": boxes.astype(np.float32),
+                   "proposal_objectness_logits":
+                       g.uniform(-1, 1, n).astype(np.float32),
+                   "annotations": [{"category_id": 3,
+                                    "bbox": [2.0, 3.0, 30.0, 40.0]}]}
+
+
+def test_toy_tta_on_cuda_matches_cpu(cuda):
+    """TTA-AVG (views built on the device, 2 scales x flip in two bucket
+    groups) of the toy OICR config with a regressing last branch, on the
+    card and on the CPU from the same weights: all_scores and all_boxes
+    within rtol 1e-4 (atol 1e-5 times the largest value), one K1 launch
+    per group."""
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_list(["MODEL.RESNETS.DEPTH", "18",
+                         "MODEL.RESNETS.RES2_OUT_CHANNELS", "64",
+                         "MODEL.ROI_BOX_HEAD.DAN_DIM", "[64, 64]",
+                         "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "64",
+                         "MODEL.PIXEL_STD", "[57.4, 57.1, 58.4]",
+                         "WSL.REFINE_REG", "[False, False, True]",
+                         "TEST.AUG.MIN_SIZES", "(40, 72)",
+                         "TEST.AUG.MAX_SIZE", "200",
+                         "INPUT.BUCKETS", "[64, 96]",
+                         "MODEL.DTYPE", "float32"])
+    cpu_model = drn_wsod_torch.build_model(cfg, device="cpu")
+    gpu_model = drn_wsod_torch.build_model(cfg, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    image, record = _tta_record()
+    want = drn_wsod_torch.GeneralizedRCNNWithTTAAVG(
+        cfg, cpu_model, device="cpu").detect_image(image, record)
+    tta = drn_wsod_torch.GeneralizedRCNNWithTTAAVG(cfg, gpu_model)
+    before = rp.roi_pool_batched.launches
+    got = tta.detect_image(image, record)
+    assert rp.roi_pool_batched.launches - before == len(
+        tta.groups(image.shape[:2])) == 2
+    for k in ("all_scores", "all_boxes"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                   atol=1e-5 * np.abs(want[k]).max(),
+                                   err_msg=k)
+    assert got["valid"].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_kernel_matches_plain_at_a_tta_group(cuda, dtype):
+    """K1 at a TTA group's shape: B = 4 views of one image (two scales,
+    each with its flip) in one bucket, the proposals scaled by each view's
+    float32 (sx, sy) and flipped as the device view build does it."""
+    from drn_wsod_torch import tta
+
+    image, record = _tta_record(H=375, W=500, n=96, seed=3)
+    views = tta.enumerate_views((375, 500), (768, 864), 4000, True)
+    bucket = 1216
+    boxes = torch.from_numpy(record["proposal_boxes"]).to(cuda)
+    raw = torch.from_numpy(np.pad(image, ((0, 137), (0, 12), (0, 0)),
+                                  mode="edge")).to(cuda)
+    batch, _ = tta._device_view_batch(
+        raw, (375, 500), [(nh, nw) for nh, nw, _ in views],
+        [f for _, _, f in views], bucket, boxes,
+        torch.ones(96, dtype=torch.bool, device=cuda),
+        torch.from_numpy(record["proposal_objectness_logits"]).to(cuda),
+        torch.zeros(20, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(5)
+    feat = torch.randn(4, bucket // 8, bucket // 8, 24, generator=g,
+                       device=cuda).to(dtype)
+    scale = batch.objectness + 1.0
+    before = rp.roi_pool_batched.launches
+    got = rp.roi_pool_batched(feat, batch.proposals, 0.125, 7, scale)
+    torch.cuda.synchronize()
+    assert rp.roi_pool_batched.launches == before + 1
+    _equal_by_value(got, rp.roi_pool_plain(feat, batch.proposals, 0.125, 7,
+                                           scale))
 
 
 @pytest.mark.parametrize("quantize_int8", [False, True], ids=["float", "int8"])

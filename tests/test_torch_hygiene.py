@@ -39,7 +39,8 @@ def test_import_pulls_in_no_jax():
             "drn_wsod_torch.ops.narrow_max, "
             "drn_wsod_torch.tools.ablate_bench, "
             "drn_wsod_torch.tools.pool_banded_probe, "
-            "drn_wsod_torch.tools.mosaic_dtype_probe; "
+            "drn_wsod_torch.tools.mosaic_dtype_probe, "
+            "drn_wsod_torch.tools.train_net; "
             "print(sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -60,8 +61,24 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
         drn_wsod_torch.make_detect_fn(model, 1e-5, 0.3, 10)
 
 
+def test_eval_entry_points_refuse_missing_cuda(monkeypatch):
+    from drn_wsod_torch.tools import train_net
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, cfg = cfg_pair(*TOY, "TEST.AUG.ENABLED", True)
+    model = drn_wsod_torch.build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drn_wsod_torch.GeneralizedRCNNWithTTAAVG(cfg, model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_net.do_test(cfg, model)
+    args = train_net.argument_parser().parse_args(["--eval-only"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_net.main(args)
+
+
 def test_tools_are_covered():
-    for tool in ("ablate_bench", "pool_banded_probe", "mosaic_dtype_probe"):
+    for tool in ("ablate_bench", "pool_banded_probe", "mosaic_dtype_probe",
+                 "train_net"):
         assert f"drn_wsod_torch/tools/{tool}.py" in SOURCES
     assert "drn_wsod_torch/ops/narrow_max.py" in SOURCES
 
