@@ -68,9 +68,28 @@ Phases (any failure exits non-zero):
      group, a per-part split of each timed image, peak memory, K1 against
      its plain version on the largest group's own inputs (B=4, the 1216
      bucket's 2048-channel bf16 maps), detections finite and inside their
-     images, and the VOC evaluator's AP and CorLoc finite in [0, 100].
-Every path (4-8, 10) is run with the kernels' launch counts set to 0 just
-before it and read just after. The second-to-last line is the card's name
+     images, and the VOC evaluator's AP and CorLoc finite in [0, 100];
+ 11. the flagship's training entry point ("train_entry"), all through
+     ``drn_wsod_torch.tools.train_net.main`` on the flagship YAML at full
+     width (B=4, crop, 24 scales 480-1216 under MAX 2000, flip, DAN [2048,
+     4096], dropout 0.5; seeded random weights, as ``MODEL.WEIGHTS`` is not
+     in the repository) from a shard of 24 synthetic VOC-sized records
+     packed by ``pack_dataset`` (no JPEG decode) with their proposals in a
+     Detectron2 pickle: (a) 16 steps from scratch, then the TTA eval of the
+     4 test and 24 train records; (b) ``--resume`` to 24 steps, its
+     restored parameters, momentum and step bit-equal to the checkpoint of
+     16, then the TTA eval; (c) ``--eval-only --resume`` without TTA (the
+     test loader); (d) ``DefaultPredictor`` on one 500x375 image with 4096
+     proposals. Losses finite and lr the schedule's in ``metrics.json``,
+     checkpoints at 8, 16 and 24, detections finite and inside their
+     images, K1 launched once per step, per TTA group and per test-loader
+     image; steps/s and img/s from ``IterationTimer``, the loader's wait
+     per chunk against ``do_train``'s time, each step's device ms by CUDA
+     events with its bucket (a bucket's first step against its reruns),
+     peak memory, and K1 against its plain version at the largest map the
+     steps gave it.
+Every path (4-8, 10, 11) is run with the kernels' launch counts set to 0
+just before it and read just after. The second-to-last line is the card's name
 and power limit, the line before it a JSON object of per-kernel numbers,
 the last ``{"ok": true, "device": {...}}``.
 """
@@ -1392,6 +1411,441 @@ def phase10_eval(dev, gen, tag) -> dict:
     return launches
 
 
+
+# ------------------------------------------------------------- phase 11
+PH11_TRAIN, PH11_TEST, PH11_PROPOSALS = 24, 4, 4500
+PH11_STEPS, PH11_RESUMED, PH11_CKPT, PH11_PREDICTS = 16, 24, 8, 4
+
+
+class Patches:
+    """Attributes replaced for the phase's measurements and checks, put
+    back on exit."""
+
+    def __init__(self):
+        self.saved = []
+
+    def set(self, obj, name, value):
+        self.saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in reversed(self.saved):
+            setattr(obj, name, value)
+
+
+def ph11_dataset(root: Path, name: str, sizes, rs, start: int):
+    """Draw ``sizes`` VOC-like records (phase 10's ``eval_image``: u8 BGR
+    pixels, PH11_PROPOSALS proposals, 1-3 GT boxes of random VOC classes),
+    pack them with the port's ``pack_dataset`` (pixels in, proposals out),
+    write their proposals as a Detectron2 pickle, and register the shard in
+    the port's ``DatasetCatalog`` with VOC metadata. Returns the pickle's
+    path and {image_id: (H, W)}."""
+    import pickle
+
+    from drn_wsod_torch.data import (DatasetCatalog, MetadataCatalog,
+                                     RecordDataset, pack_dataset)
+    from drn_wsod_torch.data.datasets.voc import VOC_CLASS_NAMES
+
+    records, props = [], {"ids": [], "boxes": [], "objectness_logits": [],
+                          "bbox_mode": 0}
+    for i, (H, W) in enumerate(sizes):
+        image, rec = eval_image(rs, H, W, start + i, P=PH11_PROPOSALS)
+        records.append({"file_name": f"{name}/{rec['image_id']}.jpg",
+                        "image_id": rec["image_id"], "height": H, "width": W,
+                        "annotations": rec["annotations"], "image": image})
+        props["ids"].append(rec["image_id"])
+        props["boxes"].append(rec["proposal_boxes"])
+        props["objectness_logits"].append(rec["proposal_objectness_logits"])
+    shard = root / f"{name}.rec"
+    pack_dataset(records, str(shard))
+    prop_file = root / f"{name}_proposals.pkl"
+    with open(prop_file, "wb") as f:
+        pickle.dump(props, f)
+    if name in DatasetCatalog:
+        DatasetCatalog.remove(name)
+    DatasetCatalog.register(name, lambda: list(RecordDataset(str(shard))))
+    MetadataCatalog.get(name).set(thing_classes=list(VOC_CLASS_NAMES),
+                                  evaluator_type="pascal_voc", year=2007,
+                                  split=name)
+    return str(prop_file), {r["image_id"]: (r["height"], r["width"])
+                            for r in records}
+
+
+def phase11_train_entry(dev, tag) -> dict:
+    """The flagship's training entry point at full width through
+    ``drn_wsod_torch.tools.train_net.main``: (a) 16 steps from scratch on a
+    packed shard of 24 synthetic VOC-sized records, then the TTA eval of the
+    test and train sets; (b) ``--resume`` to 24 steps; (c) ``--eval-only
+    --resume`` without TTA (the test loader); (d) ``DefaultPredictor`` on
+    one 500x375 image."""
+    import logging
+    import shutil
+
+    import drn_wsod_torch
+    from drn_wsod_torch.checkpoint import Checkpointer
+    from drn_wsod_torch.data import pick_bucket
+    from drn_wsod_torch.engine import Trainer, defaults
+    from drn_wsod_torch.engine import trainer as trainer_lib
+    from drn_wsod_torch.evaluation import voc_eval
+    from drn_wsod_torch.models import meta_arch
+    from drn_wsod_torch.ops import roi_pool as rp
+    from drn_wsod_torch.solver.build import build_lr_schedule
+    from drn_wsod_torch.tools import train_net
+    from drn_wsod_torch.tta import enumerate_views
+
+    t_phase = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    yaml = here / "configs" / "PascalVOC-Detection" / "oicr_WSR_50_DC5_1x.yaml"
+    work = here / "build" / "chip_smoke_phase11"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = work / "output"
+    rs = np.random.RandomState(11)
+    train_sizes = [EVAL_SIZES[i % len(EVAL_SIZES)] for i in range(PH11_TRAIN)]
+    test_sizes = list(EVAL_SIZES[:PH11_TEST])
+    train_props, train_hw = ph11_dataset(work, "ph11_train", train_sizes, rs,
+                                         0)
+    test_props, test_hw = ph11_dataset(work, "ph11_test", test_sizes, rs,
+                                       100)
+    hw = {**train_hw, **test_hw}
+    opts = ["DATASETS.TRAIN", "('ph11_train',)",
+            "DATASETS.TEST", "('ph11_test',)",
+            "DATASETS.PROPOSAL_FILES_TRAIN", repr((train_props,)),
+            "DATASETS.PROPOSAL_FILES_TEST", repr((test_props,)),
+            "MODEL.WEIGHTS", "", "OUTPUT_DIR", str(out), "SEED", "0",
+            "SOLVER.CHECKPOINT_PERIOD", str(PH11_CKPT),
+            "TEST.EVAL_PERIOD", "0"]
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_file(str(yaml))
+    cfg.merge_from_list(opts + ["SOLVER.MAX_ITER", str(PH11_STEPS)])
+    if not (cfg.SOLVER.IMS_PER_BATCH == 4 and cfg.INPUT.CROP.ENABLED
+            and len(cfg.INPUT.MIN_SIZE_TRAIN) == 24
+            and cfg.INPUT.MAX_SIZE_TRAIN == 2000
+            and cfg.INPUT.RANDOM_FLIP != "none"
+            and list(cfg.MODEL.ROI_BOX_HEAD.DAN_DIM) == [2048, 4096]
+            and cfg.MODEL.ROI_BOX_HEAD.DROPOUT == 0.5
+            and cfg.TEST.AUG.ENABLED and cfg.TEST.EVAL_TRAIN):
+        raise Fail(f"phase 11: the flagship YAML is not as expected: "
+                   f"{cfg.SOLVER.IMS_PER_BATCH} {cfg.INPUT}")
+    sched = build_lr_schedule(cfg)
+    k = train_net.steps_per_dispatch(cfg)
+
+    def tta_groups(h, w):
+        return len({pick_bucket(nh, nw, cfg.INPUT.BUCKETS)
+                    for nh, nw, _ in enumerate_views(
+                        (h, w), cfg.TEST.AUG.MIN_SIZES, cfg.TEST.AUG.MAX_SIZE,
+                        cfg.TEST.AUG.FLIP)})
+
+    tta_launches = sum(tta_groups(*v) for v in hw.values())
+    steps, chunks, trainers, resumed, dets, bad = [], [], [], {}, [], []
+    captured = {}
+    run = {"name": ""}
+
+    def file_logger(output_dir=None, name="drn_wsod_torch"):
+        logging.basicConfig(
+            level=logging.INFO, force=True,
+            format="[%(asctime)s %(name)s]: %(message)s",
+            handlers=[logging.FileHandler(os.path.join(output_dir,
+                                                       "log.txt"))])
+        return logging.getLogger(name)
+
+    make_step = trainer_lib.make_train_step
+
+    def timed_make_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def timed(state, batch, seed):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out_ = step(state, batch, seed)
+            end.record()
+            steps.append((run["name"], int(batch.image.shape[1]), start, end))
+            return out_
+        return timed
+
+    chunk_iter = Trainer._chunk_iter
+
+    def timed_chunks(self, *a):
+        for item in chunk_iter(self, *a):
+            chunks.append((run["name"], item[1], item[2]))
+            yield item
+
+    do_train = train_net.do_train
+
+    def timed_do_train(*a, **kw):
+        t = time.perf_counter()
+        trainer = do_train(*a, **kw)
+        torch.cuda.synchronize()
+        trainers.append((run["name"], trainer, time.perf_counter() - t))
+        return trainer
+
+    resume_or_load = Checkpointer.resume_or_load
+
+    def checked_resume(self, state, *a, **kw):
+        state, start = resume_or_load(self, state, *a, **kw)
+        if run["name"] == "b":
+            saved = torch.load(self.path(PH11_STEPS), map_location=dev,
+                               weights_only=True)
+            sd = state.model.state_dict()
+            resumed["params"] = all(torch.equal(sd[n], t)
+                                    for n, t in saved["model"].items())
+            resumed["momentum"] = all(
+                torch.equal(state.opt_state["trace"][n], t)
+                for n, t in saved["opt_state"]["trace"].items()
+                if t is not None)
+            resumed["tensors"] = len(saved["model"]) + len(
+                saved["opt_state"]["trace"])
+            resumed["step"], resumed["start"] = state.step, start
+            resumed["saved_step"] = saved["step"]
+            del saved
+        return state, start
+
+    process = voc_eval.PascalVOCDetectionEvaluator.process_single
+
+    def checked_process(self, image_id, boxes, scores, classes, valid):
+        H, W = hw[image_id]
+        b, v = np.asarray(boxes), np.asarray(valid)
+        finite = all(np.isfinite(np.asarray(a, np.float64)).all()
+                     for a in (boxes, scores, classes))
+        inside = not ((b[v] < 0).any() or (b[v][:, [0, 2]] > W).any()
+                      or (b[v][:, [1, 3]] > H).any()
+                      or (np.asarray(classes)[v] >= 20).any())
+        dets.append((run["name"], image_id, int(v.sum())))
+        if not (finite and inside):
+            bad.append((run["name"], image_id, finite, inside, int(v.sum())))
+        return process(self, image_id, boxes, scores, classes, valid)
+
+    pool = meta_arch.roi_pool_batched
+
+    def capture(feats, boxes, spatial_scale, R, roi_scale):
+        if run["name"] in ("a", "b") and torch.is_grad_enabled() and \
+                feats.shape[1] > captured.get("side", 0):
+            captured.update(side=feats.shape[1], feats=feats.clone(),
+                            boxes=boxes.clone(), scale=roi_scale.clone())
+        return pool(feats, boxes, spatial_scale, R, roi_scale)
+
+    def main_run(name, extra):
+        run["name"] = name
+        args = train_net.argument_parser().parse_args(
+            ["--config-file", str(yaml), *extra])
+        before = rp.roi_pool_batched.launches
+        t = time.perf_counter()
+        results = train_net.main(args, device=dev)
+        torch.cuda.synchronize()
+        return (results, rp.roi_pool_batched.launches - before,
+                time.perf_counter() - t)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with Patches() as patch, ClockSampler() as clock_sampler:
+        patch.set(defaults, "setup_logger", file_logger)
+        patch.set(trainer_lib, "make_train_step", timed_make_step)
+        patch.set(Trainer, "_chunk_iter", timed_chunks)
+        patch.set(train_net, "do_train", timed_do_train)
+        patch.set(Checkpointer, "resume_or_load", checked_resume)
+        patch.set(voc_eval.PascalVOCDetectionEvaluator, "process_single",
+                  checked_process)
+        patch.set(meta_arch, "roi_pool_batched", capture)
+        res_a, k1_a, s_a = main_run(
+            "a", [*opts, "SOLVER.MAX_ITER", str(PH11_STEPS)])
+        ck = Checkpointer(str(out / "checkpoints"))
+        ckpts_a = ck.all_steps()
+        peak_train = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        res_b, k1_b, s_b = main_run(
+            "b", ["--resume", *opts, "SOLVER.MAX_ITER", str(PH11_RESUMED)])
+        ckpts_b = ck.all_steps()
+        peak_train = max(peak_train, torch.cuda.max_memory_allocated())
+        torch.cuda.empty_cache()
+        res_c, k1_c, s_c = main_run(
+            "c", ["--eval-only", "--resume", *opts, "SOLVER.MAX_ITER",
+                  str(PH11_RESUMED), "TEST.AUG.ENABLED", "False"])
+        torch.cuda.empty_cache()
+        # (d) DefaultPredictor on one 500x375 image with 4096 proposals
+        run["name"] = "d"
+        image, record = eval_image(np.random.RandomState(12), 375, 500, 900)
+        predictor = drn_wsod_torch.DefaultPredictor(cfg, device=dev)
+        before = rp.roi_pool_batched.launches
+        pred = predictor(image, record["proposal_boxes"],
+                         record["proposal_objectness_logits"])
+        t = time.perf_counter()
+        for _ in range(PH11_PREDICTS - 1):
+            predictor(image, record["proposal_boxes"],
+                      record["proposal_objectness_logits"])
+        pred_ms = (time.perf_counter() - t) / (PH11_PREDICTS - 1) * 1e3
+        k1_d = rp.roi_pool_batched.launches - before
+        del predictor
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+    for handler in logging.getLogger().handlers[:]:
+        logging.getLogger().removeHandler(handler)
+        handler.close()
+    torch.cuda.empty_cache()
+
+    # ---- checks
+    with open(out / "metrics.json") as f:
+        lines = [json.loads(line) for line in f]
+    losses = [(m["iteration"], k, v) for m in lines for k, v in m.items()
+              if "loss" in k]
+    if not losses or not all(math.isfinite(v) for _, _, v in losses):
+        raise Fail(f"phase 11: losses not finite in metrics.json: {losses}")
+    lr_bad = [(m["iteration"], m.get("lr")) for m in lines
+              if m.get("lr") not in (sched(m["iteration"]),
+                                     sched(m["iteration"] - 1))]
+    if lr_bad or not any("lr" in m for m in lines):
+        raise Fail(f"phase 11: lr in storage not the schedule's: {lr_bad}")
+    n_eval = len(hw)
+    want = {"a": PH11_STEPS + tta_launches,
+            "b": PH11_RESUMED - PH11_STEPS + tta_launches,
+            "c": n_eval, "d": PH11_PREDICTS}
+    got = {"a": k1_a, "b": k1_b, "c": k1_c, "d": k1_d}
+    if got != want or launches["roi_pool"] != sum(want.values()):
+        raise Fail(f"phase 11: K1 launches {got}, want {want} (one per "
+                   f"step plus one per TTA group or test-loader image); "
+                   f"{launches}")
+    step_runs = [r for r, *_ in steps]
+    if step_runs != ["a"] * PH11_STEPS + \
+            ["b"] * (PH11_RESUMED - PH11_STEPS):
+        raise Fail(f"phase 11: train steps {step_runs}")
+    if ckpts_a != [PH11_CKPT, PH11_STEPS] or \
+            ckpts_b != [PH11_CKPT, PH11_STEPS, PH11_RESUMED]:
+        raise Fail(f"phase 11: checkpoints {ckpts_a} after (a), {ckpts_b} "
+                   f"after (b)")
+    if not (resumed.get("params") and resumed.get("momentum")
+            and resumed["step"] == resumed["start"] == resumed["saved_step"]
+            == PH11_STEPS):
+        raise Fail(f"phase 11: the resumed state is not the one saved at "
+                   f"{PH11_STEPS}: {resumed}")
+    if bad or len(dets) != 3 * n_eval:
+        raise Fail(f"phase 11: detections not finite or outside their "
+                   f"images (run, image, finite, inside, detections): "
+                   f"{bad}; {len(dets)} images evaluated")
+    kept = {r: [n for rr, _, n in dets if rr == r] for r in "abc"}
+    pb = pred["boxes"]
+    if (not len(pb) or not all(np.isfinite(np.asarray(v, np.float64)).all()
+                               for v in pred.values())
+            or (pb < 0).any() or (pb[:, [0, 2]] > 500).any()
+            or (pb[:, [1, 3]] > 375).any()):
+        raise Fail(f"phase 11: DefaultPredictor detections {pred}")
+    metrics = {}
+    for r, res in (("a", res_a), ("b", res_b), ("c", res_c)):
+        for ds, tasks in res.items():
+            for task in ("bbox", "bbox CorLoc"):
+                for key in ("AP50", "CL50"):
+                    if key in tasks[task]:
+                        metrics[f"{r}/{ds}/{key}"] = tasks[task][key]
+    if not all(math.isfinite(v) and 0.0 <= v <= 100.0
+               for v in metrics.values()) or len(metrics) != 12:
+        raise Fail(f"phase 11: evaluator metrics {metrics}")
+
+    # K1 at the largest map the train steps gave it
+    feats, boxes, scale = (captured[k] for k in ("feats", "boxes", "scale"))
+
+    def k1():
+        return rp.roi_pool_batched(feats, boxes, 0.125, 7, scale)
+
+    def plain():
+        return rp.roi_pool_plain(feats, boxes, 0.125, 7, scale)
+
+    k1_out = k1()
+    torch.cuda.synchronize()
+    err = exact(f"roi_pool at the train step's {captured['side']}^2 map",
+                k1_out, plain(), phase=11)
+    k1_ms, plain_ms = queued_ms(k1, 10), cuda_ms(plain, 2)
+    bound_ms, bound_by = roi_pool_bound(feats, boxes, scale, k1_out, 0.125)
+    k1_shape = (tuple(feats.shape), tuple(boxes.shape))
+    del k1_out, captured, feats
+    torch.cuda.empty_cache()
+
+    # ---- records
+    tb = "left out (no tensorboard package)" if "TensorboardWriter left " \
+        "out" in (out / "log.txt").read_text() else "written"
+    by_bucket = {}
+    for r, bucket, start, end in steps:
+        by_bucket.setdefault(bucket, []).append((r, start.elapsed_time(end)))
+    dev_ms = {r: [(bucket, s.elapsed_time(e))
+                  for rr, bucket, s, e in steps if rr == r]
+              for r in ("a", "b")}
+    for (r, trainer, wall), n in zip(trainers, (PH11_STEPS, PH11_RESUMED
+                                                - PH11_STEPS)):
+        times = [v for v, _ in trainer.storage.history("time").values()]
+        data = sum(dt * kk for rr, kk, dt in chunks if rr == r)
+        print(f"phase 11: run ({r}) do_train: {n} steps of B="
+              f"{cfg.SOLVER.IMS_PER_BATCH} in {wall:.3f} s (loader start, "
+              f"resume_or_load and checkpoint saves included); "
+              f"IterationTimer time {json.dumps(times)} s/step -> "
+              + (f"{1 / times[-1]:.3f} steps/s, "
+                 f"{cfg.SOLVER.IMS_PER_BATCH / times[-1]:.3f} img/s"
+                 if times else "no fenced time")
+              + f"; device ms per step by CUDA events (bucket: ms): "
+              f"{', '.join(f'{b}: {v:.1f}' for b, v in dev_ms[r])} (sum "
+              f"{sum(v for _, v in dev_ms[r]):.1f}); total_loss at the "
+              f"writes: " + ", ".join(
+                  f"{m['iteration']}: {m['total_loss']:.4f}" for m in lines
+                  if "total_loss" in m and
+                  (m["iteration"] <= PH11_STEPS) == (r == "a"))
+              + f"; data_time (waits for a chunk) "
+              f"{data:.3f} s = {100 * data / wall:.1f}% of do_train; "
+              f"{k}-step chunks {tag}", flush=True)
+    first_vs_rerun = {
+        b: (v[0][1], statistics.median([t for _, t in v[1:]]) if v[1:]
+            else None, len(v))
+        for b, v in sorted(by_bucket.items())}
+    print("phase 11: buckets met (steps at each), the first step's device "
+          "ms against the median of its reruns: " + ", ".join(
+              f"{b}: {n} steps, first {f:.1f}"
+              + (f" vs {m:.1f}" if m is not None else "")
+              for b, (f, m, n) in first_vs_rerun.items()) + f" {tag}",
+          flush=True)
+    print(f"phase 11: main wall s: (a) train + TTA eval {s_a:.3f}, (b) "
+          f"resume + TTA eval {s_b:.3f}, (c) test-loader eval {s_c:.3f}; "
+          f"DefaultPredictor {pred_ms:.3f} ms per 500x375 image with "
+          f"4096 proposals (host clock, {PH11_PREDICTS - 1} calls after the "
+          f"first), {len(pb)} detections; "
+          f"peak device memory {peak_train / 2**30:.2f} GiB in training, "
+          f"{peak / 2**30:.2f} GiB in the phase {tag}", flush=True)
+    print(f"phase 11: roi_pool kernel == plain (max|diff| {err}) at the "
+          f"train step's largest map (map {k1_shape[0]} bf16, boxes "
+          f"{k1_shape[1]}): kernel {k1_ms:.4f} ms queued, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) {tag}",
+          flush=True)
+    print(f"phase 11: train_net.main (a) {PH11_STEPS} steps from scratch on "
+          f"a packed shard of {PH11_TRAIN} records (flagship YAML at full "
+          f"width: B={cfg.SOLVER.IMS_PER_BATCH}, crop "
+          f"{cfg.INPUT.CROP.SIZE}, {len(cfg.INPUT.MIN_SIZE_TRAIN)} scales "
+          f"{cfg.INPUT.MIN_SIZE_TRAIN[0]}-{cfg.INPUT.MIN_SIZE_TRAIN[-1]}, "
+          f"MAX {cfg.INPUT.MAX_SIZE_TRAIN}, flip, DAN "
+          f"{list(cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)}, dropout "
+          f"{cfg.MODEL.ROI_BOX_HEAD.DROPOUT}, seeded random weights) then "
+          f"TTA eval; (b) --resume from {resumed['start']} to "
+          f"{PH11_RESUMED} ({resumed['tensors']} tensors and the step "
+          f"bit-equal to the checkpoint) then TTA eval; (c) --eval-only "
+          f"--resume through the test loader; (d) DefaultPredictor. K1 "
+          f"launches {got} (one per step, per TTA group: {tta_launches} per "
+          f"TTA eval of {n_eval} images, per test-loader image); "
+          f"checkpoints {ckpts_b}; losses finite ({len(losses)} values in "
+          f"metrics.json), lr the schedule's; detections finite and inside "
+          f"their images ({len(dets)} image evaluations; detections above "
+          f"SCORE_THRESH_TEST per run, total and images with none: "
+          + ", ".join(f"({r}) {sum(n)} / {sum(x == 0 for x in n)}"
+                      for r, n in kept.items())
+          + f"); TensorBoard "
+          f"{tb}; VOC metrics " + ", ".join(
+              f"{key} {v:.4f}" for key, v in metrics.items())
+          + " (random weights, synthetic GT: the values mean nothing); "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"phase 11: card during the phase: {clock_sampler.summary} {tag}",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -1432,6 +1886,8 @@ def main() -> int:
             torch.cuda.empty_cache()
         phase9_tests(tag)
         paths["eval"] = phase10_eval(dev, gen, tag)
+        torch.cuda.empty_cache()
+        paths["train_entry"] = phase11_train_entry(dev, tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1

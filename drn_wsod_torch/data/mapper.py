@@ -1,25 +1,40 @@
-"""Image decoding and size buckets (counterpart of
-``drn_wsod_tpu/data/mapper.py:read_image`` and ``pick_bucket``). The
-dataset mapper comes with the data path (ROADMAP.md queue 1, item 10)."""
+"""Image decoding, size buckets and the dataset mapper (counterpart of
+``drn_wsod_tpu/data/mapper.py``).
+
+``DatasetMapper`` turns one dataset record into a fixed-shape sample: the
+augmentations (crop, multi-scale shortest-edge resize and flip in training,
+the test resize otherwise), the proposals mapped the same way and padded to
+``BATCH_SIZE_PER_IMAGE`` slots, the image padded into a square size bucket
+(``INPUT.BUCKETS``) as uint8, padded instance GT and image-level labels.
+Packed records (``data/record_dataset.py``) carry decoded pixels and skip
+the decode. The mask, keypoint and semantic-segmentation arms are not ported
+yet (ROADMAP.md queue 1, items 14 and 15).
+"""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from . import transforms as T
+from .datasets.voc import image_level_labels
+from .proposals import transform_proposals
 
 
 def read_image(path: str, fmt: str = "BGR") -> np.ndarray:
     """Decode an image file to an (H, W, 3) uint8 array in ``fmt`` channel
     order ("BGR" or "RGB") with Pillow. The JAX package decodes JPEGs with
     its own libjpeg binding, which it holds bit-exact to Pillow's decode;
-    the port has no other decoder."""
+    the port has no other decoder. Packed records carry decoded pixels, so
+    training from them needs no decoder."""
     try:
         from PIL import Image
     except ImportError as e:
         raise ImportError(
             "read_image needs Pillow (the PIL package) to decode "
-            f"{path!r}") from e
+            f"{path!r}; pack the dataset with decoded pixels "
+            "(drn_wsod_torch.tools.pack_dataset) to train without it") from e
     with Image.open(path) as im:
         arr = np.asarray(im.convert("RGB"))
     if fmt == "BGR":
@@ -36,3 +51,126 @@ def pick_bucket(h: int, w: int, buckets: Sequence[int],
         if b >= m:
             return b
     return int(np.ceil(m / divisibility) * divisibility)
+
+
+class DatasetMapper:
+    """Record -> fixed-shape sample, for training (``is_train``: the
+    config's crop, ``MIN_SIZE_TRAIN`` resize and flip) or test (the
+    ``MIN_SIZE_TEST`` resize)."""
+
+    def __init__(self, cfg, is_train: bool, num_classes: Optional[int] = None):
+        if cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINT_ON:
+            raise NotImplementedError(
+                "the mapper's mask and keypoint arms are not ported yet: "
+                "ROADMAP.md queue 1, item 14 (supervised and pyramid paths)")
+        self.is_train = is_train
+        self.num_classes = num_classes or cfg.MODEL.ROI_HEADS.NUM_CLASSES
+        self.fmt = cfg.INPUT.FORMAT
+        self.buckets = tuple(cfg.INPUT.BUCKETS)
+        self.divisibility = cfg.INPUT.SIZE_DIVISIBILITY
+        self.num_proposals = cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
+        self.min_box_size = cfg.MODEL.PROPOSAL_GENERATOR.MIN_SIZE
+        self.topk = (cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if is_train
+                     else cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
+        self.max_gt = cfg.DATASETS.MAX_GT_PER_IMAGE
+
+        augs: List[T.Augmentation] = []
+        if is_train:
+            if cfg.INPUT.CROP.ENABLED:
+                augs.append(T.RandomCrop(cfg.INPUT.CROP.TYPE,
+                                         cfg.INPUT.CROP.SIZE))
+            augs.append(T.ResizeShortestEdge(
+                tuple(cfg.INPUT.MIN_SIZE_TRAIN), cfg.INPUT.MAX_SIZE_TRAIN,
+                cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING))
+            if cfg.INPUT.RANDOM_FLIP != "none":
+                augs.append(T.RandomFlip(0.5))
+        else:
+            augs.append(T.ResizeShortestEdge(
+                cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST))
+        self.augmentations = augs
+
+    def plan_bucket(self, record: Dict, rng: np.random.RandomState) -> int:
+        """The sample's size bucket from the record's metadata alone, no
+        decode. It draws from ``rng`` exactly as ``__call__`` does (the
+        augmentations read only the image's shape and the rng), so a fresh
+        RandomState of the same seed gives the same transforms at decode
+        time."""
+        if "image" in record:
+            h, w = record["image"].shape[:2]
+        else:
+            h, w = int(record["height"]), int(record["width"])
+        for aug in self.augmentations:
+            dummy = np.broadcast_to(np.zeros((), np.uint8), (h, w, 3))
+            h, w = aug.get_transform(dummy, rng).output_size((h, w))
+        return pick_bucket(h, w, self.buckets, self.divisibility)
+
+    def __call__(self, record: Dict, rng: np.random.RandomState,
+                 dataset_index: int = 0) -> Dict[str, np.ndarray]:
+        if "sem_seg_file_name" in record:
+            raise NotImplementedError(
+                "the mapper's semantic-segmentation arm is not ported yet: "
+                "ROADMAP.md queue 1, item 15 (remaining models)")
+        if "image" in record:
+            # packed record (data/record_dataset.py): decoded BGR pixels
+            image = record["image"]
+            if self.fmt == "RGB":
+                image = image[:, :, ::-1]
+        else:
+            image = read_image(record["file_name"], self.fmt)
+        orig_h, orig_w = image.shape[:2]
+
+        image, tfms = T.apply_augmentations(self.augmentations, image, rng)
+        h, w = image.shape[:2]
+
+        if "proposal_boxes" in record:
+            boxes, logits = transform_proposals(
+                record, (h, w), tfms, min_box_size=self.min_box_size,
+                topk=self.topk)
+        else:
+            boxes = np.zeros((0, 4), dtype=np.float32)
+            logits = np.zeros((0,), dtype=np.float32)
+
+        P = self.num_proposals
+        n = min(len(boxes), P)
+        prop = np.zeros((P, 4), dtype=np.float32)
+        obj = np.zeros((P,), dtype=np.float32)
+        mask = np.zeros((P,), dtype=bool)
+        prop[:n] = boxes[:n]
+        obj[:n] = logits[:n]
+        mask[:n] = True
+
+        bucket = pick_bucket(h, w, self.buckets, self.divisibility)
+        # pixels stay uint8 up to the model, which promotes them on the
+        # device: a quarter of float32's bytes to copy
+        canvas = np.zeros((bucket, bucket, 3),
+                          dtype=np.uint8 if image.dtype == np.uint8
+                          else np.float32)
+        canvas[:h, :w] = image
+
+        # padded instance GT, without the difficult objects
+        G = self.max_gt
+        gt_boxes = np.zeros((G, 4), dtype=np.float32)
+        gt_classes = np.zeros((G,), dtype=np.int32)
+        gt_valid = np.zeros((G,), dtype=bool)
+        annos = [a for a in record.get("annotations", [])
+                 if not a.get("difficult", 0)]
+        for i, a in enumerate(annos[:G]):
+            b = tfms.apply_box(np.asarray([a["bbox"]], np.float32))[0]
+            gt_boxes[i] = np.clip(b, 0, [w, h, w, h])
+            gt_classes[i] = a["category_id"]
+            gt_valid[i] = True
+
+        return {
+            "gt_boxes": gt_boxes,
+            "gt_classes": gt_classes,
+            "gt_valid": gt_valid,
+            "image": canvas,
+            "image_hw": np.asarray([h, w], dtype=np.int32),
+            "orig_hw": np.asarray([orig_h, orig_w], dtype=np.int32),
+            "proposals": prop,
+            "proposal_mask": mask,
+            "objectness": obj,
+            "labels": image_level_labels(record, self.num_classes),
+            "image_id": np.asarray(dataset_index, dtype=np.int32),
+            "_bucket": bucket,
+        }

@@ -3,8 +3,8 @@
 
 The pickle format is Detectron2's: ``{"ids": [...], "boxes": [(Ri, 4)],
 "objectness_logits": [(Ri,)], "bbox_mode": BoxMode}``, with the legacy keys
-``indexes`` and ``scores`` accepted. ``transform_proposals`` comes with the
-data loader (ROADMAP.md queue 1, item 10).
+``indexes`` and ``scores`` accepted. ``transform_proposals`` maps one
+record's proposals through its augmentation.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import List
 
 import numpy as np
 
-from ..structures.boxes import BoxMode
+from ..structures.boxes import BoxMode, unique_boxes_mask
 
 logger = logging.getLogger(__name__)
 
@@ -53,3 +53,30 @@ def load_proposals_into_dataset(dataset_dicts: List[dict],
         r["proposal_objectness_logits"] = logits[inds]
         out.append(r)
     return out
+
+
+def transform_proposals(record: dict, image_hw, transforms, *,
+                        min_box_size: float = 0.0, topk: int = 4000):
+    """One image's proposals after its augmentation: boxes transformed,
+    clipped to ``image_hw``, duplicates dropped (first occurrence kept),
+    boxes not wider and taller than ``min_box_size`` dropped, the first
+    ``topk`` kept (the record holds them by descending objectness).
+
+    Returns (boxes (N, 4) float32, logits (N,) float32), N <= topk."""
+    boxes = np.asarray(record["proposal_boxes"], dtype=np.float32)
+    logits = np.asarray(record["proposal_objectness_logits"],
+                        dtype=np.float32)
+    if transforms is not None:
+        boxes = transforms.apply_box(boxes)
+    else:
+        boxes = boxes.copy()
+    h, w = image_hw
+    boxes[:, 0::2] = boxes[:, 0::2].clip(0, w)
+    boxes[:, 1::2] = boxes[:, 1::2].clip(0, h)
+
+    keep = unique_boxes_mask(boxes)
+    boxes, logits = boxes[keep], logits[keep]
+    wide = (boxes[:, 2] - boxes[:, 0] > min_box_size) & \
+           (boxes[:, 3] - boxes[:, 1] > min_box_size)
+    boxes, logits = boxes[wide], logits[wide]
+    return boxes[:topk], logits[:topk]

@@ -1,5 +1,13 @@
-from .trainer import (TrainState, create_train_state, make_multi_train_step,
-                      make_train_step)
+from .events import (CommonMetricPrinter, EventStorage, HistoryBuffer,
+                     JSONWriter, TensorboardWriter, get_event_storage)
+from .hooks import (EvalHook, HookBase, IterationTimer, PeriodicCheckpointer,
+                    PeriodicWriter, ProfilerHook)
+from .trainer import (Trainer, TrainState, create_train_state,
+                      make_multi_train_step, make_train_step)
 
-__all__ = ["TrainState", "create_train_state", "make_multi_train_step",
+__all__ = ["CommonMetricPrinter", "EvalHook", "EventStorage",
+           "HistoryBuffer", "HookBase", "IterationTimer", "JSONWriter",
+           "PeriodicCheckpointer", "PeriodicWriter", "ProfilerHook",
+           "TensorboardWriter", "TrainState", "Trainer",
+           "create_train_state", "get_event_storage", "make_multi_train_step",
            "make_train_step"]

@@ -1,0 +1,181 @@
+"""Trainer hooks (counterpart of ``drn_wsod_tpu/engine/hooks.py``): the
+four-phase protocol ``before_train`` / ``before_step`` / ``after_step`` /
+``after_train``, with ``IterationTimer``, ``PeriodicWriter``,
+``PeriodicCheckpointer``, ``ProfilerHook`` and ``EvalHook``.
+
+``PGTVisualization`` waits for ``utils/visualizer`` (ROADMAP.md queue 1,
+item 17) and ``PreciseBNHook`` for trainable BatchNorm (item 13);
+``tools/train_net.py:do_train`` raises where the config asks for either.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Callable, Optional
+
+from .events import get_event_storage
+
+logger = logging.getLogger(__name__)
+
+
+class HookBase:
+    trainer = None  # set by Trainer.register_hooks
+
+    def before_train(self):
+        pass
+
+    def after_train(self):
+        pass
+
+    def before_step(self):
+        pass
+
+    def after_step(self):
+        pass
+
+
+class IterationTimer(HookBase):
+    """Records the seconds per iteration as ``time``, after
+    ``warmup_iter`` iterations: the trainer's fenced time per step
+    (``trainer.last_chunk_step_time``, set where metrics are read back),
+    never the wall time between two steps, which measures only their issue.
+    Logs the total and the overall speed at the end."""
+
+    def __init__(self, warmup_iter: int = 3):
+        self._warmup_iter = warmup_iter
+        self._start_time = time.perf_counter()
+
+    def before_train(self):
+        self._start_time = time.perf_counter()
+
+    def after_train(self):
+        total = time.perf_counter() - self._start_time
+        logger.info(f"Total training time: {total:.2f}s")
+        vals = [v for v, _ in get_event_storage().history("time").values()]
+        if vals:
+            logger.info(
+                f"Overall training speed: {len(vals)} iterations in "
+                f"{sum(vals):.1f}s ({sum(vals) / len(vals):.4f} s / it)")
+
+    def after_step(self):
+        storage = get_event_storage()
+        if self.trainer.iter - self.trainer.start_iter < self._warmup_iter:
+            return
+        chunk = getattr(self.trainer, "last_chunk_step_time", None)
+        if chunk is not None:
+            storage.put_scalar("time", chunk, smoothing_hint=True)
+        prof = getattr(self.trainer, "last_prefetch_profile", None)
+        if prof:
+            storage.put_scalars(smoothing_hint=True, **{
+                f"prefetch/{k}": float(v) for k, v in prof.items()})
+
+
+class PeriodicWriter(HookBase):
+    """Runs the writers every ``period`` iterations, at the last one and
+    after training (then closes them)."""
+
+    def __init__(self, writers, period: int = 20):
+        self._writers = writers
+        self._period = period
+
+    def after_step(self):
+        if (self.trainer.iter + 1) % self._period == 0 or (
+                self.trainer.iter == self.trainer.max_iter - 1):
+            for w in self._writers:
+                w.write(get_event_storage())
+
+    def after_train(self):
+        for w in self._writers:
+            w.write(get_event_storage())
+            w.close()
+
+
+class PeriodicCheckpointer(HookBase):
+    """Saves the train state every ``period`` iterations and at the last,
+    under the number of steps taken."""
+
+    def __init__(self, checkpointer, period: int):
+        self._checkpointer = checkpointer
+        self._period = period
+
+    def after_step(self):
+        it = self.trainer.iter
+        if (it + 1) % self._period == 0 or it == self.trainer.max_iter - 1:
+            self._checkpointer.save(self.trainer.state, it + 1)
+
+
+class ProfilerHook(HookBase):
+    """Traces ``num_iters`` iterations from ``start_iter`` with
+    ``torch.profiler`` (CPU, and CUDA where the card is used) and writes a
+    Chrome trace to ``output_dir/trace_iter{start}.json``."""
+
+    def __init__(self, output_dir: str, start_iter: int = 10,
+                 num_iters: int = 5):
+        self._dir = output_dir
+        self._start = start_iter
+        self._stop = start_iter + num_iters
+        self._prof = None
+
+    def before_step(self):
+        if self.trainer.iter == self._start and self._prof is None:
+            import torch
+
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.__enter__()
+
+    def after_step(self):
+        if self.trainer.iter + 1 >= self._stop and self._prof is not None:
+            self._finish()
+
+    def after_train(self):
+        if self._prof is not None:
+            self._finish()
+
+    def _finish(self):
+        prof, self._prof = self._prof, None
+        prof.__exit__(None, None, None)
+        os.makedirs(self._dir, exist_ok=True)
+        path = os.path.join(self._dir, f"trace_iter{self._start}.json")
+        prof.export_chrome_trace(path)
+        logger.info(f"Saved profiler trace to {path}")
+
+
+class EvalHook(HookBase):
+    """Runs ``eval_fn`` every ``period`` iterations (not at the last) and
+    after training when the last iteration was reached; puts its numeric
+    results into the storage under "/"-joined keys."""
+
+    def __init__(self, period: int, eval_fn: Callable[[], Optional[dict]]):
+        self._period = period
+        self._fn = eval_fn
+
+    def _do_eval(self):
+        results = self._fn()
+        if not results:
+            return
+        flat = {}
+
+        def _flatten(d, prefix=""):
+            for k, v in d.items():
+                key = f"{prefix}{k}"
+                if isinstance(v, dict):
+                    _flatten(v, key + "/")
+                elif isinstance(v, (int, float)):
+                    flat[key] = float(v)
+
+        _flatten(results)
+        get_event_storage().put_scalars(smoothing_hint=False, **flat)
+
+    def after_step(self):
+        if self._period > 0 and (self.trainer.iter + 1) % self._period == 0 \
+                and self.trainer.iter != self.trainer.max_iter - 1:
+            self._do_eval()
+
+    def after_train(self):
+        if self.trainer.iter >= self.trainer.max_iter - 1:
+            self._do_eval()

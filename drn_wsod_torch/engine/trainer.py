@@ -1,24 +1,40 @@
-"""The train step (counterpart of ``drn_wsod_tpu/engine/trainer.py``:
-``TrainState``, ``create_train_state``, ``make_train_step`` and
-``make_multi_train_step``).
+"""The train step and the host loop (counterpart of
+``drn_wsod_tpu/engine/trainer.py``: ``TrainState``, ``create_train_state``,
+``make_train_step``, ``make_multi_train_step`` and ``Trainer``).
 
 PyTorch updates in place: the step changes the model's parameters, the
 optimizer state and ``state.step``, and returns the same state. Metrics
 stay on the device; nothing in a step waits on it (the step count, the
-schedule and the dropout seed live on the host). The host loop with hooks
-and prefetch (``Trainer``) is a later slice (ROADMAP.md queue 1, item 11).
+schedule and the dropout seed live on the host). ``Trainer`` reads them
+back only where it writes them (every ``log_period`` iterations and at the
+last), and those read-backs are its fences.
+
+The CSC train step (``make_csc_train_step``) comes with the CSC heads
+(ROADMAP.md queue 1, item 13).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Optional
+import logging
+import queue
+import threading
+import time
+import weakref
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..solver.build import SGD
 from ..structures.batch import WSODBatch
+from .events import EventStorage
+from .hooks import HookBase
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -72,20 +88,326 @@ def make_train_step(model: nn.Module, tx: SGD,
 
 
 def make_multi_train_step(raw_step: Callable) -> Callable:
-    """``multi_step(state, stacked_batch, seed)``: ``raw_step`` over each of
-    the K batches stacked along a leading axis of every field, back to back.
-    Returns the state and the metrics stacked to (K,). The per-step dropout
-    seed is the same as one step at a time, so the two agree exactly."""
+    """``multi_step(state, batches, seed)``: ``raw_step`` over K batches
+    back to back, given as a sequence of batches or as one batch stacked
+    along a leading axis of every field. Returns the state and the metrics
+    stacked to (K,). The per-step dropout seed is the same as one step at a
+    time, so the two agree exactly.
 
-    def multi_step(state: TrainState, stacked_batch: WSODBatch, seed: int):
-        fields = [f.name for f in dataclasses.fields(stacked_batch)]
+    A chunk need not stack: batches of different size buckets cannot (the
+    JAX package's chunked trainer stacks each chunk with ``np.stack``, which
+    raises for them, so its multi-scale training runs one step a dispatch
+    only)."""
+
+    def multi_step(state: TrainState,
+                   batches: Union[WSODBatch, Sequence[WSODBatch]], seed: int):
+        if isinstance(batches, WSODBatch):
+            batches = [batches.map(lambda t, i=i: t[i])
+                       for i in range(batches.image.shape[0])]
         per_step = []
-        for i in range(stacked_batch.image.shape[0]):
-            batch = WSODBatch(**{f: getattr(stacked_batch, f)[i]
-                                 for f in fields})
+        for batch in batches:
             state, metrics = raw_step(state, batch, seed)
             per_step.append(metrics)
         return state, {k: torch.stack([m[k] for m in per_step])
                        for k in per_step[0]}
 
     return multi_step
+
+
+_STOP = object()      # end of a prefetch stream
+
+
+class Trainer:
+    """Hook-driven loop over a train step.
+
+    ``step_fn(state, batch, seed) -> (state, metrics)`` runs one step;
+    with ``multi_step_fn(state, batches, seed)`` (``make_multi_train_step``)
+    and ``steps_per_dispatch`` K > 1 the loop pulls K batches at a time and
+    runs them in one call, firing every before_step of the chunk before it
+    and every after_step after it; a hook firing at an iteration inside a
+    chunk sees the end-of-chunk state, so pick K dividing every hook period
+    (``tools/train_net.py`` does). Hooks fire in the JAX package's order and
+    at its iterations.
+
+    Batches come from ``data_iter`` on the host (CPU tensors) and move to
+    ``device`` (CUDA unless the caller names another one; raises where CUDA
+    is absent). With ``prefetch_chunks`` > 0 a background thread pulls them
+    ahead, pins each and copies it on a side CUDA stream; the loop's stream
+    waits on the copy's event, and each copied tensor is recorded on the
+    loop's stream, so that its memory is not reused while the step still
+    reads it. With 0 the loop copies each batch itself when it needs it.
+
+    ``train`` may be called more than once: the original iterator is kept,
+    and each call wraps it in a prefetch stream of its own, bounded to that
+    call's iterations. (The JAX package replaces its iterator with the first
+    call's bounded prefetch stream, so a second call finds it exhausted.)
+
+    Metrics stay on the device between read-backs (every ``log_period``
+    iterations and at the last). Each read-back checks every pending value
+    (the NaN guard raises ``FloatingPointError``), writes the latest step's
+    values, ``data_time`` and ``lr`` to the storage, and fences the loop:
+    ``last_chunk_step_time`` is the wall time between two fences over the
+    steps between them (chunked: the chunk's time from its call to its
+    read-back, over its steps)."""
+
+    def __init__(self, step_fn: Callable, state, data_iter: Iterator,
+                 seed: int = 0, lr_schedule: Optional[Callable] = None,
+                 log_period: int = 20,
+                 multi_step_fn: Optional[Callable] = None,
+                 steps_per_dispatch: int = 1,
+                 prefetch_chunks: int = 2, device=None):
+        self._step_fn = step_fn
+        self.state = state
+        self._data_iter = data_iter
+        self._seed = seed
+        self._lr_schedule = lr_schedule
+        self._log_period = log_period
+        self._multi_step_fn = multi_step_fn
+        self._steps_per_dispatch = max(int(steps_per_dispatch), 1)
+        self._prefetch_chunks = max(int(prefetch_chunks), 0)
+        self.device = resolve_device(device)
+        self._hooks: List[HookBase] = []
+        self._batches: Optional[Iterator] = None
+        self.iter = 0
+        self.start_iter = 0
+        self.max_iter = 0
+        self.storage: Optional[EventStorage] = None
+        self.last_batch = None
+        self.last_chunk_step_time = None   # set at fences
+        self.last_prefetch_profile = None  # set by the chunk prefetch thread
+        self._last_fence_time = None
+        self._last_fence_iter = None
+        self._pending_metrics = None
+        self._pending_data_time = 0.0
+
+    def register_hooks(self, hooks: List[HookBase]):
+        for h in hooks:
+            h.trainer = weakref.proxy(self)
+        self._hooks.extend(hooks)
+
+    def train(self, start_iter: int, max_iter: int):
+        self.iter = self.start_iter = start_iter
+        self.max_iter = max_iter
+        logger.info(f"Starting training from iteration {start_iter}")
+        chunked = (self._multi_step_fn is not None
+                   and self._steps_per_dispatch > 1)
+        if not chunked:
+            if self._prefetch_chunks > 0:
+                self._batches = self._eager_prefetch_iter(
+                    max_iter - start_iter)
+            else:
+                self._batches = self._inline_iter()
+        with EventStorage(start_iter) as self.storage:
+            try:
+                for h in self._hooks:
+                    h.before_train()
+                if chunked:
+                    self._run_chunked(start_iter, max_iter)
+                else:
+                    for self.iter in range(start_iter, max_iter):
+                        for h in self._hooks:
+                            h.before_step()
+                        self.run_step()
+                        for h in self._hooks:
+                            h.after_step()
+                        self.storage.step()
+            finally:
+                for h in self._hooks:
+                    h.after_train()
+
+    # ------------------------------------------------------------ data path
+    def _to_device(self, batch, stream=None):
+        """A WSODBatch on the device (copied from pinned memory on
+        ``stream`` where given); anything else is left as it is."""
+        def copy(t: torch.Tensor) -> torch.Tensor:
+            if stream is None:
+                return t.to(self.device)
+            return t.pin_memory().to(self.device, non_blocking=True)
+
+        return batch.map(copy) if isinstance(batch, WSODBatch) else batch
+
+    def _copy_ahead(self, batches: list, stream):
+        """Copy ``batches`` to the device on ``stream`` (CUDA) and return
+        them with the event that marks the copies' end."""
+        if stream is None:
+            return [self._to_device(b) for b in batches], None
+        with torch.cuda.stream(stream):
+            out = [self._to_device(b, stream) for b in batches]
+            event = torch.cuda.Event()
+            event.record(stream)
+        return out, event
+
+    def _arrived(self, batches: list, event):
+        """Make the loop's stream wait for a prefetched copy, and record
+        every copied tensor on it."""
+        if event is None:
+            return
+        current = torch.cuda.current_stream(self.device)
+        current.wait_event(event)
+        for b in batches:
+            if isinstance(b, WSODBatch):
+                for t in b.tensors().values():
+                    t.record_stream(current)
+
+    def _side_stream(self):
+        return (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                else None)
+
+    def _next_host_batch(self):
+        try:
+            return next(self._data_iter)
+        except StopIteration:
+            raise RuntimeError("data iterator exhausted mid-training; train "
+                               "loaders must be infinite (data/loader.py "
+                               "TrainLoader)") from None
+
+    def _inline_iter(self):
+        while True:
+            yield self._to_device(self._next_host_batch())
+
+    def _prefetch(self, sizes: Sequence[int], depth: int, profile: bool):
+        """A thread that pulls ``sizes[i]`` batches at a time, copies them
+        ahead, and queues (batches, event); yields them on the loop's
+        thread, each arrived on the loop's stream."""
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        stream = self._side_stream()
+
+        def worker():
+            try:
+                with (torch.cuda.device(self.device)
+                      if self.device.type == "cuda"
+                      else contextlib.nullcontext()):
+                    for k in sizes:
+                        t0 = time.perf_counter()
+                        host = [self._next_host_batch() for _ in range(k)]
+                        t1 = time.perf_counter()
+                        batches, event = self._copy_ahead(host, stream)
+                        if profile:
+                            self.last_prefetch_profile = {
+                                "pull_s": t1 - t0,
+                                "copy_issue_s": time.perf_counter() - t1}
+                        q.put((batches, event))
+                q.put(_STOP)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                q.put(e)
+
+        threading.Thread(target=worker, daemon=True,
+                         name="batch-prefetch").start()
+        while True:
+            item = q.get()
+            if item is _STOP:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            batches, event = item
+            self._arrived(batches, event)
+            yield batches
+
+    def _eager_prefetch_iter(self, n: int):
+        """One batch at a time, up to ``2 * prefetch_chunks`` ahead, at
+        most ``n`` pulled (a finite iterator is not consumed past this
+        call's horizon)."""
+        for batches in self._prefetch([1] * n, 2 * self._prefetch_chunks,
+                                      profile=False):
+            yield batches[0]
+
+    # ------------------------------------------------------------- the loop
+    def run_step(self):
+        t0 = time.perf_counter()
+        batch = next(self._batches)
+        data_time = time.perf_counter() - t0
+
+        self.state, metrics = self._step_fn(self.state, batch, self._seed)
+        self.last_batch = batch
+        self._pending_metrics = metrics
+        self._pending_data_time = data_time
+
+        if (self.iter + 1) % self._log_period == 0 or \
+                self.iter == self.max_iter - 1:
+            self._flush_metrics()
+            now = time.perf_counter()
+            if self._last_fence_iter is not None:
+                steps = self.iter - self._last_fence_iter
+                if steps > 0:
+                    self.last_chunk_step_time = \
+                        (now - self._last_fence_time) / steps
+            self._last_fence_time, self._last_fence_iter = now, self.iter
+
+    def _chunk_iter(self, start_iter: int, max_iter: int):
+        """Yield (chunk, k, per-step data_time): K batches at a time (the
+        tail fewer), on the device."""
+        K = self._steps_per_dispatch
+        sizes = []
+        it = start_iter
+        while it < max_iter:
+            sizes.append(min(K, max_iter - it))
+            it += sizes[-1]
+        if self._prefetch_chunks <= 0:
+            for k in sizes:
+                t0 = time.perf_counter()
+                chunk = [self._to_device(self._next_host_batch())
+                         for _ in range(k)]
+                yield chunk, k, (time.perf_counter() - t0) / k
+            return
+        stream = self._prefetch(sizes, self._prefetch_chunks, profile=True)
+        while True:
+            t0 = time.perf_counter()
+            chunk = next(stream, None)
+            if chunk is None:
+                return
+            yield chunk, len(chunk), (time.perf_counter() - t0) / len(chunk)
+
+    def _run_chunked(self, start_iter: int, max_iter: int):
+        it = start_iter
+        for chunk, k, data_time in self._chunk_iter(start_iter, max_iter):
+            for j in range(k):
+                self.iter = it + j
+                for h in self._hooks:
+                    h.before_step()
+            self._pending_data_time = data_time
+            t0 = time.perf_counter()
+            self.state, metrics = self._multi_step_fn(
+                self.state, chunk, self._seed)
+            self.last_batch = chunk[-1]
+            for j in range(k):
+                self.iter = it + j
+                if (self.iter + 1) % self._log_period == 0 or \
+                        self.iter == max_iter - 1:
+                    # check steps [0, j] of the chunk, record step j's
+                    self._pending_metrics = {key: v[:j + 1]
+                                             for key, v in metrics.items()}
+                    self._flush_metrics()
+                    self.last_chunk_step_time = \
+                        (time.perf_counter() - t0) / k
+                for h in self._hooks:
+                    h.after_step()
+                self.storage.step()
+            it += k
+        self.iter = max_iter - 1
+
+    def _flush_metrics(self):
+        """Read the pending metrics back in one copy, raise on any value
+        that is not finite, and write the latest step's values, data_time
+        and lr to the storage."""
+        if self._pending_metrics is None:
+            return
+        names = list(self._pending_metrics)
+        values = [torch.as_tensor(self._pending_metrics[k]).reshape(-1)
+                  for k in names]
+        sizes = [v.numel() for v in values]
+        host = torch.cat([v.detach().double() for v in values]).cpu().numpy()
+        per_name = dict(zip(names, np.split(host, np.cumsum(sizes)[:-1])))
+        bad = {k: v.tolist() for k, v in per_name.items()
+               if not np.isfinite(v).all()}
+        if bad:
+            raise FloatingPointError(
+                f"Loss became non-finite at iteration {self.iter}: {bad}")
+        self.storage.put_scalars(
+            **{k: float(v[-1]) for k, v in per_name.items()},
+            smoothing_hint=True)
+        self.storage.put_scalar("data_time", self._pending_data_time,
+                                smoothing_hint=True)
+        if self._lr_schedule is not None:
+            self.storage.put_scalar(
+                "lr", float(self._lr_schedule(self.iter)),
+                smoothing_hint=False)

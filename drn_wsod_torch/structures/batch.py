@@ -4,16 +4,18 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 
 @dataclasses.dataclass
 class WSODBatch:
-    """A padded eval batch; every field is a tensor.
+    """A padded batch; every field is a tensor (the GT fields may be None).
 
     Attributes:
-      image: (B, H, W, 3) float32 raw pixels, NHWC.
+      image: (B, H, W, 3) raw pixels, NHWC: uint8 from the data loader,
+        float32 from the TTA views and the synthetic batches.
       image_hw: (B, 2) int32 valid (height, width) inside the padded canvas.
       orig_hw: (B, 2) int32 original image size, for rescaling detections.
       proposals: (B, P, 4) float32 XYXY boxes in the (resized) image frame.
@@ -21,6 +23,9 @@ class WSODBatch:
       objectness: (B, P) float32 proposal objectness.
       labels: (B, C) float32 multi-hot image-level class labels.
       image_id: (B,) int32 index into the dataset records.
+      gt_boxes, gt_classes, gt_valid: (B, G, 4) float32, (B, G) int32 and
+        (B, G) bool padded instance GT (the WSOD heads read only
+        ``labels``).
     """
 
     image: torch.Tensor
@@ -31,12 +36,23 @@ class WSODBatch:
     objectness: torch.Tensor
     labels: torch.Tensor
     image_id: torch.Tensor
+    gt_boxes: Optional[torch.Tensor] = None
+    gt_classes: Optional[torch.Tensor] = None
+    gt_valid: Optional[torch.Tensor] = None
+
+    def tensors(self) -> dict:
+        """{field: tensor} of the fields that are set."""
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
+
+    def map(self, fn) -> "WSODBatch":
+        """A copy with ``fn`` applied to every tensor that is set."""
+        return WSODBatch(**{k: fn(v) for k, v in self.tensors().items()})
 
     def to(self, device, non_blocking: bool = False) -> "WSODBatch":
         """A copy with every field on ``device``."""
-        return WSODBatch(**{
-            f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
-            for f in dataclasses.fields(self)})
+        return self.map(lambda t: t.to(device, non_blocking=non_blocking))
 
     def replace(self, **changes) -> "WSODBatch":
         return dataclasses.replace(self, **changes)

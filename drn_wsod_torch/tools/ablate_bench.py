@@ -151,9 +151,7 @@ def run(iters: int = 10, device=None, B: int = 2, H: int = 704,
 
     # ---- K steps back to back
     K = 10
-    stacked = drn_wsod_torch.WSODBatch(**{
-        f.name: torch.stack([getattr(batch, f.name)] * K)
-        for f in dataclasses.fields(batch)})
+    stacked = batch.map(lambda t: torch.stack([t] * K))
     multi = drn_wsod_torch.make_multi_train_step(step)
     ms = measure(f"{K} steps back to back (total)",
                  lambda: multi(state, stacked, 0), n=max(iters // 5, 1))

@@ -1,61 +1,72 @@
-"""Evaluation CLI of the port (counterpart of ``tools/train_net.py``'s
-``--eval-only`` path): build the configured model, load Detectron2 weights
-from ``MODEL.WEIGHTS``, and evaluate ``DATASETS.TEST`` (and, with
-``TEST.EVAL_TRAIN``, the train datasets, for CorLoc) with TTA-AVG and the
-VOC evaluator.
+"""Training and evaluation CLI of the port (counterpart of
+``tools/train_net.py``): train the configured model on ``DATASETS.TRAIN``
+with periodic checkpoints, metrics and evaluation, then evaluate
+``DATASETS.TEST`` (and, with ``TEST.EVAL_TRAIN``, the train datasets, for
+CorLoc): with TTA-AVG where ``TEST.AUG.ENABLED``, through the test loader
+otherwise, into the VOC evaluator.
 
     python -m drn_wsod_torch.tools.train_net --config-file CONFIG \\
-        --eval-only [KEY VALUE ...]
+        [--resume] [--eval-only] [KEY VALUE ...]
 
-VOC lives under ``$DETECTRON2_DATASETS`` (default ``datasets``) as
-``VOC2007/{Annotations,ImageSets/Main,JPEGImages}``. Runs on the CUDA
-device. Training, ``--resume`` and the Checkpointer come with ROADMAP.md
-queue 1, item 11; evaluation without TTA needs the test loader (item 10);
-evaluator types other than Pascal VOC come with item 15.
+``--resume`` continues from the latest checkpoint under
+``OUTPUT_DIR/checkpoints`` (else ``MODEL.WEIGHTS``, Detectron2 weights, is
+loaded); ``--eval-only`` evaluates without training. VOC lives under
+``$DETECTRON2_DATASETS`` (default ``datasets``) as
+``VOC2007/{Annotations,ImageSets/Main,JPEGImages}``; a dataset packed with
+``drn_wsod_torch.tools.pack_dataset`` registers in ``DatasetCatalog``
+under a name of its own. Runs on the CUDA device. Evaluator types other
+than Pascal VOC come with ROADMAP.md queue 1, item 15, the CSC heads with
+item 13, pseudo-GT visualisation with item 17, several processes with
+item 16.
 """
 
 from __future__ import annotations
 
-import argparse
 import logging
+import math
 import os
-import sys
 from typing import Dict
 
-from ..checkpoint import load_reference_weights
+from ..checkpoint import Checkpointer
 from ..config import get_cfg
-from ..data import MetadataCatalog, get_detection_dataset_dicts
+from ..data import (DatasetMapper, MetadataCatalog,
+                    build_detection_test_loader, build_detection_train_loader,
+                    get_detection_dataset_dicts)
 from ..data.datasets.voc import register_all_pascal_voc
 from ..device import resolve_device
-from ..evaluation import PascalVOCDetectionEvaluator, gather_and_evaluate
+from ..engine import (CommonMetricPrinter, EvalHook, IterationTimer,
+                      JSONWriter, PeriodicCheckpointer, PeriodicWriter,
+                      TensorboardWriter, Trainer, create_train_state)
+from ..engine import trainer as trainer_lib
+from ..engine.defaults import default_argument_parser, default_setup
+from ..evaluation import (PascalVOCDetectionEvaluator, gather_and_evaluate,
+                          inference_on_dataset, make_detect_fn)
 from ..evaluation.testing import print_csv_format, verify_results
 from ..models import build_model
+from ..solver import build_optimizer
+from ..solver.build import build_lr_schedule
 from ..tta import GeneralizedRCNNWithTTAAVG
 
 logger = logging.getLogger("drn_wsod_torch")
 
+# the JAX package's models/build.py:CSC_HEAD_NAMES
+CSC_HEAD_NAMES = frozenset({"CSCROIHeads", "CSCOICRROIHeads",
+                            "WSJDSROIHeads"})
+LOG_PERIOD = 20
 
-def argument_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(
-        description="drn_wsod_torch evaluation (the --eval-only path)")
-    parser.add_argument("--config-file", default="", metavar="FILE")
-    parser.add_argument("--resume", action="store_true")
-    parser.add_argument("--eval-only", action="store_true")
-    parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,
-                        help="dotted-key config overrides")
-    return parser
+argument_parser = default_argument_parser
 
 
 def setup(args):
-    """The frozen config of ``args``; logging to standard output."""
+    """The frozen config of ``args``; the run set up by
+    ``default_setup`` (OUTPUT_DIR, logging, the seed, config.yaml)."""
     cfg = get_cfg()
     if args.config_file:
         cfg.merge_from_file(args.config_file)
     if args.opts:
         cfg.merge_from_list(args.opts)
     cfg.freeze()
-    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
-                        format="[%(asctime)s %(name)s]: %(message)s")
+    default_setup(cfg, args)
     return cfg
 
 
@@ -76,14 +87,11 @@ def build_evaluator(cfg, dataset_name: str, records):
 def do_test(cfg, model, eval_train: bool = False,
             device=None) -> Dict[str, Dict]:
     """Evaluate ``model`` on each test dataset (with its own proposal file)
-    and, with ``eval_train`` and ``TEST.EVAL_TRAIN``, each train dataset;
-    TTA-AVG over ``TEST.AUG`` on ``device`` (CUDA unless the caller names
-    another one). Returns {dataset: results}."""
+    and, with ``eval_train`` and ``TEST.EVAL_TRAIN``, each train dataset,
+    on ``device`` (CUDA unless the caller names another one): TTA-AVG over
+    ``TEST.AUG`` where enabled, else the test loader (the test resize, one
+    image a batch) into ``make_detect_fn``. Returns {dataset: results}."""
     dev = resolve_device(device)
-    if not cfg.TEST.AUG.ENABLED:
-        raise NotImplementedError(
-            "evaluation without TTA needs the test loader, not ported yet: "
-            "ROADMAP.md queue 1, item 10 (data path)")
 
     def _pairs(names, files):
         files = list(files)
@@ -94,19 +102,33 @@ def do_test(cfg, model, eval_train: bool = False,
     if eval_train and cfg.TEST.EVAL_TRAIN:
         pairs += _pairs(cfg.DATASETS.TRAIN, cfg.DATASETS.PROPOSAL_FILES_TRAIN)
 
-    tta = GeneralizedRCNNWithTTAAVG(cfg, model, device=dev)
     results = {}
+    if cfg.TEST.AUG.ENABLED:
+        tta = GeneralizedRCNNWithTTAAVG(cfg, model, device=dev)
+    else:
+        mapper = DatasetMapper(cfg, is_train=False)
+        detect = make_detect_fn(model, cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST,
+                                cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST,
+                                cfg.TEST.DETECTIONS_PER_IMAGE, device=dev)
     for name, prop_file in pairs:
-        pf = [prop_file] if cfg.MODEL.LOAD_PROPOSALS and prop_file else ()
-        records = get_detection_dataset_dicts([name], pf, filter_empty=False)
-        evaluator = build_evaluator(cfg, name, records)
-        evaluator.reset()
-        for r in records:
-            dets = tta(r)
-            evaluator.process_single(
-                str(r["image_id"]), dets["boxes"], dets["scores"],
-                dets["classes"], dets["valid"])
-        results[name] = gather_and_evaluate(evaluator)
+        if cfg.TEST.AUG.ENABLED:
+            pf = [prop_file] if cfg.MODEL.LOAD_PROPOSALS and prop_file else ()
+            records = get_detection_dataset_dicts([name], pf,
+                                                  filter_empty=False)
+            evaluator = build_evaluator(cfg, name, records)
+            evaluator.reset()
+            for r in records:
+                dets = tta(r)
+                evaluator.process_single(
+                    str(r["image_id"]), dets["boxes"], dets["scores"],
+                    dets["classes"], dets["valid"])
+            results[name] = gather_and_evaluate(evaluator)
+        else:
+            loader = build_detection_test_loader(cfg, name, mapper,
+                                                 proposal_file=prop_file)
+            evaluator = build_evaluator(cfg, name, loader._records)
+            results[name] = inference_on_dataset(detect, loader, evaluator,
+                                                 loader._records)
         logger.info(f"Results on {name}: {results[name]}")
         print_csv_format(results[name])
 
@@ -116,23 +138,110 @@ def do_test(cfg, model, eval_train: bool = False,
     return results
 
 
+def steps_per_dispatch(cfg) -> int:
+    """``SOLVER.STEPS_PER_DISPATCH`` reduced by gcd against every active
+    hook period (the log period, checkpoints, evaluation), so that each
+    hook sees the state it would see one step at a time."""
+    k = max(int(cfg.SOLVER.STEPS_PER_DISPATCH), 1)
+    for period in (LOG_PERIOD, cfg.SOLVER.CHECKPOINT_PERIOD,
+                   cfg.TEST.EVAL_PERIOD):
+        if period and period > 0:
+            k = math.gcd(k, int(period))
+    return k
+
+
+def _refuse_unported(cfg):
+    head = cfg.MODEL.ROI_HEADS.NAME
+    if head in CSC_HEAD_NAMES:
+        raise NotImplementedError(
+            f"training ROI head {head!r} (the CSC train step) is not ported "
+            "yet: ROADMAP.md queue 1, item 13 (other WSOD heads)")
+    vis_period = cfg.VIS_PERIOD or (
+        cfg.SOLVER.CHECKPOINT_PERIOD if cfg.WSL.VIS_TEST else 0)
+    if vis_period > 0 and head in ("OICRROIHeads", "PCLROIHeads",
+                                   "WSDDNROIHeads"):
+        raise NotImplementedError(
+            "pseudo-GT visualisation (VIS_PERIOD, WSL.VIS_TEST) needs "
+            "utils/visualizer, not ported yet: ROADMAP.md queue 1, item 17 "
+            "(export, tools, demo)")
+    if cfg.MODEL.RESNETS.NORM in ("BN", "SyncBN") or \
+            cfg.TEST.PRECISE_BN.ENABLED:
+        raise NotImplementedError(
+            "trainable BatchNorm and PreciseBN are not ported yet: "
+            "ROADMAP.md queue 1, item 13 (trainable backbones)")
+
+
+def _writers(cfg):
+    """The printer, metrics.json and, where the tensorboard package is
+    installed, TensorBoard (left out with one warning otherwise)."""
+    writers = [CommonMetricPrinter(cfg.SOLVER.MAX_ITER),
+               JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json"))]
+    try:
+        writers.append(TensorboardWriter(os.path.join(cfg.OUTPUT_DIR, "tb")))
+    except ImportError as e:
+        logger.warning(f"TensorboardWriter left out: the tensorboard package "
+                       f"is missing ({e}); metrics.json and the printer "
+                       "stay")
+    return writers
+
+
+def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
+    """Train ``model`` in place on ``device`` (CUDA unless the caller names
+    another one) from ``SOLVER`` and the train loader; resume from the
+    latest checkpoint where ``resume`` and one exists, else start from
+    ``MODEL.WEIGHTS`` where set. K = ``steps_per_dispatch(cfg)`` steps are
+    pulled and run per call where K > 1. Returns the trainer (its ``state``
+    holds the model, the optimizer state and the step)."""
+    dev = resolve_device(device)
+    _refuse_unported(cfg)
+    mapper = DatasetMapper(cfg, is_train=True)
+    loader = build_detection_train_loader(cfg, mapper)
+
+    tx = build_optimizer(cfg, model)
+    state = create_train_state(model, tx)
+    checkpointer = Checkpointer(os.path.join(cfg.OUTPUT_DIR, "checkpoints"))
+    state, start_iter = checkpointer.resume_or_load(
+        state, cfg.MODEL.WEIGHTS, resume=resume)
+
+    step = trainer_lib.make_train_step(model, tx)
+    k = steps_per_dispatch(cfg)
+    trainer = Trainer(
+        step, state, iter(loader), seed=max(cfg.SEED, 0),
+        lr_schedule=build_lr_schedule(cfg), log_period=LOG_PERIOD,
+        multi_step_fn=trainer_lib.make_multi_train_step(step) if k > 1
+        else None,
+        steps_per_dispatch=k, device=dev)
+    if k > 1:
+        logger.info(f"Chunked training: {k} steps a call")
+    hooks = [IterationTimer(),
+             PeriodicWriter(_writers(cfg)),
+             PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD)]
+    if cfg.TEST.EVAL_PERIOD > 0:
+        hooks.append(EvalHook(
+            cfg.TEST.EVAL_PERIOD,
+            lambda: do_test(cfg, trainer.state.model, device=dev)))
+    trainer.register_hooks(hooks)
+    trainer.train(start_iter, cfg.SOLVER.MAX_ITER)
+    return trainer
+
+
 def main(args, device=None):
-    """``--eval-only``: register VOC under ``$DETECTRON2_DATASETS``, build
-    the model on ``device`` (CUDA unless the caller names another one),
-    load ``MODEL.WEIGHTS`` when set, and evaluate."""
-    if not args.eval_only or args.resume:
-        raise SystemExit(
-            "only --eval-only (without --resume) is ported: training and "
-            "the Checkpointer come with ROADMAP.md queue 1, item 11 "
-            "(engine, checkpoint, CLI)")
+    """Register VOC under ``$DETECTRON2_DATASETS``, build the model on
+    ``device`` (CUDA unless the caller names another one), then train and
+    evaluate, or, with ``--eval-only``, load the weights (the latest
+    checkpoint with ``--resume``, else ``MODEL.WEIGHTS``) and evaluate."""
     dev = resolve_device(device)
     cfg = setup(args)
     register_all_pascal_voc(os.environ.get("DETECTRON2_DATASETS", "datasets"))
     model = build_model(cfg, device=dev)
-    if cfg.MODEL.WEIGHTS:
-        load_reference_weights(cfg.MODEL.WEIGHTS, model)
-    return do_test(cfg, model, eval_train=True, device=dev)
+    if args.eval_only:
+        state = create_train_state(model, build_optimizer(cfg, model))
+        Checkpointer(os.path.join(cfg.OUTPUT_DIR, "checkpoints")) \
+            .resume_or_load(state, cfg.MODEL.WEIGHTS, resume=args.resume)
+        return do_test(cfg, model, eval_train=True, device=dev)
+    trainer = do_train(cfg, model, resume=args.resume, device=dev)
+    return do_test(cfg, trainer.state.model, eval_train=True, device=dev)
 
 
 if __name__ == "__main__":
-    main(argument_parser().parse_args())
+    main(default_argument_parser().parse_args())

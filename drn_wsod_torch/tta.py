@@ -16,7 +16,8 @@ device once, u8 and edge-padded, and each view is resized, padded and
 flipped on the device (:func:`_device_view_batch`, with
 :func:`drn_wsod_torch.ops.resize.scale_linear` in place of
 ``jax.image.scale_and_translate``). The host path
-(:func:`build_view_batch`) resizes each view with PIL.
+(:func:`build_view_batch`) resizes each view with Pillow's bilinear filter,
+computed in numpy (``data/transforms.py:resize_bilinear``).
 """
 
 from __future__ import annotations
@@ -64,7 +65,8 @@ def build_view_batch(image: np.ndarray, proposals: np.ndarray,
                      buckets, num_proposals: int,
                      views=None) -> Tuple[WSODBatch, Dict[str, torch.Tensor]]:
     """The (V, ...) batch of augmented views of one image, built on the host
-    (PIL resize), as CPU tensors.
+    (Pillow's bilinear resize, in numpy: ``data/transforms.py``), as CPU
+    tensors.
 
     ``image`` is the raw (H, W, 3) image, already in channel order;
     ``proposals`` (N, 4) raw-frame boxes after dedup. ``views`` optionally
@@ -346,8 +348,9 @@ class GeneralizedRCNNWithTTAAVG:
     """Record -> TTA-AVG detections in the original frame.
 
     ``model`` moves to ``device`` (CUDA unless the caller names another
-    one; raises where CUDA is absent). ``__call__(record)`` decodes the
-    record's image; :meth:`detect_image` takes a decoded one."""
+    one; raises where CUDA is absent). ``__call__(record)`` takes the
+    record's image (decoding its file unless the record holds the pixels);
+    :meth:`detect_image` takes a decoded one."""
 
     def __init__(self, cfg, model, device=None):
         self.device = resolve_device(device)
@@ -367,6 +370,15 @@ class GeneralizedRCNNWithTTAAVG:
             cfg.TEST.DETECTIONS_PER_IMAGE)
 
     def __call__(self, record: dict) -> Dict[str, np.ndarray]:
+        """A packed record's decoded BGR pixels (``data/record_dataset.py``)
+        are used as they are; other records are decoded from their file.
+        (The JAX package's TTA always decodes the file, so it cannot
+        evaluate a packed dataset.)"""
+        if "image" in record:
+            image = record["image"]
+            if self.fmt == "RGB":
+                image = np.ascontiguousarray(image[:, :, ::-1])
+            return self.detect_image(image, record)
         return self.detect_image(read_image(record["file_name"], self.fmt),
                                  record)
 

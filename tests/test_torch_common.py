@@ -54,7 +54,7 @@ def cfg_pair(*overrides):
 def jax_batch(batch: drn_wsod_torch.WSODBatch) -> JaxBatch:
     """The same batch as the JAX package's WSODBatch."""
     return JaxBatch(**{k: jnp.asarray(v.numpy())
-                       for k, v in vars(batch).items()})
+                       for k, v in batch.tensors().items()})
 
 
 def flatten(tree) -> dict:

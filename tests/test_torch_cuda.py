@@ -698,3 +698,135 @@ def test_narrow_max_matches_plain_on_random_bits(cuda, kind):
         assert torch.equal(want.cpu().view(torch.uint8),
                            nm.narrow_max_plain(x.cpu(), kind).view(
                                torch.uint8))
+
+
+def _train_boxes(S, B, P, seed):
+    """VOC-like proposals (log-uniform sides, inside an image of about
+    S x 0.75 S) on a bucket of side S, as the train loader pads them."""
+    g = np.random.RandomState(seed)
+    H, W = int(S * 0.75), S
+    w = np.exp(g.uniform(np.log(8), np.log(W), (B, P)))
+    h = np.clip(w * np.exp(g.uniform(-1, 1, (B, P))), 8, H)
+    x1 = g.uniform(0, 1, (B, P)) * (W - w)
+    y1 = g.uniform(0, 1, (B, P)) * (H - h)
+    boxes = np.stack([x1, y1, x1 + w - 1, y1 + h - 1], -1).astype(np.float32)
+    scale = (g.uniform(0, 2, (B, P)) * (g.uniform(0, 1, (B, P)) > 0.03))
+    return boxes, scale.astype(np.float32)
+
+
+@pytest.mark.parametrize("side", [64, 112, 152, 204, 252])
+def test_kernel_matches_plain_at_train_buckets(cuda, side):
+    """K1 at the flagship train step's shapes: B = 4 images of one size
+    bucket (512-2016, maps of side/8 = 64-252), 2048-channel bf16 maps,
+    P = 4096 proposals with invalid slots."""
+    B, P, C = 4, 4096, 2048
+    boxes, scale = _train_boxes(side * 8, B, P, seed=side)
+    g = torch.Generator(device=cuda).manual_seed(side)
+    feat = torch.randn(B, side, side, C, generator=g, device=cuda,
+                       dtype=torch.bfloat16)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    scale = torch.from_numpy(scale).to(cuda)
+    before = rp.roi_pool_batched.launches
+    got = rp.roi_pool_batched(feat, boxes, 0.125, 7, scale)
+    torch.cuda.synchronize()
+    assert rp.roi_pool_batched.launches == before + 1
+    _equal_by_value(got, rp.roi_pool_plain(feat, boxes, 0.125, 7, scale))
+
+
+def _toy_trainer(cfg, cuda, batches, prefetch, k):
+    from drn_wsod_torch.engine import Trainer, make_multi_train_step
+
+    torch.manual_seed(0)
+    model = drn_wsod_torch.build_model(cfg, device=cuda)
+    tx = drn_wsod_torch.build_optimizer(cfg, model)
+    state = drn_wsod_torch.create_train_state(model, tx)
+    step = drn_wsod_torch.make_train_step(model, tx)
+    seen = []
+
+    def recording(state, batch, seed):
+        seen.append({k: (v.device.type, v.dtype) for k, v in
+                     batch.tensors().items()})
+        return step(state, batch, seed)
+
+    trainer = Trainer(recording, state, iter(batches), 0, log_period=1,
+                      multi_step_fn=make_multi_train_step(recording),
+                      steps_per_dispatch=k, prefetch_chunks=prefetch,
+                      device=cuda)
+    trainer.train(0, len(batches))
+    losses = trainer.storage.history("total_loss").values()
+    return trainer.state, losses, seen
+
+
+@pytest.mark.parametrize("k", [1, 2], ids=["eager", "chunked"])
+def test_trainer_side_stream_prefetch_matches_synchronous(cuda, monkeypatch,
+                                                          k):
+    """Two toy train steps fed through the pinned side-stream prefetch
+    (host batches, u8 images, of two size buckets) equal the same steps
+    fed synchronously: losses, parameters and momentum within rtol 1e-5
+    (the backward's atomic sums may order differently from run to run; a
+    batch read before its copy arrived would differ grossly)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_list(["MODEL.RESNETS.DEPTH", "18",
+                         "MODEL.RESNETS.RES2_OUT_CHANNELS", "64",
+                         "MODEL.ROI_BOX_HEAD.DAN_DIM", "[64, 64]",
+                         "MODEL.ROI_BOX_HEAD.DROPOUT", "0.0",
+                         "MODEL.PIXEL_STD", "[57.4, 57.1, 58.4]",
+                         "MODEL.DTYPE", "float32"])
+    batches = []
+    for s, size in enumerate((64, 96)):
+        b = drn_wsod_torch.synthetic_batch(2, size, size, 16, 20, seed=s,
+                                           device="cpu")
+        batches.append(b.replace(image=b.image.to(torch.uint8)))
+    runs = [_toy_trainer(cfg, cuda, batches, prefetch, kk)
+            for prefetch, kk in ((0, 1), (2, k))]
+    (sync_state, sync_losses, _), (state, losses, seen) = runs
+    assert all(d == "cuda" for s in seen for d, _ in s.values())
+    assert seen[0]["image"][1] == torch.uint8
+    assert [it for _, it in losses] == [it for _, it in sync_losses] == [0, 1]
+    np.testing.assert_allclose([v for v, _ in losses],
+                               [v for v, _ in sync_losses], rtol=1e-5)
+    assert state.step == sync_state.step == 2
+    want = sync_state.model.state_dict()
+    for name, t in state.model.state_dict().items():
+        torch.testing.assert_close(t, want[name], rtol=1e-5, atol=1e-6)
+    for name, t in state.opt_state["trace"].items():
+        torch.testing.assert_close(t, sync_state.opt_state["trace"][name],
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_default_predictor_on_cuda_matches_cpu(cuda):
+    """The toy config's DefaultPredictor on the card against the CPU from
+    the same weights: one K1 launch a call, detections within rtol 1e-4."""
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_list(["MODEL.RESNETS.DEPTH", "18",
+                         "MODEL.RESNETS.RES2_OUT_CHANNELS", "64",
+                         "MODEL.ROI_BOX_HEAD.DAN_DIM", "[64, 64]",
+                         "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "64",
+                         "MODEL.PIXEL_STD", "[57.4, 57.1, 58.4]",
+                         "INPUT.MIN_SIZE_TEST", "64",
+                         "INPUT.MAX_SIZE_TEST", "96",
+                         "TEST.DETECTIONS_PER_IMAGE", "5",
+                         "MODEL.DTYPE", "float32"])
+    cpu = drn_wsod_torch.DefaultPredictor(cfg, device="cpu")
+    model = drn_wsod_torch.build_model(cfg, device=cuda)
+    model.load_state_dict(cpu.model.state_dict())
+    card = drn_wsod_torch.DefaultPredictor(cfg, model=model, device=cuda)
+    image, record = _tta_record(H=45, W=61, n=60, seed=4)
+    before = rp.roi_pool_batched.launches
+    got = card(image, record["proposal_boxes"],
+               record["proposal_objectness_logits"])
+    assert rp.roi_pool_batched.launches == before + 1
+    want = cpu(image, record["proposal_boxes"],
+               record["proposal_objectness_logits"])
+    s = want["scores"]
+    np.testing.assert_allclose(got["scores"], s, rtol=1e-4, atol=1e-6)
+    # classes and boxes where a score stands apart from its neighbours
+    gap = np.abs(np.diff(s)) > 1e-4 * np.abs(s).max()
+    lone = np.ones(len(s), bool)
+    lone[1:] &= gap
+    lone[:-1] &= gap
+    np.testing.assert_array_equal(got["classes"][lone], want["classes"][lone])
+    np.testing.assert_allclose(got["boxes"][lone], want["boxes"][lone],
+                               rtol=1e-4, atol=1e-3)

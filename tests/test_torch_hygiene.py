@@ -40,7 +40,8 @@ def test_import_pulls_in_no_jax():
             "drn_wsod_torch.tools.ablate_bench, "
             "drn_wsod_torch.tools.pool_banded_probe, "
             "drn_wsod_torch.tools.mosaic_dtype_probe, "
-            "drn_wsod_torch.tools.train_net; "
+            "drn_wsod_torch.tools.train_net, drn_wsod_torch.tools.demo, "
+            "drn_wsod_torch.tools.pack_dataset; "
             "print(sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -78,7 +79,7 @@ def test_eval_entry_points_refuse_missing_cuda(monkeypatch):
 
 def test_tools_are_covered():
     for tool in ("ablate_bench", "pool_banded_probe", "mosaic_dtype_probe",
-                 "train_net"):
+                 "train_net", "demo", "pack_dataset"):
         assert f"drn_wsod_torch/tools/{tool}.py" in SOURCES
     assert "drn_wsod_torch/ops/narrow_max.py" in SOURCES
 

@@ -147,7 +147,7 @@ def test_multi_step_matches_single_steps():
     batches = [_batch(s) for s in range(3)]
     stacked = drn_wsod_torch.WSODBatch(**{
         k: torch.stack([getattr(b, k) for b in batches])
-        for k in vars(batches[0])})
+        for k in batches[0].tensors()})
     runs = []
     for multi in (False, True):
         model = drn_wsod_torch.build_model(cfg, device="cpu")

@@ -185,7 +185,7 @@ def test_host_view_batch_matches_jax():
     for views in (None, _views()[2:]):
         got_b, got_inv = ptta.build_view_batch(*args, views=views)
         want_b, want_inv = jtta.build_view_batch(*args, views=views)
-        for k in vars(got_b):
+        for k in got_b.tensors():
             got, want = getattr(got_b, k).numpy(), np.asarray(
                 getattr(want_b, k))
             assert got.dtype == want.dtype, k
