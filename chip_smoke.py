@@ -78,16 +78,17 @@ Phases (any failure exits non-zero):
      Detectron2 pickle: (a) 16 steps from scratch, then the TTA eval of the
      4 test and 24 train records; (b) ``--resume`` to 24 steps, its
      restored parameters, momentum and step bit-equal to the checkpoint of
-     16, then the TTA eval; (c) ``--eval-only --resume`` without TTA (the
-     test loader); (d) ``DefaultPredictor`` on one 500x375 image with 4096
-     proposals. Losses finite and lr the schedule's in ``metrics.json``,
-     checkpoints at 8, 16 and 24, detections finite and inside their
-     images, K1 launched once per step, per TTA group and per test-loader
-     image; steps/s and img/s from ``IterationTimer``, the loader's wait
-     per chunk against ``do_train``'s time, each step's device ms by CUDA
-     events with its bucket (a bucket's first step against its reruns),
-     peak memory, and K1 against its plain version at the largest map the
-     steps gave it.
+     16, then the TTA eval; (c), run between them, ``--eval-only
+     --resume`` without TTA (the test loader) on the checkpoint of 16; (d)
+     ``DefaultPredictor`` on one 500x375 image with 4096 proposals. Losses
+     finite and lr the schedule's in ``metrics.json``, checkpoints at 8, 16
+     and 24, detections finite and inside their images, and at least one
+     an image on the weights of 16 ((a) and (c)), K1 launched once per
+     step, per TTA group and per test-loader image; steps/s, img/s and the
+     loader's wait (``data_time``) from ``metrics.json``, each step's
+     device ms by CUDA events with its bucket and its losses (a bucket's
+     first step against its reruns), peak memory per run, and K1 against
+     its plain version at the largest map the steps gave it.
 Every path (4-8, 10, 11) is run with the kernels' launch counts set to 0
 just before it and read just after. The second-to-last line is the card's name
 and power limit, the line before it a JSON object of per-kernel numbers,
@@ -96,6 +97,7 @@ the last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -105,6 +107,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -1417,25 +1420,6 @@ PH11_TRAIN, PH11_TEST, PH11_PROPOSALS = 24, 4, 4500
 PH11_STEPS, PH11_RESUMED, PH11_CKPT, PH11_PREDICTS = 16, 24, 8, 4
 
 
-class Patches:
-    """Attributes replaced for the phase's measurements and checks, put
-    back on exit."""
-
-    def __init__(self):
-        self.saved = []
-
-    def set(self, obj, name, value):
-        self.saved.append((obj, name, getattr(obj, name)))
-        setattr(obj, name, value)
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        for obj, name, value in reversed(self.saved):
-            setattr(obj, name, value)
-
-
 def ph11_dataset(root: Path, name: str, sizes, rs, start: int):
     """Draw ``sizes`` VOC-like records (phase 10's ``eval_image``: u8 BGR
     pixels, PH11_PROPOSALS proposals, 1-3 GT boxes of random VOC classes),
@@ -1478,16 +1462,16 @@ def phase11_train_entry(dev, tag) -> dict:
     """The flagship's training entry point at full width through
     ``drn_wsod_torch.tools.train_net.main``: (a) 16 steps from scratch on a
     packed shard of 24 synthetic VOC-sized records, then the TTA eval of the
-    test and train sets; (b) ``--resume`` to 24 steps; (c) ``--eval-only
-    --resume`` without TTA (the test loader); (d) ``DefaultPredictor`` on
-    one 500x375 image."""
+    test and train sets; (c) ``--eval-only --resume`` without TTA (the test
+    loader) on the checkpoint of step 16; (b) ``--resume`` to 24 steps,
+    then the TTA eval; (d) ``DefaultPredictor`` on one 500x375 image."""
     import logging
     import shutil
 
     import drn_wsod_torch
     from drn_wsod_torch.checkpoint import Checkpointer
     from drn_wsod_torch.data import pick_bucket
-    from drn_wsod_torch.engine import Trainer, defaults
+    from drn_wsod_torch.engine import defaults
     from drn_wsod_torch.engine import trainer as trainer_lib
     from drn_wsod_torch.evaluation import voc_eval
     from drn_wsod_torch.models import meta_arch
@@ -1540,7 +1524,7 @@ def phase11_train_entry(dev, tag) -> dict:
                         cfg.TEST.AUG.FLIP)})
 
     tta_launches = sum(tta_groups(*v) for v in hw.values())
-    steps, chunks, trainers, resumed, dets, bad = [], [], [], {}, [], []
+    steps, resumed, starts, dets, bad = [], {}, {}, [], []
     captured = {}
     run = {"name": ""}
 
@@ -1563,30 +1547,17 @@ def phase11_train_entry(dev, tag) -> dict:
             start.record()
             out_ = step(state, batch, seed)
             end.record()
-            steps.append((run["name"], int(batch.image.shape[1]), start, end))
+            # the step's metrics stay on the card until the phase reads them
+            steps.append((run["name"], int(batch.image.shape[1]), start, end,
+                          out_[1]))
             return out_
         return timed
-
-    chunk_iter = Trainer._chunk_iter
-
-    def timed_chunks(self, *a):
-        for item in chunk_iter(self, *a):
-            chunks.append((run["name"], item[1], item[2]))
-            yield item
-
-    do_train = train_net.do_train
-
-    def timed_do_train(*a, **kw):
-        t = time.perf_counter()
-        trainer = do_train(*a, **kw)
-        torch.cuda.synchronize()
-        trainers.append((run["name"], trainer, time.perf_counter() - t))
-        return trainer
 
     resume_or_load = Checkpointer.resume_or_load
 
     def checked_resume(self, state, *a, **kw):
         state, start = resume_or_load(self, state, *a, **kw)
+        starts[run["name"]] = start
         if run["name"] == "b":
             saved = torch.load(self.path(PH11_STEPS), map_location=dev,
                                weights_only=True)
@@ -1628,47 +1599,48 @@ def phase11_train_entry(dev, tag) -> dict:
                             boxes=boxes.clone(), scale=roi_scale.clone())
         return pool(feats, boxes, spatial_scale, R, roi_scale)
 
+    peaks = {}
+
     def main_run(name, extra):
         run["name"] = name
         args = train_net.argument_parser().parse_args(
             ["--config-file", str(yaml), *extra])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         before = rp.roi_pool_batched.launches
         t = time.perf_counter()
         results = train_net.main(args, device=dev)
         torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
         return (results, rp.roi_pool_batched.launches - before,
                 time.perf_counter() - t)
 
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    with Patches() as patch, ClockSampler() as clock_sampler:
-        patch.set(defaults, "setup_logger", file_logger)
-        patch.set(trainer_lib, "make_train_step", timed_make_step)
-        patch.set(Trainer, "_chunk_iter", timed_chunks)
-        patch.set(train_net, "do_train", timed_do_train)
-        patch.set(Checkpointer, "resume_or_load", checked_resume)
-        patch.set(voc_eval.PascalVOCDetectionEvaluator, "process_single",
-                  checked_process)
-        patch.set(meta_arch, "roi_pool_batched", capture)
+    with contextlib.ExitStack() as patches, ClockSampler() as clock_sampler:
+        for obj, name, new in (
+                (defaults, "setup_logger", file_logger),
+                (trainer_lib, "make_train_step", timed_make_step),
+                (Checkpointer, "resume_or_load", checked_resume),
+                (voc_eval.PascalVOCDetectionEvaluator, "process_single",
+                 checked_process),
+                (meta_arch, "roi_pool_batched", capture)):
+            patches.enter_context(mock.patch.object(obj, name, new))
         res_a, k1_a, s_a = main_run(
             "a", [*opts, "SOLVER.MAX_ITER", str(PH11_STEPS)])
         ck = Checkpointer(str(out / "checkpoints"))
         ckpts_a = ck.all_steps()
-        peak_train = torch.cuda.max_memory_allocated()
-        torch.cuda.empty_cache()
+        # (c) before (b): the test loader on the checkpoint of step 16
+        res_c, k1_c, s_c = main_run(
+            "c", ["--eval-only", "--resume", *opts, "SOLVER.MAX_ITER",
+                  str(PH11_STEPS), "TEST.AUG.ENABLED", "False"])
         res_b, k1_b, s_b = main_run(
             "b", ["--resume", *opts, "SOLVER.MAX_ITER", str(PH11_RESUMED)])
         ckpts_b = ck.all_steps()
-        peak_train = max(peak_train, torch.cuda.max_memory_allocated())
-        torch.cuda.empty_cache()
-        res_c, k1_c, s_c = main_run(
-            "c", ["--eval-only", "--resume", *opts, "SOLVER.MAX_ITER",
-                  str(PH11_RESUMED), "TEST.AUG.ENABLED", "False"])
-        torch.cuda.empty_cache()
         # (d) DefaultPredictor on one 500x375 image with 4096 proposals
         run["name"] = "d"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         image, record = eval_image(np.random.RandomState(12), 375, 500, 900)
         predictor = drn_wsod_torch.DefaultPredictor(cfg, device=dev)
         before = rp.roi_pool_batched.launches
@@ -1682,7 +1654,7 @@ def phase11_train_entry(dev, tag) -> dict:
         k1_d = rp.roi_pool_batched.launches - before
         del predictor
         launches = read_launches()
-        peak = torch.cuda.max_memory_allocated()
+        peaks["d"] = torch.cuda.max_memory_allocated()
     for handler in logging.getLogger().handlers[:]:
         logging.getLogger().removeHandler(handler)
         handler.close()
@@ -1710,6 +1682,9 @@ def phase11_train_entry(dev, tag) -> dict:
                    f"step plus one per TTA group or test-loader image); "
                    f"{launches}")
     step_runs = [r for r, *_ in steps]
+    # each step's losses, read back once the runs are over
+    step_losses = [{k: float(v) for k, v in m.items()}
+                   for *_, m in steps]
     if step_runs != ["a"] * PH11_STEPS + \
             ["b"] * (PH11_RESUMED - PH11_STEPS):
         raise Fail(f"phase 11: train steps {step_runs}")
@@ -1722,11 +1697,19 @@ def phase11_train_entry(dev, tag) -> dict:
             == PH11_STEPS):
         raise Fail(f"phase 11: the resumed state is not the one saved at "
                    f"{PH11_STEPS}: {resumed}")
+    if starts != {"a": 0, "c": PH11_STEPS, "b": PH11_STEPS}:
+        raise Fail(f"phase 11: resume_or_load started the runs at {starts}")
     if bad or len(dets) != 3 * n_eval:
         raise Fail(f"phase 11: detections not finite or outside their "
                    f"images (run, image, finite, inside, detections): "
                    f"{bad}; {len(dets)} images evaluated")
-    kept = {r: [n for rr, _, n in dets if rr == r] for r in "abc"}
+    kept = {r: [n for rr, _, n in dets if rr == r] for r in "acb"}
+    # (a) and (c) evaluate the weights of step 16, with TTA and through the
+    # test loader: every image keeps at least one detection
+    empty = {r: [i for rr, i, n in dets if rr == r and n == 0] for r in "ac"}
+    if any(empty.values()):
+        raise Fail(f"phase 11: images with no detection on the weights of "
+                   f"step {PH11_STEPS}: {empty}")
     pb = pred["boxes"]
     if (not len(pb) or not all(np.isfinite(np.asarray(v, np.float64)).all()
                                for v in pred.values())
@@ -1767,32 +1750,36 @@ def phase11_train_entry(dev, tag) -> dict:
     tb = "left out (no tensorboard package)" if "TensorboardWriter left " \
         "out" in (out / "log.txt").read_text() else "written"
     by_bucket = {}
-    for r, bucket, start, end in steps:
+    for r, bucket, start, end, _ in steps:
         by_bucket.setdefault(bucket, []).append((r, start.elapsed_time(end)))
-    dev_ms = {r: [(bucket, s.elapsed_time(e))
-                  for rr, bucket, s, e in steps if rr == r]
-              for r in ("a", "b")}
-    for (r, trainer, wall), n in zip(trainers, (PH11_STEPS, PH11_RESUMED
-                                                - PH11_STEPS)):
-        times = [v for v, _ in trainer.storage.history("time").values()]
-        data = sum(dt * kk for rr, kk, dt in chunks if rr == r)
-        print(f"phase 11: run ({r}) do_train: {n} steps of B="
-              f"{cfg.SOLVER.IMS_PER_BATCH} in {wall:.3f} s (loader start, "
-              f"resume_or_load and checkpoint saves included); "
-              f"IterationTimer time {json.dumps(times)} s/step -> "
-              + (f"{1 / times[-1]:.3f} steps/s, "
-                 f"{cfg.SOLVER.IMS_PER_BATCH / times[-1]:.3f} img/s"
-                 if times else "no fenced time")
-              + f"; device ms per step by CUDA events (bucket: ms): "
-              f"{', '.join(f'{b}: {v:.1f}' for b, v in dev_ms[r])} (sum "
-              f"{sum(v for _, v in dev_ms[r]):.1f}); total_loss at the "
-              f"writes: " + ", ".join(
-                  f"{m['iteration']}: {m['total_loss']:.4f}" for m in lines
-                  if "total_loss" in m and
-                  (m["iteration"] <= PH11_STEPS) == (r == "a"))
-              + f"; data_time (waits for a chunk) "
-              f"{data:.3f} s = {100 * data / wall:.1f}% of do_train; "
-              f"{k}-step chunks {tag}", flush=True)
+    ims = cfg.SOLVER.IMS_PER_BATCH
+    for r, n in (("a", PH11_STEPS), ("b", PH11_RESUMED - PH11_STEPS)):
+        per_step = [(bucket, s.elapsed_time(e), loss)
+                    for (rr, bucket, s, e, _), loss in zip(steps, step_losses)
+                    if rr == r]
+        # IterationTimer's fenced time and the loop's wait for a chunk, as
+        # the JSONWriter wrote them: each the median of its values put so far
+        # (time after every step past the warm-up, data_time at each read-back).
+        # A chunk's time runs from its call to its read-back, after the wait,
+        # so the loop spends time + data_time a step
+        writes = [m for m in lines if "time" in m and "data_time" in m
+                  and (m["iteration"] <= PH11_STEPS) == (r == "a")]
+        print(f"phase 11: run ({r}) {n} steps of B={ims}, {k}-step chunks; "
+              f"metrics.json, smoothed as written (iteration: IterationTimer "
+              f"s/step, steps/s, img/s, data_time s, its share of the loop's "
+              f"time + data_time): " + ", ".join(
+                  f"{m['iteration']}: {m['time']:.4f}, {1 / m['time']:.3f}, "
+                  f"{ims / m['time']:.3f}, {m['data_time']:.4f}, "
+                  f"{100 * m['data_time'] / (m['time'] + m['data_time']):.1f}%"
+                  for m in writes)
+              + "; per step (bucket, device ms by CUDA events, total_loss, "
+              "largest term): " + ", ".join(
+                  f"({b}, {v:.1f}, {loss['total_loss']:.4g}, "
+                  + max(((t, x) for t, x in loss.items()
+                         if t != "total_loss"), key=lambda tx: tx[1])[0]
+                  + ")" for b, v, loss in per_step)
+              + f" (device sum {sum(v for _, v, _ in per_step):.1f} ms) "
+              f"{tag}", flush=True)
     first_vs_rerun = {
         b: (v[0][1], statistics.median([t for _, t in v[1:]]) if v[1:]
             else None, len(v))
@@ -1803,13 +1790,13 @@ def phase11_train_entry(dev, tag) -> dict:
               + (f" vs {m:.1f}" if m is not None else "")
               for b, (f, m, n) in first_vs_rerun.items()) + f" {tag}",
           flush=True)
-    print(f"phase 11: main wall s: (a) train + TTA eval {s_a:.3f}, (b) "
-          f"resume + TTA eval {s_b:.3f}, (c) test-loader eval {s_c:.3f}; "
+    print(f"phase 11: main wall s: (a) train + TTA eval {s_a:.3f}, (c) "
+          f"test-loader eval {s_c:.3f}, (b) resume + TTA eval {s_b:.3f}; "
           f"DefaultPredictor {pred_ms:.3f} ms per 500x375 image with "
           f"4096 proposals (host clock, {PH11_PREDICTS - 1} calls after the "
-          f"first), {len(pb)} detections; "
-          f"peak device memory {peak_train / 2**30:.2f} GiB in training, "
-          f"{peak / 2**30:.2f} GiB in the phase {tag}", flush=True)
+          f"first), {len(pb)} detections; peak device memory GiB "
+          + ", ".join(f"({r}) {v / 2**30:.2f}" for r, v in peaks.items())
+          + f" {tag}", flush=True)
     print(f"phase 11: roi_pool kernel == plain (max|diff| {err}) at the "
           f"train step's largest map (map {k1_shape[0]} bf16, boxes "
           f"{k1_shape[1]}): kernel {k1_ms:.4f} ms queued, plain "
@@ -1823,15 +1810,17 @@ def phase11_train_entry(dev, tag) -> dict:
           f"MAX {cfg.INPUT.MAX_SIZE_TRAIN}, flip, DAN "
           f"{list(cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)}, dropout "
           f"{cfg.MODEL.ROI_BOX_HEAD.DROPOUT}, seeded random weights) then "
-          f"TTA eval; (b) --resume from {resumed['start']} to "
-          f"{PH11_RESUMED} ({resumed['tensors']} tensors and the step "
-          f"bit-equal to the checkpoint) then TTA eval; (c) --eval-only "
-          f"--resume through the test loader; (d) DefaultPredictor. K1 "
+          f"TTA eval; (c) --eval-only --resume through the test loader on "
+          f"the checkpoint of {PH11_STEPS}; (b) --resume from "
+          f"{resumed['start']} to {PH11_RESUMED} ({resumed['tensors']} "
+          f"tensors and the step bit-equal to the checkpoint) then TTA "
+          f"eval; (d) DefaultPredictor. K1 "
           f"launches {got} (one per step, per TTA group: {tta_launches} per "
           f"TTA eval of {n_eval} images, per test-loader image); "
           f"checkpoints {ckpts_b}; losses finite ({len(losses)} values in "
           f"metrics.json), lr the schedule's; detections finite and inside "
-          f"their images ({len(dets)} image evaluations; detections above "
+          f"their images, at least one an image in (a) and (c) "
+          f"({len(dets)} image evaluations; detections above "
           f"SCORE_THRESH_TEST per run, total and images with none: "
           + ", ".join(f"({r}) {sum(n)} / {sum(x == 0 for x in n)}"
                       for r, n in kept.items())

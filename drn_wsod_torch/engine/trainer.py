@@ -22,7 +22,7 @@ import queue
 import threading
 import time
 import weakref
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -88,22 +88,18 @@ def make_train_step(model: nn.Module, tx: SGD,
 
 
 def make_multi_train_step(raw_step: Callable) -> Callable:
-    """``multi_step(state, batches, seed)``: ``raw_step`` over K batches
-    back to back, given as a sequence of batches or as one batch stacked
-    along a leading axis of every field. Returns the state and the metrics
-    stacked to (K,). The per-step dropout seed is the same as one step at a
-    time, so the two agree exactly.
+    """``multi_step(state, batches, seed)``: ``raw_step`` over a sequence
+    of K batches back to back. Returns the state and the metrics stacked to
+    (K,). The per-step dropout seed is the same as one step at a time, so
+    the two agree exactly.
 
-    A chunk need not stack: batches of different size buckets cannot (the
-    JAX package's chunked trainer stacks each chunk with ``np.stack``, which
-    raises for them, so its multi-scale training runs one step a dispatch
-    only)."""
+    The batches are not stacked: batches of different size buckets cannot
+    be (the JAX package's chunked trainer stacks each chunk with
+    ``np.stack``, which raises for them, so its multi-scale training runs
+    one step a dispatch only)."""
 
-    def multi_step(state: TrainState,
-                   batches: Union[WSODBatch, Sequence[WSODBatch]], seed: int):
-        if isinstance(batches, WSODBatch):
-            batches = [batches.map(lambda t, i=i: t[i])
-                       for i in range(batches.image.shape[0])]
+    def multi_step(state: TrainState, batches: Sequence[WSODBatch],
+                   seed: int):
         per_step = []
         for batch in batches:
             state, metrics = raw_step(state, batch, seed)

@@ -151,12 +151,10 @@ def run(iters: int = 10, device=None, B: int = 2, H: int = 704,
 
     # ---- K steps back to back
     K = 10
-    stacked = batch.map(lambda t: torch.stack([t] * K))
     multi = drn_wsod_torch.make_multi_train_step(step)
     ms = measure(f"{K} steps back to back (total)",
-                 lambda: multi(state, stacked, 0), n=max(iters // 5, 1))
+                 lambda: multi(state, [batch] * K, 0), n=max(iters // 5, 1))
     add(Row("  -> per step", ms / K, 0))
-    del stacked
 
     # ---- the pool kernels alone, at the tool's own map
     C = 2048

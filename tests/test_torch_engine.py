@@ -279,19 +279,19 @@ def test_chunks_of_mixed_buckets():
         jtr.train(0, 4)
 
 
-def test_multi_step_takes_stacked_and_listed_batches():
-    batches = [_batch(64, i) for i in range(3)]
-    stacked = WSODBatch(**{k: torch.stack([getattr(b, k) for b in batches])
-                           for k in batches[0].tensors()})
+def test_multi_step_takes_batches_of_different_buckets():
+    """A chunk is a list: its batches need not share a size."""
+    batches = [_batch(s, i) for i, s in enumerate((64, 96, 64))]
 
     def step(state, batch, seed):
         state.step += 1
-        return state, {"v": batch.image.float().mean()}
+        return state, {"v": batch.image.float().mean(),
+                       "h": torch.tensor(float(batch.image.shape[1]))}
 
-    multi = ptrainer.make_multi_train_step(step)
-    _, a = multi(_PortState(), stacked, 0)
-    _, b = multi(_PortState(), batches, 0)
-    assert a["v"].tolist() == b["v"].tolist() == [0.0, 1.0, 2.0]
+    state, m = ptrainer.make_multi_train_step(step)(_PortState(), batches, 0)
+    assert state.step == 3
+    assert m["v"].tolist() == [0.0, 1.0, 2.0]
+    assert m["h"].tolist() == [64.0, 96.0, 64.0]
 
 
 def test_trainer_refuses_missing_cuda(monkeypatch):

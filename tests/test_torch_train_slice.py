@@ -137,7 +137,7 @@ def test_frozen_params_bit_unchanged(trajectories):
 
 
 def test_multi_step_matches_single_steps():
-    """make_multi_train_step over a K-stacked batch == K single steps, with
+    """make_multi_train_step over K batches == K single steps, with
     dropout on (the per-step seed depends only on the step count)."""
     cfg = drn_wsod_torch.get_cfg()
     cfg.merge_from_list(["MODEL.RESNETS.DEPTH", "18",
@@ -145,9 +145,6 @@ def test_multi_step_matches_single_steps():
                          "MODEL.ROI_BOX_HEAD.DAN_DIM", "[64, 64]",
                          "MODEL.DTYPE", "float32"])
     batches = [_batch(s) for s in range(3)]
-    stacked = drn_wsod_torch.WSODBatch(**{
-        k: torch.stack([getattr(b, k) for b in batches])
-        for k in batches[0].tensors()})
     runs = []
     for multi in (False, True):
         model = drn_wsod_torch.build_model(cfg, device="cpu")
@@ -156,7 +153,7 @@ def test_multi_step_matches_single_steps():
         step = drn_wsod_torch.make_train_step(model, tx)
         if multi:
             state, m = drn_wsod_torch.make_multi_train_step(step)(
-                state, stacked, 5)
+                state, batches, 5)
         else:
             ms = [step(state, b, 5)[1] for b in batches]
             m = {k: torch.stack([x[k] for x in ms]) for k in ms[0]}
