@@ -88,8 +88,32 @@ Phases (any failure exits non-zero):
      loader's wait (``data_time``) from ``metrics.json``, each step's
      device ms by CUDA events with its bucket and its losses (a bucket's
      first step against its reruns), peak memory per run, and K1 against
-     its plain version at the largest map the steps gave it.
-Every path (4-8, 10, 11) is run with the kernels' launch counts set to 0
+     its plain version at the largest map the steps gave it;
+ 12. PCL ("pcl"): ``train_net.main`` on ``pcl_WSR_50_DC5_1x.yaml`` at full
+     width and depth (R50-WS DC5, DAN [2048, 4096], 3 PCL branches, bf16,
+     B=4, crop, 24 scales, flip, P=4096, seeded random weights) for 8 steps
+     from a packed shard of 8 synthetic records, then the YAML's TTA eval
+     of the 4 test and 8 train records: every loss finite, K1 once per
+     step and per TTA group, detections finite and inside their images;
+     each step's device ms with its bucket, the last step split into
+     backbone, K1, DAN, WSDDN, PCL mining, PCL loss, backward and
+     optimizer (device and host-issue ms), peak memory; the clusters mined
+     on the card from one image of a step (P=4096, C=20) against the CPU
+     path on the same tensors (where they differ, each class whose 3-means
+     boundary differs, with the SSE each device computes);
+ 13. CSC ("csc"), R18-WS DC5, DAN [512, 4096], B=4, P=4096: (a)
+     ``train_net.main`` on ``csc_WSR_18_DC5_1x.yaml`` with
+     ``WSL.CSC_MAX_ITER 2``, 4 steps (the CSC step at 0-2, the plain step
+     at 3), then the TTA eval, all through the differentiable pool: no K1
+     launch, the CPG maps zero and W = 1 (the JAX package stops the image
+     gradient at FREEZE_AT 5); (b) ``make_csc_train_step(tau=0)`` at
+     ``FREEZE_AT 2`` for 2 steps on loader batches: every present class's
+     map live, W != 1 for some present class (else each one's contrast
+     range and image probability printed), losses finite, the stem and
+     res2 bit-unchanged, res3-res5 and the heads moved; each step's device
+     ms split into the CPG pass, ``csc_forward``, the loss pass and the
+     optimizer, peak memory.
+Every path (4-8, 10-13) is run with the kernels' launch counts set to 0
 just before it and read just after. The second-to-last line is the card's name
 and power limit, the line before it a JSON object of per-kernel numbers,
 the last ``{"ok": true, "device": {...}}``.
@@ -1414,10 +1438,41 @@ def phase10_eval(dev, gen, tag) -> dict:
     return launches
 
 
-
 # ------------------------------------------------------------- phase 11
 PH11_TRAIN, PH11_TEST, PH11_PROPOSALS = 24, 4, 4500
 PH11_STEPS, PH11_RESUMED, PH11_CKPT, PH11_PREDICTS = 16, 24, 8, 4
+
+
+def entry_logger(output_dir=None, name="drn_wsod_torch"):
+    """``default_setup``'s logger, writing to OUTPUT_DIR/log.txt only."""
+    import logging
+
+    logging.basicConfig(
+        level=logging.INFO, force=True,
+        format="[%(asctime)s %(name)s]: %(message)s",
+        handlers=[logging.FileHandler(os.path.join(output_dir, "log.txt"))])
+    return logging.getLogger(name)
+
+
+def close_logging():
+    import logging
+
+    for handler in logging.getLogger().handlers[:]:
+        logging.getLogger().removeHandler(handler)
+        handler.close()
+
+
+def tta_group_count(cfg, hw: dict) -> int:
+    """K1 launches of a TTA eval of the images of sizes ``hw``: one per
+    bucket group of each image's views."""
+    from drn_wsod_torch.data import pick_bucket
+    from drn_wsod_torch.tta import enumerate_views
+
+    return sum(len({pick_bucket(nh, nw, cfg.INPUT.BUCKETS)
+                    for nh, nw, _ in enumerate_views(
+                        v, cfg.TEST.AUG.MIN_SIZES, cfg.TEST.AUG.MAX_SIZE,
+                        cfg.TEST.AUG.FLIP)})
+               for v in hw.values())
 
 
 def ph11_dataset(root: Path, name: str, sizes, rs, start: int):
@@ -1465,12 +1520,10 @@ def phase11_train_entry(dev, tag) -> dict:
     test and train sets; (c) ``--eval-only --resume`` without TTA (the test
     loader) on the checkpoint of step 16; (b) ``--resume`` to 24 steps,
     then the TTA eval; (d) ``DefaultPredictor`` on one 500x375 image."""
-    import logging
     import shutil
 
     import drn_wsod_torch
     from drn_wsod_torch.checkpoint import Checkpointer
-    from drn_wsod_torch.data import pick_bucket
     from drn_wsod_torch.engine import defaults
     from drn_wsod_torch.engine import trainer as trainer_lib
     from drn_wsod_torch.evaluation import voc_eval
@@ -1478,7 +1531,6 @@ def phase11_train_entry(dev, tag) -> dict:
     from drn_wsod_torch.ops import roi_pool as rp
     from drn_wsod_torch.solver.build import build_lr_schedule
     from drn_wsod_torch.tools import train_net
-    from drn_wsod_torch.tta import enumerate_views
 
     t_phase = time.perf_counter()
     here = Path(__file__).resolve().parent
@@ -1517,24 +1569,10 @@ def phase11_train_entry(dev, tag) -> dict:
     sched = build_lr_schedule(cfg)
     k = train_net.steps_per_dispatch(cfg)
 
-    def tta_groups(h, w):
-        return len({pick_bucket(nh, nw, cfg.INPUT.BUCKETS)
-                    for nh, nw, _ in enumerate_views(
-                        (h, w), cfg.TEST.AUG.MIN_SIZES, cfg.TEST.AUG.MAX_SIZE,
-                        cfg.TEST.AUG.FLIP)})
-
-    tta_launches = sum(tta_groups(*v) for v in hw.values())
+    tta_launches = tta_group_count(cfg, hw)
     steps, resumed, starts, dets, bad = [], {}, {}, [], []
     captured = {}
     run = {"name": ""}
-
-    def file_logger(output_dir=None, name="drn_wsod_torch"):
-        logging.basicConfig(
-            level=logging.INFO, force=True,
-            format="[%(asctime)s %(name)s]: %(message)s",
-            handlers=[logging.FileHandler(os.path.join(output_dir,
-                                                       "log.txt"))])
-        return logging.getLogger(name)
 
     make_step = trainer_lib.make_train_step
 
@@ -1619,7 +1657,7 @@ def phase11_train_entry(dev, tag) -> dict:
     reset_launches()
     with contextlib.ExitStack() as patches, ClockSampler() as clock_sampler:
         for obj, name, new in (
-                (defaults, "setup_logger", file_logger),
+                (defaults, "setup_logger", entry_logger),
                 (trainer_lib, "make_train_step", timed_make_step),
                 (Checkpointer, "resume_or_load", checked_resume),
                 (voc_eval.PascalVOCDetectionEvaluator, "process_single",
@@ -1655,9 +1693,7 @@ def phase11_train_entry(dev, tag) -> dict:
         del predictor
         launches = read_launches()
         peaks["d"] = torch.cuda.max_memory_allocated()
-    for handler in logging.getLogger().handlers[:]:
-        logging.getLogger().removeHandler(handler)
-        handler.close()
+    close_logging()
     torch.cuda.empty_cache()
 
     # ---- checks
@@ -1835,6 +1871,641 @@ def phase11_train_entry(dev, tag) -> dict:
     return launches
 
 
+# phases 12 and 13: records per shard, steps, the CSC switch
+PH12_TRAIN, PH12_TEST, PH12_STEPS = 8, 4, 8
+PH13_CSC_MAX_ITER, PH13_STEPS, PH13_B_STEPS = 2, 4, 2
+
+
+def entry_setup(prefix: str, seed: int):
+    """A fresh work directory under build/ with a packed train shard of
+    PH12_TRAIN and a test shard of PH12_TEST synthetic VOC-sized records
+    (``ph11_dataset``); returns (work dir, the CLI overrides naming them
+    with ``MODEL.WEIGHTS ""``, OUTPUT_DIR, SEED 0 and EVAL_PERIOD 0, {id:
+    (H, W)})."""
+    import shutil
+
+    here = Path(__file__).resolve().parent
+    work = here / "build" / f"chip_smoke_{prefix}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rs = np.random.RandomState(seed)
+    train_sizes = [EVAL_SIZES[i % len(EVAL_SIZES)] for i in range(PH12_TRAIN)]
+    train_props, train_hw = ph11_dataset(work, f"{prefix}_train", train_sizes,
+                                         rs, 0)
+    test_props, test_hw = ph11_dataset(work, f"{prefix}_test",
+                                       list(EVAL_SIZES[:PH12_TEST]), rs, 100)
+    opts = ["DATASETS.TRAIN", f"('{prefix}_train',)",
+            "DATASETS.TEST", f"('{prefix}_test',)",
+            "DATASETS.PROPOSAL_FILES_TRAIN", repr((train_props,)),
+            "DATASETS.PROPOSAL_FILES_TEST", repr((test_props,)),
+            "MODEL.WEIGHTS", "", "OUTPUT_DIR", str(work / "output"),
+            "SEED", "0", "TEST.EVAL_PERIOD", "0"]
+    return work, opts, {**train_hw, **test_hw}
+
+
+def detection_checker(hw: dict, dets: list, bad: list):
+    """A ``process_single`` that records (image, detections) in ``dets``
+    and, in ``bad``, every image whose detections are not finite or leave
+    the image, then calls the evaluator's own."""
+    from drn_wsod_torch.evaluation import voc_eval
+
+    process = voc_eval.PascalVOCDetectionEvaluator.process_single
+
+    def checked(self, image_id, boxes, scores, classes, valid):
+        H, W = hw[image_id]
+        b, v = np.asarray(boxes), np.asarray(valid)
+        finite = all(np.isfinite(np.asarray(a, np.float64)).all()
+                     for a in (boxes, scores, classes))
+        inside = not ((b[v] < 0).any() or (b[v][:, [0, 2]] > W).any()
+                      or (b[v][:, [1, 3]] > H).any()
+                      or (np.asarray(classes)[v] >= 20).any())
+        dets.append((image_id, int(v.sum())))
+        if not (finite and inside):
+            bad.append((image_id, finite, inside, int(v.sum())))
+        return process(self, image_id, boxes, scores, classes, valid)
+
+    return checked
+
+
+def step_recorder(steps: list, kind: str, make):
+    """Wrap a ``make_*_train_step`` so that each step appends (kind,
+    bucket, start event, end event, metrics) to ``steps``."""
+    def wrapped(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(state, batch, seed):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(state, batch, seed)
+            end.record()
+            steps.append((kind, int(batch.image.shape[1]), start, end,
+                          out[1]))
+            return out
+        return timed
+    return wrapped
+
+
+def pcl_mining_diff(prev, props, mask, labels) -> list:
+    """Classes whose 3-means boundary differs between the CPU and the card
+    on the CPU path's pools: (class, the two (i, j) boundaries, the SSE
+    each device computes at each)."""
+    from drn_wsod_torch.ops import pcl as pcl_lib
+
+    lines = []
+    pv = prev.clamp(1e-9, 1.0 - 1e-9)
+    consumed = torch.zeros_like(mask)
+    for c in range(pv.shape[-1]):
+        pool = mask & ~consumed
+        best = {}
+        for d in ("cpu", "cuda"):
+            total = pcl_lib.kmeans3_sse(pv[..., c].to(d), pool.to(d))[0]
+            flat = total.reshape(total.shape[0], -1)
+            best[d] = (int(flat.argmin(-1)[0]), flat[0].cpu())
+        if best["cpu"][0] != best["cuda"][0]:
+            side = total.shape[-1]
+            k = (best["cpu"][0], best["cuda"][0])
+            lines.append(
+                f"class {c}: boundaries (i, j) CPU {divmod(k[0], side)}, "
+                f"card {divmod(k[1], side)}; SSE at both, CPU "
+                f"{[float(best['cpu'][1][i]) for i in k]}, card "
+                f"{[float(best['cuda'][1][i]) for i in k]}")
+        _, _, _, picked = pcl_lib._class_graph_centers(pv[..., c], props,
+                                                       pool, 32, 5, 0.4)
+        consumed = consumed | (picked & (labels[:, c] > 0.5)[:, None])
+    return lines
+
+
+def split_pcl_step(model, tx, step, state, batch, seed):
+    """Per-part device and host-issue ms of one PCL train step: PCL mining
+    and the PCL loss summed over the 3 branches, the branch layers with
+    the other head arithmetic."""
+    from drn_wsod_torch.ops import pcl as pcl_lib
+
+    marks = Marks()
+    marks.hook(model, "forward_in", "forward_out")
+    marks.hook(model.backbone, "backbone_in", "backbone_out")
+    marks.hook(model.box_head, "dan_in", "dan_out")
+    marks.hook(model.box_predictor, "wsddn_in", "wsddn_out")
+    mine, loss, update = pcl_lib.mine_pcl_clusters, pcl_lib.pcl_loss, \
+        tx.update
+
+    def marked(fn, before, after):
+        def run(*args, **kw):
+            marks(before)()
+            out = fn(*args, **kw)
+            marks(after)()
+            return out
+        return run
+
+    pcl_lib.mine_pcl_clusters = marked(mine, "mine_in", "mine_out")
+    pcl_lib.pcl_loss = marked(loss, "loss_in", "loss_out")
+    tx.update = marked(update, "update_in", "update_out")
+    try:
+        marks("step_in")()
+        step(state, batch, seed)
+        torch.cuda.synchronize()
+    finally:
+        pcl_lib.mine_pcl_clusters, pcl_lib.pcl_loss = mine, loss
+        del tx.update
+        marks.remove()
+    return marks.split({
+        "step_in": "set-up", "forward_in": "preprocess",
+        "backbone_in": "backbone", "backbone_out": "K1", "dan_in": "DAN",
+        "dan_out": "heads", "wsddn_in": "WSDDN", "wsddn_out": "heads",
+        "mine_in": "PCL mining", "mine_out": "heads",
+        "loss_in": "PCL loss", "loss_out": "heads",
+        "forward_out": "backward", "update_in": "optimizer"})
+
+
+def phase12_pcl(dev, tag) -> dict:
+    """PCL (``pcl_WSR_50_DC5_1x.yaml``) through ``train_net.main`` at full
+    width and depth: PH12_STEPS steps from seeded random weights on a
+    packed shard, then the YAML's TTA eval; K1 once per step and per TTA
+    group; the clusters mined on the card from one image of a step against
+    the CPU path on the same tensors."""
+    import shutil
+
+    import drn_wsod_torch
+    from drn_wsod_torch.engine import defaults
+    from drn_wsod_torch.engine import trainer as trainer_lib
+    from drn_wsod_torch.evaluation import voc_eval
+    from drn_wsod_torch.ops import pcl as pcl_lib
+    from drn_wsod_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    yaml = Path(__file__).resolve().parent / "configs" / \
+        "PascalVOC-Detection" / "pcl_WSR_50_DC5_1x.yaml"
+    work, opts, hw = entry_setup("ph12", 12)
+    opts += ["SOLVER.MAX_ITER", str(PH12_STEPS),
+             "SOLVER.CHECKPOINT_PERIOD", str(PH12_STEPS)]
+    y = drn_wsod_torch.get_cfg()
+    y.merge_from_file(str(yaml))
+    if not (y.MODEL.ROI_HEADS.NAME == "PCLROIHeads"
+            and y.MODEL.RESNETS.DEPTH == 50 and y.WSL.REFINE_NUM == 3
+            and list(y.MODEL.ROI_BOX_HEAD.DAN_DIM) == [2048, 4096]
+            and y.MODEL.ROI_BOX_HEAD.DROPOUT == 0.5
+            and y.MODEL.DTYPE == "bfloat16"
+            and y.SOLVER.IMS_PER_BATCH == 4 and y.INPUT.CROP.ENABLED
+            and len(y.INPUT.MIN_SIZE_TRAIN) == 24
+            and y.TEST.AUG.ENABLED and y.TEST.AUG.FLIP
+            and len(y.TEST.AUG.MIN_SIZES) == 8):
+        raise Fail(f"phase 12: the PCL YAML is not as expected: {y.MODEL}")
+    cfg = y.clone()
+    cfg.merge_from_list(opts)
+    tta_launches = tta_group_count(cfg, hw) if cfg.TEST.EVAL_TRAIN else \
+        tta_group_count(cfg, {k: v for k, v in hw.items()
+                              if int(k) >= 100})
+    steps, dets, bad, captured, split = [], [], [], {}, {}
+    mine = pcl_lib.mine_pcl_clusters
+    calls = {"mine": 0}
+
+    def capturing(prev, props, mask, labels, **kw):
+        # one image of step 4's first branch (scores past the first steps)
+        if calls["mine"] == 3 * (PH12_STEPS // 2):
+            i = int((labels > 0.5).sum(-1).argmax())
+            captured.update({k: v[i:i + 1].detach().clone() for k, v in (
+                ("prev", prev), ("props", props), ("mask", mask),
+                ("labels", labels))})
+        calls["mine"] += 1
+        return mine(prev, props, mask, labels, **kw)
+
+    record = step_recorder(steps, "plain", trainer_lib.make_train_step)
+
+    def split_last(model, tx, *a, **kw):
+        step = record(model, tx, *a, **kw)
+
+        def run(state, batch, seed):
+            if state.step == PH12_STEPS - 1:
+                split["parts"] = split_pcl_step(model, tx, step, state,
+                                                batch, seed)
+                return state, steps[-1][4]
+            return step(state, batch, seed)
+        return run
+
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as patches, ClockSampler() as clocks:
+        for obj, name, new in (
+                (defaults, "setup_logger", entry_logger),
+                (trainer_lib, "make_train_step", split_last),
+                (voc_eval.PascalVOCDetectionEvaluator, "process_single",
+                 detection_checker(hw, dets, bad)),
+                (pcl_lib, "mine_pcl_clusters", capturing)):
+            patches.enter_context(mock.patch.object(obj, name, new))
+        t = time.perf_counter()
+        results = train_net.main(train_net.argument_parser().parse_args(
+            ["--config-file", str(yaml), *opts]), device=dev)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+    close_logging()
+    torch.cuda.empty_cache()
+
+    # ---- checks
+    step_losses = [{k: float(v) for k, v in m.items()} for *_, m in steps]
+    names = {"loss_cls", "loss_cls_r0", "loss_cls_r1", "loss_cls_r2",
+             "total_loss"}
+    if len(steps) != PH12_STEPS or any(
+            set(m) != names or not all(math.isfinite(v) for v in m.values())
+            for m in step_losses):
+        raise Fail(f"phase 12: step losses {step_losses}")
+    with open(work / "output" / "metrics.json") as f:
+        lines = [json.loads(line) for line in f]
+    logged = [(m["iteration"], k, v) for m in lines for k, v in m.items()
+              if k in names]
+    if {k for _, k, _ in logged} != names or not all(
+            math.isfinite(v) for _, _, v in logged):
+        raise Fail(f"phase 12: losses in metrics.json {logged}")
+    want = PH12_STEPS + tta_launches
+    if launches["roi_pool"] != want:
+        raise Fail(f"phase 12: K1 launches {launches['roi_pool']}, want "
+                   f"{want} ({PH12_STEPS} steps + {tta_launches} TTA "
+                   f"groups); {launches}")
+    n_eval = len(hw) if cfg.TEST.EVAL_TRAIN else PH12_TEST
+    if bad or len(dets) != n_eval:
+        raise Fail(f"phase 12: detections (image, finite, inside, count) "
+                   f"{bad}; {len(dets)} images evaluated, want {n_eval}")
+    metrics = {f"{ds}/{key}": tasks[task][key]
+               for ds, tasks in results.items()
+               for task in ("bbox", "bbox CorLoc")
+               for key in ("AP50", "CL50") if key in tasks[task]}
+    if not metrics or not all(math.isfinite(v) and 0 <= v <= 100
+                              for v in metrics.values()):
+        raise Fail(f"phase 12: evaluator metrics {metrics}")
+    # the clusters of one image on the card against the CPU path
+    if not captured:
+        raise Fail("phase 12: no mining call captured")
+    args = [captured[k] for k in ("prev", "props", "mask", "labels")]
+    t = time.perf_counter()
+    on_cpu = mine(*(a.cpu() for a in args))
+    cpu_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    on_card = mine(*args)
+    end.record()
+    end.synchronize()
+    card_ms = start.elapsed_time(end)
+    same = {f: torch.equal(g.cpu(), c) for f, g, c in
+            zip(on_cpu._fields, on_card, on_cpu)}
+    n_present = int((captured["labels"] > 0.5).sum())
+    n_centers = int(on_cpu.center_valid.sum())
+    if not all(same.values()):
+        diff = pcl_mining_diff(*(a.cpu() for a in args))
+        print("phase 12: PCL mining on the card differs from the CPU path "
+              f"({same}); per class: {diff or 'no 3-means boundary differs'}"
+              f" {tag}", flush=True)
+
+    # ---- records
+    per_step = [(b, s.elapsed_time(e), m["total_loss"])
+                for (_, b, s, e, _), m in zip(steps, step_losses)]
+    device, host = split["parts"]
+    print(f"phase 12: PCL train_net.main, {PH12_STEPS} steps of "
+          f"B={cfg.SOLVER.IMS_PER_BATCH} (R50-WS DC5, DAN "
+          f"{list(cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)}, 3 PCL branches, "
+          f"{cfg.MODEL.DTYPE}, dropout 0.5, crop, 24 scales, flip, "
+          f"P={cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE}, seeded random "
+          f"weights) on a packed shard of {PH12_TRAIN} records, then TTA eval "
+          f"of {n_eval} images: per step (bucket, device ms by CUDA events, "
+          "total_loss): " + ", ".join(f"({b}, {v:.1f}, {x:.4g})"
+                                      for b, v, x in per_step)
+          + f"; the last step split with hooks, device ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in device.items())
+          + "; host-issue ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
+          + f"; main {main_s:.2f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB {tag}", flush=True)
+    print(f"phase 12: K1 launches {launches['roi_pool']} (one per step, "
+          f"{tta_launches} TTA groups); detections finite and inside their "
+          f"images ({len(dets)} images, {sum(n for _, n in dets)} "
+          f"detections); VOC metrics " + ", ".join(
+              f"{k} {v:.4f}" for k, v in metrics.items())
+          + " (random weights: the values mean nothing); mining of one "
+          f"image (P={args[0].shape[1]}, C={args[0].shape[2]}, "
+          f"{n_present} present classes, {n_centers} centers) on the card "
+          f"{'equals' if all(same.values()) else 'DIFFERS FROM'} the CPU "
+          f"path ({same}): card {card_ms:.2f} ms, CPU {cpu_s:.2f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"phase 12: card during the phase: {clocks.summary} {tag}",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def split_csc_step(step, state, batch, tx):
+    """Device ms of one CSC step split into the CPG pass (the scores and
+    the C backward passes to the image), ``csc_forward``, the loss pass
+    (forward and backward) and the optimizer; returns (parts, the CPG
+    maps' per-map max (B, C), W, the contrasts (B * C, P), preds)."""
+    from drn_wsod_torch.ops import csc as csc_lib
+
+    events, seen = [], {}
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((name, e))
+
+    cpg_fn, fwd_fn, pool_fn, update = (csc_lib.cpg_from_scores,
+                                       csc_lib.csc_forward,
+                                       csc_lib.csc_pool_class, tx.update)
+
+    def cpg(scores, image, labels, preds, tau):
+        out = cpg_fn(scores, image, labels, preds, tau)
+        seen["cpg_max"], seen["preds"] = out.amax((2, 3)), preds
+        seen["score_max"] = scores.detach().amax(1)
+        mark("cpg_out")
+        return out
+
+    def fwd(*a, **kw):
+        out = fwd_fn(*a, **kw)
+        seen["W"] = out[0]
+        mark("csc_out")
+        return out
+
+    def pool(*a, **kw):
+        seen["contrast"] = pool_fn(*a, **kw)
+        return seen["contrast"]
+
+    def upd(*a):
+        mark("update_in")
+        update(*a)
+        mark("update_out")
+
+    csc_lib.cpg_from_scores, csc_lib.csc_forward = cpg, fwd
+    csc_lib.csc_pool_class, tx.update = pool, upd
+    try:
+        mark("step_in")
+        _, metrics = step(state, batch, 0)
+        torch.cuda.synchronize()
+    finally:
+        csc_lib.cpg_from_scores, csc_lib.csc_forward = cpg_fn, fwd_fn
+        csc_lib.csc_pool_class = pool_fn
+        del tx.update
+    names = dict(step_in="CPG pass", cpg_out="csc_forward",
+                 csc_out="loss pass", update_in="optimizer")
+    parts = {names[a]: ea.elapsed_time(eb)
+             for (a, ea), (_, eb) in zip(events, events[1:]) if a in names}
+    return parts, metrics, seen
+
+
+def diff_pool_ms(model, batch) -> dict:
+    """Device ms of the differentiable pool (forward, and forward plus the
+    backward to the map) and of K1 on one batch's own map and proposals."""
+    from drn_wsod_torch.ops import roi_pool as rp
+
+    b = model.sanitize(batch)
+    with torch.no_grad():
+        feats = model.features(b.image.float())
+    args = (b.proposals, b.proposal_mask, b.objectness)
+    scale = (b.objectness + 1.0) * b.proposal_mask.to(b.objectness.dtype)
+
+    def forward():
+        with torch.no_grad():
+            return model.pool(feats, *args)
+
+    def backward():
+        f = feats.detach().requires_grad_(True)
+        return torch.autograd.grad(model.pool(f, *args).float().sum(), f)
+
+    def k1():
+        return rp.roi_pool_batched(feats, b.proposals.contiguous(),
+                                   1.0 / model.feature_stride,
+                                   model.pooler_resolution,
+                                   scale.contiguous())
+
+    out = {"map": tuple(feats.shape), "forward": cuda_ms(forward, 3),
+           "backward": cuda_ms(backward, 3), "k1": cuda_ms(k1, 3)}
+    del feats
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase13_csc(dev, tag) -> dict:
+    """CSC (``csc_WSR_18_DC5_1x.yaml``) at full width and depth: (a)
+    ``train_net.main`` with the CSC step through iteration
+    PH13_CSC_MAX_ITER and the plain step after it, then the YAML's TTA
+    eval, all through the differentiable pool (no K1 launch); the CPG maps
+    are zero and W = 1, as the JAX package computes them at FREEZE_AT 5.
+    (b) ``make_csc_train_step(tau=0)`` at FREEZE_AT 2 on loader batches:
+    live maps, the frozen stem and res2 unchanged, res3-res5 and the
+    heads moved."""
+    import shutil
+
+    import drn_wsod_torch
+    from drn_wsod_torch.data import (DatasetMapper,
+                                     build_detection_train_loader)
+    from drn_wsod_torch.engine import defaults
+    from drn_wsod_torch.engine import trainer as trainer_lib
+    from drn_wsod_torch.evaluation import voc_eval
+    from drn_wsod_torch.ops import csc as csc_lib
+    from drn_wsod_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    yaml = Path(__file__).resolve().parent / "configs" / \
+        "PascalVOC-Detection" / "csc_WSR_18_DC5_1x.yaml"
+    work, opts, hw = entry_setup("ph13", 13)
+    opts_a = opts + ["SOLVER.MAX_ITER", str(PH13_STEPS),
+                     "SOLVER.CHECKPOINT_PERIOD", str(PH13_STEPS),
+                     "WSL.CSC_MAX_ITER", str(PH13_CSC_MAX_ITER)]
+    y = drn_wsod_torch.get_cfg()
+    y.merge_from_file(str(yaml))
+    if not (y.MODEL.ROI_HEADS.NAME == "CSCROIHeads"
+            and y.MODEL.RESNETS.DEPTH == 18
+            and list(y.MODEL.ROI_BOX_HEAD.DAN_DIM) == [512, 4096]
+            and y.MODEL.BACKBONE.FREEZE_AT == 5
+            and y.MODEL.DTYPE == "bfloat16"
+            and y.SOLVER.IMS_PER_BATCH == 4 and y.TEST.AUG.ENABLED):
+        raise Fail(f"phase 13: the CSC YAML is not as expected: {y.MODEL}")
+    cfg = y.clone()
+    cfg.merge_from_list(opts_a)
+    steps, dets, bad, seen = [], [], [], []
+    cpg_fn, fwd_fn = csc_lib.cpg_from_scores, csc_lib.csc_forward
+
+    def cpg(scores, image, labels, preds, tau):
+        out = cpg_fn(scores, image, labels, preds, tau)
+        seen.append({"cpg_max": out.amax()})
+        return out
+
+    def fwd(cpgs, labels, preds, rois, mask, **kw):
+        W, PL, NL = fwd_fn(cpgs, labels, preds, rois, mask, **kw)
+        counted = (labels > 0.5)[:, None, :] & mask[..., None]
+        seen[-1]["W_not_1"] = (counted & (W != 1.0)).sum()
+        return W, PL, NL
+
+    # (a) the YAML through train_net.main
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as patches, ClockSampler() as clocks:
+        for obj, name, new in (
+                (defaults, "setup_logger", entry_logger),
+                (trainer_lib, "make_train_step", step_recorder(
+                    steps, "plain", trainer_lib.make_train_step)),
+                (trainer_lib, "make_csc_train_step", step_recorder(
+                    steps, "csc", trainer_lib.make_csc_train_step)),
+                (voc_eval.PascalVOCDetectionEvaluator, "process_single",
+                 detection_checker(hw, dets, bad)),
+                (csc_lib, "cpg_from_scores", cpg),
+                (csc_lib, "csc_forward", fwd)):
+            patches.enter_context(mock.patch.object(obj, name, new))
+        t = time.perf_counter()
+        results = train_net.main(train_net.argument_parser().parse_args(
+            ["--config-file", str(yaml), *opts_a]), device=dev)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        launches = read_launches()
+        peak_a = torch.cuda.max_memory_allocated()
+    close_logging()
+    step_losses = [{k: float(v) for k, v in m.items()} for *_, m in steps]
+    kinds = [k for k, *_ in steps]
+    want_kinds = ["csc"] * (PH13_CSC_MAX_ITER + 1) + ["plain"] * (
+        PH13_STEPS - PH13_CSC_MAX_ITER - 1)
+    if kinds != want_kinds:
+        raise Fail(f"phase 13: (a) step kinds {kinds}, want {want_kinds}")
+    for kind, m in zip(kinds, step_losses):
+        need = ({"loss_cls_pos", "loss_cls_neg"} if kind == "csc"
+                else {"loss_cls"})
+        if not need <= set(m) or not all(math.isfinite(v)
+                                         for v in m.values()):
+            raise Fail(f"phase 13: (a) {kind} step losses {m}")
+    zeros = [(float(x["cpg_max"]), int(x["W_not_1"])) for x in seen]
+    if len(zeros) != PH13_CSC_MAX_ITER + 1 or any(z != (0.0, 0)
+                                                  for z in zeros):
+        raise Fail(f"phase 13: (a) CPG max and weights W != 1 per CSC step "
+                   f"{zeros}: FREEZE_AT 5 stops the image gradient, so the "
+                   "maps must be zero and W 1")
+    if launches["roi_pool"] != 0:
+        raise Fail(f"phase 13: (a) K1 launched {launches['roi_pool']} "
+                   "times; CSC pools through the differentiable pool")
+    n_eval = len(hw) if cfg.TEST.EVAL_TRAIN else PH12_TEST
+    if bad or len(dets) != n_eval:
+        raise Fail(f"phase 13: (a) detections (image, finite, inside, "
+                   f"count) {bad}; {len(dets)} images evaluated")
+    metrics = {f"{ds}/{key}": tasks[task][key]
+               for ds, tasks in results.items()
+               for task in ("bbox", "bbox CorLoc")
+               for key in ("AP50", "CL50") if key in tasks[task]}
+    if not metrics or not all(math.isfinite(v) and 0 <= v <= 100
+                              for v in metrics.values()):
+        raise Fail(f"phase 13: (a) evaluator metrics {metrics}")
+    per_step = [(k, b, s.elapsed_time(e), m["total_loss"])
+                for (k, b, s, e, _), m in zip(steps, step_losses)]
+    print(f"phase 13: (a) CSC train_net.main, {PH13_STEPS} steps of "
+          f"B={cfg.SOLVER.IMS_PER_BATCH} (R18-WS DC5, DAN "
+          f"{list(cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)}, FREEZE_AT 5, "
+          f"{cfg.MODEL.DTYPE}, P={cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE}, "
+          f"CSC_MAX_ITER {PH13_CSC_MAX_ITER}, seeded random weights) "
+          f"then TTA eval of {n_eval} images: per step (kind, bucket, device "
+          "ms, total_loss): " + ", ".join(f"({k}, {b}, {v:.1f}, {x:.4g})"
+                                          for k, b, v, x in per_step)
+          + f"; CPG max and W != 1 count per CSC step {zeros} (zero maps, "
+          f"W = 1: the JAX package's FREEZE_AT 5); K1 launches "
+          f"{launches['roi_pool']}; {len(dets)} images, "
+          f"{sum(n for _, n in dets)} detections, VOC metrics "
+          + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+          + f"; main {main_s:.2f} s, peak {peak_a / 2**30:.2f} GiB {tag}",
+          flush=True)
+    del steps, seen
+    torch.cuda.empty_cache()
+
+    # (b) the CSC step at FREEZE_AT 2, tau 0, on loader batches
+    cfg_b = drn_wsod_torch.get_cfg()
+    cfg_b.merge_from_file(str(yaml))
+    cfg_b.merge_from_list(opts + ["MODEL.BACKBONE.FREEZE_AT", "2"])
+    model = drn_wsod_torch.build_model(cfg_b, device=dev)
+    tx = drn_wsod_torch.build_optimizer(cfg_b, model)
+    state = drn_wsod_torch.create_train_state(model, tx)
+    step = trainer_lib.make_csc_train_step(model, tx, tau=0.0)
+    loader = iter(build_detection_train_loader(
+        cfg_b, DatasetMapper(cfg_b, is_train=True)))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    with ClockSampler() as clocks_b:
+        for _ in range(PH13_B_STEPS):
+            batch = next(loader).to(dev)
+            parts, metrics_b, seen_b = split_csc_step(step, state, batch, tx)
+            runs.append((int(batch.image.shape[1]), parts,
+                         {k: float(v) for k, v in metrics_b.items()},
+                         seen_b, batch.labels > 0.5, batch.proposal_mask))
+    peak_b = torch.cuda.max_memory_allocated()
+    pool_ms = diff_pool_ms(model, batch)
+    frozen_ok = all(torch.equal(p, before[n])
+                    for n, p in model.named_parameters()
+                    if n.startswith(("backbone.stem.", "backbone.res2.")))
+    moved = {n: not torch.equal(p, before[n])
+             for n, p in model.named_parameters() if p.requires_grad}
+    stages = {s: all(v for n, v in moved.items()
+                     if n.startswith(f"backbone.{s}."))
+              for s in ("res3", "res4", "res5")}
+    heads = sum(v for n, v in moved.items() if not n.startswith("backbone"))
+    if not frozen_ok or not all(stages.values()) or heads < len(
+            [n for n in moved if not n.startswith("backbone")]) - 1:
+        raise Fail(f"phase 13: (b) the stem and res2 unchanged {frozen_ok}, "
+                   f"res3-res5 moved {stages}, heads moved {heads}")
+    w_not_1, dead = [], []
+    for i, (bucket, parts, m, sn, present, mask) in enumerate(runs):
+        if not all(math.isfinite(v) for v in m.values()):
+            raise Fail(f"phase 13: (b) step {i} metrics {m}")
+        # a present class's map is zero where no gradient reaches the
+        # image: the random weights' class softmax saturates once the
+        # YAML's lr has moved them (PERF.md section 6), so every present map
+        # must be live on the fresh weights of step 0, and some after it
+        live = sn["cpg_max"][present] > 0
+        dead.append([(b, c, float(sn["preds"][b, c]),
+                      float(sn["score_max"][b, c]))
+                     for b, c in present.nonzero().tolist()
+                     if not sn["cpg_max"][b, c] > 0])
+        if not bool(live.all() if i == 0 else live.any()):
+            raise Fail(f"phase 13: (b) step {i}: present classes with a zero "
+                       f"CPG map at FREEZE_AT 2 (image, class, pred, largest "
+                       f"proposal score) {dead[-1]}")
+        counted = present[:, None, :] & mask[..., None]
+        w_not_1.append(int((counted & (sn["W"] != 1.0)).sum()))
+    if not any(w_not_1):
+        # why: each present class's contrast range and image probability
+        for i, (_, _, _, sn, present, mask) in enumerate(runs):
+            B, C = present.shape
+            con = sn["contrast"].reshape(B, C, -1)
+            for b, c in present.nonzero().tolist():
+                v = con[b, c][mask[b]]
+                print(f"phase 13: (b) step {i} image {b} class {c}: contrast "
+                      f"max {v.max().item():.4g} min {v.min().item():.4g}, "
+                      f"pred {sn['preds'][b, c].item():.4g}", flush=True)
+    for i, (bucket, parts, m, sn, present, mask) in enumerate(runs):
+        print(f"phase 13: (b) make_csc_train_step tau 0 at FREEZE_AT 2, step "
+              f"{i} (bucket {bucket}, {int(present.sum())} present classes): "
+              "device ms " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                       parts.items())
+              + f" (sum {sum(parts.values()):.2f}); losses "
+              + ", ".join(f"{k} {v:.4g}" for k, v in m.items())
+              + f"; present maps live (max 1) but (image, class, pred, "
+              f"largest proposal score) {dead[i]}; weights W != 1 at "
+              f"{w_not_1[i]} (present class, valid proposal) pairs {tag}",
+              flush=True)
+    print(f"phase 13: (b) the stem and res2 bit-unchanged, res3-res5 and "
+          f"{heads} head tensors moved; peak device memory "
+          f"{peak_b / 2**30:.2f} GiB; at the last step's map "
+          f"{pool_ms['map']}: the differentiable pool (B images, with the "
+          f"scale) {pool_ms['forward']:.3f} ms forward, "
+          f"{pool_ms['backward']:.3f} ms forward + backward to the map, K1 "
+          f"{pool_ms['k1']:.3f} ms (CUDA events, 3 calls each); phase "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
+    print(f"phase 13: card during (a): {clocks.summary}; during (b): "
+          f"{clocks_b.summary} {tag}", flush=True)
+    del model, state, tx, runs
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -1877,6 +2548,10 @@ def main() -> int:
         paths["eval"] = phase10_eval(dev, gen, tag)
         torch.cuda.empty_cache()
         paths["train_entry"] = phase11_train_entry(dev, tag)
+        torch.cuda.empty_cache()
+        paths["pcl"] = phase12_pcl(dev, tag)
+        torch.cuda.empty_cache()
+        paths["csc"] = phase13_csc(dev, tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1

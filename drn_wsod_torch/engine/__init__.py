@@ -3,11 +3,12 @@ from .events import (CommonMetricPrinter, EventStorage, HistoryBuffer,
 from .hooks import (EvalHook, HookBase, IterationTimer, PeriodicCheckpointer,
                     PeriodicWriter, ProfilerHook)
 from .trainer import (Trainer, TrainState, create_train_state,
-                      make_multi_train_step, make_train_step)
+                      make_csc_train_step, make_multi_train_step,
+                      make_train_step)
 
 __all__ = ["CommonMetricPrinter", "EvalHook", "EventStorage",
            "HistoryBuffer", "HookBase", "IterationTimer", "JSONWriter",
            "PeriodicCheckpointer", "PeriodicWriter", "ProfilerHook",
            "TensorboardWriter", "TrainState", "Trainer",
-           "create_train_state", "get_event_storage", "make_multi_train_step",
-           "make_train_step"]
+           "create_train_state", "get_event_storage", "make_csc_train_step",
+           "make_multi_train_step", "make_train_step"]

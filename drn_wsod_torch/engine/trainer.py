@@ -9,8 +9,9 @@ schedule and the dropout seed live on the host). ``Trainer`` reads them
 back only where it writes them (every ``log_period`` iterations and at the
 last), and those read-backs are its fences.
 
-The CSC train step (``make_csc_train_step``) comes with the CSC heads
-(ROADMAP.md queue 1, item 13).
+``make_csc_train_step`` is the step of the CSC heads while their
+constraint is active: class-peak-gradient maps by gradients to the image,
+center-surround weights, and the CSC-weighted image loss.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..models.heads.wsddn import image_probs
+from ..ops import csc as csc_lib
 from ..solver.build import SGD
 from ..structures.batch import WSODBatch
 from .events import EventStorage
@@ -66,22 +69,73 @@ def make_train_step(model: nn.Module, tx: SGD,
     device."""
 
     def train_step(state: TrainState, batch: WSODBatch, seed: int):
-        params = {n: p for n, p in state.model.named_parameters()
-                  if p.requires_grad}
         gen = step_generator(seed, state.step, batch.image.device)
         losses = state.model(batch, train=True, generator=gen)
-        if loss_weights:
-            losses = {k: v * loss_weights.get(k, 1.0)
-                      for k, v in losses.items()}
-        total = sum(losses[k] for k in sorted(losses))
-        grads = torch.autograd.grad(total, list(params.values()),
-                                    allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
-                 for (n, p), g in zip(params.items(), grads)}
-        tx.update(grads, state.opt_state, params)
-        state.step += 1
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
+        return state, _apply_gradients(state, tx, losses, loss_weights)
+
+    return train_step
+
+
+def _apply_gradients(state: TrainState, tx: SGD, losses: dict,
+                     loss_weights: Optional[Dict[str, float]]):
+    """Weight the losses, take the gradients of their sum with respect to
+    the trainable parameters and update them; returns the detached losses
+    and ``total_loss``."""
+    params = {n: p for n, p in state.model.named_parameters()
+              if p.requires_grad}
+    if loss_weights:
+        losses = {k: v * loss_weights.get(k, 1.0) for k, v in losses.items()}
+    total = sum(losses[k] for k in sorted(losses))
+    grads = torch.autograd.grad(total, list(params.values()),
+                                allow_unused=True)
+    grads = {n: torch.zeros_like(p) if g is None else g
+             for (n, p), g in zip(params.items(), grads)}
+    tx.update(grads, state.opt_state, params)
+    state.step += 1
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics["total_loss"] = total.detach()
+    return metrics
+
+
+def make_csc_train_step(model: nn.Module, tx: SGD,
+                        loss_weights: Optional[Dict[str, float]] = None,
+                        tau: float = 0.7, fg_threshold: float = 0.1,
+                        context_scale: float = 1.8) -> Callable:
+    """Build the train step of a CSC head while its constraint is active
+    (the JAX package's ``make_csc_train_step``): the image as float32; the
+    WSDDN proposal scores with dropout off and, from them, the image
+    probabilities and the CPG maps (one backward pass to the image per
+    class, zero below ``tau``); the center-surround weights (W, PL, NL) of
+    each image, detached; then the losses with dropout and ``csc_w``, one
+    update. The metrics add ``csc/W_pos_mean``, ``csc/W_neg_mean`` (the
+    weights' positive and negative mass over present classes and
+    proposals) and ``csc/pred_mean`` (the present classes' mean image
+    probability)."""
+
+    def train_step(state: TrainState, batch: WSODBatch, seed: int):
+        image = batch.image.detach().float().requires_grad_(True)
+        batch = batch.replace(image=image.detach())
+        m = state.model
+        gen = step_generator(seed, state.step, image.device)
+        with torch.enable_grad():
+            scores = m.proposal_scores(batch.replace(image=image))
+        preds = image_probs(scores.detach())
+        cpg = csc_lib.cpg_from_scores(scores, image, batch.labels, preds, tau)
+        del scores
+        W, PL, NL = csc_lib.csc_forward(
+            cpg, batch.labels, preds, batch.proposals, batch.proposal_mask,
+            fg_threshold=fg_threshold, context_scale=context_scale)
+        losses = m(batch, train=True, generator=gen, csc_w=(W, PL, NL))
+        metrics = _apply_gradients(state, tx, losses, loss_weights)
+        present = batch.labels > 0.5
+        w_present = torch.where(present[:, None, :], W, 0.0)
+        n_present = present.sum().clamp(min=1)
+        metrics["csc/W_pos_mean"] = (w_present.clamp(min=0).sum()
+                                     / (n_present * W.shape[1]))
+        metrics["csc/W_neg_mean"] = (-w_present.clamp(max=0)).sum() \
+            / (n_present * W.shape[1])
+        metrics["csc/pred_mean"] = torch.where(
+            present, preds, 0.0).sum() / n_present
         return state, metrics
 
     return train_step

@@ -52,7 +52,11 @@ class FrozenBatchNorm(nn.Module):
 
 class Conv2d(nn.Conv2d):
     """Bias-free conv with symmetric padding ``dilation * (k // 2)``
-    followed by its FrozenBN (Detectron2's ``Conv2d(norm=...)`` layout)."""
+    followed by its FrozenBN (Detectron2's ``Conv2d(norm=...)`` layout).
+    The weight is cast to the input's dtype at each use: a trainable
+    stage keeps float32 masters and computes in the model's dtype, as
+    flax's ``nn.Conv(dtype=..., param_dtype=float32)`` does; a frozen
+    stage's weight is stored in that dtype already."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  stride: int = 1, dilation: int = 1):
@@ -62,7 +66,7 @@ class Conv2d(nn.Conv2d):
         self.norm = FrozenBatchNorm(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(super().forward(x))
+        return self.norm(self._conv_forward(x, self.weight.to(x.dtype), None))
 
 
 def _maxpool2(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -223,8 +227,8 @@ def build_ws_resnet_backbone(cfg) -> ResNetWS:
         raise NotImplementedError("grouped WS-ResNet convs are not ported yet")
     if r.NORM != "FrozenBN":
         raise NotImplementedError(
-            f"NORM {r.NORM!r}: only FrozenBN is ported (trainable BN comes "
-            "with the training slice)")
+            f"NORM {r.NORM!r}: only FrozenBN is ported; trainable BatchNorm "
+            "is ROADMAP.md queue 1, item 13 (trainable BN and PreciseBN)")
     return ResNetWS(
         depth=r.DEPTH,
         width_per_group=r.WIDTH_PER_GROUP,

@@ -1,9 +1,10 @@
 """Model builder (counterpart of ``drn_wsod_tpu/models/build.py``).
 
 The port builds the WSOD meta-architecture over the WS-ResNet backbone with
-the WSDDN or OICR head. Every other configuration the JAX package supports
-raises ``NotImplementedError`` naming the ROADMAP.md queue-1 item that
-ports it.
+the WSDDN, OICR, PCL, CSC or CSC + OICR head, its backbone frozen or
+trainable from ``FREEZE_AT``. Every other configuration the JAX package
+supports raises ``NotImplementedError`` naming the ROADMAP.md queue-1 item
+that ports it.
 """
 
 from __future__ import annotations
@@ -14,16 +15,23 @@ import torch
 
 from ..config import CfgNode
 from ..device import resolve_device
+from ..solver.build import make_param_labels
 from .backbones.resnet_ws import build_ws_resnet_backbone
 from .meta_arch import GeneralizedRCNNWSL
 
-_HEAD_TYPES = {"WSDDNROIHeads": "WSDDN", "OICRROIHeads": "OICR"}
+_HEAD_TYPES = {"WSDDNROIHeads": "WSDDN", "OICRROIHeads": "OICR",
+               "PCLROIHeads": "PCL", "CSCROIHeads": "CSC",
+               # CSC's weighted image loss with OICR's refinement branches
+               "CSCOICRROIHeads": "OICR"}
+
+# heads whose train step takes CPG maps by gradients to the image: the
+# trainer switches to the CSC step for them, and their pool must carry
+# gradients (K1 is forward-only)
+CSC_HEAD_NAMES = frozenset({"CSCROIHeads", "CSCOICRROIHeads",
+                            "WSJDSROIHeads"})
 
 _NOT_YET = {
-    "PCLROIHeads": "item 13 (other WSOD heads)",
-    "CSCROIHeads": "item 13 (other WSOD heads)",
-    "CSCOICRROIHeads": "item 13 (other WSOD heads)",
-    "WSJDSROIHeads": "item 13 (other WSOD heads)",
+    "WSJDSROIHeads": "item 13 (WSJDS: the segmentation head and the CRF)",
     "StandardROIHeads": "item 14 (supervised and pyramid paths)",
     "Res5ROIHeads": "item 14 (supervised and pyramid paths)",
     "CascadeROIHeads": "item 14 (supervised and pyramid paths)",
@@ -61,16 +69,11 @@ def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
         raise NotImplementedError(
             "mask and keypoint branches are not ported yet: ROADMAP.md "
             "queue 1, item 14 (supervised and pyramid paths)")
-    if not box.USE_PALLAS_POOLER or cfg.MODEL.BACKBONE.FREEZE_AT < 5:
-        raise NotImplementedError(
-            "the differentiable pool (for a trainable backbone) is not "
-            "ported yet: ROADMAP.md queue 1, item 13 (CSC and trainable "
-            "backbones)")
 
     backbone = build_ws_resnet_backbone(cfg)
     feature_name = cfg.MODEL.ROI_HEADS.IN_FEATURES[0]
     head_type = _HEAD_TYPES[head_name]
-    refine_k = cfg.WSL.REFINE_NUM if head_type == "OICR" else 0
+    refine_k = cfg.WSL.REFINE_NUM if head_type in ("OICR", "PCL") else 0
     refine_reg = tuple(cfg.WSL.REFINE_REG)
     refine_reg = (refine_reg + (False,) * refine_k)[:refine_k]
     return GeneralizedRCNNWSL(
@@ -93,6 +96,11 @@ def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
         dropout=box.DROPOUT,
         mean_loss=cfg.WSL.MEAN_LOSS,
         freeze_backbone=cfg.MODEL.BACKBONE.FREEZE_AT >= 5,
+        # K1 is forward-only: CSC's image gradients and a trainable
+        # backbone's feature gradients take the differentiable pool
+        use_pallas_pooler=(box.USE_PALLAS_POOLER
+                           and head_name not in CSC_HEAD_NAMES
+                           and cfg.MODEL.BACKBONE.FREEZE_AT >= 5),
     )
 
 
@@ -103,12 +111,13 @@ def build_model(cfg: CfgNode, device=None,
     names another device; raises where CUDA is absent).
 
     Weights are drawn from ``generator`` (default: a generator on the device
-    seeded with 0); load real ones with ``load_state_dict``. The frozen
-    backbone's conv weights are stored in ``MODEL.DTYPE`` and take no
-    gradient; FrozenBN statistics stay float32. The heads' parameters stay
-    float32 masters, cast to ``MODEL.DTYPE`` at each use (flax's
-    ``param_dtype`` float32 with ``dtype`` bfloat16), so that SGD updates
-    below bfloat16's resolution are kept.
+    seeded with 0); load real ones with ``load_state_dict``. The conv
+    weights of the frozen backbone stages (below ``FREEZE_AT``: all of them
+    at 5) are stored in ``MODEL.DTYPE`` and take no gradient; FrozenBN
+    statistics stay float32. The heads' parameters and the trainable
+    stages' conv weights stay float32 masters, cast to ``MODEL.DTYPE`` at
+    each use (flax's ``param_dtype`` float32 with ``dtype`` bfloat16), so
+    that SGD updates below bfloat16's resolution are kept.
     """
     dev = resolve_device(device)
     arch = cfg.MODEL.META_ARCHITECTURE
@@ -119,9 +128,11 @@ def build_model(cfg: CfgNode, device=None,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     model.init_weights(generator)
-    for p in model.backbone.parameters():
-        p.data = p.data.to(model.dtype)
-    if model.freeze_backbone:
-        model.backbone.requires_grad_(False)
+    labels = make_param_labels(
+        [n for n, _ in model.named_parameters()], cfg.MODEL.BACKBONE.FREEZE_AT)
+    for name, p in model.backbone.named_parameters():
+        if model.freeze_backbone or labels[f"backbone.{name}"] == "frozen":
+            p.data = p.data.to(model.dtype)
+            p.requires_grad_(False)
     model.backbone.to(memory_format=torch.channels_last)
     return model.eval()

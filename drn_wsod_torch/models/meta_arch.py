@@ -1,17 +1,23 @@
 """GeneralizedRCNNWSL, the WSOD meta-architecture (counterpart of
 ``drn_wsod_tpu/models/meta_arch.py``).
 
-Backbone over raw NHWC pixels, exact RoIPool over padded proposals with the
-``(objectness + 1) * mask`` scale fused into the pool's epilogue, the DAN
-neck, then the WSDDN head or the OICR refinement branches. ``forward``
-returns the training losses of the WSDDN and OICR arms; ``inference_scores``
-the score and box matrices that feed NMS. The CSC, PCL, segmentation,
-Fast R-CNN and Cascade arms are later slices (ROADMAP.md queue 1, items 13
-and 14).
+Backbone over raw NHWC pixels, exact RoIPool over padded proposals scaled by
+``(objectness + 1) * mask``, the DAN neck, then the WSDDN head and the OICR
+or PCL refinement branches. ``forward`` returns the training losses (the
+WSDDN image loss, or CSC's weighted pair where ``csc_w`` is given);
+``proposal_scores`` the WSDDN scores CSC takes image gradients of;
+``inference_scores`` the score and box matrices that feed NMS. The
+segmentation, Fast R-CNN and Cascade arms are later slices (ROADMAP.md
+queue 1, items 13 and 14).
 
-The frozen backbone runs without autograd (the counterpart of
-``stop_gradient``), and the pool kernel is forward-only, as in the JAX
-package: gradients start at the DAN.
+Two pools, as in the JAX package. Where ``use_pallas_pooler`` (a frozen
+backbone, no CSC head), the forward-only kernel K1 pools with the scale
+fused into its epilogue. Otherwise the differentiable pool
+(``ops/roi_align.py:roi_pool``) pools one image at a time and the scale is
+two multiplies, each rounded to the map's dtype. A frozen backbone
+(``FREEZE_AT >= 5``) runs without autograd, the counterpart of
+``stop_gradient``; a trainable one carries gradients to its stages and to
+the image.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops import csc as csc_lib
+from ..ops import pcl as pcl_lib
+from ..ops.roi_align import roi_pool
 from ..ops.roi_pool import roi_pool_batched
 from ..structures import boxes as box_ops
 from ..structures.batch import WSODBatch
@@ -43,7 +52,8 @@ class GeneralizedRCNNWSL(nn.Module):
                  cls_agnostic_bbox_reg: bool, reg_weights: Sequence[float],
                  pixel_mean: Sequence[float], pixel_std: Sequence[float],
                  dtype: torch.dtype, dropout: float = 0.5,
-                 mean_loss: bool = True, freeze_backbone: bool = True):
+                 mean_loss: bool = True, freeze_backbone: bool = True,
+                 use_pallas_pooler: bool = True):
         super().__init__()
         self.backbone = backbone
         self.feature_name = feature_name
@@ -58,12 +68,13 @@ class GeneralizedRCNNWSL(nn.Module):
         self.dtype = dtype
         self.mean_loss = mean_loss
         self.freeze_backbone = freeze_backbone
+        self.use_pallas_pooler = use_pallas_pooler
         R = pooler_resolution
         self.box_head = DiscriminativeAdaptionNeck(
             R * R * feature_channels, dan_dims, dropout=dropout, dtype=dtype)
         self.box_predictor = wsddn_lib.WSDDNOutputLayers(
             dan_dims[-1], num_classes, dtype=dtype)
-        if head_type == "OICR" and refine_k > 0:
+        if head_type in ("OICR", "PCL") and refine_k > 0:
             self.box_refinery = nn.ModuleList([
                 oicr_lib.RefinementOutputLayers(
                     dan_dims[-1], num_classes, cls_agnostic_bbox_reg,
@@ -102,26 +113,40 @@ class GeneralizedRCNNWSL(nn.Module):
         return ((image - self.pixel_mean) / self.pixel_std).to(self.dtype)
 
     def features(self, image: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) raw pixels -> (B, Hf, Wf, C) contiguous map.
+        """(B, H, W, 3) raw pixels -> (B, Hf, Wf, C) contiguous map, with
+        no autograd history where the backbone is frozen.
 
         The NCHW view of an NHWC tensor is ``channels_last`` memory, which
         cuDNN prefers, and the NHWC view of the channels_last output is
         contiguous, as the pool kernel needs."""
-        x = self.preprocess(image).permute(0, 3, 1, 2)
-        out = self.backbone(x)[self.feature_name]
-        return out.permute(0, 2, 3, 1).contiguous()
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.freeze_backbone):
+            x = self.preprocess(image).permute(0, 3, 1, 2)
+            out = self.backbone(x)[self.feature_name]
+            return out.permute(0, 2, 3, 1).contiguous()
 
     def pool(self, feats: torch.Tensor, proposals: torch.Tensor,
              prop_mask: torch.Tensor, objectness: torch.Tensor
              ) -> torch.Tensor:
         """Exact RoIPool scaled by (objectness + 1) * mask:
-        -> (B, P, R, R, C) in the map's dtype."""
-        obj = (objectness + 1.0 if self.use_objectness
-               else torch.ones_like(objectness))
-        roi_scale = obj * prop_mask.to(obj.dtype)
-        return roi_pool_batched(feats, proposals.contiguous(),
-                                1.0 / self.feature_stride,
-                                self.pooler_resolution, roi_scale.contiguous())
+        -> (B, P, R, R, C) in the map's dtype. K1 rounds the scale once,
+        ``dtype(roi_scale)``; the differentiable pool multiplies by
+        ``dtype(objectness + 1)`` and then by ``dtype(mask)``, rounding
+        after each, as the JAX package does (``meta_arch.py:241-244``)."""
+        scale = 1.0 / self.feature_stride
+        R = self.pooler_resolution
+        if self.use_pallas_pooler:
+            obj = (objectness + 1.0 if self.use_objectness
+                   else torch.ones_like(objectness))
+            roi_scale = obj * prop_mask.to(obj.dtype)
+            return roi_pool_batched(feats, proposals.contiguous(), scale, R,
+                                    roi_scale.contiguous())
+        pooled = torch.stack([roi_pool(f, b, scale, R)
+                              for f, b in zip(feats, proposals)])
+        if self.use_objectness:
+            pooled = pooled * (objectness + 1.0)[..., None, None, None].to(
+                pooled.dtype)
+        return pooled * prop_mask[..., None, None, None].to(pooled.dtype)
 
     def pooled_features(self, feats, proposals, prop_mask, objectness,
                         generator: Optional[torch.Generator] = None
@@ -133,27 +158,42 @@ class GeneralizedRCNNWSL(nn.Module):
         return self.box_head(pooled.reshape(B * P, -1),
                              generator).reshape(B, P, -1)
 
+    def proposal_scores(self, batch: WSODBatch) -> torch.Tensor:
+        """WSDDN per-proposal scores (B, P, C) with dropout off: the
+        quantity CSC takes image gradients of for its CPG maps."""
+        batch = self.sanitize(batch)
+        feats = self.features(batch.image)
+        box_feats = self.pooled_features(
+            feats, batch.proposals, batch.proposal_mask, batch.objectness)
+        return self.box_predictor(box_feats, batch.proposal_mask)
+
     # ------------------------------------------------------------------ train
     def forward(self, batch: WSODBatch, *, train: bool = True,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                csc_w: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]] = None
                 ) -> Dict[str, torch.Tensor]:
-        """Training losses of the WSDDN or OICR arm: ``loss_cls``, and per
-        refinement branch ``loss_cls_r{k}`` plus ``loss_box_reg_r{k}`` where
-        ``refine_reg[k]``. ``train`` turns the DAN's dropout on, with masks
-        drawn from ``generator``."""
+        """Training losses: ``loss_cls`` (or, with ``csc_w`` = (W, PL, NL)
+        from :func:`drn_wsod_torch.ops.csc.csc_forward`, the CSC-weighted
+        ``loss_cls_pos`` and ``loss_cls_neg``), and per refinement branch
+        ``loss_cls_r{k}`` (OICR or PCL) plus ``loss_box_reg_r{k}`` where an
+        OICR branch regresses. ``train`` turns the DAN's dropout on, with
+        masks drawn from ``generator``."""
         if train and self.box_head.dropout > 0 and generator is None:
             raise ValueError("training with dropout needs a generator")
         batch = self.sanitize(batch)
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and not self.freeze_backbone):
-            feats = self.features(batch.image)
+        feats = self.features(batch.image)
         box_feats = self.pooled_features(
             feats, batch.proposals, batch.proposal_mask, batch.objectness,
             generator if train else None)
 
         scores = self.box_predictor(box_feats, batch.proposal_mask)
-        losses = {"loss_cls": wsddn_lib.wsddn_loss(scores, batch.labels,
-                                                   self.mean_loss)}
+        if csc_w is not None:
+            pos, neg = csc_lib.csc_loss(scores, *csc_w, self.mean_loss)
+            losses = {"loss_cls_pos": pos, "loss_cls_neg": neg}
+        else:
+            losses = {"loss_cls": wsddn_lib.wsddn_loss(
+                scores, batch.labels, self.mean_loss)}
         if self.head_type == "WSDDN" or self.refine_k == 0:
             return losses
 
@@ -161,6 +201,14 @@ class GeneralizedRCNNWSL(nn.Module):
         prev_scores = scores.detach()
         for k, branch in enumerate(self.box_refinery):
             cls_logits, deltas = branch(box_feats)
+            if self.head_type == "PCL":
+                # proposal-cluster targets; background in column 0
+                losses[f"loss_cls_r{k}"] = pcl_lib.pcl_branch_loss(
+                    cls_logits, prev_scores, batch.proposals,
+                    batch.proposal_mask, batch.labels)
+                prev_scores = oicr_lib.branch_probs(
+                    cls_logits)[..., 1:].detach()
+                continue
             pgt = oicr_lib.mine_pgt(prev_scores, batch.proposals,
                                     batch.proposal_mask, batch.labels,
                                     img_evidence)
@@ -208,4 +256,7 @@ class GeneralizedRCNNWSL(nn.Module):
         else:
             scores = oicr_lib.average_branch_probs(logits)
             boxes = batch.proposals
+        if self.head_type == "PCL":
+            # PCL trains with background in column 0: rotate it to the back
+            scores = torch.cat([scores[..., 1:], scores[..., :1]], -1)
         return torch.where(mask, scores, 0.0), boxes

@@ -14,10 +14,11 @@ loaded); ``--eval-only`` evaluates without training. VOC lives under
 ``$DETECTRON2_DATASETS`` (default ``datasets``) as
 ``VOC2007/{Annotations,ImageSets/Main,JPEGImages}``; a dataset packed with
 ``drn_wsod_torch.tools.pack_dataset`` registers in ``DatasetCatalog``
-under a name of its own. Runs on the CUDA device. Evaluator types other
-than Pascal VOC come with ROADMAP.md queue 1, item 15, the CSC heads with
-item 13, pseudo-GT visualisation with item 17, several processes with
-item 16.
+under a name of its own. Runs on the CUDA device. The CSC heads train
+with the CSC step while ``iter <= WSL.CSC_MAX_ITER`` and the plain step
+after it. Evaluator types other than Pascal VOC come with ROADMAP.md queue
+1, item 15, WSJDS, trainable BatchNorm and PreciseBN with item 13,
+pseudo-GT visualisation with item 17, several processes with item 16.
 """
 
 from __future__ import annotations
@@ -43,15 +44,13 @@ from ..evaluation import (PascalVOCDetectionEvaluator, gather_and_evaluate,
                           inference_on_dataset, make_detect_fn)
 from ..evaluation.testing import print_csv_format, verify_results
 from ..models import build_model
+from ..models.build import CSC_HEAD_NAMES
 from ..solver import build_optimizer
 from ..solver.build import build_lr_schedule
 from ..tta import GeneralizedRCNNWithTTAAVG
 
 logger = logging.getLogger("drn_wsod_torch")
 
-# the JAX package's models/build.py:CSC_HEAD_NAMES
-CSC_HEAD_NAMES = frozenset({"CSCROIHeads", "CSCOICRROIHeads",
-                            "WSJDSROIHeads"})
 LOG_PERIOD = 20
 
 argument_parser = default_argument_parser
@@ -141,7 +140,10 @@ def do_test(cfg, model, eval_train: bool = False,
 def steps_per_dispatch(cfg) -> int:
     """``SOLVER.STEPS_PER_DISPATCH`` reduced by gcd against every active
     hook period (the log period, checkpoints, evaluation), so that each
-    hook sees the state it would see one step at a time."""
+    hook sees the state it would see one step at a time; 1 for the CSC
+    heads, whose step is chosen per iteration."""
+    if cfg.MODEL.ROI_HEADS.NAME in CSC_HEAD_NAMES:
+        return 1
     k = max(int(cfg.SOLVER.STEPS_PER_DISPATCH), 1)
     for period in (LOG_PERIOD, cfg.SOLVER.CHECKPOINT_PERIOD,
                    cfg.TEST.EVAL_PERIOD):
@@ -152,10 +154,10 @@ def steps_per_dispatch(cfg) -> int:
 
 def _refuse_unported(cfg):
     head = cfg.MODEL.ROI_HEADS.NAME
-    if head in CSC_HEAD_NAMES:
+    if head == "WSJDSROIHeads":
         raise NotImplementedError(
-            f"training ROI head {head!r} (the CSC train step) is not ported "
-            "yet: ROADMAP.md queue 1, item 13 (other WSOD heads)")
+            f"training ROI head {head!r} (the segmentation branch) is not "
+            "ported yet: ROADMAP.md queue 1, item 13 (WSJDS)")
     vis_period = cfg.VIS_PERIOD or (
         cfg.SOLVER.CHECKPOINT_PERIOD if cfg.WSL.VIS_TEST else 0)
     if vis_period > 0 and head in ("OICRROIHeads", "PCLROIHeads",
@@ -168,7 +170,7 @@ def _refuse_unported(cfg):
             cfg.TEST.PRECISE_BN.ENABLED:
         raise NotImplementedError(
             "trainable BatchNorm and PreciseBN are not ported yet: "
-            "ROADMAP.md queue 1, item 13 (trainable backbones)")
+            "ROADMAP.md queue 1, item 13 (trainable BN and PreciseBN)")
 
 
 def _writers(cfg):
@@ -190,8 +192,10 @@ def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
     another one) from ``SOLVER`` and the train loader; resume from the
     latest checkpoint where ``resume`` and one exists, else start from
     ``MODEL.WEIGHTS`` where set. K = ``steps_per_dispatch(cfg)`` steps are
-    pulled and run per call where K > 1. Returns the trainer (its ``state``
-    holds the model, the optimizer state and the step)."""
+    pulled and run per call where K > 1. A CSC head takes the CSC step
+    while the iteration is at most ``WSL.CSC_MAX_ITER`` and the plain step
+    after it. Returns the trainer (its ``state`` holds the model, the
+    optimizer state and the step)."""
     dev = resolve_device(device)
     _refuse_unported(cfg)
     mapper = DatasetMapper(cfg, is_train=True)
@@ -204,6 +208,14 @@ def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
         state, cfg.MODEL.WEIGHTS, resume=resume)
 
     step = trainer_lib.make_train_step(model, tx)
+    if cfg.MODEL.ROI_HEADS.NAME in CSC_HEAD_NAMES:
+        plain_step = step
+        csc_step = trainer_lib.make_csc_train_step(model, tx)
+
+        def step(state, batch, seed):
+            fn = (csc_step if trainer.iter <= cfg.WSL.CSC_MAX_ITER
+                  else plain_step)
+            return fn(state, batch, seed)
     k = steps_per_dispatch(cfg)
     trainer = Trainer(
         step, state, iter(loader), seed=max(cfg.SEED, 0),

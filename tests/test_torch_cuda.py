@@ -830,3 +830,193 @@ def test_default_predictor_on_cuda_matches_cpu(cuda):
     np.testing.assert_array_equal(got["classes"][lone], want["classes"][lone])
     np.testing.assert_allclose(got["boxes"][lone], want["boxes"][lone],
                                rtol=1e-4, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# PCL, CSC and the differentiable pool (no hand-written kernel: plain torch
+# ops on the card against the same ops on the CPU)
+# ---------------------------------------------------------------------------
+
+def _same_clusters(a, b) -> bool:
+    """The same centers and valid mask, and center scores (each the
+    highest score among a center's graph neighbours) within float noise:
+    a center can stay while its neighbours change."""
+    return (torch.equal(a.centers, b.centers)
+            and torch.equal(a.center_valid, b.center_valid)
+            and torch.allclose(a.center_scores, b.center_scores, rtol=1e-5,
+                               atol=0.0))
+
+
+def _toy_cfg(*extra):
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_list(["MODEL.RESNETS.DEPTH", "18",
+                         "MODEL.RESNETS.RES2_OUT_CHANNELS", "64",
+                         "MODEL.ROI_BOX_HEAD.DAN_DIM", "[64, 64]",
+                         "MODEL.ROI_BOX_HEAD.DROPOUT", "0.0",
+                         "MODEL.PIXEL_STD", "[57.4, 57.1, 58.4]",
+                         "MODEL.DTYPE", "float32", *extra])
+    return cfg
+
+
+def _head_batches(n=3):
+    batches = [drn_wsod_torch.synthetic_batch(2, 64, 64, 16, 20, seed=s,
+                                              device="cpu") for s in range(n)]
+    for b in batches:
+        b.proposal_mask[:, -3:] = False
+        # near-whole-image boxes: positive CSC contrasts beside negative ones
+        b.proposals[:, :2] = torch.tensor([[2.0, 3.0, 60.0, 61.0],
+                                           [0.0, 0.0, 63.0, 50.0]])
+    return batches
+
+
+def _steps_on_both(cfg, make_step, card, mined=None):
+    """The same 3 steps on the CPU and on ``card`` from the same weights:
+    ({"cpu" / "cuda": per-step metrics}, {...: model}, K1 launches on the
+    card). ``mined`` ({"cpu": [], "cuda": []}) collects each device's PCL
+    mining inputs."""
+    from drn_wsod_torch.ops import pcl as pcl_lib
+
+    models = {"cpu": drn_wsod_torch.build_model(cfg, device="cpu")}
+    models["cuda"] = drn_wsod_torch.build_model(cfg, device=card)
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    metrics, k1 = {}, 0
+    branch_loss = pcl_lib.pcl_branch_loss
+    for dev, model in models.items():
+        def recording(cls_logits, prev, proposals, mask, labels, **k):
+            if mined is not None:
+                mined[dev].append((prev.clone(), proposals, mask, labels))
+            return branch_loss(cls_logits, prev, proposals, mask, labels, **k)
+
+        pcl_lib.pcl_branch_loss = recording
+        try:
+            tx = drn_wsod_torch.build_optimizer(cfg, model)
+            state = drn_wsod_torch.create_train_state(model, tx)
+            step = make_step(model, tx)
+            before = rp.roi_pool_batched.launches
+            metrics[dev] = []
+            for b in _head_batches():
+                state, m = step(state, b.to(model.pixel_mean.device), 0)
+                metrics[dev].append({k: v.item() for k, v in m.items()})
+            if dev == "cuda":
+                k1 = rp.roi_pool_batched.launches - before
+        finally:
+            pcl_lib.pcl_branch_loss = branch_loss
+    return metrics, models, k1
+
+
+def test_toy_pcl_steps_on_cuda_match_cpu(cuda):
+    """Three steps of the toy PCL config on the card and on the CPU: one
+    K1 launch a step; the card mines its own inputs exactly as the CPU
+    mines them. The two devices' softmax and sums differ in the last bits,
+    and at a near-tie that moves the clusters (centers, or center scores
+    beyond float noise). Every loss is compared within rtol 1e-4 up to the
+    first step where a branch's two inputs give different clusters, and at
+    that step every loss but those branches'."""
+    from drn_wsod_torch.ops.pcl import mine_pcl_clusters
+
+    cfg = _toy_cfg("MODEL.ROI_HEADS.NAME", "PCLROIHeads")
+    mined = {"cpu": [], "cuda": []}
+    metrics, _, k1 = _steps_on_both(cfg, drn_wsod_torch.make_train_step,
+                                    cuda, mined)
+    assert k1 == 3 and len(mined["cpu"]) == len(mined["cuda"]) == 9
+    parted = []
+    for on_cpu, on_card in zip(mined["cpu"], mined["cuda"]):
+        card_inputs_on_cpu = mine_pcl_clusters(*(t.cpu() for t in on_card))
+        for got, want in zip(mine_pcl_clusters(*on_card),
+                             card_inputs_on_cpu):
+            assert torch.equal(got.cpu(), want)
+        parted.append(not _same_clusters(mine_pcl_clusters(*on_cpu),
+                                         card_inputs_on_cpu))
+    _compare_until_parted(metrics["cpu"], metrics["cuda"], parted)
+
+
+def _compare_until_parted(want_steps, got_steps, parted, branches=3):
+    """Every loss of every step before the first step with a parted branch
+    (``parted``: one flag per mining call, step-major), and at that step
+    every loss but the parted branches' and the total."""
+    first = next((i // branches for i, p in enumerate(parted) if p),
+                 len(want_steps))
+    for s, (want, got) in enumerate(zip(want_steps, got_steps)):
+        if s > first:
+            break
+        skip = ({"total_loss"} | {f"loss_cls_r{k}" for k in range(branches)
+                                  if parted[s * branches + k]}
+                if s == first else set())
+        assert want.keys() == got.keys()
+        for k in want.keys() - skip:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                       atol=1e-6, err_msg=f"{k} step {s}")
+
+
+@pytest.mark.parametrize("freeze_at", [2, 5])
+def test_toy_csc_steps_on_cuda_match_cpu(cuda, freeze_at):
+    """Three CSC steps (tau 0) on the card and on the CPU: no K1 launch
+    (CSC pools through the differentiable pool), every loss and ``csc/*``
+    metric and the final parameters within rtol 1e-4; live maps at
+    FREEZE_AT 2 (W != 1), zero maps at 5 (W = 1: 13 of 16 slots valid)."""
+    from drn_wsod_torch.engine import make_csc_train_step
+
+    cfg = _toy_cfg("MODEL.ROI_HEADS.NAME", "CSCROIHeads",
+                   "MODEL.BACKBONE.FREEZE_AT", str(freeze_at))
+    metrics, models, k1 = _steps_on_both(
+        cfg, lambda m, tx: make_csc_train_step(m, tx, tau=0.0), cuda)
+    assert k1 == 0
+    for want, got in zip(metrics["cpu"], metrics["cuda"]):
+        assert want.keys() == got.keys()
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+        assert (got["csc/W_pos_mean"] == 13 / 16) == (freeze_at == 5)
+    want_sd = models["cpu"].state_dict()
+    for k, v in models["cuda"].state_dict().items():
+        np.testing.assert_allclose(v.cpu().numpy(), want_sd[k].numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+def test_pcl_mining_on_cuda_equals_cpu(cuda):
+    """``mine_pcl_clusters`` at P = 512, C = 20 on the card and on the CPU,
+    bit for bit: the prefix sums are elementwise adds in a fixed order on
+    both devices, and every other step is a sort, a select or IEEE
+    arithmetic."""
+    from drn_wsod_torch.ops.pcl import mine_pcl_clusters
+
+    rs = np.random.RandomState(9)
+    B, P, C = 2, 512, 20
+    x1, y1 = rs.uniform(0, 300, (2, B, P))
+    boxes = np.stack([x1, y1, x1 + rs.uniform(4, 200, (B, P)),
+                      y1 + rs.uniform(4, 200, (B, P))], -1).astype(np.float32)
+    scores = np.clip(rs.dirichlet(np.full(P, 0.2), (B, C)).transpose(0, 2, 1)
+                     * 4, 0, 1).astype(np.float32)
+    mask = rs.uniform(size=(B, P)) > 0.1
+    labels = (rs.uniform(size=(B, C)) < 0.4).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (scores, boxes, mask, labels)]
+    want = mine_pcl_clusters(*args)
+    got = mine_pcl_clusters(*(a.to(cuda) for a in args))
+    assert want.center_valid.any()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_differentiable_pool_on_cuda_matches_cpu(cuda):
+    """The differentiable pool's forward bit-equal on the card and the CPU
+    (gathers and maxima), its map gradient within 1e-6 of the largest
+    (the scatter-adds sum in another order)."""
+    from drn_wsod_torch.ops.roi_align import roi_pool
+
+    rs = np.random.RandomState(4)
+    feat = torch.from_numpy(rs.randn(24, 20, 16).astype(np.float32))
+    x1, y1 = rs.uniform(-16, 180, (2, 600))
+    boxes = torch.from_numpy(np.stack(
+        [x1, y1, x1 + rs.uniform(1, 120, 600), y1 + rs.uniform(1, 120, 600)],
+        -1).astype(np.float32))
+    ct = torch.from_numpy(rs.randn(600, 7, 7, 16).astype(np.float32))
+    grads = {}
+    for name, dev in (("cpu", "cpu"), ("card", cuda)):
+        f = feat.to(dev).detach().requires_grad_(True)
+        out = roi_pool(f, boxes.to(dev), 0.125, 7)
+        (out * ct.to(dev)).sum().backward()
+        grads[name] = (out.detach().cpu(), f.grad.cpu())
+    assert torch.equal(grads["card"][0], grads["cpu"][0])
+    g = grads["cpu"][1]
+    torch.testing.assert_close(grads["card"][1], g, rtol=0,
+                               atol=1e-6 * g.abs().max().item())

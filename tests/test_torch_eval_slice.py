@@ -274,9 +274,9 @@ def test_cli_main_matches_do_test(setup, monkeypatch, tmp_path):
 
 def test_cli_refuses_what_is_not_ported():
     """Training and the test loader are ported (``tests/
-    test_torch_train_net.py``); other evaluators and the CSC train step
+    test_torch_train_net.py``); other evaluators and the WSJDS train step
     are not."""
-    _, pc = cfg_pair(*TOY, "MODEL.ROI_HEADS.NAME", "CSCROIHeads")
+    _, pc = cfg_pair(*TOY, "MODEL.ROI_HEADS.NAME", "WSJDSROIHeads")
     with pytest.raises(NotImplementedError, match="item 13"):
         train_net.do_train(pc, None, device="cpu")
     meta = pdata.MetadataCatalog.get("torch_eval_slice_coco")
