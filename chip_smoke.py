@@ -113,8 +113,32 @@ Phases (any failure exits non-zero):
      res2 bit-unchanged, res3-res5 and the heads moved; each step's device
      ms split into the CPG pass, ``csc_forward``, the loss pass and the
      optimizer, peak memory.
-Every path (4-8, 10-13) is run with the kernels' launch counts set to 0
-just before it and read just after. The second-to-last line is the card's name
+ 14. VGG-16 ("vgg"): ``train_net.main`` on ``oicr_V_16_DC5_1x.yaml`` at
+     full width and depth (VGG-16 CONV5_DILATION 2, DAN [4096, 4096], 3
+     OICR branches, bf16, B=4, crop, 24 scales, flip, P=4096, seeded random
+     weights) for 8 steps from a packed shard of 8 synthetic records, then
+     the YAML's TTA eval of 4: every loss finite, K1 once per step and per
+     TTA group, K1 exact at the largest 512-channel stride-8 map the steps
+     gave it, detections finite and inside their images; each step's
+     device ms with its bucket, peak memory;
+ 15. the plain ResNet ("plain_resnet"): the same on
+     ``wsddn_R_50_DC5_1x.yaml`` (strided R50, res5 dilated at stride 16,
+     DAN [2048, 4096]), 4 steps, the TTA eval of 2; K1 exact at the
+     largest 2048-channel stride-16 map;
+ 16. WSJDS ("wsjds"): ``ws_jds_V_16_DC5_1x.yaml`` with
+     ``SEM_SEG_HEAD.CONSTRAINT True`` and ``WSL.CSC_MAX_ITER 2`` at full
+     width, 4 steps (the CSC step at 0-2, the plain step at 3), the TTA
+     eval of 2: ``loss_seg`` and ``loss_constraint`` finite, the CPG maps
+     zero and every seg target background (FREEZE_AT 5), no K1 launch;
+     each step's device ms split into the CPG pass, the seg head, the CRF,
+     the loss pass and the optimizer; ``semantic_logits`` on the last
+     batch finite, its CRF's probabilities in [0, 1] summing to 1; one
+     ``crf_forward`` call's device and host-issue ms at its seg shape; the
+     seg head's forward at that batch's map, each ASPP conv alone and the
+     head with ``cudnn.benchmark`` off (as the model runs) and on.
+Every path (4-8, 10-16) is run with the kernels' launch counts set to 0
+just before it and read just after. The line before the kernels' JSON
+line gives the run's total seconds. The second-to-last line is the card's name
 and power limit, the line before it a JSON object of per-kernel numbers,
 the last ``{"ok": true, "device": {...}}``.
 """
@@ -135,6 +159,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 B, IMG, P = 2, 704, 4096
 WARMUP, REQUESTS, WINDOWS, SPLITS = 2, 5, 3, 5
@@ -1876,9 +1901,10 @@ PH12_TRAIN, PH12_TEST, PH12_STEPS = 8, 4, 8
 PH13_CSC_MAX_ITER, PH13_STEPS, PH13_B_STEPS = 2, 4, 2
 
 
-def entry_setup(prefix: str, seed: int):
+def entry_setup(prefix: str, seed: int, n_train: int = PH12_TRAIN,
+                n_test: int = PH12_TEST):
     """A fresh work directory under build/ with a packed train shard of
-    PH12_TRAIN and a test shard of PH12_TEST synthetic VOC-sized records
+    ``n_train`` and a test shard of ``n_test`` synthetic VOC-sized records
     (``ph11_dataset``); returns (work dir, the CLI overrides naming them
     with ``MODEL.WEIGHTS ""``, OUTPUT_DIR, SEED 0 and EVAL_PERIOD 0, {id:
     (H, W)})."""
@@ -1889,11 +1915,11 @@ def entry_setup(prefix: str, seed: int):
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     rs = np.random.RandomState(seed)
-    train_sizes = [EVAL_SIZES[i % len(EVAL_SIZES)] for i in range(PH12_TRAIN)]
+    train_sizes = [EVAL_SIZES[i % len(EVAL_SIZES)] for i in range(n_train)]
     train_props, train_hw = ph11_dataset(work, f"{prefix}_train", train_sizes,
                                          rs, 0)
     test_props, test_hw = ph11_dataset(work, f"{prefix}_test",
-                                       list(EVAL_SIZES[:PH12_TEST]), rs, 100)
+                                       list(EVAL_SIZES[:n_test]), rs, 100)
     opts = ["DATASETS.TRAIN", f"('{prefix}_train',)",
             "DATASETS.TEST", f"('{prefix}_test',)",
             "DATASETS.PROPOSAL_FILES_TRAIN", repr((train_props,)),
@@ -2506,12 +2532,535 @@ def phase13_csc(dev, tag) -> dict:
     return launches
 
 
+# phases 14-16: the other backbones and WSJDS
+PH14_STEPS, PH14_TEST = 8, 4
+PH15_STEPS, PH15_TEST = 4, 2
+PH16_CSC_MAX_ITER, PH16_STEPS, PH16_TEST = 2, 4, 2
+
+
+def entry_main(phase: int, dev, yaml: Path, opts: list, hw: dict,
+               patches=()):
+    """``train_net.main`` on ``yaml`` with ``opts`` (the TTA eval of the
+    test records only), each step recorded by ``step_recorder`` as
+    "plain" or "csc", each evaluated image by ``detection_checker``, plus
+    ``patches`` ((object, name, value) each), with the launch counts set
+    to 0 just before and read just after. Returns a dict of the results,
+    launches, steps, detections, bad images, main's seconds, peak memory
+    and the clock summary."""
+    from drn_wsod_torch.engine import defaults
+    from drn_wsod_torch.engine import trainer as trainer_lib
+    from drn_wsod_torch.evaluation import voc_eval
+    from drn_wsod_torch.tools import train_net
+
+    steps, dets, bad = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with contextlib.ExitStack() as stack, ClockSampler() as clocks:
+        for obj, name, new in (
+                (defaults, "setup_logger", entry_logger),
+                (trainer_lib, "make_train_step", step_recorder(
+                    steps, "plain", trainer_lib.make_train_step)),
+                (trainer_lib, "make_csc_train_step", step_recorder(
+                    steps, "csc", trainer_lib.make_csc_train_step)),
+                (voc_eval.PascalVOCDetectionEvaluator, "process_single",
+                 detection_checker(hw, dets, bad)), *patches):
+            stack.enter_context(mock.patch.object(obj, name, new))
+        t = time.perf_counter()
+        results = train_net.main(train_net.argument_parser().parse_args(
+            ["--config-file", str(yaml), *opts]), device=dev)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+    close_logging()
+    torch.cuda.empty_cache()
+    metrics = {f"{ds}/{key}": tasks[task][key]
+               for ds, tasks in results.items()
+               for task in ("bbox", "bbox CorLoc")
+               for key in ("AP50", "CL50") if key in tasks[task]}
+    if not metrics or not all(math.isfinite(v) and 0 <= v <= 100
+                              for v in metrics.values()):
+        raise Fail(f"phase {phase}: evaluator metrics {metrics}")
+    return dict(results=results, launches=launches, steps=steps, dets=dets,
+                bad=bad, main_s=main_s, peak=peak, clocks=clocks.summary,
+                metrics=metrics)
+
+
+def check_steps(phase: int, run: dict, kinds: list, names: dict) -> list:
+    """Each step of ``run`` of the kind ``kinds`` says, with exactly the
+    metric names ``names[kind]``, all finite; returns the per-step
+    (kind, bucket, device ms, metrics)."""
+    got = [k for k, *_ in run["steps"]]
+    if got != kinds:
+        raise Fail(f"phase {phase}: step kinds {got}, want {kinds}")
+    out = []
+    for kind, bucket, start, end, m in run["steps"]:
+        m = {k: float(v) for k, v in m.items()}
+        if set(m) != names[kind] or not all(math.isfinite(v)
+                                            for v in m.values()):
+            raise Fail(f"phase {phase}: {kind} step metrics {m}, want "
+                       f"{sorted(names[kind])}, all finite")
+        out.append((kind, bucket, start.elapsed_time(end), m))
+    return out
+
+
+def check_detections(phase: int, run: dict, n_eval: int) -> None:
+    if run["bad"] or len(run["dets"]) != n_eval:
+        raise Fail(f"phase {phase}: detections (image, finite, inside, "
+                   f"count) {run['bad']}; {len(run['dets'])} images "
+                   f"evaluated, want {n_eval}")
+
+
+def k1_capture(captured: dict):
+    """A stand-in for ``meta_arch.roi_pool_batched`` that keeps the inputs
+    of the largest map a train step (autograd on) gives K1."""
+    from drn_wsod_torch.models import meta_arch
+
+    pool = meta_arch.roi_pool_batched
+
+    def capture(feats, boxes, spatial_scale, R, roi_scale):
+        if torch.is_grad_enabled() and \
+                feats.shape[1] * feats.shape[2] > captured.get("cells", 0):
+            captured.update(cells=feats.shape[1] * feats.shape[2],
+                            feats=feats.clone(), boxes=boxes.clone(),
+                            scale=roi_scale.clone(),
+                            spatial_scale=spatial_scale)
+        return pool(feats, boxes, spatial_scale, R, roi_scale)
+
+    return meta_arch, "roi_pool_batched", capture
+
+
+def k1_exact(phase: int, captured: dict) -> dict:
+    """K1 against its plain version on the captured inputs (max |diff| 0),
+    with its queued time, the plain version's and the bound."""
+    from drn_wsod_torch.ops import roi_pool as rp
+
+    if "feats" not in captured:
+        raise Fail(f"phase {phase}: no K1 call captured in a train step")
+    feats, boxes, scale, ss = (captured[k] for k in (
+        "feats", "boxes", "scale", "spatial_scale"))
+
+    def k1():
+        return rp.roi_pool_batched(feats, boxes, ss, 7, scale)
+
+    def plain():
+        return rp.roi_pool_plain(feats, boxes, ss, 7, scale)
+
+    out = k1()
+    torch.cuda.synchronize()
+    err = exact(f"roi_pool at the train step's {tuple(feats.shape)} map "
+                f"(spatial scale {ss})", out, plain(), phase=phase)
+    rec = dict(err=err, map=tuple(feats.shape), boxes=tuple(boxes.shape),
+               spatial_scale=ss, ms=queued_ms(k1, 10), plain_ms=cuda_ms(
+                   plain, 2))
+    rec["bound_ms"], rec["bound_by"] = roi_pool_bound(feats, boxes, scale,
+                                                      out, ss)
+    captured.clear()
+    del out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def yaml_is(phase: int, yaml: Path, **want) -> None:
+    """Fail unless the YAML merges to ``want`` (dotted keys with __)."""
+    import drn_wsod_torch
+
+    y = drn_wsod_torch.get_cfg()
+    y.merge_from_file(str(yaml))
+    got = {k: y.get_by_path(k.replace("__", ".")) for k in want}
+    got = {k: list(v) if isinstance(v, tuple) else v for k, v in got.items()}
+    if got != want:
+        raise Fail(f"phase {phase}: {yaml.name} is not as expected: {got}")
+
+
+def print_entry(phase, what, per_step, run, k1, k1_want, n_eval, extra,
+                tag):
+    print(f"phase {phase}: {what}; per step (kind, bucket, device ms by CUDA "
+          "events, total_loss): " + ", ".join(
+              f"({k}, {b}, {v:.1f}, {m['total_loss']:.4g})"
+              for k, b, v, m in per_step)
+          + f"; K1 launches {run['launches']['roi_pool']} ({k1_want})"
+          + (f"; K1 == plain (max|diff| {k1['err']}) at the largest train "
+             f"map {k1['map']} (spatial scale {k1['spatial_scale']}, boxes "
+             f"{k1['boxes']}): kernel {k1['ms']:.4f} ms queued, plain "
+             f"{k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
+             f"({k1['bound_by']})" if k1 else "")
+          + f"; detections finite and inside their images ({n_eval} "
+          f"images, {sum(n for _, n in run['dets'])} detections); VOC "
+          "metrics " + ", ".join(f"{k} {v:.4f}"
+                                 for k, v in run["metrics"].items())
+          + " (random weights: the values mean nothing)" + extra
+          + f"; main {run['main_s']:.2f} s, peak device memory "
+          f"{run['peak'] / 2**30:.2f} GiB {tag}", flush=True)
+    print(f"phase {phase}: card during the phase: {run['clocks']} {tag}",
+          flush=True)
+
+
+OICR_NAMES = {"loss_cls", "loss_cls_r0", "loss_cls_r1", "loss_cls_r2",
+              "total_loss"}
+
+
+def phase14_vgg(dev, tag) -> dict:
+    """VGG-16 (``oicr_V_16_DC5_1x.yaml``) through ``train_net.main`` at full
+    width and depth: PH14_STEPS steps from seeded random weights on a packed
+    shard, then the YAML's TTA eval of PH14_TEST records; K1 once per step
+    and per TTA group, and exact at the largest 512-channel stride-8 map
+    the steps gave it."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    yaml = Path(__file__).resolve().parent / "configs" / \
+        "PascalVOC-Detection" / "oicr_V_16_DC5_1x.yaml"
+    yaml_is(14, yaml, MODEL__BACKBONE__NAME="build_vgg_backbone",
+            MODEL__VGG__CONV5_DILATION=2, MODEL__ROI_HEADS__NAME=
+            "OICRROIHeads", MODEL__ROI_BOX_HEAD__DAN_DIM=[4096, 4096],
+            WSL__REFINE_NUM=3, MODEL__DTYPE="bfloat16",
+            SOLVER__IMS_PER_BATCH=4, INPUT__CROP__ENABLED=True,
+            INPUT__MAX_SIZE_TRAIN=2000, TEST__AUG__ENABLED=True,
+            TEST__AUG__FLIP=True)
+    work, opts, hw = entry_setup("ph14", 14, PH12_TRAIN, PH14_TEST)
+    opts += ["SOLVER.MAX_ITER", str(PH14_STEPS), "SOLVER.CHECKPOINT_PERIOD",
+             str(PH14_STEPS), "TEST.EVAL_TRAIN", "False"]
+    test_hw = {k: v for k, v in hw.items() if int(k) >= 100}
+    import drn_wsod_torch
+
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_file(str(yaml))
+    cfg.merge_from_list(opts)
+    tta_groups = tta_group_count(cfg, test_hw)
+    captured = {}
+    run = entry_main(14, dev, yaml, opts, hw, [k1_capture(captured)])
+    per_step = check_steps(14, run, ["plain"] * PH14_STEPS,
+                           {"plain": OICR_NAMES})
+    if run["launches"]["roi_pool"] != PH14_STEPS + tta_groups:
+        raise Fail(f"phase 14: K1 launches {run['launches']['roi_pool']}, "
+                   f"want {PH14_STEPS} steps + {tta_groups} TTA groups")
+    check_detections(14, run, PH14_TEST)
+    if captured.get("feats") is None or captured["feats"].shape[-1] != 512 \
+            or captured["spatial_scale"] != 0.125:
+        raise Fail("phase 14: K1's train map is not VGG's 512-channel "
+                   "stride-8 plain5")
+    k1 = k1_exact(14, captured)
+    print_entry(14, f"VGG-16 OICR train_net.main, {PH14_STEPS} steps of B=4 "
+                f"(oicr_V_16_DC5_1x: VGG-16 CONV5_DILATION 2, DAN [4096, "
+                f"4096], 3 OICR branches, bfloat16, dropout 0.5, crop, 24 "
+                f"scales, flip, P=4096, seeded random weights) on a packed "
+                f"shard of {PH12_TRAIN} records, then TTA eval of "
+                f"{PH14_TEST} images", per_step, run, k1,
+                f"{PH14_STEPS} steps + {tta_groups} TTA groups",
+                PH14_TEST, f"; phase {time.perf_counter() - t_phase:.1f} s",
+                tag)
+    shutil.rmtree(work, ignore_errors=True)
+    return run["launches"]
+
+
+def phase15_plain_resnet(dev, tag) -> dict:
+    """The plain R50 (``wsddn_R_50_DC5_1x.yaml``, res5 at stride 16)
+    through ``train_net.main`` at full width: PH15_STEPS steps, then the
+    TTA eval of PH15_TEST records; K1 once per step and per TTA group, and
+    exact at the largest 2048-channel stride-16 map."""
+    import shutil
+
+    import drn_wsod_torch
+
+    t_phase = time.perf_counter()
+    yaml = Path(__file__).resolve().parent / "configs" / \
+        "PascalVOC-Detection" / "wsddn_R_50_DC5_1x.yaml"
+    yaml_is(15, yaml, MODEL__BACKBONE__NAME="build_resnet_backbone",
+            MODEL__RESNETS__DEPTH=50, MODEL__RESNETS__RES5_DILATION=2,
+            MODEL__ROI_HEADS__NAME="WSDDNROIHeads",
+            MODEL__ROI_BOX_HEAD__DAN_DIM=[2048, 4096],
+            MODEL__DTYPE="bfloat16", SOLVER__IMS_PER_BATCH=4,
+            TEST__AUG__ENABLED=True)
+    work, opts, hw = entry_setup("ph15", 15, PH12_TRAIN, PH15_TEST)
+    opts += ["SOLVER.MAX_ITER", str(PH15_STEPS), "SOLVER.CHECKPOINT_PERIOD",
+             str(PH15_STEPS), "TEST.EVAL_TRAIN", "False"]
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_file(str(yaml))
+    cfg.merge_from_list(opts)
+    tta_groups = tta_group_count(cfg, {k: v for k, v in hw.items()
+                                       if int(k) >= 100})
+    captured = {}
+    run = entry_main(15, dev, yaml, opts, hw, [k1_capture(captured)])
+    per_step = check_steps(15, run, ["plain"] * PH15_STEPS,
+                           {"plain": {"loss_cls", "total_loss"}})
+    if run["launches"]["roi_pool"] != PH15_STEPS + tta_groups:
+        raise Fail(f"phase 15: K1 launches {run['launches']['roi_pool']}, "
+                   f"want {PH15_STEPS} steps + {tta_groups} TTA groups")
+    check_detections(15, run, PH15_TEST)
+    if captured.get("feats") is None or \
+            captured["feats"].shape[-1] != 2048 or \
+            captured["spatial_scale"] != 1.0 / 16:
+        raise Fail("phase 15: K1's train map is not the plain R50's "
+                   "2048-channel stride-16 res5")
+    k1 = k1_exact(15, captured)
+    print_entry(15, f"plain R50 WSDDN train_net.main, {PH15_STEPS} steps of "
+                f"B=4 (wsddn_R_50_DC5_1x: strided R50, 7x7 stem, res5 "
+                f"dilated at stride 16, DAN [2048, 4096], bfloat16, dropout "
+                f"0.5, crop, 24 scales, flip, P=4096, seeded random weights) "
+                f"on a packed shard of {PH12_TRAIN} records, then TTA eval "
+                f"of {PH15_TEST} images", per_step, run, k1,
+                f"{PH15_STEPS} steps + {tta_groups} TTA groups",
+                PH15_TEST, f"; phase {time.perf_counter() - t_phase:.1f} s",
+                tag)
+    shutil.rmtree(work, ignore_errors=True)
+    return run["launches"]
+
+
+def seg_head_ms(model, feats) -> dict:
+    """Device ms of the seg head's forward on ``feats`` (CUDA events, 3
+    calls after one): each ASPP conv alone and the whole head, as the
+    model runs them (``cudnn.benchmark`` off, channels_last bf16), the
+    most dilated conv on a contiguous NCHW input and in float32, then the
+    whole head with ``cudnn.benchmark`` on (its tuning call before the
+    timed ones)."""
+    aspp = model.seg_head.aspp
+    x = feats.permute(0, 3, 1, 2)
+    last = getattr(aspp, f"conv3x3_d{aspp.dilations[-1]}")
+    out = {}
+    with torch.no_grad():
+        runs = [(name, getattr(aspp, name), x) for name in (
+            "conv1x1", *(f"conv3x3_d{d}" for d in aspp.dilations))]
+        runs += [(f"conv3x3_d{aspp.dilations[-1]} on NCHW", last,
+                  x.contiguous()),
+                 (f"conv3x3_d{aspp.dilations[-1]} in float32",
+                  lambda t: F.conv2d(t.float(), last.weight.float(),
+                                     last.bias.float(),
+                                     padding=last.padding,
+                                     dilation=last.dilation), x)]
+        for name, conv, inp in runs:
+            conv(inp)
+            out[name] = cuda_ms(lambda: conv(inp), 3)
+        model.seg_head(feats)
+        out["head"] = cuda_ms(lambda: model.seg_head(feats), 3)
+        flag = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            model.seg_head(feats)
+            out["head, cudnn.benchmark"] = cuda_ms(
+                lambda: model.seg_head(feats), 3)
+        finally:
+            torch.backends.cudnn.benchmark = flag
+    return out
+
+
+def crf_call_ms(probs, image) -> dict:
+    """One ``crf_forward`` call at its seg shape: device ms by CUDA events
+    around calls as the host issues them, device ms queued behind a sleep
+    (the card's own time), and host-issue ms (card idle)."""
+    from drn_wsod_torch.ops.crf import crf_forward
+
+    def call():
+        return crf_forward(probs, image)
+
+    return {"issued": cuda_ms(call, 3), "queued": queued_ms(call, 3),
+            "host": host_us(call, 2) / 1e3}
+
+
+def phase16_wsjds(dev, tag) -> dict:
+    """WSJDS (``ws_jds_V_16_DC5_1x.yaml`` with ``SEM_SEG_HEAD.CONSTRAINT
+    True``, as the reference's ws-jds configs and ``ws_jds_WSR_18`` set
+    it) through ``train_net.main`` at full width: the CSC step through
+    PH16_CSC_MAX_ITER, the plain step after it, PH16_STEPS steps, then the
+    TTA eval of PH16_TEST records: the CPG maps zero (FREEZE_AT 5), so
+    every seg target is background; ``loss_seg`` and ``loss_constraint``
+    finite; no K1 launch; each step split into the CPG pass, the seg head,
+    the CRF, the loss pass and the optimizer; ``semantic_logits`` on the
+    last batch; one ``crf_forward`` call timed at its seg shape."""
+    import shutil
+
+    import drn_wsod_torch
+    from drn_wsod_torch.engine import trainer as trainer_lib
+    from drn_wsod_torch.models import meta_arch
+    from drn_wsod_torch.models.heads import seg as seg_lib
+    from drn_wsod_torch.ops import csc as csc_lib
+
+    t_phase = time.perf_counter()
+    yaml = Path(__file__).resolve().parent / "configs" / \
+        "PascalVOC-DetectionSegmentation" / "ws_jds_V_16_DC5_1x.yaml"
+    yaml_is(16, yaml, MODEL__BACKBONE__NAME="build_vgg_backbone",
+            MODEL__ROI_HEADS__NAME="WSJDSROIHeads",
+            MODEL__BACKBONE__FREEZE_AT=5,
+            MODEL__ROI_BOX_HEAD__DAN_DIM=[4096, 4096],
+            MODEL__DTYPE="bfloat16", SOLVER__IMS_PER_BATCH=4,
+            TEST__AUG__ENABLED=True)
+    work, opts, hw = entry_setup("ph16", 16, PH12_TRAIN, PH16_TEST)
+    opts += ["SOLVER.MAX_ITER", str(PH16_STEPS), "SOLVER.CHECKPOINT_PERIOD",
+             str(PH16_STEPS), "TEST.EVAL_TRAIN", "False",
+             "WSL.CSC_MAX_ITER", str(PH16_CSC_MAX_ITER),
+             "MODEL.SEM_SEG_HEAD.CONSTRAINT", "True"]
+    seen = {"cpg_max": [], "targets": [], "crf": [], "split": []}
+    cpg_fn, targets_fn = csc_lib.cpg_from_scores, seg_lib.seg_targets
+    crf_fn = seg_lib.crf_forward
+    marks = {}
+
+    def point(name):
+        if "m" in marks:
+            marks["m"](name)()
+
+    def cpg(*a, **kw):
+        out = cpg_fn(*a, **kw)
+        seen["cpg_max"].append(out.amax())
+        point("cpg_out")
+        return out
+
+    def targets(cpg_small, labels, *a, **kw):
+        t, v = targets_fn(cpg_small, labels, *a, **kw)
+        seen["targets"].append(((t != 0).sum(), (~v).sum(), t.numel()))
+        return t, v
+
+    def crf(probs, image, **kw):
+        point("crf_in")
+        out = crf_fn(probs, image, **kw)
+        point("crf_out")
+        seen["crf_args"] = (probs.detach(), image)
+        return out
+
+    def make_step(make, first):
+        """``make`` whose steps set the split's points: ``first`` at the
+        step's start, the seg head's entry and exit (hooks on the model's
+        own module), the CPG maps', the CRF's and the optimizer's."""
+        def wrapped(model, tx, *a, **kw):
+            step = make(model, tx, *a, **kw)
+            if "update" not in vars(tx):         # both steps share one tx
+                update = tx.update
+
+                def upd(*args):
+                    point("update_in")
+                    update(*args)
+                    point("update_out")
+                tx.update = upd
+
+            def run(state, batch, seed):
+                m = Marks()
+                marks["m"] = m
+                m.hook(model.seg_head, "seg_in", "seg_out")
+                m(first)()
+                try:
+                    out = step(state, batch, seed)
+                finally:
+                    m.remove()
+                    marks.pop("m")
+                seen["split"].append(m)
+                seen["model"], seen["batch"] = model, batch
+                return out
+            return run
+        return wrapped
+
+    patches = [(csc_lib, "cpg_from_scores", cpg),
+               (seg_lib, "seg_targets", targets),
+               (seg_lib, "crf_forward", crf)]
+    # the step recorder wraps what these return, so the split's marks sit
+    # inside each recorded step
+    csc_make, plain_make = (trainer_lib.make_csc_train_step,
+                            trainer_lib.make_train_step)
+    with mock.patch.object(trainer_lib, "make_csc_train_step",
+                           make_step(csc_make, "csc_in")), \
+            mock.patch.object(trainer_lib, "make_train_step",
+                              make_step(plain_make, "plain_in")):
+        run = entry_main(16, dev, yaml, opts, hw, patches)
+    csc_names = {"loss_cls_pos", "loss_cls_neg", "loss_seg",
+                 "loss_constraint", "total_loss", "csc/W_pos_mean",
+                 "csc/W_neg_mean", "csc/pred_mean"}
+    kinds = ["csc"] * (PH16_CSC_MAX_ITER + 1) + ["plain"] * (
+        PH16_STEPS - PH16_CSC_MAX_ITER - 1)
+    per_step = check_steps(16, run, kinds, {
+        "csc": csc_names, "plain": {"loss_cls", "loss_constraint",
+                                    "total_loss"}})
+    zeros = [float(x) for x in seen["cpg_max"]]
+    if zeros != [0.0] * (PH16_CSC_MAX_ITER + 1):
+        raise Fail(f"phase 16: CPG maxima per CSC step {zeros}: FREEZE_AT 5 "
+                   "stops the image gradient, so the maps must be zero")
+    targets_seen = [tuple(int(x) for x in t) for t in seen["targets"]]
+    if len(targets_seen) != PH16_CSC_MAX_ITER + 1 or any(
+            fg or ignored for fg, ignored, _ in targets_seen):
+        raise Fail(f"phase 16: seg targets (foreground, ignored, pixels) per "
+                   f"CSC step {targets_seen}: zero maps label every pixel "
+                   "background")
+    if run["launches"]["roi_pool"] != 0:
+        raise Fail(f"phase 16: K1 launched {run['launches']['roi_pool']} "
+                   "times; WSJDS pools through the differentiable pool")
+    check_detections(16, run, PH16_TEST)
+    parts = []
+    for m in seen["split"]:
+        device, host = m.split({
+            "csc_in": "CPG pass", "plain_in": "loss pass",
+            "cpg_out": "loss pass",
+            "seg_in": "seg head", "seg_out": "loss pass",
+            "crf_in": "CRF", "crf_out": "loss pass",
+            "update_in": "optimizer"})
+        parts.append((device, host))
+    # semantic_logits on the last batch, its CRF's refined probabilities
+    model, batch = seen["model"], seen["batch"]
+    refined = {}
+
+    def keep(probs, image, **kw):
+        refined["q"] = crf_fn(probs, image, **kw)
+        return refined["q"]
+
+    with mock.patch.object(meta_arch, "crf_forward", keep):
+        logits = model.semantic_logits(batch)
+    q = refined["q"].float()
+    sums = q.sum(-1)
+    if not (torch.isfinite(logits).all() and q.min() >= 0 and q.max() <= 1
+            and (sums - 1).abs().max() < 1e-4):
+        raise Fail(f"phase 16: semantic_logits finite "
+                   f"{bool(torch.isfinite(logits).all())}, refined "
+                   f"probabilities in [{q.min().item()}, {q.max().item()}], "
+                   f"label sums {sums.min().item()}-{sums.max().item()}")
+    probs, image = seen["crf_args"]
+    crf_ms = crf_call_ms(probs, image)
+    with torch.no_grad():
+        feats = model.features(batch.image)
+    seg_ms = seg_head_ms(model, feats)
+    lines = ", ".join(
+        f"({k}, {b}, " + ", ".join(f"{n} {v:.1f}" for n, v in d.items())
+        + f"; host issue {sum(h.values()):.1f})"
+        for (k, b, _, _), (d, h) in zip(per_step, parts))
+    print_entry(16, f"WSJDS train_net.main, {PH16_STEPS} steps of B=4 "
+                f"(ws_jds_V_16_DC5_1x with SEM_SEG_HEAD.CONSTRAINT True: "
+                f"VGG-16, DAN [4096, 4096], ASPP seg head, bfloat16, "
+                f"FREEZE_AT 5, CSC_MAX_ITER {PH16_CSC_MAX_ITER}, P=4096, "
+                f"seeded random weights) on a packed shard of {PH12_TRAIN} "
+                f"records, then TTA eval of {PH16_TEST} images", per_step,
+                run, None, "none: the differentiable pool", PH16_TEST,
+                f"; CPG maxima per CSC step {zeros} (zero maps: FREEZE_AT 5"
+                f"), seg targets (foreground, ignored, pixels) "
+                f"{targets_seen}; each step's device ms split (kind, bucket, "
+                f"parts): {lines}; semantic_logits {tuple(logits.shape)} "
+                f"finite, the CRF's refined probabilities in "
+                f"[{q.min().item():.3g}, {q.max().item():.3g}], label sums "
+                f"within {(sums - 1).abs().max().item():.2e} of 1; one "
+                f"crf_forward at {tuple(probs.shape)}: device "
+                f"{crf_ms['issued']:.2f} ms as issued, "
+                f"{crf_ms['queued']:.2f} ms queued, host issue "
+                f"{crf_ms['host']:.2f} ms; the seg head's forward at the "
+                f"last batch's map {tuple(feats.shape)}, device ms: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in seg_ms.items())
+                + f"; phase {time.perf_counter() - t_phase:.1f} s", tag)
+    del model, batch, seen, logits, refined, feats
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return run["launches"]
+
+
 def main() -> int:
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
         return 1
-    from drn_wsod_torch.tools.ablate_bench import card
+    # the package beside this script, whatever the working directory
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    try:
+        from drn_wsod_torch.tools.ablate_bench import card
+    except ModuleNotFoundError as e:
+        print(f"chip_smoke: the drn_wsod_torch package is not beside this "
+              f"script ({e}); run it from a checkout of the repository",
+              file=sys.stderr)
+        return 1
 
     card_line = card()
     tag = f"[{card_line}]"
@@ -2552,6 +3101,12 @@ def main() -> int:
         paths["pcl"] = phase12_pcl(dev, tag)
         torch.cuda.empty_cache()
         paths["csc"] = phase13_csc(dev, tag)
+        torch.cuda.empty_cache()
+        paths["vgg"] = phase14_vgg(dev, tag)
+        torch.cuda.empty_cache()
+        paths["plain_resnet"] = phase15_plain_resnet(dev, tag)
+        torch.cuda.empty_cache()
+        paths["wsjds"] = phase16_wsjds(dev, tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1
@@ -2565,6 +3120,8 @@ def main() -> int:
         print(f"FAIL no path launched {idle}")
         return 1
     print(f"launches per path: {json.dumps(paths)}")
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_run:.1f} s {tag}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

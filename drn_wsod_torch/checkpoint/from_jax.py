@@ -1,8 +1,9 @@
 """Weight bridge from the JAX package's flax parameters to the port.
 
 ``params_from_jax`` takes the flax ``params`` tree flattened to dotted keys
-(``backbone.res2_0.conv1.kernel``) and returns a state dict under the
-port's Detectron2-style names (``backbone.res2.0.conv1.weight``): the
+(``backbone.res2_0.conv1.kernel``, ``backbone.plain1.conv1.bias``) and
+returns a state dict under the port's Detectron2-style names
+(``backbone.res2.0.conv1.weight``, ``backbone.plain1.0.conv1.bias``): the
 inverse of ``drn_wsod_tpu/checkpoint/torch_import.py:_d2_name_to_flax``
 without its ``roi_heads.`` prefix. Conv kernels go from HWIO to OIHW, dense
 kernels from (I, O) to (O, I); biases and FrozenBN's four vectors copy
@@ -21,6 +22,9 @@ import torch
 _PORT_NAME = re.compile(
     r"^(backbone\.stem\.conv\d"
     r"|backbone\.res\d\.\d+\.(conv\d|shortcut)"
+    r"|backbone\.plain\d\.0\.conv\d"
+    r"|seg_head\.(aspp\.(conv1x1|conv3x3_d\d+|pool_conv|project)"
+    r"|predictor)"
     r"|box_head\.fc\d+"
     r"|box_predictor\.(cls|det)"
     r"|box_refinery\.\d+\.(cls_score|bbox_pred))"
@@ -30,6 +34,7 @@ _PORT_NAME = re.compile(
 def port_name(flax_name: str) -> str:
     """Dotted flax param path -> the port's state-dict key."""
     n = re.sub(r"\b(res\d)_(\d+)\.", r"\1.\2.", flax_name)
+    n = re.sub(r"\b(plain\d)\.", r"\1.0.", n)
     n = re.sub(r"\b(conv\d|shortcut)_norm\.", r"\1.norm.", n)
     n = re.sub(r"^box_refinery_(\d+)\.", r"box_refinery.\1.", n)
     return re.sub(r"\.kernel$", ".weight", n)

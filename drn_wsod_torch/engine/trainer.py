@@ -9,9 +9,10 @@ schedule and the dropout seed live on the host). ``Trainer`` reads them
 back only where it writes them (every ``log_period`` iterations and at the
 last), and those read-backs are its fences.
 
-``make_csc_train_step`` is the step of the CSC heads while their
-constraint is active: class-peak-gradient maps by gradients to the image,
-center-surround weights, and the CSC-weighted image loss.
+``make_csc_train_step`` is the step of the CSC heads (WSJDS included) while
+their constraint is active: class-peak-gradient maps by gradients to the
+image, center-surround weights, and the CSC-weighted image loss, with the
+maps as WSJDS's seg targets.
 """
 
 from __future__ import annotations
@@ -106,11 +107,11 @@ def make_csc_train_step(model: nn.Module, tx: SGD,
     WSDDN proposal scores with dropout off and, from them, the image
     probabilities and the CPG maps (one backward pass to the image per
     class, zero below ``tau``); the center-surround weights (W, PL, NL) of
-    each image, detached; then the losses with dropout and ``csc_w``, one
-    update. The metrics add ``csc/W_pos_mean``, ``csc/W_neg_mean`` (the
-    weights' positive and negative mass over present classes and
-    proposals) and ``csc/pred_mean`` (the present classes' mean image
-    probability)."""
+    each image, detached; then the losses with dropout, ``csc_w`` and the
+    detached maps as ``cpg`` (WSJDS's seg targets), one update. The
+    metrics add ``csc/W_pos_mean``, ``csc/W_neg_mean`` (the weights'
+    positive and negative mass over present classes and proposals) and
+    ``csc/pred_mean`` (the present classes' mean image probability)."""
 
     def train_step(state: TrainState, batch: WSODBatch, seed: int):
         image = batch.image.detach().float().requires_grad_(True)
@@ -125,7 +126,9 @@ def make_csc_train_step(model: nn.Module, tx: SGD,
         W, PL, NL = csc_lib.csc_forward(
             cpg, batch.labels, preds, batch.proposals, batch.proposal_mask,
             fg_threshold=fg_threshold, context_scale=context_scale)
-        losses = m(batch, train=True, generator=gen, csc_w=(W, PL, NL))
+        # the maps also supervise the WSJDS seg branch (ignored elsewhere)
+        losses = m(batch, train=True, generator=gen, csc_w=(W, PL, NL),
+                   cpg=cpg.detach())
         metrics = _apply_gradients(state, tx, losses, loss_weights)
         present = batch.labels > 0.5
         w_present = torch.where(present[:, None, :], W, 0.0)

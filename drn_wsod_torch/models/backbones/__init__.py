@@ -1,3 +1,6 @@
-from .resnet_ws import ResNetWS, build_ws_resnet_backbone
+from .resnet_ws import (ResNetPlain, ResNetWS, build_resnet_backbone,
+                        build_ws_resnet_backbone)
+from .vgg import VGG16, build_vgg_backbone
 
-__all__ = ["ResNetWS", "build_ws_resnet_backbone"]
+__all__ = ["ResNetPlain", "ResNetWS", "VGG16", "build_resnet_backbone",
+           "build_vgg_backbone", "build_ws_resnet_backbone"]

@@ -1,10 +1,11 @@
-"""WS-ResNet backbone (counterpart of
+"""WS-ResNet and plain ResNet backbones (counterpart of
 ``drn_wsod_tpu/models/backbones/resnet_ws.py``).
 
 Residual blocks keep stride 1 and downsample with trailing 2x2 max-pools
 (VALID padding). Under DC5 (RES5_DILATION 2) res3's trailing pool has
 stride 1, so each side shrinks by one cell: a 704-pixel image gives an
-87x87 res5 map.
+87x87 res5 map. The plain ResNet (``ResNetPlain``) strides its blocks
+instead, from a 7x7 stem; under DC5 its res5 is at stride 16.
 
 Modules follow Detectron2's names (``stem.conv1``, ``res2.0.conv1.norm``),
 so a Detectron2 state dict or the weight bridge
@@ -74,16 +75,21 @@ def _maxpool2(x: torch.Tensor, stride: int) -> torch.Tensor:
 
 
 class BasicBlock(nn.Module):
-    """Two 3x3 convs, a projection shortcut when the width changes, and an
-    optional trailing 2x2 max-pool."""
+    """Two 3x3 convs, a projection shortcut when the width changes or the
+    block strides, and an optional trailing 2x2 max-pool. ``stride`` > 1 is
+    the plain ResNet's downsampling (on conv1 and the shortcut); the WS
+    blocks keep stride 1 and pool instead."""
 
     def __init__(self, in_channels: int, out_channels: int, dilation: int = 1,
-                 has_pool: bool = False, pool_stride: int = 1):
+                 has_pool: bool = False, pool_stride: int = 1,
+                 stride: int = 1):
         super().__init__()
-        self.conv1 = Conv2d(in_channels, out_channels, 3, dilation=dilation)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, stride=stride,
+                            dilation=dilation)
         self.conv2 = Conv2d(out_channels, out_channels, 3, dilation=dilation)
-        self.shortcut = (Conv2d(in_channels, out_channels, 1)
-                         if in_channels != out_channels else None)
+        self.shortcut = (Conv2d(in_channels, out_channels, 1, stride=stride)
+                         if in_channels != out_channels or stride > 1
+                         else None)
         self.has_pool, self.pool_stride = has_pool, pool_stride
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -94,19 +100,23 @@ class BasicBlock(nn.Module):
 
 
 class BottleneckBlock(nn.Module):
-    """1x1 -> 3x3 (dilated) -> 1x1 bottleneck, stride-free, with an optional
-    trailing 2x2 max-pool."""
+    """1x1 -> 3x3 (dilated) -> 1x1 bottleneck with an optional trailing 2x2
+    max-pool. ``stride`` > 1 (the plain ResNet) strides the first 1x1 where
+    ``stride_in_1x1``, else the 3x3, and the shortcut."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  bottleneck_channels: int, dilation: int = 1,
-                 has_pool: bool = False, pool_stride: int = 1):
+                 has_pool: bool = False, pool_stride: int = 1,
+                 stride: int = 1, stride_in_1x1: bool = True):
         super().__init__()
         bc = bottleneck_channels
-        self.conv1 = Conv2d(in_channels, bc, 1)
-        self.conv2 = Conv2d(bc, bc, 3, dilation=dilation)
+        s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.conv1 = Conv2d(in_channels, bc, 1, stride=s1)
+        self.conv2 = Conv2d(bc, bc, 3, stride=s3, dilation=dilation)
         self.conv3 = Conv2d(bc, out_channels, 1)
-        self.shortcut = (Conv2d(in_channels, out_channels, 1)
-                         if in_channels != out_channels else None)
+        self.shortcut = (Conv2d(in_channels, out_channels, 1, stride=stride)
+                         if in_channels != out_channels or stride > 1
+                         else None)
         self.has_pool, self.pool_stride = has_pool, pool_stride
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -215,25 +225,131 @@ class ResNetWS(nn.Module):
         return outputs
 
 
+def _refuse_unported(r) -> None:
+    """Raise for the blocks and norms of ``MODEL.RESNETS`` not ported yet,
+    each naming its ROADMAP.md item."""
+    if any(r.DEFORM_ON_PER_STAGE):
+        raise NotImplementedError(
+            "deformable ResNet blocks are not ported yet: ROADMAP.md queue "
+            "1, item 14 (supervised and pyramid paths)")
+    if r.NUM_GROUPS != 1:
+        raise NotImplementedError(
+            "grouped ResNet convs are not ported yet: ROADMAP.md queue 1, "
+            "item 14 (supervised and pyramid paths)")
+    if r.NORM != "FrozenBN":
+        raise NotImplementedError(
+            f"NORM {r.NORM!r}: only FrozenBN is ported; trainable BatchNorm "
+            "is ROADMAP.md queue 1, item 13 (trainable BN and PreciseBN)")
+
+
 def build_ws_resnet_backbone(cfg) -> ResNetWS:
     """Config-driven builder (``resnet_ws.py:build_ws_resnet_backbone``).
     Deformable blocks, grouped convs and trainable BN come with later
     slices of the port and raise here."""
     r = cfg.MODEL.RESNETS
-    if any(r.DEFORM_ON_PER_STAGE):
-        raise NotImplementedError(
-            "deformable WS-ResNet blocks are not ported yet")
-    if r.NUM_GROUPS != 1:
-        raise NotImplementedError("grouped WS-ResNet convs are not ported yet")
-    if r.NORM != "FrozenBN":
-        raise NotImplementedError(
-            f"NORM {r.NORM!r}: only FrozenBN is ported; trainable BatchNorm "
-            "is ROADMAP.md queue 1, item 13 (trainable BN and PreciseBN)")
+    _refuse_unported(r)
     return ResNetWS(
         depth=r.DEPTH,
         width_per_group=r.WIDTH_PER_GROUP,
         stem_out_channels=r.STEM_OUT_CHANNELS,
         res2_out_channels=r.RES2_OUT_CHANNELS,
         res5_dilation=r.RES5_DILATION,
+        out_features=tuple(r.OUT_FEATURES),
+    )
+
+
+class PlainStem(nn.Module):
+    """The standard ResNet stem: a 7x7/s2 conv, FrozenBN and ReLU, then a
+    3x3/s2 max-pool padded by 1 (with -inf, as flax pads it). Output
+    stride 4."""
+
+    def __init__(self, out_channels: int = 64):
+        super().__init__()
+        self.conv1 = Conv2d(3, out_channels, 7, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(F.relu(self.conv1(x)), kernel_size=3, stride=2,
+                            padding=1)
+
+
+class ResNetPlain(nn.Module):
+    """The standard strided ResNet (``resnet_ws.py:ResNetPlain``; the
+    ``wsddn_R_*`` configs): the first block of res3 and res4 strides by 2,
+    and res5's too unless ``res5_dilation`` is 2 (DC5), where every res5
+    block is dilated and res5 stays at stride 16."""
+
+    def __init__(self, depth: int = 50, width_per_group: int = 64,
+                 stem_out_channels: int = 64, res2_out_channels: int = 256,
+                 res5_dilation: int = 2, stride_in_1x1: bool = True,
+                 out_features=("res5",)):
+        super().__init__()
+        basic = depth in (18, 34)
+        if basic and res2_out_channels != 64:
+            raise ValueError("R18/R34 need RES2_OUT_CHANNELS=64")
+        self.res5_dilation = res5_dilation
+        self.res2_out_channels = res2_out_channels
+        self.out_features = tuple(out_features)
+        self.stem = PlainStem(stem_out_channels)
+        num_blocks = NUM_BLOCKS_PER_STAGE[depth]
+        max_stage = max(int(f[-1]) for f in self.out_features)
+        in_ch, out_ch, bc = stem_out_channels, res2_out_channels, \
+            width_per_group
+        self.stage_names = []
+        for idx, stage_idx in enumerate(range(2, max_stage + 1)):
+            dilation = res5_dilation if stage_idx == 5 else 1
+            first_stride = (1 if idx == 0 or (stage_idx == 5
+                                             and dilation == 2) else 2)
+            blocks = []
+            for b in range(num_blocks[idx]):
+                stride = first_stride if b == 0 else 1
+                if basic:
+                    blocks.append(BasicBlock(in_ch, out_ch, dilation=dilation,
+                                             stride=stride))
+                else:
+                    blocks.append(BottleneckBlock(
+                        in_ch, out_ch, bc, dilation=dilation, stride=stride,
+                        stride_in_1x1=stride_in_1x1))
+                in_ch = out_ch
+            self.add_module(f"res{stage_idx}", nn.Sequential(*blocks))
+            self.stage_names.append(f"res{stage_idx}")
+            out_ch *= 2
+            bc *= 2
+
+    @property
+    def feature_strides(self) -> Dict[str, int]:
+        strides, s = {}, 4
+        for i, stage in enumerate(("res2", "res3", "res4", "res5")):
+            if i > 0 and not (stage == "res5" and self.res5_dilation == 2):
+                s *= 2
+            strides[stage] = s
+        return strides
+
+    @property
+    def feature_channels(self) -> Dict[str, int]:
+        return {stage: self.res2_out_channels * 2 ** i
+                for i, stage in enumerate(("res2", "res3", "res4", "res5"))}
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.stem(x)
+        outputs = {}
+        for name in self.stage_names:
+            x = getattr(self, name)(x)
+            if name in self.out_features:
+                outputs[name] = x
+        return outputs
+
+
+def build_resnet_backbone(cfg) -> ResNetPlain:
+    """The plain (strided) ResNet builder (``resnet_ws.py:
+    build_resnet_backbone``, Detectron2's ``build_resnet_backbone``)."""
+    r = cfg.MODEL.RESNETS
+    _refuse_unported(r)
+    return ResNetPlain(
+        depth=r.DEPTH,
+        width_per_group=r.WIDTH_PER_GROUP,
+        stem_out_channels=r.STEM_OUT_CHANNELS,
+        res2_out_channels=r.RES2_OUT_CHANNELS,
+        res5_dilation=r.RES5_DILATION,
+        stride_in_1x1=r.STRIDE_IN_1X1,
         out_features=tuple(r.OUT_FEATURES),
     )

@@ -1,10 +1,11 @@
 """Model builder (counterpart of ``drn_wsod_tpu/models/build.py``).
 
-The port builds the WSOD meta-architecture over the WS-ResNet backbone with
-the WSDDN, OICR, PCL, CSC or CSC + OICR head, its backbone frozen or
-trainable from ``FREEZE_AT``. Every other configuration the JAX package
-supports raises ``NotImplementedError`` naming the ROADMAP.md queue-1 item
-that ports it.
+The port builds the WSOD meta-architecture over the WS-ResNet, the plain
+ResNet or VGG-16, named by ``MODEL.BACKBONE.NAME`` in a registry as in the
+JAX package, with the WSDDN, OICR, PCL, CSC, CSC + OICR or WSJDS (CSC with
+the segmentation branch) head, its backbone frozen or trainable from
+``FREEZE_AT``. Every other configuration the JAX package supports raises
+``NotImplementedError`` naming the ROADMAP.md queue-1 item that ports it.
 """
 
 from __future__ import annotations
@@ -16,13 +17,21 @@ import torch
 from ..config import CfgNode
 from ..device import resolve_device
 from ..solver.build import make_param_labels
-from .backbones.resnet_ws import build_ws_resnet_backbone
+from .backbones import (build_resnet_backbone, build_vgg_backbone,
+                        build_ws_resnet_backbone)
 from .meta_arch import GeneralizedRCNNWSL
+
+# MODEL.BACKBONE.NAME -> builder (the JAX package's BACKBONE_REGISTRY)
+BACKBONES = {"build_ws_resnet_backbone": build_ws_resnet_backbone,
+             "build_resnet_backbone": build_resnet_backbone,
+             "build_vgg_backbone": build_vgg_backbone}
 
 _HEAD_TYPES = {"WSDDNROIHeads": "WSDDN", "OICRROIHeads": "OICR",
                "PCLROIHeads": "PCL", "CSCROIHeads": "CSC",
                # CSC's weighted image loss with OICR's refinement branches
-               "CSCOICRROIHeads": "OICR"}
+               "CSCOICRROIHeads": "OICR",
+               # CSC with the semantic segmentation branch
+               "WSJDSROIHeads": "CSC"}
 
 # heads whose train step takes CPG maps by gradients to the image: the
 # trainer switches to the CSC step for them, and their pool must carry
@@ -31,12 +40,9 @@ CSC_HEAD_NAMES = frozenset({"CSCROIHeads", "CSCOICRROIHeads",
                             "WSJDSROIHeads"})
 
 _NOT_YET = {
-    "WSJDSROIHeads": "item 13 (WSJDS: the segmentation head and the CRF)",
     "StandardROIHeads": "item 14 (supervised and pyramid paths)",
     "Res5ROIHeads": "item 14 (supervised and pyramid paths)",
     "CascadeROIHeads": "item 14 (supervised and pyramid paths)",
-    "build_resnet_backbone": "item 14 (supervised and pyramid paths)",
-    "build_vgg_backbone": "item 14 (supervised and pyramid paths)",
     "build_resnet_fpn_backbone": "item 14 (supervised and pyramid paths)",
     "RetinaNet": "item 15 (remaining models)",
     "PanopticFPN": "item 15 (remaining models)",
@@ -51,7 +57,7 @@ def _not_ported(what: str, name: str):
 
 
 def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
-    if cfg.MODEL.BACKBONE.NAME != "build_ws_resnet_backbone":
+    if cfg.MODEL.BACKBONE.NAME not in BACKBONES:
         raise _not_ported("backbone", cfg.MODEL.BACKBONE.NAME)
     head_name = cfg.MODEL.ROI_HEADS.NAME
     if head_name not in _HEAD_TYPES:
@@ -70,7 +76,7 @@ def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
             "mask and keypoint branches are not ported yet: ROADMAP.md "
             "queue 1, item 14 (supervised and pyramid paths)")
 
-    backbone = build_ws_resnet_backbone(cfg)
+    backbone = BACKBONES[cfg.MODEL.BACKBONE.NAME](cfg)
     feature_name = cfg.MODEL.ROI_HEADS.IN_FEATURES[0]
     head_type = _HEAD_TYPES[head_name]
     refine_k = cfg.WSL.REFINE_NUM if head_type in ("OICR", "PCL") else 0
@@ -96,6 +102,9 @@ def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
         dropout=box.DROPOUT,
         mean_loss=cfg.WSL.MEAN_LOSS,
         freeze_backbone=cfg.MODEL.BACKBONE.FREEZE_AT >= 5,
+        with_seg=head_name == "WSJDSROIHeads",
+        seg_constraint=(head_name == "WSJDSROIHeads"
+                        and cfg.MODEL.SEM_SEG_HEAD.CONSTRAINT),
         # K1 is forward-only: CSC's image gradients and a trainable
         # backbone's feature gradients take the differentiable pool
         use_pallas_pooler=(box.USE_PALLAS_POOLER

@@ -1,0 +1,158 @@
+"""WSJDS segmentation branch (counterpart of the WSJDS half of
+``drn_wsod_tpu/models/heads/seg.py``): the ASPP semantic head over the
+backbone's feature map, its loss from the CPG maps, and the CRF
+constrain-to-boundary targets and loss. ``MaskRCNNHead`` and the mask loss
+come with ROADMAP.md queue 1, item 14 (supervised and pyramid paths).
+
+Maps are NHWC, as the JAX package holds them: the head takes the
+(B, Hf, Wf, C) feature map and returns (B, Hf, Wf, C+1) float32 logits,
+background in channel 0.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.crf import crf_forward
+from ...ops.resize import resize_linear
+from ..layers import Conv2d
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling: a 1x1 conv, dilated 3x3 convs and a
+    global-pool branch, each with ReLU, concatenated and projected by a 1x1
+    conv with ReLU. Takes and returns NCHW."""
+
+    def __init__(self, in_channels: int, out_channels: int = 256,
+                 dilations: Sequence[int] = (6, 12, 18),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dilations = tuple(dilations)
+        self.conv1x1 = Conv2d(in_channels, out_channels, 1, dtype=dtype)
+        for d in self.dilations:
+            self.add_module(f"conv3x3_d{d}", Conv2d(
+                in_channels, out_channels, 3, dilation=d, dtype=dtype))
+        self.pool_conv = Conv2d(in_channels, out_channels, 1, dtype=dtype)
+        self.project = Conv2d(out_channels * (len(self.dilations) + 2),
+                              out_channels, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        branches = [self.conv1x1(x)] + [
+            getattr(self, f"conv3x3_d{d}")(x) for d in self.dilations]
+        gp = self.pool_conv(x.mean(dim=(2, 3), keepdim=True))
+        gp = gp.expand_as(branches[0])
+        out = torch.cat([F.relu(b) for b in branches] + [F.relu(gp)], dim=1)
+        return F.relu(self.project(out))
+
+
+class ASPPSegHead(nn.Module):
+    """ASPP, then a float32 1x1 classifier over C+1 classes (background
+    channel 0, weights N(0, 0.01)): (B, Hf, Wf, Cin) -> (B, Hf, Wf, C+1)
+    float32 logits."""
+
+    def __init__(self, in_channels: int, num_classes: int,
+                 aspp_channels: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.aspp = ASPP(in_channels, aspp_channels, dtype=dtype)
+        self.predictor = Conv2d(aspp_channels, num_classes + 1, 1,
+                                dtype=torch.float32)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """ASPP convs N(0, 1/fan_in), the predictor N(0, 0.01); biases 0."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                std = 0.01 if m is self.predictor else \
+                    m.weight[0].numel() ** -0.5
+                m.weight.normal_(0.0, std, generator=generator)
+                m.bias.zero_()
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        x = self.aspp(features.permute(0, 3, 1, 2))
+        return self.predictor(x).float().permute(0, 2, 3, 1)
+
+
+def seg_targets(cpg_small: torch.Tensor, labels: torch.Tensor,
+                fg_threshold: float = 0.5, bg_threshold: float = 0.1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pseudo pixel labels from (B, Hf, Wf, C) CPG maps at the seg
+    resolution: a pixel whose map reaches ``fg_threshold`` for a present
+    class takes the largest such class + 1; one below ``bg_threshold`` for
+    every present class is background (0); the rest are ignored. Returns
+    (target (B, Hf, Wf) int64, valid (B, Hf, Wf) bool)."""
+    present = labels[:, None, None, :] > 0.5
+    fg = (cpg_small >= fg_threshold) & present
+    any_fg = fg.any(-1)
+    bg = torch.where(present, cpg_small < bg_threshold,
+                     torch.ones_like(fg)).all(-1) & ~any_fg
+    fg_cls = torch.where(fg, cpg_small, -1.0).argmax(-1)
+    target = torch.where(any_fg, fg_cls + 1, 0)
+    return target, any_fg | bg
+
+
+def seg_loss_from_cpg(seg_logits: torch.Tensor, cpg: torch.Tensor,
+                      labels: torch.Tensor, fg_threshold: float = 0.5,
+                      bg_threshold: float = 0.1) -> torch.Tensor:
+    """The seg loss from (B, C, H, W) CPG maps: the maps are resized to the
+    logits' (Hf, Wf) as ``jax.image.resize(..., "linear")`` does (with
+    antialiasing), labelled by ``seg_targets``, and the cross entropy of
+    (B, Hf, Wf, C+1) ``seg_logits`` is averaged over the valid pixels."""
+    B, Hf, Wf, C1 = seg_logits.shape
+    cpg_small = resize_linear(cpg, (B, C1 - 1, Hf, Wf)).permute(0, 2, 3, 1)
+    target, valid = seg_targets(cpg_small, labels, fg_threshold,
+                                bg_threshold)
+    logp = torch.log_softmax(seg_logits, -1)
+    ce = -torch.gather(logp, -1, target[..., None])[..., 0]
+    ce = torch.where(valid, ce, 0.0)
+    return ce.sum() / valid.float().sum().clamp(min=1.0)
+
+
+def resize_images(image: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, H, W, 3) pixels -> (B, h, w, 3) float32, each image resized as
+    ``jax.image.resize(im.astype(float32), (h, w, 3), "linear")``."""
+    B, _, _, C = image.shape
+    return resize_linear(image.float(), (B, h, w, C))
+
+
+@torch.no_grad()
+def crf_constraint(seg_fg_probs: torch.Tensor, image: torch.Tensor,
+                   fg_threshold: float = 0.5, bg_threshold: float = 0.5,
+                   max_iter: int = 10
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CRF-refined targets and balanced weights of the constrain-to-boundary
+    loss: background ``1 - max_c fg`` stacked before the (B, h, w, C)
+    sigmoid foreground probabilities, refined by ``crf_forward`` against
+    the (B, H, W, 3) raw-pixel image resized to (h, w); the refined
+    foreground thresholded into positive and negative pixels, each weighted
+    by the reciprocal of its count in its (image, class) plane. Returns
+    (crf_fg, weights), both (B, h, w, C), without autograd history."""
+    B, h, w, C = seg_fg_probs.shape
+    img_small = resize_images(image, h, w)
+    bg = 1.0 - seg_fg_probs.amax(-1, keepdim=True)
+    stack = torch.cat([bg, seg_fg_probs], -1)
+    crf_fg = crf_forward(stack, img_small, max_iter=max_iter)[..., 1:]
+    pos = crf_fg >= fg_threshold
+    neg = crf_fg < bg_threshold
+    pos_cnt = pos.sum((1, 2), keepdim=True)
+    neg_cnt = neg.sum((1, 2), keepdim=True)
+    weights = torch.where(
+        pos, 1.0 / pos_cnt.clamp(min=1),
+        torch.where(neg, 1.0 / neg_cnt.clamp(min=1), 0.0))
+    return crf_fg, weights.float()
+
+
+def crf_constraint_loss(seg_fg_probs: torch.Tensor, crf_fg: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """Weighted KL(crf || prediction), as the reference computes it: its KL
+    input is ``log(sigmoid(p))`` of the already-sigmoided prediction ``p``
+    (a double sigmoid), terms above 1000 are zeroed, and the loss is a
+    sum."""
+    inp = torch.log(torch.sigmoid(seg_fg_probs).clamp(min=1e-12))
+    kl = crf_fg * (torch.log(crf_fg.clamp(min=1e-12)) - inp)
+    kl = kl * weights
+    return torch.where(kl > 1000.0, 0.0, kl).sum()

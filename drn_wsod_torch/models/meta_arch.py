@@ -6,9 +6,12 @@ Backbone over raw NHWC pixels, exact RoIPool over padded proposals scaled by
 or PCL refinement branches. ``forward`` returns the training losses (the
 WSDDN image loss, or CSC's weighted pair where ``csc_w`` is given);
 ``proposal_scores`` the WSDDN scores CSC takes image gradients of;
-``inference_scores`` the score and box matrices that feed NMS. The
-segmentation, Fast R-CNN and Cascade arms are later slices (ROADMAP.md
-queue 1, items 13 and 14).
+``inference_scores`` the score and box matrices that feed NMS. With
+``with_seg`` (WSJDS) an ASPP head over the feature map adds ``loss_seg``
+from the CPG maps and, with ``seg_constraint``, the CRF's
+``loss_constraint``; ``semantic_logits`` gives its logits, CRF-refined
+under the constraint. The Fast R-CNN and Cascade arms are a later slice
+(ROADMAP.md queue 1, item 14).
 
 Two pools, as in the JAX package. Where ``use_pallas_pooler`` (a frozen
 backbone, no CSC head), the forward-only kernel K1 pools with the scale
@@ -29,11 +32,13 @@ from torch import nn
 
 from ..ops import csc as csc_lib
 from ..ops import pcl as pcl_lib
+from ..ops.crf import crf_forward
 from ..ops.roi_align import roi_pool
 from ..ops.roi_pool import roi_pool_batched
 from ..structures import boxes as box_ops
 from ..structures.batch import WSODBatch
 from .heads import oicr as oicr_lib
+from .heads import seg as seg_lib
 from .heads import wsddn as wsddn_lib
 from .heads.box_head import DiscriminativeAdaptionNeck
 
@@ -42,7 +47,8 @@ class GeneralizedRCNNWSL(nn.Module):
     """WSOD detector over precomputed proposals (static shapes throughout).
 
     Parameter names follow Detectron2's (``backbone.*``, ``box_head.fc1``,
-    ``box_predictor.cls``, ``box_refinery.0.cls_score``)."""
+    ``box_predictor.cls``, ``box_refinery.0.cls_score``,
+    ``seg_head.aspp.conv1x1``)."""
 
     def __init__(self, backbone: nn.Module, *, feature_name: str,
                  feature_stride: int, feature_channels: int,
@@ -53,7 +59,8 @@ class GeneralizedRCNNWSL(nn.Module):
                  pixel_mean: Sequence[float], pixel_std: Sequence[float],
                  dtype: torch.dtype, dropout: float = 0.5,
                  mean_loss: bool = True, freeze_backbone: bool = True,
-                 use_pallas_pooler: bool = True):
+                 use_pallas_pooler: bool = True, with_seg: bool = False,
+                 seg_constraint: bool = False):
         super().__init__()
         self.backbone = backbone
         self.feature_name = feature_name
@@ -69,6 +76,8 @@ class GeneralizedRCNNWSL(nn.Module):
         self.mean_loss = mean_loss
         self.freeze_backbone = freeze_backbone
         self.use_pallas_pooler = use_pallas_pooler
+        self.with_seg = with_seg
+        self.seg_constraint = seg_constraint
         R = pooler_resolution
         self.box_head = DiscriminativeAdaptionNeck(
             R * R * feature_channels, dan_dims, dropout=dropout, dtype=dtype)
@@ -80,6 +89,9 @@ class GeneralizedRCNNWSL(nn.Module):
                     dan_dims[-1], num_classes, cls_agnostic_bbox_reg,
                     dtype=dtype)
                 for _ in range(refine_k)])
+        if with_seg:
+            self.seg_head = seg_lib.ASPPSegHead(feature_channels, num_classes,
+                                                dtype=dtype)
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean),
                              persistent=False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std),
@@ -87,16 +99,21 @@ class GeneralizedRCNNWSL(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """Seeded random weights: backbone convs N(0, 1/fan_in) (FrozenBN
-        stays the identity), the heads as the reference initialises them."""
+        """Seeded random weights: backbone convs N(0, 1/fan_in) and their
+        biases 0 (FrozenBN stays the identity), the heads as the reference
+        initialises them."""
         for m in self.backbone.modules():
             if isinstance(m, nn.Conv2d):
                 fan_in = m.weight[0].numel()
                 m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
         self.box_head.init_weights(generator)
         self.box_predictor.init_weights(generator)
         for branch in getattr(self, "box_refinery", ()):
             branch.init_weights(generator)
+        if self.with_seg:
+            self.seg_head.init_weights(generator)
 
     # ------------------------------------------------------------------ parts
     @staticmethod
@@ -171,14 +188,18 @@ class GeneralizedRCNNWSL(nn.Module):
     def forward(self, batch: WSODBatch, *, train: bool = True,
                 generator: Optional[torch.Generator] = None,
                 csc_w: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                      torch.Tensor]] = None
+                                      torch.Tensor]] = None,
+                cpg: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """Training losses: ``loss_cls`` (or, with ``csc_w`` = (W, PL, NL)
         from :func:`drn_wsod_torch.ops.csc.csc_forward`, the CSC-weighted
         ``loss_cls_pos`` and ``loss_cls_neg``), and per refinement branch
         ``loss_cls_r{k}`` (OICR or PCL) plus ``loss_box_reg_r{k}`` where an
         OICR branch regresses. ``train`` turns the DAN's dropout on, with
-        masks drawn from ``generator``."""
+        masks drawn from ``generator``. With ``with_seg`` and ``train``:
+        ``loss_seg`` where (B, C, H, W) CPG maps ``cpg`` are given, and
+        ``loss_constraint`` under ``seg_constraint`` (the CRF against the
+        raw image)."""
         if train and self.box_head.dropout > 0 and generator is None:
             raise ValueError("training with dropout needs a generator")
         batch = self.sanitize(batch)
@@ -194,6 +215,8 @@ class GeneralizedRCNNWSL(nn.Module):
         else:
             losses = {"loss_cls": wsddn_lib.wsddn_loss(
                 scores, batch.labels, self.mean_loss)}
+        if self.with_seg and train:
+            losses.update(self.seg_losses(feats, batch, cpg))
         if self.head_type == "WSDDN" or self.refine_k == 0:
             return losses
 
@@ -224,7 +247,43 @@ class GeneralizedRCNNWSL(nn.Module):
                 cls_logits)[..., :self.num_classes].detach()
         return losses
 
+    def seg_losses(self, feats: torch.Tensor, batch: WSODBatch,
+                   cpg: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The WSJDS branch's losses on the (B, Hf, Wf, C) feature map:
+        ``loss_seg`` from detached CPG maps where given, and under the
+        constraint ``loss_constraint``, its CRF targets from the raw image
+        (``batch.image``, before normalisation)."""
+        if cpg is None and not self.seg_constraint:
+            return {}
+        seg_logits = self.seg_head(feats)
+        losses = {}
+        if cpg is not None:
+            losses["loss_seg"] = seg_lib.seg_loss_from_cpg(
+                seg_logits, cpg.detach(), batch.labels)
+        if self.seg_constraint:
+            fg_probs = torch.sigmoid(seg_logits[..., 1:])
+            crf_fg, w = seg_lib.crf_constraint(fg_probs, batch.image)
+            losses["loss_constraint"] = seg_lib.crf_constraint_loss(
+                fg_probs, crf_fg, w)
+        return losses
+
     # -------------------------------------------------------------- inference
+    @torch.inference_mode()
+    def semantic_logits(self, batch: WSODBatch) -> torch.Tensor:
+        """(B, Hf, Wf, C+1) semantic logits of the WSJDS branch. Under the
+        constraint, the dense CRF refines the class probabilities at the
+        head's own resolution against the raw image resized to it, and the
+        log of the refined probabilities (clipped at 1e-8) is returned."""
+        if not self.with_seg:
+            raise ValueError("semantic_logits needs the WSJDS seg head")
+        logits = self.seg_head(self.features(batch.image))
+        if self.seg_constraint:
+            _, h, w, _ = logits.shape
+            img_small = seg_lib.resize_images(batch.image, h, w)
+            refined = crf_forward(torch.softmax(logits, -1), img_small)
+            logits = torch.log(refined.clamp(min=1e-8))
+        return logits
+
     @torch.inference_mode()
     def inference_scores(self, batch: WSODBatch
                          ) -> Tuple[torch.Tensor, torch.Tensor]:

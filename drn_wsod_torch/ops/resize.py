@@ -14,6 +14,10 @@ JAX contracts them at HIGHEST precision, so the products here run in full
 float32: TF32 would move pixels by up to about 0.25 on the 0-255 scale.
 This is plain torch: the JAX package calls a library function here, not a
 Pallas kernel.
+
+``resize_linear`` is ``jax.image.resize(x, shape, "linear")``: the same
+weights with the scale of each axis a Python float (``out / in``, as JAX
+computes it), over every axis whose size changes.
 """
 
 from __future__ import annotations
@@ -26,13 +30,20 @@ import torch
 _EPS32 = float(np.finfo(np.float32).eps)
 
 
-def weight_mat(input_size: int, output_size: int,
-               scale: torch.Tensor) -> torch.Tensor:
+def weight_mat(input_size: int, output_size: int, scale,
+               device=None) -> torch.Tensor:
     """(input_size, output_size) float32 resampling weights for a 0-d
-    float32 ``scale`` (output pixels per input pixel)."""
-    dev = scale.device
-    inv_scale = 1.0 / scale
-    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    float32 ``scale`` (output pixels per input pixel), or for a Python
+    float one on ``device`` (its reciprocal taken in double, then rounded
+    to float32 where it meets the float32 grid, as JAX's weak types do)."""
+    if isinstance(scale, torch.Tensor):
+        dev = scale.device
+        inv_scale = 1.0 / scale
+        kernel_scale = torch.clamp(inv_scale, min=1.0)
+    else:
+        dev = device
+        inv_scale = 1.0 / scale
+        kernel_scale = max(inv_scale, 1.0)
     sample_f = ((torch.arange(output_size, dtype=torch.float32, device=dev)
                  + 0.5) * inv_scale - 0.5)
     x = (sample_f[None, :] - torch.arange(
@@ -74,3 +85,18 @@ def scale_linear(image: torch.Tensor, out_hw, scale_y: torch.Tensor,
         rows = rows.reshape(out_h, W, C).permute(0, 2, 1)   # (out_h, C, W)
         out = torch.matmul(rows, wx)                        # (out_h, C, out_w)
     return out.permute(0, 2, 1).contiguous()
+
+
+def resize_linear(x: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.image.resize(x, shape, "linear")`` with its default
+    antialiasing: each axis whose size changes is resampled by its weight
+    matrix at scale ``shape[d] / x.shape[d]``, in full float32, axes in
+    order; the other axes are left as they are."""
+    x = x.float()
+    with _full_float32():
+        for d, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+            if n_in == n_out:
+                continue
+            w = weight_mat(n_in, n_out, n_out / n_in, device=x.device)
+            x = torch.matmul(x.movedim(d, -1), w).movedim(-1, d)
+    return x.contiguous()

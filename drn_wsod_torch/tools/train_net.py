@@ -16,9 +16,10 @@ loaded); ``--eval-only`` evaluates without training. VOC lives under
 ``drn_wsod_torch.tools.pack_dataset`` registers in ``DatasetCatalog``
 under a name of its own. Runs on the CUDA device. The CSC heads train
 with the CSC step while ``iter <= WSL.CSC_MAX_ITER`` and the plain step
-after it. Evaluator types other than Pascal VOC come with ROADMAP.md queue
-1, item 15, WSJDS, trainable BatchNorm and PreciseBN with item 13,
-pseudo-GT visualisation with item 17, several processes with item 16.
+after it (WSJDS among them). Evaluator types other than Pascal VOC, the
+semantic segmentation evaluation among them, come with ROADMAP.md queue 1,
+item 15, trainable BatchNorm and PreciseBN with item 13, pseudo-GT
+visualisation with item 17, several processes with item 16.
 """
 
 from __future__ import annotations
@@ -73,6 +74,11 @@ def build_evaluator(cfg, dataset_name: str, records):
     """The dataset's evaluator: Pascal VOC's AP and CorLoc."""
     meta = MetadataCatalog.get(dataset_name)
     etype = meta.get("evaluator_type", "pascal_voc")
+    if etype in ("sem_seg", "cityscapes_sem_seg"):
+        raise NotImplementedError(
+            f"evaluator type {etype!r}: semantic segmentation evaluation "
+            "(make_sem_seg_fn, SemSegEvaluator) is not ported yet: "
+            "ROADMAP.md queue 1, item 15 (remaining evaluators)")
     if etype != "pascal_voc":
         raise NotImplementedError(
             f"evaluator type {etype!r} is not ported yet: ROADMAP.md queue "
@@ -154,10 +160,6 @@ def steps_per_dispatch(cfg) -> int:
 
 def _refuse_unported(cfg):
     head = cfg.MODEL.ROI_HEADS.NAME
-    if head == "WSJDSROIHeads":
-        raise NotImplementedError(
-            f"training ROI head {head!r} (the segmentation branch) is not "
-            "ported yet: ROADMAP.md queue 1, item 13 (WSJDS)")
     vis_period = cfg.VIS_PERIOD or (
         cfg.SOLVER.CHECKPOINT_PERIOD if cfg.WSL.VIS_TEST else 0)
     if vis_period > 0 and head in ("OICRROIHeads", "PCLROIHeads",

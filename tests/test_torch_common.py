@@ -37,12 +37,13 @@ NARROW_R50 = ("MODEL.RESNETS.DEPTH", 50, "MODEL.RESNETS.STEM_OUT_CHANNELS", 16,
               "MODEL.DTYPE", "float32")
 
 
-def cfg_pair(*overrides):
-    """(JAX cfg, port cfg), both the flagship YAML with ``overrides``."""
+def cfg_pair(*overrides, yaml: str = FLAGSHIP):
+    """(JAX cfg, port cfg), both ``yaml`` (the flagship's by default) with
+    ``overrides``."""
     out = []
     for get_cfg in (jax_get_cfg, drn_wsod_torch.get_cfg):
         cfg = get_cfg()
-        cfg.merge_from_file(FLAGSHIP)
+        cfg.merge_from_file(yaml)
         opts = []
         for k, v in zip(overrides[0::2], overrides[1::2]):
             opts += [k, repr(v) if not isinstance(v, str) else v]

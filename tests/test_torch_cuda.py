@@ -1020,3 +1020,103 @@ def test_differentiable_pool_on_cuda_matches_cpu(cuda):
     g = grads["cpu"][1]
     torch.testing.assert_close(grads["card"][1], g, rtol=0,
                                atol=1e-6 * g.abs().max().item())
+
+
+@pytest.mark.parametrize("C,stride,side", [(512, 8, 152), (2048, 16, 76)],
+                         ids=["vgg_512_stride8", "plain_r50_2048_stride16"])
+def test_kernel_matches_plain_at_vgg_and_plain_resnet_maps(cuda, C, stride,
+                                                           side):
+    """K1 at the train step's shapes of the other backbones: B = 4 images
+    of the 1216 bucket, VGG-16's 512-channel stride-8 plain5 (152^2) and
+    the plain R50's 2048-channel stride-16 res5 (76^2), bf16, P = 4096:
+    spatial scale 1/16 rounds box / 16 half to even."""
+    B, P = 4, 4096
+    boxes, scale = _train_boxes(side * stride, B, P, seed=side)
+    g = torch.Generator(device=cuda).manual_seed(C)
+    feat = torch.randn(B, side, side, C, generator=g, device=cuda,
+                       dtype=torch.bfloat16)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    scale = torch.from_numpy(scale).to(cuda)
+    before = rp.roi_pool_batched.launches
+    got = rp.roi_pool_batched(feat, boxes, 1.0 / stride, 7, scale)
+    torch.cuda.synchronize()
+    assert rp.roi_pool_batched.launches == before + 1
+    _equal_by_value(got, rp.roi_pool_plain(feat, boxes, 1.0 / stride, 7,
+                                           scale))
+
+
+@pytest.mark.parametrize("overrides", [
+    ("MODEL.BACKBONE.NAME", "build_vgg_backbone",
+     "MODEL.ROI_HEADS.IN_FEATURES", "['plain5']"),
+    ("MODEL.BACKBONE.NAME", "build_resnet_backbone",
+     "MODEL.ROI_HEADS.NAME", "WSDDNROIHeads")],
+    ids=["vgg16_oicr", "plain_r18_wsddn"])
+def test_toy_vgg_and_plain_resnet_steps_on_cuda_match_cpu(cuda, overrides):
+    """Three steps of a toy VGG-16 OICR and a toy plain-R18 WSDDN config on
+    the card and on the CPU from the same weights: one K1 launch a step
+    (stride 8 and stride 16), the tower's output in channels_last memory,
+    every loss and the final parameters within rtol 1e-4."""
+    cfg = _toy_cfg(*overrides)
+    metrics, models, k1 = _steps_on_both(cfg, drn_wsod_torch.make_train_step,
+                                         cuda)
+    assert k1 == 3
+    card_model = models["cuda"]
+    assert card_model.feature_stride == (8 if "vgg" in overrides[1] else 16)
+    # cuDNN keeps channels_last: the NHWC map K1 reads is a view
+    x = card_model.preprocess(_head_batches(1)[0].image.to(cuda))
+    with torch.no_grad():
+        out = card_model.backbone(x.permute(0, 3, 1, 2))
+    assert out[card_model.feature_name].is_contiguous(
+        memory_format=torch.channels_last)
+    for want, got in zip(metrics["cpu"], metrics["cuda"]):
+        assert want.keys() == got.keys()
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+    want_sd = models["cpu"].state_dict()
+    for k, v in models["cuda"].state_dict().items():
+        np.testing.assert_allclose(v.cpu().numpy(), want_sd[k].numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("freeze_at", [2, 5])
+def test_toy_wsjds_steps_on_cuda_match_cpu(cuda, freeze_at):
+    """Three WSJDS steps (the CSC step, tau 0, with the seg branch and the
+    CRF constraint) on the card and on the CPU: no K1 launch, every loss
+    and metric within rtol 1e-4 but ``loss_constraint`` within rtol 1e-3
+    (ten CRF iterations amplify rounding near label ties); then
+    ``semantic_logits``' refined probabilities within atol 1e-4."""
+    from drn_wsod_torch.engine import make_csc_train_step
+
+    cfg = _toy_cfg("MODEL.ROI_HEADS.NAME", "WSJDSROIHeads",
+                   "MODEL.SEM_SEG_HEAD.CONSTRAINT", "True",
+                   "MODEL.BACKBONE.FREEZE_AT", str(freeze_at))
+    metrics, models, k1 = _steps_on_both(
+        cfg, lambda m, tx: make_csc_train_step(m, tx, tau=0.0), cuda)
+    assert k1 == 0
+    for want, got in zip(metrics["cpu"], metrics["cuda"]):
+        assert {"loss_seg", "loss_constraint"} <= want.keys() == got.keys()
+        for k in want:
+            np.testing.assert_allclose(
+                got[k], want[k], rtol=1e-3 if k == "loss_constraint"
+                else 1e-4, atol=1e-6, err_msg=k)
+    b = _head_batches(1)[0]
+    want = models["cpu"].semantic_logits(b).exp()
+    got = models["cuda"].semantic_logits(b.to(cuda)).exp().cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_crf_forward_on_cuda_matches_cpu(cuda):
+    """``crf_forward`` at a 76x100 map of 21 labels, B = 2, on the card and
+    on the CPU: the refined probabilities within atol 1e-4 (ten
+    iterations amplify the two devices' rounding near label ties)."""
+    from drn_wsod_torch.ops.crf import crf_forward
+
+    rs = np.random.RandomState(12)
+    probs = torch.from_numpy(rs.dirichlet(np.full(21, 0.3), (2, 76, 100))
+                             .astype(np.float32))
+    image = torch.from_numpy(rs.randint(0, 256, (2, 76, 100, 3))
+                             .astype(np.uint8))
+    want = crf_forward(probs, image)
+    got = crf_forward(probs.to(cuda), image.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

@@ -274,12 +274,17 @@ def test_cli_main_matches_do_test(setup, monkeypatch, tmp_path):
 
 def test_cli_refuses_what_is_not_ported():
     """Training and the test loader are ported (``tests/
-    test_torch_train_net.py``); other evaluators and the WSJDS train step
-    are not."""
-    _, pc = cfg_pair(*TOY, "MODEL.ROI_HEADS.NAME", "WSJDSROIHeads")
+    test_torch_train_net.py``), the WSJDS train step too (``tests/
+    test_torch_wsjds_train_net.py``); other evaluators, semantic
+    segmentation's among them, and trainable BatchNorm are not."""
+    _, pc = cfg_pair(*TOY, "MODEL.RESNETS.NORM", "BN")
     with pytest.raises(NotImplementedError, match="item 13"):
         train_net.do_train(pc, None, device="cpu")
     meta = pdata.MetadataCatalog.get("torch_eval_slice_coco")
     meta.set(evaluator_type="coco")
     with pytest.raises(NotImplementedError, match="item 15"):
         train_net.build_evaluator(pc, "torch_eval_slice_coco", [])
+    meta = pdata.MetadataCatalog.get("torch_eval_slice_sem_seg")
+    meta.set(evaluator_type="sem_seg")
+    with pytest.raises(NotImplementedError, match="SemSegEvaluator.*item 15"):
+        train_net.build_evaluator(pc, "torch_eval_slice_sem_seg", [])

@@ -81,7 +81,9 @@ def test_tools_are_covered():
     for tool in ("ablate_bench", "pool_banded_probe", "mosaic_dtype_probe",
                  "train_net", "demo", "pack_dataset"):
         assert f"drn_wsod_torch/tools/{tool}.py" in SOURCES
-    assert "drn_wsod_torch/ops/narrow_max.py" in SOURCES
+    for module in ("ops/narrow_max.py", "ops/crf.py", "models/heads/seg.py",
+                   "models/backbones/vgg.py"):
+        assert f"drn_wsod_torch/{module}" in SOURCES
 
 
 def test_ablate_bench_refuses_missing_cuda(monkeypatch, capsys):

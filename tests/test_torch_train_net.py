@@ -402,7 +402,7 @@ def test_do_train_other_heads_match_jax(setup, monkeypatch, head, overrides):
 
 def test_do_train_refuses_what_is_not_ported(setup):
     _, _, pc, _ = setup
-    for key, value, item in (("MODEL__ROI_HEADS__NAME", "WSJDSROIHeads", 13),
+    for key, value, item in (("MODEL__RESNETS__NORM", "SyncBN", 13),
                              ("VIS_PERIOD", 10, 17),
                              ("TEST__PRECISE_BN__ENABLED", True, 13),
                              ("MODEL__RESNETS__NORM", "BN", 13)):

@@ -254,7 +254,7 @@ def _cfg(*overrides):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("MODEL.ROI_HEADS.NAME", "WSJDSROIHeads", "item 13 (WSJDS"),
+    ("MODEL.ROI_HEADS.NAME", "StandardROIHeads", "item 14 (supervised"),
     ("MODEL.RESNETS.NORM", "BN", "item 13 (trainable BN")])
 def test_build_model_refuses_what_is_not_ported(key, value, item):
     _, pc = _cfg(key, value)
