@@ -136,7 +136,28 @@ Phases (any failure exits non-zero):
      ``crf_forward`` call's device and host-issue ms at its seg shape; the
      seg head's forward at that batch's map, each ASPP conv alone and the
      head with ``cudnn.benchmark`` off (as the model runs) and on.
-Every path (4-8, 10-16) is run with the kernels' launch counts set to 0
+ 17. COCO ("coco"): ``COCO-Detection/oicr_WSR_50_DC5_1x.yaml`` (WS-R50
+     DC5, 80 classes, 3 OICR branches, bf16, B=4, TTA 8 scales x flip,
+     seeded random weights) through ``train_net.main``: a COCO-format json
+     (the 80 categories under COCO's sparse ids, XYWH boxes, crowd boxes
+     with RLE segmentations, a test image without annotations) loaded by
+     the port's ``load_coco_json``, given synthetic pixels, packed and
+     registered as ``coco_2014_train`` / ``coco_2014_val``; 8 steps, then
+     the TTA eval of 4 images into the COCO box evaluator: OICR's losses
+     finite, K1 once per step and per TTA group and exact at the largest
+     map, AP / AP50 / AP75 finite in [0, 100], and ``evaluate()`` after a
+     ``state_dict`` / ``merge_states`` round trip equal to the run's;
+ 18. trainable BatchNorm and PreciseBN ("bn"): the flagship YAML with
+     ``MODEL.RESNETS.NORM BN``, ``TEST.PRECISE_BN.ENABLED``, ``NUM_ITER``
+     4 and ``TEST.EVAL_PERIOD`` 4, its statistics drawn from a seed at
+     build: 4 steps, PreciseBN after training, the EvalHook's and
+     ``main``'s TTA evals of 2 images; K1's map float32 (4, H, W, 2048)
+     and K1 exact in float32 at the largest; K1 launches = steps + the
+     hook's forwards + both evals' TTA groups; BatchNorm's affine
+     unchanged; the statistics equal to the PreciseBN formula applied on
+     the host to the drawn ones, bit for bit; K1 queued in float32 and in
+     bf16 on the same map, each beside its bound; peak memory.
+Every path (4-8, 10-18) is run with the kernels' launch counts set to 0
 just before it and read just after. The line before the kernels' JSON
 line gives the run's total seconds. The second-to-last line is the card's name
 and power limit, the line before it a JSON object of per-kernel numbers,
@@ -1929,13 +1950,16 @@ def entry_setup(prefix: str, seed: int, n_train: int = PH12_TRAIN,
     return work, opts, {**train_hw, **test_hw}
 
 
-def detection_checker(hw: dict, dets: list, bad: list):
-    """A ``process_single`` that records (image, detections) in ``dets``
-    and, in ``bad``, every image whose detections are not finite or leave
-    the image, then calls the evaluator's own."""
+def detection_checker(hw: dict, dets: list, bad: list, evaluator=None,
+                      num_classes: int = 20):
+    """A ``process_single`` of ``evaluator`` (the VOC evaluator by
+    default) that records (image, detections) in ``dets`` and, in ``bad``,
+    every image whose detections are not finite, leave the image or name a
+    class past ``num_classes``, then calls the evaluator's own."""
     from drn_wsod_torch.evaluation import voc_eval
 
-    process = voc_eval.PascalVOCDetectionEvaluator.process_single
+    process = (evaluator or voc_eval.PascalVOCDetectionEvaluator
+               ).process_single
 
     def checked(self, image_id, boxes, scores, classes, valid):
         H, W = hw[image_id]
@@ -1944,7 +1968,7 @@ def detection_checker(hw: dict, dets: list, bad: list):
                      for a in (boxes, scores, classes))
         inside = not ((b[v] < 0).any() or (b[v][:, [0, 2]] > W).any()
                       or (b[v][:, [1, 3]] > H).any()
-                      or (np.asarray(classes)[v] >= 20).any())
+                      or (np.asarray(classes)[v] >= num_classes).any())
         dets.append((image_id, int(v.sum())))
         if not (finite and inside):
             bad.append((image_id, finite, inside, int(v.sum())))
@@ -2539,20 +2563,23 @@ PH16_CSC_MAX_ITER, PH16_STEPS, PH16_TEST = 2, 4, 2
 
 
 def entry_main(phase: int, dev, yaml: Path, opts: list, hw: dict,
-               patches=()):
+               patches=(), coco: bool = False):
     """``train_net.main`` on ``yaml`` with ``opts`` (the TTA eval of the
     test records only), each step recorded by ``step_recorder`` as
-    "plain" or "csc", each evaluated image by ``detection_checker``, plus
-    ``patches`` ((object, name, value) each), with the launch counts set
-    to 0 just before and read just after. Returns a dict of the results,
-    launches, steps, detections, bad images, main's seconds, peak memory
-    and the clock summary."""
+    "plain" or "csc", each evaluated image by ``detection_checker`` (of the
+    VOC evaluator, or with ``coco`` of the COCO box evaluator over 80
+    classes), plus ``patches`` ((object, name, value) each), with the
+    launch counts set to 0 just before and read just after. Returns a dict
+    of the results, launches, steps, detections, bad images, main's
+    seconds, peak memory and the clock summary."""
     from drn_wsod_torch.engine import defaults
     from drn_wsod_torch.engine import trainer as trainer_lib
-    from drn_wsod_torch.evaluation import voc_eval
+    from drn_wsod_torch.evaluation import coco_eval, voc_eval
     from drn_wsod_torch.tools import train_net
 
     steps, dets, bad = [], [], []
+    evaluator = (coco_eval.COCODetectionEvaluator if coco
+                 else voc_eval.PascalVOCDetectionEvaluator)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2564,8 +2591,9 @@ def entry_main(phase: int, dev, yaml: Path, opts: list, hw: dict,
                     steps, "plain", trainer_lib.make_train_step)),
                 (trainer_lib, "make_csc_train_step", step_recorder(
                     steps, "csc", trainer_lib.make_csc_train_step)),
-                (voc_eval.PascalVOCDetectionEvaluator, "process_single",
-                 detection_checker(hw, dets, bad)), *patches):
+                (evaluator, "process_single", detection_checker(
+                    hw, dets, bad, evaluator, 80 if coco else 20)),
+                *patches):
             stack.enter_context(mock.patch.object(obj, name, new))
         t = time.perf_counter()
         results = train_net.main(train_net.argument_parser().parse_args(
@@ -2576,10 +2604,11 @@ def entry_main(phase: int, dev, yaml: Path, opts: list, hw: dict,
         peak = torch.cuda.max_memory_allocated()
     close_logging()
     torch.cuda.empty_cache()
+    keys = ("AP", "AP50", "AP75") if coco else ("AP50", "CL50")
     metrics = {f"{ds}/{key}": tasks[task][key]
                for ds, tasks in results.items()
-               for task in ("bbox", "bbox CorLoc")
-               for key in ("AP50", "CL50") if key in tasks[task]}
+               for task in ("bbox", "bbox CorLoc") if task in tasks
+               for key in keys if key in tasks[task]}
     if not metrics or not all(math.isfinite(v) and 0 <= v <= 100
                               for v in metrics.values()):
         raise Fail(f"phase {phase}: evaluator metrics {metrics}")
@@ -2688,8 +2717,9 @@ def print_entry(phase, what, per_step, run, k1, k1_want, n_eval, extra,
              f"{k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
              f"({k1['bound_by']})" if k1 else "")
           + f"; detections finite and inside their images ({n_eval} "
-          f"images, {sum(n for _, n in run['dets'])} detections); VOC "
-          "metrics " + ", ".join(f"{k} {v:.4f}"
+          f"images, {sum(n for _, n in run['dets'])} detections); "
+          f"{'COCO' if any('AP75' in k for k in run['metrics']) else 'VOC'}"
+          " metrics " + ", ".join(f"{k} {v:.4f}"
                                  for k, v in run["metrics"].items())
           + " (random weights: the values mean nothing)" + extra
           + f"; main {run['main_s']:.2f} s, peak device memory "
@@ -3046,6 +3076,336 @@ def phase16_wsjds(dev, tag) -> dict:
     return run["launches"]
 
 
+# phase 17: COCO at full width; phase 18: trainable BN and PreciseBN
+PH17_TRAIN, PH17_TEST, PH17_STEPS = 8, 4, 8
+PH18_STEPS, PH18_TEST, PH18_NUM_ITER = 4, 2, 4
+# COCO's 80 category ids: 1-90 without its ten gaps
+COCO_IDS = tuple(i for i in range(1, 91) if i not in (
+    12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+# COCO-like image sizes (H, W)
+COCO_SIZES = ((480, 640), (427, 640), (640, 480), (640, 427), (375, 500),
+              (612, 612), (360, 640), (500, 333))
+
+
+def coco_split(root: Path, name: str, n: int, rs, start: int):
+    """A COCO instances json of ``n`` images (the 80 categories under
+    COCO's sparse ids, listed out of order; 1-5 XYWH boxes an image, about
+    one in six a crowd with an RLE segmentation, polygons otherwise; the
+    last image of the test split without annotations), loaded with the
+    port's ``load_coco_json`` (which sets ``name``'s metadata), the
+    records given phase 10's synthetic pixels and PH11_PROPOSALS
+    proposals, packed with ``pack_dataset`` and registered under ``name``.
+    Returns the proposals pickle and {image_id: (H, W)}."""
+    import json
+    import pickle
+
+    from drn_wsod_torch.data import (DatasetCatalog, RecordDataset,
+                                     pack_dataset)
+    from drn_wsod_torch.data.datasets import load_coco_json
+
+    cats = [{"id": i, "name": f"coco_{i}", "supercategory": "thing"}
+            for i in COCO_IDS]
+    coco = {"categories": [cats[i] for i in rs.permutation(len(cats))],
+            "images": [], "annotations": []}
+    pixels, props = {}, {"ids": [], "boxes": [], "objectness_logits": [],
+                         "bbox_mode": 0}
+    for i in range(n):
+        H, W = COCO_SIZES[(start + i) % len(COCO_SIZES)]
+        image_id = 1000 * start + 37 * i + 9
+        coco["images"].append({"id": image_id, "height": H, "width": W,
+                               "file_name": f"{image_id:012d}.jpg"})
+        image, rec = eval_image(rs, H, W, image_id, P=PH11_PROPOSALS)
+        pixels[image_id] = image
+        props["ids"].append(image_id)
+        props["boxes"].append(rec["proposal_boxes"])
+        props["objectness_logits"].append(rec["proposal_objectness_logits"])
+        if start and i == n - 1:
+            continue
+        for k in range(rs.randint(1, 6)):
+            w, h = rs.uniform(12, W * 0.6), rs.uniform(12, H * 0.6)
+            x, y = rs.uniform(0, W - w), rs.uniform(0, H - h)
+            crowd = int(k == 0 and i % 6 == 1)
+            coco["annotations"].append({
+                "id": len(coco["annotations"]) + 1, "image_id": image_id,
+                "category_id": int(COCO_IDS[rs.randint(80)]),
+                "bbox": [x, y, w, h], "area": w * h, "iscrowd": crowd,
+                "segmentation": ({"counts": [int(w * h)], "size": [H, W]}
+                                 if crowd else
+                                 [[x, y, x + w, y, x + w, y + h, x, y + h]])})
+    json_file = root / f"{name}.json"
+    json_file.write_text(json.dumps(coco))
+    records = load_coco_json(str(json_file), str(root / name), name)
+    if [r["image_id"] for r in records] != props["ids"]:
+        raise Fail(f"phase 17: load_coco_json reordered {name}")
+    for r in records:
+        r["image"] = pixels[r["image_id"]]
+    shard = root / f"{name}.rec"
+    pack_dataset(records, str(shard))
+    prop_file = root / f"{name}_proposals.pkl"
+    with open(prop_file, "wb") as f:
+        pickle.dump(props, f)
+    if name in DatasetCatalog:
+        DatasetCatalog.remove(name)
+    DatasetCatalog.register(name, lambda: list(RecordDataset(str(shard))))
+    return str(prop_file), {str(r["image_id"]): (r["height"], r["width"])
+                            for r in records}
+
+
+def metrics_equal(a: dict, b: dict) -> bool:
+    """Equal metric dicts, NaN equal to NaN."""
+    return a.keys() == b.keys() and all(
+        (math.isnan(a[k]) and math.isnan(b[k])) or a[k] == b[k] for k in a)
+
+
+def phase17_coco(dev, tag) -> dict:
+    """COCO (``COCO-Detection/oicr_WSR_50_DC5_1x.yaml``: WS-R50 DC5, 80
+    classes, 3 OICR branches, bfloat16, B=4, TTA 8 scales x flip) through
+    ``train_net.main`` at full width from seeded random weights: a COCO
+    json under COCO's sparse category ids loaded by ``load_coco_json``,
+    packed with synthetic pixels and registered as ``coco_2014_train`` /
+    ``coco_2014_val``; PH17_STEPS steps, then the TTA eval of PH17_TEST
+    images into the COCO box evaluator. Every loss finite, K1 once per
+    step and per TTA group and exact at the largest map, AP / AP50 / AP75
+    finite in [0, 100], and ``evaluate()`` after a ``state_dict`` /
+    ``merge_states`` round trip equal to the run's."""
+    import pickle
+    import shutil
+
+    import drn_wsod_torch
+    from drn_wsod_torch.data import DatasetCatalog, MetadataCatalog
+    from drn_wsod_torch.evaluation import coco_eval
+
+    t_phase = time.perf_counter()
+    yaml = Path(__file__).resolve().parent / "configs" / \
+        "COCO-Detection" / "oicr_WSR_50_DC5_1x.yaml"
+    yaml_is(17, yaml, MODEL__ROI_HEADS__NUM_CLASSES=80,
+            MODEL__RESNETS__DEPTH=50, MODEL__RESNETS__RES5_DILATION=2,
+            MODEL__ROI_HEADS__NAME="OICRROIHeads", WSL__REFINE_NUM=3,
+            MODEL__DTYPE="bfloat16", SOLVER__IMS_PER_BATCH=4,
+            DATASETS__TRAIN=["coco_2014_train"],
+            DATASETS__TEST=["coco_2014_val"], TEST__AUG__ENABLED=True,
+            TEST__AUG__FLIP=True)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_ph17"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rs = np.random.RandomState(17)
+    train_props, train_hw = coco_split(work, "coco_2014_train", PH17_TRAIN,
+                                       rs, 0)
+    test_props, test_hw = coco_split(work, "coco_2014_val", PH17_TEST, rs, 1)
+    meta = MetadataCatalog.get("coco_2014_val")
+    if meta.evaluator_type != "coco" or len(meta.thing_classes) != 80 or \
+            list(meta.thing_dataset_id_to_contiguous_id) != list(COCO_IDS):
+        raise Fail("phase 17: load_coco_json's metadata is not COCO's")
+    opts = ["DATASETS.PROPOSAL_FILES_TRAIN", repr((train_props,)),
+            "DATASETS.PROPOSAL_FILES_TEST", repr((test_props,)),
+            "MODEL.WEIGHTS", "", "OUTPUT_DIR", str(work / "output"),
+            "SEED", "0", "TEST.EVAL_PERIOD", "0", "TEST.EVAL_TRAIN", "False",
+            "SOLVER.MAX_ITER", str(PH17_STEPS), "SOLVER.CHECKPOINT_PERIOD",
+            str(PH17_STEPS)]
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_file(str(yaml))
+    cfg.merge_from_list(opts)
+    tta_groups = tta_group_count(cfg, {int(k): v for k, v in test_hw.items()})
+    captured, evaluated = {}, []
+    evaluate = coco_eval.COCODetectionEvaluator.evaluate
+
+    def recording(self):
+        out = evaluate(self)
+        evaluated.append((self, out))
+        return out
+    try:
+        run = entry_main(17, dev, yaml, opts, {**train_hw, **test_hw},
+                         [k1_capture(captured),
+                          (coco_eval.COCODetectionEvaluator, "evaluate",
+                           recording)], coco=True)
+    finally:
+        for name in ("coco_2014_train", "coco_2014_val"):
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+    per_step = check_steps(17, run, ["plain"] * PH17_STEPS,
+                           {"plain": OICR_NAMES})
+    if run["launches"]["roi_pool"] != PH17_STEPS + tta_groups:
+        raise Fail(f"phase 17: K1 launches {run['launches']['roi_pool']}, "
+                   f"want {PH17_STEPS} steps + {tta_groups} TTA groups")
+    check_detections(17, run, PH17_TEST)
+    if captured.get("feats") is None or captured["feats"].shape[-1] != 2048 \
+            or captured["feats"].dtype != torch.bfloat16:
+        raise Fail("phase 17: K1's train map is not the 2048-channel bf16 "
+                   "res5")
+    k1 = k1_exact(17, captured)
+    if len(evaluated) != 1:
+        raise Fail(f"phase 17: {len(evaluated)} COCO evaluations, want 1")
+    ev, got = evaluated[0]
+    again = coco_eval.COCODetectionEvaluator(ev._class_names, ev._gt)
+    again.merge_states([pickle.loads(pickle.dumps(ev.state_dict()))])
+    if not metrics_equal(again.evaluate()["bbox"], got["bbox"]):
+        raise Fail(f"phase 17: evaluate() after a state_dict round trip "
+                   f"{again.evaluate()}, the run's {got}")
+    print_entry(17, f"COCO OICR train_net.main, {PH17_STEPS} steps of B=4 "
+                f"(COCO-Detection/oicr_WSR_50_DC5_1x: WS-R50 DC5, 80 "
+                f"classes, DAN [2048, 4096], 3 OICR branches, bfloat16, "
+                f"dropout 0.5, crop, 24 scales, flip, P=4096, seeded random "
+                f"weights) on a packed COCO-format shard of {PH17_TRAIN} "
+                f"images (80 categories under COCO's sparse ids, crowd "
+                f"boxes), then TTA eval of {PH17_TEST} images (one without "
+                f"annotations) by the COCO box evaluator", per_step, run, k1,
+                f"{PH17_STEPS} steps + {tta_groups} TTA groups", PH17_TEST,
+                "; the evaluator's state_dict / merge_states round trip "
+                "evaluates the same; "
+                + ", ".join(f"{k} {got['bbox'][k]:.4f}"
+                            for k in ("APs", "APm", "APl"))
+                + f"; phase {time.perf_counter() - t_phase:.1f} s", tag)
+    shutil.rmtree(work, ignore_errors=True)
+    return run["launches"]
+
+
+def precise_bn_host(stats: dict, n: int) -> dict:
+    """The PreciseBN formula on the host in float32 for a backbone that
+    never writes its statistics: ``n`` times ``(s - 0.9 s) / (1 - 0.9)``
+    summed from zeros, then divided by ``n``."""
+    m, one_minus_m = np.float32(0.9), np.float32(1.0 - 0.9)
+    out = {}
+    for k, s in stats.items():
+        x = (s - m * s) / one_minus_m
+        acc = np.zeros_like(s)
+        for _ in range(n):
+            acc = acc + x
+        out[k] = acc / np.float32(n)
+    return out
+
+
+def phase18_bn(dev, tag) -> dict:
+    """Trainable BatchNorm and PreciseBN at full width: the flagship YAML
+    with ``MODEL.RESNETS.NORM BN``, ``TEST.PRECISE_BN.ENABLED``
+    (``NUM_ITER`` PH18_NUM_ITER) and ``TEST.EVAL_PERIOD`` PH18_STEPS,
+    through ``train_net.main``: PH18_STEPS steps, PreciseBN after training,
+    the EvalHook's TTA eval and ``main``'s of PH18_TEST images. The
+    statistics are drawn from a seed at build. K1 takes the float32
+    (4, H, W, 2048) map, exact against its plain version at the largest;
+    K1 launches = steps + the hook's forwards + two TTA evals' groups;
+    BatchNorm's affine unchanged; the statistics after training equal the
+    PreciseBN formula applied on the host to the drawn ones, bit for bit.
+    K1 queued in float32 and in bf16 on the same map, each beside its
+    bound."""
+    import shutil
+
+    import drn_wsod_torch
+    from drn_wsod_torch.engine import precise_bn
+    from drn_wsod_torch.models.backbones.resnet_ws import BatchNorm
+    from drn_wsod_torch.ops import roi_pool as rp
+    from drn_wsod_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    yaml = Path(__file__).resolve().parent / "configs" / \
+        "PascalVOC-Detection" / "oicr_WSR_50_DC5_1x.yaml"
+    yaml_is(18, yaml, MODEL__RESNETS__DEPTH=50, MODEL__DTYPE="bfloat16",
+            MODEL__BACKBONE__FREEZE_AT=5, SOLVER__IMS_PER_BATCH=4,
+            TEST__AUG__ENABLED=True)
+    work, opts, hw = entry_setup("ph18", 18, PH12_TRAIN, PH18_TEST)
+    opts += ["MODEL.RESNETS.NORM", "BN", "TEST.PRECISE_BN.ENABLED", "True",
+             "TEST.PRECISE_BN.NUM_ITER", str(PH18_NUM_ITER),
+             "TEST.EVAL_PERIOD", str(PH18_STEPS),
+             "SOLVER.MAX_ITER", str(PH18_STEPS), "SOLVER.CHECKPOINT_PERIOD",
+             str(PH18_STEPS), "TEST.EVAL_TRAIN", "False"]
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_file(str(yaml))
+    cfg.merge_from_list(opts)
+    tta_groups = tta_group_count(cfg, {k: v for k, v in hw.items()
+                                       if int(k) >= 100})
+    built, hook_forwards = {}, []
+    build_model = train_net.build_model
+
+    def seeded_bn(cfg, device=None):
+        model = build_model(cfg, device=device)
+        g = torch.Generator(device=device).manual_seed(18)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.running_mean.normal_(0.0, 0.1, generator=g)
+                    m.running_var.uniform_(0.5, 1.5, generator=g)
+        built["model"] = model
+        built["before"] = {k: v.detach().cpu().clone()
+                           for k, v in model.state_dict().items()
+                           if ".norm." in k}
+        return model
+    train_forward = precise_bn.train_forward
+
+    def counted(model, batch):
+        hook_forwards.append(int(batch.image.shape[1]))
+        return train_forward(model, batch)
+    captured = {}
+    run = entry_main(18, dev, yaml, opts, hw, [
+        k1_capture(captured), (train_net, "build_model", seeded_bn),
+        (precise_bn, "train_forward", counted)])
+    per_step = check_steps(18, run, ["plain"] * PH18_STEPS,
+                           {"plain": OICR_NAMES})
+    want = PH18_STEPS + len(hook_forwards) + 2 * tta_groups
+    if len(hook_forwards) != PH18_NUM_ITER or \
+            run["launches"]["roi_pool"] != want:
+        raise Fail(f"phase 18: K1 launches {run['launches']['roi_pool']}, "
+                   f"hook forwards {len(hook_forwards)}; want {PH18_STEPS} "
+                   f"steps + {PH18_NUM_ITER} hook forwards + 2 x "
+                   f"{tta_groups} TTA groups")
+    check_detections(18, run, 2 * PH18_TEST)
+    feats = captured.get("feats")
+    if feats is None or feats.dtype != torch.float32 or \
+            feats.shape[0] != 4 or feats.shape[-1] != 2048:
+        got = None if feats is None else (feats.dtype, tuple(feats.shape))
+        raise Fail(f"phase 18: K1's train map is not float32 (4, H, W, "
+                   f"2048): {got}")
+    after = {k: v.detach().cpu() for k, v in
+             built["model"].state_dict().items() if ".norm." in k}
+    before = built["before"]
+    affine = [k for k in before if k.endswith((".weight", ".bias"))]
+    moved = [k for k in affine if not torch.equal(after[k], before[k])]
+    if not affine or moved:
+        raise Fail(f"phase 18: BatchNorm's affine moved: {moved[:3]}")
+    stats = {k: before[k].numpy() for k in before
+             if k.endswith(("running_mean", "running_var"))}
+    host = precise_bn_host(stats, PH18_NUM_ITER)
+    off = [k for k in stats if not np.array_equal(after[k].numpy(), host[k])]
+    rounded = sum(int((after[k].numpy() != stats[k]).sum()) for k in stats)
+    if not stats or off:
+        raise Fail(f"phase 18: statistics after PreciseBN differ from the "
+                   f"host formula: {off[:3]}")
+    boxes, scale, ss = (captured[k] for k in ("boxes", "scale",
+                                              "spatial_scale"))
+    bf16 = feats.to(torch.bfloat16)
+    out16 = rp.roi_pool_batched(bf16, boxes, ss, 7, scale)
+    ms16 = queued_ms(lambda: rp.roi_pool_batched(bf16, boxes, ss, 7, scale),
+                     10)
+    bound16 = roi_pool_bound(bf16, boxes, scale, out16, ss)
+    del out16, bf16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k1 = k1_exact(18, captured)
+    k1_peak = torch.cuda.max_memory_allocated()
+    print_entry(18, f"trainable BatchNorm + PreciseBN train_net.main, "
+                f"{PH18_STEPS} steps of B=4 (oicr_WSR_50_DC5_1x with "
+                f"MODEL.RESNETS.NORM BN, TEST.PRECISE_BN.ENABLED, NUM_ITER "
+                f"{PH18_NUM_ITER}, EVAL_PERIOD {PH18_STEPS}: the backbone's "
+                f"map float32, bfloat16 convs, seeded random weights and "
+                f"statistics) on a packed shard of {PH12_TRAIN} records, "
+                f"PreciseBN after training ({len(hook_forwards)} forwards, "
+                f"buckets {hook_forwards}), then the EvalHook's and main's "
+                f"TTA evals of {PH18_TEST} images", per_step, run, k1,
+                f"{PH18_STEPS} steps + {len(hook_forwards)} hook forwards + "
+                f"2 x {tta_groups} TTA groups", 2 * PH18_TEST,
+                f"; K1 float32 {k1['ms']:.4f} ms queued (bound "
+                f"{k1['bound_ms']:.4f}, {k1['bound_by']}) against bf16 on the "
+                f"same map {ms16:.4f} ms queued (bound {bound16[0]:.4f}, "
+                f"{bound16[1]}); peak device memory around the float32 "
+                f"kernel and its plain version {k1_peak / 2**30:.2f} GiB; "
+                f"BatchNorm's affine unchanged ({len(affine)} tensors); "
+                f"{len(stats)} statistics equal the host's PreciseBN formula "
+                f"bit for bit ({rounded} of their values moved by the "
+                f"rounding)"
+                f"; phase {time.perf_counter() - t_phase:.1f} s", tag)
+    built.clear()
+    shutil.rmtree(work, ignore_errors=True)
+    return run["launches"]
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3107,6 +3467,10 @@ def main() -> int:
         paths["plain_resnet"] = phase15_plain_resnet(dev, tag)
         torch.cuda.empty_cache()
         paths["wsjds"] = phase16_wsjds(dev, tag)
+        torch.cuda.empty_cache()
+        paths["coco"] = phase17_coco(dev, tag)
+        torch.cuda.empty_cache()
+        paths["bn"] = phase18_bn(dev, tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1

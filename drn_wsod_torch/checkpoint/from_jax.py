@@ -8,13 +8,15 @@ inverse of ``drn_wsod_tpu/checkpoint/torch_import.py:_d2_name_to_flax``
 without its ``roi_heads.`` prefix. Conv kernels go from HWIO to OIHW, dense
 kernels from (I, O) to (O, I); biases and FrozenBN's four vectors copy
 unchanged. Both packages flatten the RoI features as (7, 7, C), so fc1 is
-only transposed.
+only transposed. Under ``NORM`` BN the flax BatchNorm's ``scale`` becomes
+``norm.weight``, and its ``batch_stats`` (``mean``, ``var``, passed apart)
+``norm.running_mean`` and ``norm.running_var``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -31,28 +33,43 @@ _PORT_NAME = re.compile(
     r"\.(weight|bias|norm\.(weight|bias|running_mean|running_var))$")
 
 
+# a flax BatchNorm's statistics (FrozenBN's are params named running_*)
+_BN_STAT = re.compile(r"_norm\.(mean|var)$")
+
+
 def port_name(flax_name: str) -> str:
     """Dotted flax param path -> the port's state-dict key."""
     n = re.sub(r"\b(res\d)_(\d+)\.", r"\1.\2.", flax_name)
     n = re.sub(r"\b(plain\d)\.", r"\1.0.", n)
     n = re.sub(r"\b(conv\d|shortcut)_norm\.", r"\1.norm.", n)
     n = re.sub(r"^box_refinery_(\d+)\.", r"box_refinery.\1.", n)
+    n = re.sub(r"\.norm\.scale$", ".norm.weight", n)        # flax BatchNorm
+    n = re.sub(r"\.norm\.(mean|var)$", r".norm.running_\1", n)
     return re.sub(r"\.kernel$", ".weight", n)
 
 
-def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flattened flax params -> the port's state dict (float32 tensors).
+def params_from_jax(flat: Dict[str, np.ndarray],
+                    batch_stats: Optional[Dict[str, np.ndarray]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Flattened flax params (and, under ``NORM`` BN, the flattened
+    ``batch_stats``) -> the port's state dict (float32 tensors).
 
-    Raises ``KeyError`` on a flax key that maps to no port tensor and on two
-    keys that map to the same one. Load the result with
+    Raises ``KeyError`` on a flax key that maps to no port tensor (a
+    BatchNorm statistic among the params, or anything but one among the
+    ``batch_stats``) and on two keys that map to the same one. Load the
+    result with
     ``model.load_state_dict(sd, strict=True)``, which raises on a tensor
     the model lacks or leaves unfilled.
     """
     out: Dict[str, torch.Tensor] = {}
-    for key, value in flat.items():
+    items = [(k, v, False) for k, v in flat.items()] + \
+        [(k, v, True) for k, v in (batch_stats or {}).items()]
+    for key, value, is_stat in items:
         name = port_name(key)
-        if not _PORT_NAME.match(name):
-            raise KeyError(f"flax param {key!r} maps to no port tensor "
+        if not _PORT_NAME.match(name) or \
+                bool(_BN_STAT.search(key)) != is_stat:
+            kind = "batch_stats" if is_stat else "param"
+            raise KeyError(f"flax {kind} {key!r} maps to no port tensor "
                            f"(got {name!r})")
         if name in out:
             raise KeyError(f"flax params map twice to {name!r}")

@@ -6,6 +6,12 @@ layouts, so a reference checkpoint loads by name once the ``module.`` and
 ``roi_heads.`` prefixes are stripped. One layout differs: the first DAN FC
 consumes flattened RoI features, (C, 7, 7) in Detectron2 and (7, 7, C) in
 both packages, so its input axis is permuted.
+
+Under ``NORM`` BN the import does what the JAX package's does: of each
+BatchNorm only ``norm.bias`` loads. A Detectron2 ``norm.weight`` finds no
+flax BatchNorm ``scale`` there, and its params hold no statistics, so
+``norm.weight`` and the running statistics are reported unmatched, and
+the model's ``norm.weight`` missing; the statistics keep their values.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from ..models.backbones.resnet_ws import BatchNorm
 
 logger = logging.getLogger(__name__)
 
@@ -70,17 +78,20 @@ def load_reference_weights(path: str, model: torch.nn.Module
     on a shape that does not match."""
     state = _load_state_dict(path)
     own = model.state_dict()
+    bn = [n for n, m in model.named_modules() if isinstance(m, BatchNorm)]
+    stats = {f"{n}.{s}" for n in bn for s in ("running_mean", "running_var")}
+    unloadable = stats | {f"{n}.weight" for n in bn}
     converted = {}
     unmatched = []
     for name, val in state.items():
         if name.endswith("num_batches_tracked") or name.startswith("anchor"):
             continue
         key = _port_key(name)
-        if key in own:
+        if key in own and key not in unloadable:
             converted[key] = _convert(val, own[key], key)
         else:
             unmatched.append(name)
-    missing = [k for k in own if k not in converted]
+    missing = [k for k in own if k not in converted and k not in stats]
     if unmatched:
         logger.warning(
             f"{len(unmatched)} checkpoint params unmatched, e.g. "

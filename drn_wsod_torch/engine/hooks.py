@@ -1,11 +1,12 @@
 """Trainer hooks (counterpart of ``drn_wsod_tpu/engine/hooks.py``): the
 four-phase protocol ``before_train`` / ``before_step`` / ``after_step`` /
 ``after_train``, with ``IterationTimer``, ``PeriodicWriter``,
-``PeriodicCheckpointer``, ``ProfilerHook`` and ``EvalHook``.
+``PeriodicCheckpointer``, ``ProfilerHook``, ``PreciseBNHook`` and
+``EvalHook``.
 
 ``PGTVisualization`` waits for ``utils/visualizer`` (ROADMAP.md queue 1,
-item 17) and ``PreciseBNHook`` for trainable BatchNorm (item 13);
-``tools/train_net.py:do_train`` raises where the config asks for either.
+item 17); ``tools/train_net.py:do_train`` raises where the config asks for
+it.
 """
 
 from __future__ import annotations
@@ -143,6 +144,33 @@ class ProfilerHook(HookBase):
         path = os.path.join(self._dir, f"trace_iter{self._start}.json")
         prof.export_chrome_trace(path)
         logger.info(f"Saved profiler trace to {path}")
+
+
+class PreciseBNHook(HookBase):
+    """Recompute the BatchNorm statistics of the trainer's model
+    (``precise_bn.update_bn_stats``) over ``num_iters`` batches of a fresh
+    ``data_iter_fn()`` every ``period`` iterations but the last, and after
+    training. A model without BatchNorm is left as it is."""
+
+    def __init__(self, period: int, data_iter_fn: Callable,
+                 num_iters: int = 200):
+        self._period = max(int(period), 1)
+        self._data_iter_fn = data_iter_fn
+        self._num_iters = num_iters
+
+    def _run(self):
+        from .precise_bn import update_bn_stats
+
+        batches = (self.trainer.to_device(b) for b in self._data_iter_fn())
+        update_bn_stats(self.trainer.state.model, batches, self._num_iters)
+
+    def after_step(self):
+        if (self.trainer.iter + 1) % self._period == 0 and \
+                self.trainer.iter != self.trainer.max_iter - 1:
+            self._run()
+
+    def after_train(self):
+        self._run()
 
 
 class EvalHook(HookBase):

@@ -269,7 +269,7 @@ class Trainer:
                     h.after_train()
 
     # ------------------------------------------------------------ data path
-    def _to_device(self, batch, stream=None):
+    def to_device(self, batch, stream=None):
         """A WSODBatch on the device (copied from pinned memory on
         ``stream`` where given); anything else is left as it is."""
         def copy(t: torch.Tensor) -> torch.Tensor:
@@ -283,9 +283,9 @@ class Trainer:
         """Copy ``batches`` to the device on ``stream`` (CUDA) and return
         them with the event that marks the copies' end."""
         if stream is None:
-            return [self._to_device(b) for b in batches], None
+            return [self.to_device(b) for b in batches], None
         with torch.cuda.stream(stream):
-            out = [self._to_device(b, stream) for b in batches]
+            out = [self.to_device(b, stream) for b in batches]
             event = torch.cuda.Event()
             event.record(stream)
         return out, event
@@ -316,7 +316,7 @@ class Trainer:
 
     def _inline_iter(self):
         while True:
-            yield self._to_device(self._next_host_batch())
+            yield self.to_device(self._next_host_batch())
 
     def _prefetch(self, sizes: Sequence[int], depth: int, profile: bool):
         """A thread that pulls ``sizes[i]`` batches at a time, copies them
@@ -398,7 +398,7 @@ class Trainer:
         if self._prefetch_chunks <= 0:
             for k in sizes:
                 t0 = time.perf_counter()
-                chunk = [self._to_device(self._next_host_batch())
+                chunk = [self.to_device(self._next_host_batch())
                          for _ in range(k)]
                 yield chunk, k, (time.perf_counter() - t0) / k
             return

@@ -12,11 +12,18 @@ so a Detectron2 state dict or the weight bridge
 (:mod:`drn_wsod_torch.checkpoint.from_jax`) loads by name. The tower takes
 NCHW tensors; the model feeds it ``channels_last`` memory so that cuDNN gets
 its preferred layout and the NHWC view of the output is contiguous.
+
+``MODEL.RESNETS.NORM`` "BN", "SyncBN" or "naiveSyncBN" gives
+:class:`BatchNorm`, every other value FrozenBN, as in the JAX package
+("GN" too). Like the JAX package's, that BatchNorm always normalises with
+its running statistics and returns float32, so each following conv casts
+its input back to ``MODEL.DTYPE`` and the tower's output is float32.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import functools
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,23 +58,61 @@ class FrozenBatchNorm(nn.Module):
                 + shift.to(x.dtype)[:, None, None])
 
 
+class BatchNorm(nn.Module):
+    """BatchNorm as the JAX package runs it (flax's ``nn.BatchNorm`` with
+    ``use_running_average=True``, its backbone never being called in train
+    mode): the running statistics always, never updated. The affine
+    (``weight``, ``bias``) is a float32 parameter the optimizer labels
+    frozen; the statistics are float32 buffers, written only by PreciseBN.
+    Computed in flax's order in float32, ``(x - mean) * (rsqrt(var + eps)
+    * weight) + bias``, and returned in float32."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x.float() - self.running_mean[:, None, None])
+                * mul[:, None, None] + self.bias[:, None, None])
+
+
+BATCH_NORMS = ("BN", "SyncBN", "naiveSyncBN")
+
+
+def norm_layer(norm: str, num_features: int) -> nn.Module:
+    """BatchNorm for ``BATCH_NORMS``, FrozenBN for every other ``norm``
+    (the JAX package's ``_norm_layer``)."""
+    if norm in BATCH_NORMS:
+        return BatchNorm(num_features)
+    return FrozenBatchNorm(num_features)
+
+
 class Conv2d(nn.Conv2d):
     """Bias-free conv with symmetric padding ``dilation * (k // 2)``
-    followed by its FrozenBN (Detectron2's ``Conv2d(norm=...)`` layout).
-    The weight is cast to the input's dtype at each use: a trainable
-    stage keeps float32 masters and computes in the model's dtype, as
-    flax's ``nn.Conv(dtype=..., param_dtype=float32)`` does; a frozen
-    stage's weight is stored in that dtype already."""
+    followed by its norm (Detectron2's ``Conv2d(norm=...)`` layout). Input
+    and weight are cast to ``dtype`` (the input's own where None) at each
+    use: a trainable stage keeps float32 masters and computes in the
+    model's dtype, as flax's ``nn.Conv(dtype=..., param_dtype=float32)``
+    does; a frozen stage's weight is stored in that dtype already."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
-                 stride: int = 1, dilation: int = 1):
+                 stride: int = 1, dilation: int = 1, norm: str = "FrozenBN",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(in_channels, out_channels, kernel, stride=stride,
                          padding=dilation * (kernel // 2), dilation=dilation,
                          bias=False)
-        self.norm = FrozenBatchNorm(out_channels)
+        self.norm = norm_layer(norm, out_channels)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(self._conv_forward(x, self.weight.to(x.dtype), None))
+        dt = self.compute_dtype or x.dtype
+        return self.norm(self._conv_forward(x.to(dt), self.weight.to(dt),
+                                            None))
 
 
 def _maxpool2(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -82,12 +127,14 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, dilation: int = 1,
                  has_pool: bool = False, pool_stride: int = 1,
-                 stride: int = 1):
+                 stride: int = 1, norm: str = "FrozenBN",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = Conv2d(in_channels, out_channels, 3, stride=stride,
-                            dilation=dilation)
-        self.conv2 = Conv2d(out_channels, out_channels, 3, dilation=dilation)
-        self.shortcut = (Conv2d(in_channels, out_channels, 1, stride=stride)
+        conv = functools.partial(Conv2d, norm=norm, dtype=dtype)
+        self.conv1 = conv(in_channels, out_channels, 3, stride=stride,
+                          dilation=dilation)
+        self.conv2 = conv(out_channels, out_channels, 3, dilation=dilation)
+        self.shortcut = (conv(in_channels, out_channels, 1, stride=stride)
                          if in_channels != out_channels or stride > 1
                          else None)
         self.has_pool, self.pool_stride = has_pool, pool_stride
@@ -107,14 +154,16 @@ class BottleneckBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  bottleneck_channels: int, dilation: int = 1,
                  has_pool: bool = False, pool_stride: int = 1,
-                 stride: int = 1, stride_in_1x1: bool = True):
+                 stride: int = 1, stride_in_1x1: bool = True,
+                 norm: str = "FrozenBN", dtype: Optional[torch.dtype] = None):
         super().__init__()
         bc = bottleneck_channels
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
-        self.conv1 = Conv2d(in_channels, bc, 1, stride=s1)
-        self.conv2 = Conv2d(bc, bc, 3, stride=s3, dilation=dilation)
-        self.conv3 = Conv2d(bc, out_channels, 1)
-        self.shortcut = (Conv2d(in_channels, out_channels, 1, stride=stride)
+        conv = functools.partial(Conv2d, norm=norm, dtype=dtype)
+        self.conv1 = conv(in_channels, bc, 1, stride=s1)
+        self.conv2 = conv(bc, bc, 3, stride=s3, dilation=dilation)
+        self.conv3 = conv(bc, out_channels, 1)
+        self.shortcut = (conv(in_channels, out_channels, 1, stride=stride)
                          if in_channels != out_channels or stride > 1
                          else None)
         self.has_pool, self.pool_stride = has_pool, pool_stride
@@ -131,11 +180,13 @@ class BottleneckBlock(nn.Module):
 class BasicStem(nn.Module):
     """3x3/s2 -> 3x3 -> 3x3 convs, then a 2x2/s2 max-pool. Output stride 4."""
 
-    def __init__(self, out_channels: int = 64):
+    def __init__(self, out_channels: int = 64, norm: str = "FrozenBN",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = Conv2d(3, out_channels, 3, stride=2)
-        self.conv2 = Conv2d(out_channels, out_channels, 3)
-        self.conv3 = Conv2d(out_channels, out_channels, 3)
+        conv = functools.partial(Conv2d, norm=norm, dtype=dtype)
+        self.conv1 = conv(3, out_channels, 3, stride=2)
+        self.conv2 = conv(out_channels, out_channels, 3)
+        self.conv3 = conv(out_channels, out_channels, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv in (self.conv1, self.conv2, self.conv3):
@@ -172,13 +223,14 @@ class ResNetWS(nn.Module):
 
     def __init__(self, depth: int = 50, width_per_group: int = 64,
                  stem_out_channels: int = 64, res2_out_channels: int = 256,
-                 res5_dilation: int = 2, out_features=("res5",)):
+                 res5_dilation: int = 2, out_features=("res5",),
+                 norm: str = "FrozenBN", dtype: Optional[torch.dtype] = None):
         super().__init__()
         basic = depth in (18, 34)
         if basic and res2_out_channels != 64:
             raise ValueError("R18/R34 need RES2_OUT_CHANNELS=64")
         self.out_features = tuple(out_features)
-        self.stem = BasicStem(stem_out_channels)
+        self.stem = BasicStem(stem_out_channels, norm=norm, dtype=dtype)
         max_stage = max(int(f[-1]) for f in self.out_features)
         self.specs = stage_specs(depth, res5_dilation, res2_out_channels,
                                  width_per_group, max_stage=max_stage)
@@ -190,7 +242,8 @@ class ResNetWS(nn.Module):
                 kwargs = dict(dilation=spec["dilation"],
                               has_pool=spec["has_pool"]
                               and b == spec["num_blocks"] - 1,
-                              pool_stride=spec["pool_stride"])
+                              pool_stride=spec["pool_stride"], norm=norm,
+                              dtype=dtype)
                 if basic:
                     blocks.append(BasicBlock(in_ch, spec["out_channels"],
                                              **kwargs))
@@ -226,8 +279,8 @@ class ResNetWS(nn.Module):
 
 
 def _refuse_unported(r) -> None:
-    """Raise for the blocks and norms of ``MODEL.RESNETS`` not ported yet,
-    each naming its ROADMAP.md item."""
+    """Raise for the blocks of ``MODEL.RESNETS`` not ported yet, each
+    naming its ROADMAP.md item."""
     if any(r.DEFORM_ON_PER_STAGE):
         raise NotImplementedError(
             "deformable ResNet blocks are not ported yet: ROADMAP.md queue "
@@ -236,16 +289,17 @@ def _refuse_unported(r) -> None:
         raise NotImplementedError(
             "grouped ResNet convs are not ported yet: ROADMAP.md queue 1, "
             "item 14 (supervised and pyramid paths)")
-    if r.NORM != "FrozenBN":
-        raise NotImplementedError(
-            f"NORM {r.NORM!r}: only FrozenBN is ported; trainable BatchNorm "
-            "is ROADMAP.md queue 1, item 13 (trainable BN and PreciseBN)")
+
+
+def model_dtype(cfg) -> torch.dtype:
+    """``MODEL.DTYPE`` as a torch dtype."""
+    return torch.bfloat16 if cfg.MODEL.DTYPE == "bfloat16" else torch.float32
 
 
 def build_ws_resnet_backbone(cfg) -> ResNetWS:
     """Config-driven builder (``resnet_ws.py:build_ws_resnet_backbone``).
-    Deformable blocks, grouped convs and trainable BN come with later
-    slices of the port and raise here."""
+    Deformable blocks and grouped convs come with a later slice of the
+    port and raise here."""
     r = cfg.MODEL.RESNETS
     _refuse_unported(r)
     return ResNetWS(
@@ -255,17 +309,21 @@ def build_ws_resnet_backbone(cfg) -> ResNetWS:
         res2_out_channels=r.RES2_OUT_CHANNELS,
         res5_dilation=r.RES5_DILATION,
         out_features=tuple(r.OUT_FEATURES),
+        norm=r.NORM,
+        dtype=model_dtype(cfg),
     )
 
 
 class PlainStem(nn.Module):
-    """The standard ResNet stem: a 7x7/s2 conv, FrozenBN and ReLU, then a
+    """The standard ResNet stem: a 7x7/s2 conv, its norm and ReLU, then a
     3x3/s2 max-pool padded by 1 (with -inf, as flax pads it). Output
     stride 4."""
 
-    def __init__(self, out_channels: int = 64):
+    def __init__(self, out_channels: int = 64, norm: str = "FrozenBN",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = Conv2d(3, out_channels, 7, stride=2)
+        self.conv1 = Conv2d(3, out_channels, 7, stride=2, norm=norm,
+                            dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.max_pool2d(F.relu(self.conv1(x)), kernel_size=3, stride=2,
@@ -281,7 +339,8 @@ class ResNetPlain(nn.Module):
     def __init__(self, depth: int = 50, width_per_group: int = 64,
                  stem_out_channels: int = 64, res2_out_channels: int = 256,
                  res5_dilation: int = 2, stride_in_1x1: bool = True,
-                 out_features=("res5",)):
+                 out_features=("res5",), norm: str = "FrozenBN",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         basic = depth in (18, 34)
         if basic and res2_out_channels != 64:
@@ -289,7 +348,7 @@ class ResNetPlain(nn.Module):
         self.res5_dilation = res5_dilation
         self.res2_out_channels = res2_out_channels
         self.out_features = tuple(out_features)
-        self.stem = PlainStem(stem_out_channels)
+        self.stem = PlainStem(stem_out_channels, norm=norm, dtype=dtype)
         num_blocks = NUM_BLOCKS_PER_STAGE[depth]
         max_stage = max(int(f[-1]) for f in self.out_features)
         in_ch, out_ch, bc = stem_out_channels, res2_out_channels, \
@@ -304,11 +363,12 @@ class ResNetPlain(nn.Module):
                 stride = first_stride if b == 0 else 1
                 if basic:
                     blocks.append(BasicBlock(in_ch, out_ch, dilation=dilation,
-                                             stride=stride))
+                                             stride=stride, norm=norm,
+                                             dtype=dtype))
                 else:
                     blocks.append(BottleneckBlock(
                         in_ch, out_ch, bc, dilation=dilation, stride=stride,
-                        stride_in_1x1=stride_in_1x1))
+                        stride_in_1x1=stride_in_1x1, norm=norm, dtype=dtype))
                 in_ch = out_ch
             self.add_module(f"res{stage_idx}", nn.Sequential(*blocks))
             self.stage_names.append(f"res{stage_idx}")
@@ -352,4 +412,6 @@ def build_resnet_backbone(cfg) -> ResNetPlain:
         res5_dilation=r.RES5_DILATION,
         stride_in_1x1=r.STRIDE_IN_1X1,
         out_features=tuple(r.OUT_FEATURES),
+        norm=r.NORM,
+        dtype=model_dtype(cfg),
     )

@@ -19,6 +19,7 @@ from ..device import resolve_device
 from ..solver.build import make_param_labels
 from .backbones import (build_resnet_backbone, build_vgg_backbone,
                         build_ws_resnet_backbone)
+from .backbones.resnet_ws import model_dtype
 from .meta_arch import GeneralizedRCNNWSL
 
 # MODEL.BACKBONE.NAME -> builder (the JAX package's BACKBONE_REGISTRY)
@@ -98,7 +99,7 @@ def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
         reg_weights=tuple(box.BBOX_REG_WEIGHTS),
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
         pixel_std=tuple(cfg.MODEL.PIXEL_STD),
-        dtype=torch.bfloat16 if cfg.MODEL.DTYPE == "bfloat16" else torch.float32,
+        dtype=model_dtype(cfg),
         dropout=box.DROPOUT,
         mean_loss=cfg.WSL.MEAN_LOSS,
         freeze_backbone=cfg.MODEL.BACKBONE.FREEZE_AT >= 5,
@@ -126,7 +127,8 @@ def build_model(cfg: CfgNode, device=None,
     statistics stay float32. The heads' parameters and the trainable
     stages' conv weights stay float32 masters, cast to ``MODEL.DTYPE`` at
     each use (flax's ``param_dtype`` float32 with ``dtype`` bfloat16), so
-    that SGD updates below bfloat16's resolution are kept.
+    that SGD updates below bfloat16's resolution are kept. BatchNorm's
+    affine and statistics (``NORM`` BN) stay float32 and take no gradient.
     """
     dev = resolve_device(device)
     arch = cfg.MODEL.META_ARCHITECTURE
@@ -141,7 +143,8 @@ def build_model(cfg: CfgNode, device=None,
         [n for n, _ in model.named_parameters()], cfg.MODEL.BACKBONE.FREEZE_AT)
     for name, p in model.backbone.named_parameters():
         if model.freeze_backbone or labels[f"backbone.{name}"] == "frozen":
-            p.data = p.data.to(model.dtype)
+            if not name.endswith((".norm.weight", ".norm.bias")):
+                p.data = p.data.to(model.dtype)
             p.requires_grad_(False)
     model.backbone.to(memory_format=torch.channels_last)
     return model.eval()

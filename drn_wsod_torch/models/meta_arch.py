@@ -21,6 +21,11 @@ two multiplies, each rounded to the map's dtype. A frozen backbone
 (``FREEZE_AT >= 5``) runs without autograd, the counterpart of
 ``stop_gradient``; a trainable one carries gradients to its stages and to
 the image.
+
+The backbone runs as the JAX package's does, never in train mode: under
+``NORM`` BN its BatchNorms normalise with their running statistics in
+training too, and the map reaches the pool in float32 (the pool's float32
+mode), whatever ``MODEL.DTYPE``; the DAN casts the pooled features back.
 """
 
 from __future__ import annotations

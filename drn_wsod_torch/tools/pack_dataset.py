@@ -6,7 +6,8 @@ record shard for the training data path (counterpart of
         --proposals datasets/proposals/mcg_voc_2007_trainval_d2.pkl \\
         --out datasets/packed/voc_2007_trainval.rec
 
-VOC lives under ``$DETECTRON2_DATASETS`` (default ``datasets``). Decoding
+The datasets ``train_net`` registers (VOC, COCO, the web and VOC-SBD
+sets) live under ``$DETECTRON2_DATASETS`` (default ``datasets``). Decoding
 needs Pillow; training from the shard does not.
 """
 
@@ -15,7 +16,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from ..data.datasets.voc import register_all_pascal_voc
+from ..data.datasets.builtin import register_all
 from ..data.loader import get_detection_dataset_dicts
 from ..data.record_dataset import pack_dataset
 
@@ -29,7 +30,7 @@ def main(argv=None) -> int:
                    help="leave the pixels out (the mapper then decodes)")
     args = p.parse_args(argv)
 
-    register_all_pascal_voc(os.environ.get("DETECTRON2_DATASETS", "datasets"))
+    register_all(os.environ.get("DETECTRON2_DATASETS", "datasets"))
     records = get_detection_dataset_dicts(
         [args.dataset], [args.proposals] if args.proposals else ())
     n = pack_dataset(records, args.out, decode_images=not args.no_images)

@@ -3,7 +3,7 @@
 with periodic checkpoints, metrics and evaluation, then evaluate
 ``DATASETS.TEST`` (and, with ``TEST.EVAL_TRAIN``, the train datasets, for
 CorLoc): with TTA-AVG where ``TEST.AUG.ENABLED``, through the test loader
-otherwise, into the VOC evaluator.
+otherwise, into the VOC or the COCO box evaluator.
 
     python -m drn_wsod_torch.tools.train_net --config-file CONFIG \\
         [--resume] [--eval-only] [KEY VALUE ...]
@@ -12,14 +12,17 @@ otherwise, into the VOC evaluator.
 ``OUTPUT_DIR/checkpoints`` (else ``MODEL.WEIGHTS``, Detectron2 weights, is
 loaded); ``--eval-only`` evaluates without training. VOC lives under
 ``$DETECTRON2_DATASETS`` (default ``datasets``) as
-``VOC2007/{Annotations,ImageSets/Main,JPEGImages}``; a dataset packed with
+``VOC2007/{Annotations,ImageSets/Main,JPEGImages}``, COCO as
+``coco/{train2014,val2014,annotations}`` (and 2017), the web and VOC-SBD
+sets as COCO-format json where present; a dataset packed with
 ``drn_wsod_torch.tools.pack_dataset`` registers in ``DatasetCatalog``
 under a name of its own. Runs on the CUDA device. The CSC heads train
 with the CSC step while ``iter <= WSL.CSC_MAX_ITER`` and the plain step
-after it (WSJDS among them). Evaluator types other than Pascal VOC, the
-semantic segmentation evaluation among them, come with ROADMAP.md queue 1,
-item 15, trainable BatchNorm and PreciseBN with item 13, pseudo-GT
-visualisation with item 17, several processes with item 16.
+after it (WSJDS among them). ``NORM`` BN/SyncBN or
+``TEST.PRECISE_BN.ENABLED`` adds the PreciseBN hook. LVIS, the rotated and
+semantic segmentation evaluators and COCO's mask and keypoint AP come with
+ROADMAP.md queue 1, items 14 and 15, pseudo-GT visualisation with item
+17, several processes with item 16.
 """
 
 from __future__ import annotations
@@ -34,15 +37,17 @@ from ..config import get_cfg
 from ..data import (DatasetMapper, MetadataCatalog,
                     build_detection_test_loader, build_detection_train_loader,
                     get_detection_dataset_dicts)
-from ..data.datasets.voc import register_all_pascal_voc
+from ..data.datasets.builtin import register_all
 from ..device import resolve_device
 from ..engine import (CommonMetricPrinter, EvalHook, IterationTimer,
                       JSONWriter, PeriodicCheckpointer, PeriodicWriter,
-                      TensorboardWriter, Trainer, create_train_state)
+                      PreciseBNHook, TensorboardWriter, Trainer,
+                      create_train_state)
 from ..engine import trainer as trainer_lib
 from ..engine.defaults import default_argument_parser, default_setup
-from ..evaluation import (PascalVOCDetectionEvaluator, gather_and_evaluate,
-                          inference_on_dataset, make_detect_fn)
+from ..evaluation import (COCODetectionEvaluator, PascalVOCDetectionEvaluator,
+                          gather_and_evaluate, inference_on_dataset,
+                          make_detect_fn)
 from ..evaluation.testing import print_csv_format, verify_results
 from ..models import build_model
 from ..models.build import CSC_HEAD_NAMES
@@ -71,22 +76,33 @@ def setup(args):
 
 
 def build_evaluator(cfg, dataset_name: str, records):
-    """The dataset's evaluator: Pascal VOC's AP and CorLoc."""
+    """The dataset's evaluator: Pascal VOC's AP and CorLoc, or COCO's box
+    AP (the "coco" and "coco_panoptic_seg" types, and
+    "cityscapes_instance" without masks)."""
     meta = MetadataCatalog.get(dataset_name)
     etype = meta.get("evaluator_type", "pascal_voc")
+    gt_by_image = {str(r["image_id"]): r.get("annotations", [])
+                   for r in records}
+    if etype == "pascal_voc":
+        return PascalVOCDetectionEvaluator(
+            meta.thing_classes, gt_by_image, year=meta.get("year", 2007))
+    coco_types = ("coco", "coco_panoptic_seg", "cityscapes_instance")
+    if etype in coco_types and (cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINT_ON):
+        raise NotImplementedError(
+            f"evaluator type {etype!r} with MASK_ON or KEYPOINT_ON: COCO's "
+            "mask and keypoint AP are not ported yet: ROADMAP.md queue 1, "
+            "item 14 (supervised and pyramid paths)")
+    if etype in coco_types:
+        return COCODetectionEvaluator(meta.thing_classes, gt_by_image,
+                                      tasks=("bbox",))
     if etype in ("sem_seg", "cityscapes_sem_seg"):
         raise NotImplementedError(
             f"evaluator type {etype!r}: semantic segmentation evaluation "
             "(make_sem_seg_fn, SemSegEvaluator) is not ported yet: "
             "ROADMAP.md queue 1, item 15 (remaining evaluators)")
-    if etype != "pascal_voc":
-        raise NotImplementedError(
-            f"evaluator type {etype!r} is not ported yet: ROADMAP.md queue "
-            "1, item 15 (remaining evaluators)")
-    gt_by_image = {str(r["image_id"]): r.get("annotations", [])
-                   for r in records}
-    return PascalVOCDetectionEvaluator(
-        meta.thing_classes, gt_by_image, year=meta.get("year", 2007))
+    raise NotImplementedError(
+        f"evaluator type {etype!r} is not ported yet: ROADMAP.md queue 1, "
+        "item 15 (remaining evaluators)")
 
 
 def do_test(cfg, model, eval_train: bool = False,
@@ -168,11 +184,6 @@ def _refuse_unported(cfg):
             "pseudo-GT visualisation (VIS_PERIOD, WSL.VIS_TEST) needs "
             "utils/visualizer, not ported yet: ROADMAP.md queue 1, item 17 "
             "(export, tools, demo)")
-    if cfg.MODEL.RESNETS.NORM in ("BN", "SyncBN") or \
-            cfg.TEST.PRECISE_BN.ENABLED:
-        raise NotImplementedError(
-            "trainable BatchNorm and PreciseBN are not ported yet: "
-            "ROADMAP.md queue 1, item 13 (trainable BN and PreciseBN)")
 
 
 def _writers(cfg):
@@ -196,8 +207,11 @@ def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
     ``MODEL.WEIGHTS`` where set. K = ``steps_per_dispatch(cfg)`` steps are
     pulled and run per call where K > 1. A CSC head takes the CSC step
     while the iteration is at most ``WSL.CSC_MAX_ITER`` and the plain step
-    after it. Returns the trainer (its ``state`` holds the model, the
-    optimizer state and the step)."""
+    after it. ``NORM`` BN/SyncBN or ``TEST.PRECISE_BN.ENABLED`` adds the
+    PreciseBN hook (every ``TEST.EVAL_PERIOD``, else every
+    ``SOLVER.CHECKPOINT_PERIOD``, over ``NUM_ITER`` batches of a fresh
+    iterator of the train loader). Returns the trainer (its ``state``
+    holds the model, the optimizer state and the step)."""
     dev = resolve_device(device)
     _refuse_unported(cfg)
     mapper = DatasetMapper(cfg, is_train=True)
@@ -230,6 +244,11 @@ def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
     hooks = [IterationTimer(),
              PeriodicWriter(_writers(cfg)),
              PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD)]
+    if cfg.MODEL.RESNETS.NORM in ("BN", "SyncBN") or \
+            cfg.TEST.PRECISE_BN.ENABLED:
+        hooks.append(PreciseBNHook(
+            cfg.TEST.EVAL_PERIOD or cfg.SOLVER.CHECKPOINT_PERIOD,
+            lambda: iter(loader), num_iters=cfg.TEST.PRECISE_BN.NUM_ITER))
     if cfg.TEST.EVAL_PERIOD > 0:
         hooks.append(EvalHook(
             cfg.TEST.EVAL_PERIOD,
@@ -240,13 +259,14 @@ def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
 
 
 def main(args, device=None):
-    """Register VOC under ``$DETECTRON2_DATASETS``, build the model on
+    """Register VOC, COCO, the web and the VOC-SBD sets under
+    ``$DETECTRON2_DATASETS``, build the model on
     ``device`` (CUDA unless the caller names another one), then train and
     evaluate, or, with ``--eval-only``, load the weights (the latest
     checkpoint with ``--resume``, else ``MODEL.WEIGHTS``) and evaluate."""
     dev = resolve_device(device)
     cfg = setup(args)
-    register_all_pascal_voc(os.environ.get("DETECTRON2_DATASETS", "datasets"))
+    register_all(os.environ.get("DETECTRON2_DATASETS", "datasets"))
     model = build_model(cfg, device=dev)
     if args.eval_only:
         state = create_train_state(model, build_optimizer(cfg, model))

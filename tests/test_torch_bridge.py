@@ -82,7 +82,7 @@ def test_port_names_invert_the_d2_importer(d2_name):
 
 @pytest.mark.parametrize("key", [
     "backbone.res5_0.conv2_offset.kernel",      # deformable: not ported
-    "backbone.res2_0.conv1_norm.scale",         # trainable BN leaf
+    "backbone.res2_0.conv1_norm.mean",          # BN statistic as a param
     "seg_head.aspp.kernel"])
 def test_unmapped_key_raises(key):
     with pytest.raises(KeyError):

@@ -1120,3 +1120,133 @@ def test_crf_forward_on_cuda_matches_cpu(cuda):
     want = crf_forward(probs, image)
     got = crf_forward(probs.to(cuda), image.to(cuda)).cpu()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# COCO data and trainable BatchNorm: K1's float32 mode at full width, and
+# a toy NORM BN detector evaluated by the COCO box evaluator on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("side", [64, 191])
+def test_kernel_float32_mode_at_full_width(cuda, side):
+    """K1 in its float32 mode (a NORM BN backbone's map) at the flagship
+    train step's shapes: B = 4, 2048 channels at stride 8, up to the 1528
+    bucket's 191^2 map, P = 4096 with invalid slots; the output (4, 4096,
+    7, 7, 2048) float32 is 6.6 GB."""
+    B, P, C = 4, 4096, 2048
+    boxes, scale = _train_boxes(side * 8, B, P, seed=side + 1)
+    g = torch.Generator(device=cuda).manual_seed(side)
+    feat = torch.randn(B, side, side, C, generator=g, device=cuda)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    scale = torch.from_numpy(scale).to(cuda)
+    before = rp.roi_pool_batched.launches
+    got = rp.roi_pool_batched(feat, boxes, 0.125, 7, scale)
+    torch.cuda.synchronize()
+    assert rp.roi_pool_batched.launches == before + 1
+    assert got.dtype == torch.float32
+    want = rp.roi_pool_plain(feat, boxes, 0.125, 7, scale)
+    _equal_by_value(got, want)
+    del got, want
+    torch.cuda.empty_cache()
+
+
+def _coco_records(n, seed):
+    """``n`` COCO-style records with decoded pixels (as a packed shard
+    holds them): 80 contiguous classes, crowd boxes marked difficult, the
+    last image without annotations, 60 proposals each."""
+    g = np.random.RandomState(seed)
+    records = []
+    for i in range(n):
+        H, W = int(g.randint(40, 70)), int(g.randint(40, 70))
+        annos = []
+        for k in range(0 if i == n - 1 else g.randint(1, 4)):
+            x, y = g.uniform(0, W / 2), g.uniform(0, H / 2)
+            crowd = int(k == 0 and i == 0)
+            annos.append({"category_id": int(g.randint(80)),
+                          "bbox": [x, y, x + g.uniform(8, W / 2),
+                                   y + g.uniform(8, H / 2)],
+                          "bbox_mode": "XYXY_ABS", "difficult": crowd,
+                          "iscrowd": crowd})
+        x1, y1 = g.uniform(0, W - 10, 60), g.uniform(0, H - 10, 60)
+        boxes = np.stack([x1, y1, np.minimum(x1 + g.uniform(6, W, 60), W - 1),
+                          np.minimum(y1 + g.uniform(6, H, 60), H - 1)], 1)
+        records.append({
+            "file_name": f"coco_toy/{i}.jpg", "image_id": 500 + i,
+            "height": H, "width": W, "annotations": annos,
+            "image": g.randint(0, 256, (H, W, 3)).astype(np.uint8),
+            "proposal_boxes": boxes.astype(np.float32),
+            "proposal_objectness_logits": g.uniform(-2, 2, 60).astype(
+                np.float32),
+            "proposal_bbox_mode": "XYXY_ABS"})
+    return records
+
+
+def test_toy_bn_coco_eval_on_cuda_matches_cpu(cuda, monkeypatch):
+    """A toy NORM BN detector (80 classes) through ``train_net.do_test``
+    (the test loader, one image a batch) into the COCO box evaluator, on
+    the card and on the CPU from the same weights: one K1 launch an image,
+    each on a float32 map; per-image scores within rtol 1e-4; the COCO
+    metrics finite in [0, 100] or NaN alike, and within 0.5 points."""
+    from drn_wsod_torch.data import DatasetCatalog, MetadataCatalog
+    from drn_wsod_torch.evaluation import coco_eval
+    from drn_wsod_torch.models import meta_arch
+    from drn_wsod_torch.tools import train_net
+
+    name = "torch_cuda_coco_toy"
+    records = _coco_records(4, seed=9)
+    DatasetCatalog.register(name, lambda: [dict(r) for r in records])
+    MetadataCatalog.get(name).set(thing_classes=[f"c{i}" for i in range(80)],
+                                  evaluator_type="coco")
+    cfg = _toy_cfg("MODEL.RESNETS.NORM", "BN",
+                   "MODEL.ROI_HEADS.NUM_CLASSES", "80",
+                   "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "64",
+                   "INPUT.MIN_SIZE_TEST", "64", "INPUT.MAX_SIZE_TEST", "96",
+                   "TEST.AUG.ENABLED", "False",
+                   "TEST.DETECTIONS_PER_IMAGE", "10",
+                   "DATASETS.TEST", f"('{name}',)",
+                   "DATASETS.PROPOSAL_FILES_TEST", "()")
+    dets, maps = {}, []
+    pool = meta_arch.roi_pool_batched
+
+    def capture(feats, *a):
+        maps.append((feats.device.type, feats.dtype))
+        return pool(feats, *a)
+    monkeypatch.setattr(meta_arch, "roi_pool_batched", capture)
+    process = coco_eval.COCODetectionEvaluator.process_single
+    try:
+        models = {"cpu": drn_wsod_torch.build_model(cfg, device="cpu")}
+        for bn in (m for m in models["cpu"].modules()
+                   if type(m).__name__ == "BatchNorm"):
+            g = torch.Generator().manual_seed(bn.running_var.numel())
+            bn.running_mean.normal_(0.0, 0.1, generator=g)
+            bn.running_var.uniform_(0.5, 1.5, generator=g)
+        models["cuda"] = drn_wsod_torch.build_model(cfg, device=cuda)
+        models["cuda"].load_state_dict(models["cpu"].state_dict())
+        results = {}
+        for dev, model in models.items():
+            def recording(self, image_id, boxes, scores, classes, valid,
+                          _d=dev):
+                dets.setdefault(_d, {})[image_id] = np.asarray(scores)
+                return process(self, image_id, boxes, scores, classes, valid)
+            monkeypatch.setattr(coco_eval.COCODetectionEvaluator,
+                                "process_single", recording)
+            before = rp.roi_pool_batched.launches
+            results[dev] = train_net.do_test(
+                cfg, model, device=model.pixel_mean.device)[name]
+            if dev == "cuda":
+                assert rp.roi_pool_batched.launches - before == 4
+    finally:
+        DatasetCatalog.remove(name)
+    assert maps.count(("cuda", torch.float32)) == 4
+    assert dets["cuda"].keys() == dets["cpu"].keys() and len(dets["cpu"]) == 4
+    for image_id, s in dets["cpu"].items():
+        np.testing.assert_allclose(dets["cuda"][image_id], s, rtol=1e-4,
+                                   atol=1e-6)
+    got, want = results["cuda"]["bbox"], results["cpu"]["bbox"]
+    assert got.keys() == want.keys() == {"AP", "AP50", "AP75", "APs", "APm",
+                                         "APl"}
+    for k, w in want.items():
+        g = got[k]
+        assert np.isnan(g) == np.isnan(w), k
+        if not np.isnan(w):
+            assert 0 <= g <= 100 and abs(g - w) <= 0.5, (k, g, w)

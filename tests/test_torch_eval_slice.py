@@ -25,6 +25,7 @@ import torch
 import drn_wsod_torch
 from drn_wsod_torch import data as pdata
 from drn_wsod_torch.data.datasets import voc as pvoc
+from drn_wsod_torch.evaluation import COCODetectionEvaluator
 from drn_wsod_torch.evaluation import voc_eval as pvoc_eval
 from drn_wsod_torch.tools import train_net
 from drn_wsod_tpu import data as jdata
@@ -275,15 +276,24 @@ def test_cli_main_matches_do_test(setup, monkeypatch, tmp_path):
 def test_cli_refuses_what_is_not_ported():
     """Training and the test loader are ported (``tests/
     test_torch_train_net.py``), the WSJDS train step too (``tests/
-    test_torch_wsjds_train_net.py``); other evaluators, semantic
-    segmentation's among them, and trainable BatchNorm are not."""
+    test_torch_wsjds_train_net.py``), trainable BatchNorm and the COCO box
+    evaluator too (``tests/test_torch_coco_train_net.py``); LVIS, the
+    rotated and semantic segmentation evaluators and COCO's mask AP are
+    not."""
     _, pc = cfg_pair(*TOY, "MODEL.RESNETS.NORM", "BN")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train_net.do_train(pc, None, device="cpu")
     meta = pdata.MetadataCatalog.get("torch_eval_slice_coco")
-    meta.set(evaluator_type="coco")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train_net.build_evaluator(pc, "torch_eval_slice_coco", [])
+    meta.set(evaluator_type="coco", thing_classes=["a", "b"])
+    assert isinstance(train_net.build_evaluator(pc, "torch_eval_slice_coco",
+                                                []), COCODetectionEvaluator)
+    mask_on = pc.clone()
+    mask_on.MODEL.MASK_ON = True
+    with pytest.raises(NotImplementedError, match="item 14"):
+        train_net.build_evaluator(mask_on, "torch_eval_slice_coco", [])
+    for etype in ("lvis", "rotated_coco"):
+        meta = pdata.MetadataCatalog.get(f"torch_eval_slice_{etype}")
+        meta.set(evaluator_type=etype)
+        with pytest.raises(NotImplementedError, match="item 15"):
+            train_net.build_evaluator(pc, f"torch_eval_slice_{etype}", [])
     meta = pdata.MetadataCatalog.get("torch_eval_slice_sem_seg")
     meta.set(evaluator_type="sem_seg")
     with pytest.raises(NotImplementedError, match="SemSegEvaluator.*item 15"):

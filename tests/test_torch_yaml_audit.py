@@ -2,10 +2,12 @@
 ``configs/`` goes through the port's ``models/build.py:_build_rcnn_wsl``
 (on the meta device: no weights are drawn), its backbone builder and
 ``tools/train_net.py:_refuse_unported``, and its datasets are looked up
-in the catalog ``train_net.main`` fills (VOC). Every YAML passes all four
-except those listed in ``BLOCKED`` with the ROADMAP.md item that raises
-for them (or the catalog's missing names). Run on its own, this file
-prints nothing; its cases are the audit ROADMAP.md section 1 cites."""
+in the catalog ``train_net.main`` fills (``data/datasets/builtin.py:
+register_all``: VOC, COCO, and the web and VOC-SBD sets whose json
+exists). Every YAML passes all four except those listed in ``BLOCKED``
+with the ROADMAP.md item that raises for them (or the catalog's missing
+names). Run on its own, this file prints nothing; its cases are the audit
+ROADMAP.md section 1 cites."""
 
 from pathlib import Path
 
@@ -14,7 +16,7 @@ import torch
 
 import drn_wsod_torch
 from drn_wsod_torch.data import DatasetCatalog
-from drn_wsod_torch.data.datasets.voc import register_all_pascal_voc
+from drn_wsod_torch.data.datasets import register_all
 from drn_wsod_torch.models.build import _build_rcnn_wsl
 from drn_wsod_torch.tools import train_net
 from test_torch_common import CONFIGS
@@ -33,8 +35,7 @@ BLOCKED = {
     "quick_schedules/retinanet_R_50_instant_test.yaml": ITEM15,
     "Misc/panoptic_fpn_R_50_1x.yaml": ITEM15,
     "Misc/semantic_R_50_FPN_1x.yaml": ITEM15,
-    "COCO-Detection/oicr_WSR_50_DC5_1x.yaml": "coco_2014_train",
-    "COCO-Detection/reg/oicr_WSR_50_DC5_1x.yaml": "coco_2014_train",
+    # the web json is optional and absent here, as in the JAX package
     "Flickr/oicr_WSR_50_DC5_1x.yaml": "flickr_voc",
 }
 
@@ -56,12 +57,20 @@ def _audit(path: str) -> str:
     return f"not in the catalog: {missing}" if missing else "pass"
 
 
-@pytest.fixture(scope="module", autouse=True)
-def voc_catalog():
+def _registered_under(root):
     names = set(DatasetCatalog.list())
-    register_all_pascal_voc("datasets")
+    register_all(str(root))
+    return set(DatasetCatalog.list()) - names
+
+
+@pytest.fixture(scope="module", autouse=True)
+def builtin_catalog(tmp_path_factory):
+    """The catalog ``train_net.main`` fills from a root without the web
+    json (a fresh directory: the repository's own ``datasets/`` may hold
+    one)."""
+    added = _registered_under(tmp_path_factory.mktemp("no_web_json"))
     yield
-    for name in set(DatasetCatalog.list()) - names:
+    for name in added:
         DatasetCatalog.remove(name)
 
 
@@ -74,11 +83,29 @@ def test_yaml_runs_or_names_its_blocker(path):
         assert got == "pass", got
 
 
+def test_flickr_runs_once_its_json_exists(tmp_path):
+    """The Flickr YAML stops at ``flickr_voc`` only while the web json is
+    absent: with it under the root, it passes."""
+    path = "Flickr/oicr_WSR_50_DC5_1x.yaml"
+    jf = tmp_path / "flickr_voc" / "annotations" / "instances.json"
+    jf.parent.mkdir(parents=True)
+    jf.write_text('{"images": [], "annotations": [], "categories": []}')
+    assert "flickr_voc" in _audit(path)
+    added = _registered_under(tmp_path)
+    try:
+        assert added == {"flickr_voc"}
+        assert _audit(path) == "pass"
+    finally:
+        for name in added:
+            DatasetCatalog.remove(name)
+    assert "flickr_voc" in _audit(path)
+
+
 def test_audit_counts():
-    """62 YAMLs: 50 run (30 before VGG-16, the plain ResNet and WSJDS),
-    12 are blocked."""
+    """62 YAMLs: 52 run (30 before VGG-16, the plain ResNet and WSJDS, 50
+    before the COCO data), 10 are blocked."""
     assert len(YAMLS) == 62 and set(BLOCKED) <= set(YAMLS)
-    assert len(YAMLS) - len(BLOCKED) == 50
+    assert len(YAMLS) - len(BLOCKED) == 52
     vgg_plain_wsjds = [p for p in YAMLS if p not in BLOCKED and (
         "_V_16_" in p or "/wsddn_R_" in p or "ws_jds" in p)]
     assert len(vgg_plain_wsjds) == 20, vgg_plain_wsjds
