@@ -157,9 +157,42 @@ Phases (any failure exits non-zero):
      unchanged; the statistics equal to the PreciseBN formula applied on
      the host to the drawn ones, bit for bit; K1 queued in float32 and in
      bf16 on the same map, each beside its bound; peak memory.
-Every path (4-8, 10-18) is run with the kernels' launch counts set to 0
+ 19. the supervised retraining heads ("supervised"): ``train_net.main`` on
+     ``retrain_fast_rcnn_WSR_50_DC5_1x.yaml`` (Fast R-CNN, DAN [2048,
+     4096]) and on ``cascade_rcnn_WSR_50_DC5_1x.yaml`` (three stages of 2
+     FC 1024, class-agnostic boxes), both WS-R50 DC5 at FREEZE_AT 2
+     (res3-res5 trained through the differentiable RoIPool), bf16, the
+     YAMLs' 640-800 scales, from seeded random weights on a packed shard
+     of 8 records with instance GT: 4 steps of B=4 each (the YAMLs' 8
+     cut) at BASE_LR 1e-4 (the YAMLs' 0.01 cut: on random weights it
+     drives Cascade to NaN), at two buckets or more, then the eval
+     without TTA of 2 images: losses finite, no K1 launch, 512 slots with
+     at most 128 foreground per image, the sampler's core on the card
+     bit-equal to the CPU's on the same keys;
+ 20. the FPN ("fpn"): ``COCO-Detection/fpn_oicr_WSR_50_1x.yaml`` (WS-R50
+     pyramid, FPN 256, ROIAlignV2 over p2-p5, DAN [1024, 4096], 80
+     classes, FREEZE_AT 5, bf16, TTA) on a packed COCO-format shard of 8
+     images: 4 steps of B=4, the TTA eval of 2 images at P=4096 a view;
+     OICR's losses finite, no K1 launch, the multi-level pool of one
+     image's pyramid and RoIs on the card against the CPU (the share of
+     equal values and the largest difference in bf16 ulps, at most one),
+     every bottom-up and FPN weight at the start times the scalar that
+     weight decay and momentum alone give after 4 steps, every bias
+     unchanged;
+ 21. the deformable blocks ("deform"): ``oicr_WSR_50_DC5_deform_1x.yaml``
+     (modulated deformable res4 and res5, K1, FREEZE_AT 5, TTA) from
+     seeded random weights with nonzero offset convs: 4 steps of B=4, the
+     TTA eval of 2 images; K1 once per step and per TTA group and exact at
+     the largest map, ``deform_conv2d`` of one image of a train step's
+     call on the card against the CPU (within one bf16 ulp of each value
+     plus 2^-15 of the largest), and res4's
+     first block with zero offsets and unit masks against the plain
+     bottleneck of its weights (within 2 bf16 ulps of the largest value).
+Every path (4-8, 10-21) is run with the kernels' launch counts set to 0
 just before it and read just after. The line before the kernels' JSON
-line gives the run's total seconds. The second-to-last line is the card's name
+line says whether the machine has libjpeg's ``jpeglib.h`` and a loadable
+``libjpeg.so`` (never a failure); the line before that gives the run's
+total seconds. The second-to-last line is the card's name
 and power limit, the line before it a JSON object of per-kernel numbers,
 the last ``{"ok": true, "device": {...}}``.
 """
@@ -3406,6 +3439,487 @@ def phase18_bn(dev, tag) -> dict:
     return run["launches"]
 
 
+# phases 19-21: steps, eval images, train records
+PH19_STEPS, PH19_TEST = 4, 2
+# on random weights the YAMLs' BASE_LR 0.01 drives Cascade's losses to NaN
+# within 3 steps (a CPU rehearsal at narrow widths); the smoke cuts it
+PH19_LR = 1e-4
+PH20_STEPS, PH20_TRAIN, PH20_TEST = 4, 8, 2
+PH21_STEPS, PH21_TEST = 4, 2
+SUPERVISED_NAMES = {
+    "fast_rcnn": {"loss_cls", "loss_box_reg", "total_loss"},
+    "cascade": {f"loss_{n}_stage{k}" for n in ("cls", "box_reg")
+                for k in range(3)} | {"total_loss"}}
+
+
+def bf16_ulps(got, want) -> tuple:
+    """(values equal, largest |diff| in bfloat16 ulps of the CPU value) of
+    a card tensor against its CPU twin."""
+    g, w = got.float().cpu(), want.float().cpu()
+    ulp = 2.0 ** (torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -126)))
+                  - 7)
+    return (float((g == w).float().mean()),
+            float(((g - w).abs() / ulp).max()))
+
+
+def sampler_capture(calls: list):
+    """A stand-in for ``fast_rcnn.subsample_proposals`` that keeps each
+    call's per-image foreground count and slot count, and the first
+    call's inputs and output."""
+    from drn_wsod_torch.models.heads import fast_rcnn
+
+    core = fast_rcnn.subsample_proposals
+
+    def capture(*args, **kw):
+        out = core(*args, **kw)
+        n_fg = ((out.gt_class >= 0) & out.valid).sum(1).tolist()
+        calls.append(dict(n_fg=n_fg, slots=int(out.indices.shape[1]),
+                          n_valid=out.valid.sum(1).tolist(),
+                          first=(args, kw, out) if not calls else None))
+        return out
+
+    return fast_rcnn, "subsample_proposals", capture
+
+
+def phase19_supervised(dev, tag) -> dict:
+    """Fast R-CNN and Cascade R-CNN (``retrain_fast_rcnn_WSR_50_DC5_1x``,
+    ``cascade_rcnn_WSR_50_DC5_1x``: WS-R50 DC5, FREEZE_AT 2, the
+    differentiable RoIPool, bfloat16) through ``train_net.main`` at full
+    width from seeded random weights on packed shards with instance GT:
+    PH19_STEPS steps of B=4 each (the YAMLs' 8 is cut) at BASE_LR PH19_LR
+    (the YAMLs' 0.01 is cut), then the YAMLs' eval without TTA (the test loader) of PH19_TEST images. Every loss
+    finite, at least two buckets, no K1 launch (a trainable backbone takes
+    the differentiable pool), at most 128 foreground slots of 512 per
+    image, and the sampler's core on the card bit-equal to the CPU's on
+    the same keys."""
+    import shutil
+
+    from drn_wsod_torch.models.heads import fast_rcnn
+
+    t_phase = time.perf_counter()
+    here = Path(__file__).resolve().parent / "configs" / "PascalVOC-Detection"
+    launches = {}
+    for name, yaml, head in (
+            ("fast_rcnn", here / "retrain_fast_rcnn_WSR_50_DC5_1x.yaml",
+             "StandardROIHeads"),
+            ("cascade", here / "cascade_rcnn_WSR_50_DC5_1x.yaml",
+             "CascadeROIHeads")):
+        yaml_is(19, yaml, MODEL__ROI_HEADS__NAME=head,
+                MODEL__BACKBONE__FREEZE_AT=2, MODEL__RESNETS__DEPTH=50,
+                MODEL__RESNETS__RES5_DILATION=2, MODEL__DTYPE="bfloat16",
+                MODEL__ROI_BOX_HEAD__POOLER_TYPE="ROIPool",
+                SOLVER__IMS_PER_BATCH=8, TEST__AUG__ENABLED=False)
+        work, opts, hw = entry_setup(f"ph19_{name}", 19, PH12_TRAIN,
+                                     PH19_TEST)
+        opts += ["SOLVER.IMS_PER_BATCH", "4", "SOLVER.BASE_LR",
+                 str(PH19_LR), "SOLVER.MAX_ITER", str(PH19_STEPS),
+                 "SOLVER.CHECKPOINT_PERIOD", str(PH19_STEPS),
+                 "TEST.EVAL_TRAIN", "False"]
+        calls = []
+        run = entry_main(19, dev, yaml, opts, hw, [sampler_capture(calls)])
+        per_step = check_steps(19, run, ["plain"] * PH19_STEPS,
+                               {"plain": SUPERVISED_NAMES[name]})
+        buckets = sorted({b for _, b, _, _ in per_step})
+        if len(buckets) < 2:
+            raise Fail(f"phase 19: {name} trained at buckets {buckets}, "
+                       "want two")
+        if run["launches"]["roi_pool"] != 0:
+            raise Fail(f"phase 19: {name} launched K1 "
+                       f"{run['launches']['roi_pool']} times; its trainable "
+                       "backbone takes the differentiable pool")
+        check_detections(19, run, PH19_TEST)
+        n_fg = [n for c in calls for n in c["n_fg"]]
+        if len(calls) != PH19_STEPS or any(c["slots"] != 512
+                                           for c in calls) \
+                or max(n_fg) > 128:
+            raise Fail(f"phase 19: {name} sampler calls {len(calls)}, slots "
+                       f"{[c['slots'] for c in calls]}, foreground per image "
+                       f"{n_fg}: want one call a step, 512 slots, at most "
+                       "128 foreground")
+        args, kw, out = calls[0]["first"]
+        cpu = fast_rcnn.subsample_proposals(*(a.cpu() for a in args), **kw)
+        same = [f for f, a, b in zip(out._fields, out, cpu)
+                if torch.equal(a.cpu(), b)]
+        if len(same) != len(out._fields):
+            raise Fail(f"phase 19: {name} sampler core on the card differs "
+                       f"from the CPU's: only {same} equal")
+        neck = ("DAN [2048, 4096]" if name == "fast_rcnn"
+                else "3 stages of 2 FC 1024, class-agnostic boxes")
+        print_entry(19, f"{name} train_net.main ({yaml.name}: WS-R50 DC5, "
+                    f"FREEZE_AT 2, {neck}, bfloat16, dropout 0.5, the YAML's 640-800 scales, "
+                    f"P=4096, seeded random weights) {PH19_STEPS} steps of "
+                    f"B=4 (the YAML's 8 cut) at BASE_LR {PH19_LR} (the "
+                    f"YAML's 0.01 cut) on a packed shard of "
+                    f"{PH12_TRAIN} records with instance GT, then the eval "
+                    f"without TTA of {PH19_TEST} images", per_step, run,
+                    None, "none: the differentiable pool", PH19_TEST,
+                    f"; buckets {buckets}; sampler: 512 slots, foreground "
+                    f"per image {n_fg}, valid per image "
+                    f"{[n for c in calls for n in c['n_valid']]}; its core "
+                    f"on the card == CPU on the same keys "
+                    f"({', '.join(same)})"
+                    f"; phase so far {time.perf_counter() - t_phase:.1f} s",
+                    tag)
+        calls.clear()
+        launches[name] = run["launches"]
+        shutil.rmtree(work, ignore_errors=True)
+    return {k: sum(v[k] for v in launches.values())
+            for k in launches["fast_rcnn"]}
+
+
+def sgd_decay_factor(cfg, steps: int) -> float:
+    """The factor SGD with zero gradients leaves on a decayed weight after
+    ``steps`` updates (coupled decay, then momentum, then the lr), in
+    float64 from the config's schedule."""
+    from drn_wsod_torch.solver.build import build_lr_schedule
+
+    s, sched = cfg.SOLVER, build_lr_schedule(cfg)
+    a, t = 1.0, 0.0
+    for k in range(steps):
+        t = s.WEIGHT_DECAY * a + s.MOMENTUM * t
+        a -= sched(k) * t
+    return a
+
+
+def pool_capture(captured: dict):
+    """A stand-in for ``meta_arch.multilevel_roi_pool`` that keeps the
+    first image's pyramid and boxes a train step gives it."""
+    from drn_wsod_torch.models import meta_arch
+
+    pool = meta_arch.multilevel_roi_pool
+
+    def capture(features, strides, boxes, *a, **kw):
+        if torch.is_grad_enabled() and "features" not in captured:
+            captured.update(features={k: v.clone()
+                                      for k, v in features.items()},
+                            strides=dict(strides), boxes=boxes.clone(),
+                            args=a, kw=kw)
+        return pool(features, strides, boxes, *a, **kw)
+
+    return meta_arch, "multilevel_roi_pool", capture
+
+
+def phase20_fpn(dev, tag) -> dict:
+    """The FPN (``COCO-Detection/fpn_oicr_WSR_50_1x.yaml``: WS-R50 pyramid,
+    FPN 256, ROIAlignV2 over p2-p5, DAN [1024, 4096], 80 classes, 3 OICR
+    branches, bfloat16, FREEZE_AT 5, TTA) through ``train_net.main`` at
+    full width from seeded random weights on a packed COCO-format shard:
+    PH20_STEPS steps of B=4, then the TTA eval of PH20_TEST images (P=4096
+    a view). Every loss finite, no K1 launch, the multi-level pool on the
+    card against the CPU on one image's pyramid and RoIs (bfloat16: values
+    equal, largest difference within one ulp), and every bottom-up and FPN
+    weight moved by weight decay and momentum alone: its ratio to the
+    start is the one scalar the schedule gives, the biases unchanged."""
+    import shutil
+
+    import drn_wsod_torch
+    from drn_wsod_torch.data import DatasetCatalog
+    from drn_wsod_torch.ops.poolers import (assign_boxes_to_levels,
+                                            multilevel_roi_pool)
+    from drn_wsod_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    yaml = Path(__file__).resolve().parent / "configs" / \
+        "COCO-Detection" / "fpn_oicr_WSR_50_1x.yaml"
+    yaml_is(20, yaml, MODEL__BACKBONE__NAME="build_resnet_fpn_backbone",
+            MODEL__FPN__OUT_CHANNELS=256, MODEL__ROI_HEADS__IN_FEATURES=[
+                "p2", "p3", "p4", "p5"],
+            MODEL__ROI_BOX_HEAD__POOLER_TYPE="ROIAlignV2",
+            MODEL__ROI_BOX_HEAD__DAN_DIM=[1024, 4096],
+            MODEL__ROI_HEADS__NUM_CLASSES=80, MODEL__BACKBONE__FREEZE_AT=5,
+            MODEL__DTYPE="bfloat16", SOLVER__IMS_PER_BATCH=4,
+            TEST__AUG__ENABLED=True)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_ph20"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rs = np.random.RandomState(20)
+    train_props, train_hw = coco_split(work, "coco_2014_train", PH20_TRAIN,
+                                       rs, 0)
+    test_props, test_hw = coco_split(work, "coco_2014_val", PH20_TEST, rs, 1)
+    opts = ["DATASETS.PROPOSAL_FILES_TRAIN", repr((train_props,)),
+            "DATASETS.PROPOSAL_FILES_TEST", repr((test_props,)),
+            "MODEL.WEIGHTS", "", "OUTPUT_DIR", str(work / "output"),
+            "SEED", "0", "TEST.EVAL_PERIOD", "0", "TEST.EVAL_TRAIN", "False",
+            "SOLVER.MAX_ITER", str(PH20_STEPS), "SOLVER.CHECKPOINT_PERIOD",
+            str(PH20_STEPS)]
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_file(str(yaml))
+    cfg.merge_from_list(opts)
+    built, captured = {}, {}
+    build_model = train_net.build_model
+
+    def snapshot(cfg, device=None):
+        model = build_model(cfg, device=device)
+        built["model"] = model
+        built["before"] = {k: v.detach().cpu().clone() for k, v in
+                           model.backbone.named_parameters()}
+        return model
+    try:
+        run = entry_main(20, dev, yaml, opts, {**train_hw, **test_hw},
+                         [pool_capture(captured),
+                          (train_net, "build_model", snapshot)], coco=True)
+    finally:
+        for name in ("coco_2014_train", "coco_2014_val"):
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+    per_step = check_steps(20, run, ["plain"] * PH20_STEPS,
+                           {"plain": OICR_NAMES})
+    if run["launches"]["roi_pool"] != 0:
+        raise Fail(f"phase 20: K1 launched {run['launches']['roi_pool']} "
+                   "times; the FPN pools by RoIAlign")
+    check_detections(20, run, PH20_TEST)
+    model = built["model"]
+    if model.pyramid_strides != (("p2", 4), ("p3", 8), ("p4", 16),
+                                 ("p5", 32)):
+        raise Fail(f"phase 20: pyramid {model.pyramid_strides}")
+    want = sgd_decay_factor(cfg, PH20_STEPS)
+    after = {k: v.detach().cpu() for k, v in
+             model.backbone.named_parameters()}
+    spread, bad = 0.0, []
+    for k, p0 in built["before"].items():
+        p = after[k]
+        if k.endswith(".bias"):
+            if not torch.equal(p, p0):
+                bad.append(k)
+            continue
+        nz = p0 != 0
+        ratio = p.double()[nz] / p0.double()[nz]
+        spread = max(spread, float(ratio.max() - ratio.min()))
+        if abs(float(ratio.mean()) - want) > 1e-6 or \
+                float(ratio.max() - ratio.min()) > 2e-6:
+            bad.append(k)
+    if bad or len(after) != len(built["before"]):
+        raise Fail(f"phase 20: frozen backbone weights moved other than by "
+                   f"decay (factor {want}): {bad[:4]}")
+    feats = captured.get("features")
+    if feats is None:
+        raise Fail("phase 20: no multi-level pool captured in a train step")
+    args = (captured["strides"], captured["boxes"], *captured["args"])
+    got = multilevel_roi_pool(feats, *args, **captured["kw"])
+    cpu = multilevel_roi_pool({k: v.cpu() for k, v in feats.items()},
+                              captured["strides"], captured["boxes"].cpu(),
+                              *captured["args"], **captured["kw"])
+    equal, ulps = bf16_ulps(got, cpu)
+    if ulps > 1:
+        raise Fail(f"phase 20: multi-level pool on the card {ulps} bf16 "
+                   "ulps from the CPU")
+    levels = torch.bincount(assign_boxes_to_levels(
+        captured["boxes"], 2, 5).long().cpu(), minlength=6)[2:].tolist()
+    pool_ms = cuda_ms(lambda: multilevel_roi_pool(feats, *args,
+                                                  **captured["kw"]), 3)
+    print_entry(20, f"FPN OICR train_net.main, {PH20_STEPS} steps of B=4 "
+                f"(COCO-Detection/fpn_oicr_WSR_50_1x: WS-R50 pyramid, FPN "
+                f"256 p2-p6, ROIAlignV2 over p2-p5, DAN [1024, 4096], 80 "
+                f"classes, 3 OICR branches, bfloat16, FREEZE_AT 5, dropout "
+                f"0.5, crop, 24 scales, flip, P=4096, seeded random "
+                f"weights) on a packed COCO-format shard of {PH20_TRAIN} "
+                f"images, then TTA eval of {PH20_TEST} images", per_step,
+                run, None, "none: the pyramid pools by RoIAlign",
+                PH20_TEST,
+                f"; {len(after)} bottom-up and FPN tensors in the optimizer "
+                f"with zero gradients: every weight's ratio to its start "
+                f"the decay factor {want:.9f} (largest spread {spread:.3g}), "
+                f"every bias unchanged; multi-level pool of one image "
+                f"({tuple(captured['boxes'].shape)} RoIs, levels p2-p5 "
+                f"{levels}, pyramid "
+                f"{[tuple(v.shape) for v in feats.values()]}) on the card "
+                f"vs the CPU: {equal:.6f} of the values equal, largest "
+                f"difference {ulps:g} bf16 ulps; {pool_ms:.3f} ms a call "
+                f"(CUDA events)"
+                f"; phase {time.perf_counter() - t_phase:.1f} s", tag)
+    built.clear()
+    captured.clear()
+    shutil.rmtree(work, ignore_errors=True)
+    return run["launches"]
+
+
+def deform_capture(captured: dict):
+    """A stand-in for ``resnet_ws.deform_conv2d`` that keeps the first
+    image of the first call a train step makes."""
+    from drn_wsod_torch.models.backbones import resnet_ws
+
+    op = resnet_ws.deform_conv2d
+
+    def capture(x, offsets, weight, modulation=None, dilation=1):
+        if "x" not in captured:
+            captured.update(x=x[:1].clone(), offsets=offsets[:1].clone(),
+                            weight=weight.clone(), dilation=dilation,
+                            modulation=None if modulation is None
+                            else modulation[:1].clone())
+        return op(x, offsets, weight, modulation, dilation=dilation)
+
+    return resnet_ws, "deform_conv2d", capture
+
+
+def zero_offset_check(block, x) -> tuple:
+    """The modulated block with its offset conv zeroed and its mask bias
+    at 30 (sigmoid 1 in float32) against the plain bottleneck of the same
+    weights on ``x``: (largest |diff|, one bfloat16 ulp of the largest
+    |value|)."""
+    import copy
+
+    from drn_wsod_torch.models.backbones.resnet_ws import BottleneckBlock
+
+    deform = copy.deepcopy(block)
+    with torch.no_grad():
+        deform.conv2_offset.weight.zero_()
+        deform.conv2_offset.bias.zero_()
+        deform.conv2_offset.bias[18:] = 30.0
+        plain = BottleneckBlock(
+            deform.conv1.in_channels, deform.conv3.out_channels,
+            deform.conv1.out_channels, dilation=deform.conv2.dilation[0],
+            has_pool=deform.has_pool, pool_stride=deform.pool_stride,
+            dtype=deform.conv1.compute_dtype).to(x.device)
+        plain.load_state_dict({k: v for k, v in deform.state_dict().items()
+                               if "conv2_offset" not in k})
+        plain.to(memory_format=torch.channels_last)
+        a, b = deform(x).float(), plain(x).float()
+    top = float(b.abs().max())
+    return float((a - b).abs().max()), 2.0 ** (math.floor(math.log2(top))
+                                               - 7)
+
+
+def phase21_deform(dev, tag) -> dict:
+    """Deformable blocks (``oicr_WSR_50_DC5_deform_1x.yaml``: modulated
+    deformable bottlenecks in res4 and res5, FREEZE_AT 5, K1, TTA) through
+    ``train_net.main`` at full width from seeded random weights (nonzero
+    ``conv2_offset``): PH21_STEPS steps of B=4, then the TTA eval of
+    PH21_TEST images. Every loss finite, K1 once per step and per TTA
+    group and exact at the largest map, ``deform_conv2d`` on the card
+    against the CPU on one image of a train step's call (bfloat16, within
+    one ulp of each value plus 2^-15 of the largest, for the float32
+    sums' order), and res4's first block with zero offsets and unit masks
+    against the plain bottleneck of its weights (within 2 bfloat16 ulps of
+    the largest value)."""
+    import shutil
+
+    import drn_wsod_torch
+    from drn_wsod_torch.ops.deform_conv import deform_conv2d
+    from drn_wsod_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    yaml = Path(__file__).resolve().parent / "configs" / \
+        "PascalVOC-Detection" / "oicr_WSR_50_DC5_deform_1x.yaml"
+    yaml_is(21, yaml, MODEL__RESNETS__DEFORM_ON_PER_STAGE=[
+                False, False, True, True],
+            MODEL__RESNETS__DEFORM_MODULATED=True, MODEL__RESNETS__DEPTH=50,
+            MODEL__BACKBONE__FREEZE_AT=5, MODEL__DTYPE="bfloat16",
+            SOLVER__IMS_PER_BATCH=4, TEST__AUG__ENABLED=True)
+    work, opts, hw = entry_setup("ph21", 21, PH12_TRAIN, PH21_TEST)
+    opts += ["SOLVER.MAX_ITER", str(PH21_STEPS), "SOLVER.CHECKPOINT_PERIOD",
+             str(PH21_STEPS), "TEST.EVAL_TRAIN", "False"]
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_file(str(yaml))
+    cfg.merge_from_list(opts)
+    tta_groups = tta_group_count(cfg, {k: v for k, v in hw.items()
+                                       if int(k) >= 100})
+    captured, deform, built = {}, {}, {}
+    build_model = train_net.build_model
+
+    def keep(cfg, device=None):
+        built["model"] = build_model(cfg, device=device)
+        return built["model"]
+    run = entry_main(21, dev, yaml, opts, hw, [
+        k1_capture(captured), deform_capture(deform),
+        (train_net, "build_model", keep)])
+    per_step = check_steps(21, run, ["plain"] * PH21_STEPS,
+                           {"plain": OICR_NAMES})
+    if run["launches"]["roi_pool"] != PH21_STEPS + tta_groups:
+        raise Fail(f"phase 21: K1 launches {run['launches']['roi_pool']}, "
+                   f"want {PH21_STEPS} steps + {tta_groups} TTA groups")
+    check_detections(21, run, PH21_TEST)
+    model = built.pop("model")
+    block = model.backbone.res4[0]
+    if type(block).__name__ != "DeformBottleneckBlock" or \
+            block.conv2_offset.out_channels != 27 or \
+            not block.conv2_offset.weight.abs().sum() > 0:
+        raise Fail("phase 21: res4's blocks are not modulated deformable "
+                   "blocks with a nonzero offset conv")
+    if "x" not in deform:
+        raise Fail("phase 21: no deform_conv2d call captured")
+    args = (deform["x"], deform["offsets"], deform["weight"],
+            deform["modulation"])
+    got = deform_conv2d(*args, dilation=deform["dilation"]).float().cpu()
+    cpu = deform_conv2d(*(a.cpu() for a in args),
+                        dilation=deform["dilation"]).float()
+    # the sampled taps round alike on both devices; the float32 sums
+    # differ in order, which near a cancelling sum moves the one bf16
+    # rounding by more than an ulp of the (small) value: allow one ulp of
+    # the value plus 2^-15 of the largest |value|
+    d_equal, d_ulps = bf16_ulps(got, cpu)
+    top = float(cpu.abs().max())
+    ulp = 2.0 ** (torch.floor(torch.log2(cpu.abs().clamp(min=2.0 ** -126)))
+                  - 7)
+    d_off = (got - cpu).abs() - ulp
+    if float(d_off.max()) > top * 2.0 ** -15:
+        raise Fail(f"phase 21: deform_conv2d on the card "
+                   f"{float(d_off.max())} past one ulp from the CPU "
+                   f"(allowed {top * 2.0 ** -15})")
+    d_top = float((got - cpu).abs().max()) / (2.0 ** (math.floor(
+        math.log2(top)) - 7))
+    d_more = int((d_off > 0).sum())
+    d_ms = cuda_ms(lambda: deform_conv2d(*args, dilation=deform["dilation"]),
+                   3)
+    x = torch.relu(torch.randn(2, block.conv1.in_channels, 88, 88,
+                               device=dev, dtype=torch.bfloat16)).to(
+        memory_format=torch.channels_last)
+    z_diff, z_tol = zero_offset_check(block, x)
+    if z_diff > 2 * z_tol:
+        raise Fail(f"phase 21: the block with zero offsets is {z_diff} from "
+                   f"the plain bottleneck (2 ulps: {2 * z_tol})")
+    del model, block
+    k1 = k1_exact(21, captured)
+    print_entry(21, f"deformable OICR train_net.main, {PH21_STEPS} steps of "
+                f"B=4 (oicr_WSR_50_DC5_deform_1x: WS-R50 DC5, modulated "
+                f"deformable res4 and res5, DAN [2048, 4096], 3 OICR "
+                f"branches, bfloat16, FREEZE_AT 5, dropout 0.5, crop, 24 "
+                f"scales, flip, P=4096, seeded random weights with nonzero "
+                f"offset convs) on a packed shard of {PH12_TRAIN} records, "
+                f"then TTA eval of {PH21_TEST} images", per_step, run, k1,
+                f"{PH21_STEPS} steps + {tta_groups} TTA groups", PH21_TEST,
+                f"; deform_conv2d of one image "
+                f"{tuple(deform['x'].shape)} (dilation "
+                f"{deform['dilation']}, weight "
+                f"{tuple(deform['weight'].shape)}) on the card vs the CPU: "
+                f"{d_equal:.6f} of the values equal, {d_more} of "
+                f"{cpu.numel()} more than an ulp of their own from the CPU "
+                f"(largest {d_ulps:g} of its own ulps), largest difference "
+                f"{d_top:g} ulps of the largest |value| {top:g}; "
+                f"{d_ms:.3f} ms a call (CUDA events); "
+                f"res4.0 with zero offsets and unit masks vs the plain "
+                f"bottleneck on (2, {x.shape[1]}, 88, 88): max |diff| "
+                f"{z_diff:g} (one bf16 ulp of the largest value {z_tol:g})"
+                f"; phase {time.perf_counter() - t_phase:.1f} s", tag)
+    deform.clear()
+    shutil.rmtree(work, ignore_errors=True)
+    return run["launches"]
+
+
+def jpeg_probe() -> str:
+    """Whether this machine has libjpeg's header and a loadable library
+    (for binding the system's libjpeg in a JPEG decoder); never raises."""
+    import ctypes
+    import ctypes.util
+    import glob
+
+    try:
+        headers = sorted(h for d in ("/usr/include", "/usr/local/include")
+                         for pattern in ("jpeglib.h", "*-linux-gnu/jpeglib.h")
+                         for h in glob.glob(f"{d}/{pattern}"))
+        name = ctypes.util.find_library("jpeg")
+        loaded = "not found"
+        if name:
+            try:
+                ctypes.CDLL(name)
+                loaded = f"{name} loads"
+            except OSError as e:
+                loaded = f"{name} does not load ({e})"
+        return (f"libjpeg: jpeglib.h {headers or 'not found'}; "
+                f"find_library('jpeg'): {loaded}")
+    except Exception as e:               # the probe must never fail the run
+        return f"libjpeg: probe failed ({e!r})"
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3471,6 +3985,12 @@ def main() -> int:
         paths["coco"] = phase17_coco(dev, tag)
         torch.cuda.empty_cache()
         paths["bn"] = phase18_bn(dev, tag)
+        torch.cuda.empty_cache()
+        paths["supervised"] = phase19_supervised(dev, tag)
+        torch.cuda.empty_cache()
+        paths["fpn"] = phase20_fpn(dev, tag)
+        torch.cuda.empty_cache()
+        paths["deform"] = phase21_deform(dev, tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1
@@ -3486,6 +4006,7 @@ def main() -> int:
     print(f"launches per path: {json.dumps(paths)}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_run:.1f} s {tag}")
+    print(jpeg_probe())
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,14 @@
 returns a state dict under the port's Detectron2-style names
 (``backbone.res2.0.conv1.weight``, ``backbone.plain1.0.conv1.bias``): the
 inverse of ``drn_wsod_tpu/checkpoint/torch_import.py:_d2_name_to_flax``
-without its ``roi_heads.`` prefix. Conv kernels go from HWIO to OIHW, dense
-kernels from (I, O) to (O, I); biases and FrozenBN's four vectors copy
-unchanged. Both packages flatten the RoI features as (7, 7, C), so fc1 is
+without its ``roi_heads.`` prefix, plus the names that map cannot reach:
+Cascade's ``cascade_head_{k}`` and ``cascade_predictor_{k}`` become
+``box_head.{k}`` and ``box_predictor.{k}``, the FPN's ``fpn_lateral_res{n}``
+and ``fpn_output_res{n}`` become ``fpn_lateral{n}`` and ``fpn_output{n}``,
+and a deformable block's ``conv2_deform_weight`` becomes ``conv2.weight``.
+Conv kernels (and ``conv2_deform_weight``, an HWIO kernel by another name)
+go from HWIO to OIHW, dense kernels from (I, O) to (O, I); biases and
+FrozenBN's four vectors copy unchanged. Both packages flatten the RoI features as (7, 7, C), so fc1 is
 only transposed. Under ``NORM`` BN the flax BatchNorm's ``scale`` becomes
 ``norm.weight``, and its ``batch_stats`` (``mean``, ``var``, passed apart)
 ``norm.running_mean`` and ``norm.running_var``.
@@ -22,14 +27,15 @@ import numpy as np
 import torch
 
 _PORT_NAME = re.compile(
-    r"^(backbone\.stem\.conv\d"
-    r"|backbone\.res\d\.\d+\.(conv\d|shortcut)"
+    r"^(backbone\.(bottom_up\.)?stem\.conv\d"
+    r"|backbone\.(bottom_up\.)?res\d\.\d+\.(conv\d|shortcut|conv2_offset)"
     r"|backbone\.plain\d\.0\.conv\d"
+    r"|backbone\.fpn_(lateral|output)\d"
     r"|seg_head\.(aspp\.(conv1x1|conv3x3_d\d+|pool_conv|project)"
     r"|predictor)"
-    r"|box_head\.fc\d+"
-    r"|box_predictor\.(cls|det)"
-    r"|box_refinery\.\d+\.(cls_score|bbox_pred))"
+    r"|box_head\.(\d+\.)?fc\d+"
+    r"|box_predictor\.(cls|det|cls_score|bbox_pred)"
+    r"|(box_predictor|box_refinery)\.\d+\.(cls_score|bbox_pred))"
     r"\.(weight|bias|norm\.(weight|bias|running_mean|running_var))$")
 
 
@@ -43,6 +49,10 @@ def port_name(flax_name: str) -> str:
     n = re.sub(r"\b(plain\d)\.", r"\1.0.", n)
     n = re.sub(r"\b(conv\d|shortcut)_norm\.", r"\1.norm.", n)
     n = re.sub(r"^box_refinery_(\d+)\.", r"box_refinery.\1.", n)
+    n = re.sub(r"^cascade_head_(\d+)\.", r"box_head.\1.", n)
+    n = re.sub(r"^cascade_predictor_(\d+)\.", r"box_predictor.\1.", n)
+    n = re.sub(r"\.fpn_(lateral|output)_res(\d)\.", r".fpn_\1\2.", n)
+    n = re.sub(r"\.conv2_deform_weight$", ".conv2.weight", n)
     n = re.sub(r"\.norm\.scale$", ".norm.weight", n)        # flax BatchNorm
     n = re.sub(r"\.norm\.(mean|var)$", r".norm.running_\1", n)
     return re.sub(r"\.kernel$", ".weight", n)
@@ -74,7 +84,7 @@ def params_from_jax(flat: Dict[str, np.ndarray],
         if name in out:
             raise KeyError(f"flax params map twice to {name!r}")
         v = np.array(value, dtype=np.float32)     # a writable copy
-        if key.endswith(".kernel"):
+        if key.endswith((".kernel", ".conv2_deform_weight")):
             if v.ndim == 4:
                 v = v.transpose(3, 2, 0, 1)          # HWIO -> OIHW
             elif v.ndim == 2:

@@ -7,6 +7,15 @@ layouts, so a reference checkpoint loads by name once the ``module.`` and
 consumes flattened RoI features, (C, 7, 7) in Detectron2 and (7, 7, C) in
 both packages, so its input axis is permuted.
 
+Where the JAX package's name map reaches no flax parameter, the port
+loads nothing either, so that a checkpoint gives both the same model:
+Cascade R-CNN's per-stage ``box_head.{k}`` and ``box_predictor.{k}`` (flax
+``cascade_head_{k}``, ``cascade_predictor_{k}``), the FPN's
+``fpn_lateral{n}`` and ``fpn_output{n}`` (flax ``fpn_lateral_res{n}``,
+``fpn_output_res{n}``) and a deformable block's ``conv2.weight`` (flax
+``conv2_deform_weight``) are reported unmatched in the checkpoint and
+missing from the model, and keep their values.
+
 Under ``NORM`` BN the import does what the JAX package's does: of each
 BatchNorm only ``norm.bias`` loads. A Detectron2 ``norm.weight`` finds no
 flax BatchNorm ``scale`` there, and its params hold no statistics, so
@@ -24,7 +33,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..models.backbones.resnet_ws import BatchNorm
+from ..models.backbones.resnet_ws import BatchNorm, DeformConv2d
 
 logger = logging.getLogger(__name__)
 
@@ -54,6 +63,11 @@ def _port_key(name: str) -> str:
     return re.sub(r"^roi_heads\.", "", re.sub(r"^module\.", "", name))
 
 
+# state-dict keys the JAX package's Detectron2 name map cannot reach
+_JAX_UNREACHED = re.compile(r"^(box_head|box_predictor)\.\d+\."
+                            r"|^backbone\.fpn_(lateral|output)\d\.")
+
+
 def _convert(value: np.ndarray, target: torch.Tensor, key: str) -> np.ndarray:
     v = np.asarray(value)
     if key == "box_head.fc1.weight" and v.ndim == 2 and \
@@ -80,7 +94,10 @@ def load_reference_weights(path: str, model: torch.nn.Module
     own = model.state_dict()
     bn = [n for n, m in model.named_modules() if isinstance(m, BatchNorm)]
     stats = {f"{n}.{s}" for n in bn for s in ("running_mean", "running_var")}
-    unloadable = stats | {f"{n}.weight" for n in bn}
+    unloadable = stats | {f"{n}.weight" for n in bn} | {
+        f"{n}.weight" for n, m in model.named_modules()
+        if isinstance(m, DeformConv2d)} | {
+        k for k in own if _JAX_UNREACHED.match(k)}
     converted = {}
     unmatched = []
     for name, val in state.items():

@@ -62,7 +62,7 @@ class DatasetMapper:
         if cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINT_ON:
             raise NotImplementedError(
                 "the mapper's mask and keypoint arms are not ported yet: "
-                "ROADMAP.md queue 1, item 14 (supervised and pyramid paths)")
+                "ROADMAP.md queue 1, item 14 (the mask and keypoint arms)")
         self.is_train = is_train
         self.num_classes = num_classes or cfg.MODEL.ROI_HEADS.NUM_CLASSES
         self.fmt = cfg.INPUT.FORMAT

@@ -127,7 +127,7 @@ class COCODetectionEvaluator:
             raise NotImplementedError(
                 f"COCO evaluator tasks {dense}: instance-mask and keypoint "
                 "AP are not ported yet: ROADMAP.md queue 1, item 14 "
-                "(supervised and pyramid paths)")
+                "(the mask and keypoint arms)")
         self._class_names = list(class_names)
         self._gt = gt_by_image
         self._tasks = tuple(tasks)

@@ -4,8 +4,16 @@
 Residual blocks keep stride 1 and downsample with trailing 2x2 max-pools
 (VALID padding). Under DC5 (RES5_DILATION 2) res3's trailing pool has
 stride 1, so each side shrinks by one cell: a 704-pixel image gives an
-87x87 res5 map. The plain ResNet (``ResNetPlain``) strides its blocks
+87x87 res5 map. The pyramid variant (``pyramid=True``, the FPN's bottom-up
+tower) pools after res3, res4 and res5 with stride 2 and no dilation, for
+strides 4/8/16/32. The plain ResNet (``ResNetPlain``) strides its blocks
 instead, from a 7x7 stem; under DC5 its res5 is at stride 16.
+
+``NUM_GROUPS`` > 1 groups the bottlenecks' 3x3 convs (ResNeXt), in both
+towers. ``DEFORM_ON_PER_STAGE`` makes a WS stage's bottlenecks deformable
+(:class:`DeformBottleneckBlock`, modulated under ``DEFORM_MODULATED``); the
+plain ResNet and the pyramid tower ignore it, as the JAX package's builders
+do.
 
 Modules follow Detectron2's names (``stem.conv1``, ``res2.0.conv1.norm``),
 so a Detectron2 state dict or the weight bridge
@@ -28,6 +36,8 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...ops.deform_conv import deform_conv2d
 
 NUM_BLOCKS_PER_STAGE = {
     18: [2, 2, 2, 2],
@@ -102,10 +112,10 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  stride: int = 1, dilation: int = 1, norm: str = "FrozenBN",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, groups: int = 1):
         super().__init__(in_channels, out_channels, kernel, stride=stride,
                          padding=dilation * (kernel // 2), dilation=dilation,
-                         bias=False)
+                         groups=groups, bias=False)
         self.norm = norm_layer(norm, out_channels)
         self.compute_dtype = dtype
 
@@ -147,21 +157,24 @@ class BasicBlock(nn.Module):
 
 
 class BottleneckBlock(nn.Module):
-    """1x1 -> 3x3 (dilated) -> 1x1 bottleneck with an optional trailing 2x2
-    max-pool. ``stride`` > 1 (the plain ResNet) strides the first 1x1 where
-    ``stride_in_1x1``, else the 3x3, and the shortcut."""
+    """1x1 -> 3x3 (dilated, in ``num_groups`` groups) -> 1x1 bottleneck with
+    an optional trailing 2x2 max-pool. ``stride`` > 1 (the plain ResNet)
+    strides the first 1x1 where ``stride_in_1x1``, else the 3x3, and the
+    shortcut."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  bottleneck_channels: int, dilation: int = 1,
                  has_pool: bool = False, pool_stride: int = 1,
                  stride: int = 1, stride_in_1x1: bool = True,
-                 norm: str = "FrozenBN", dtype: Optional[torch.dtype] = None):
+                 num_groups: int = 1, norm: str = "FrozenBN",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         bc = bottleneck_channels
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         conv = functools.partial(Conv2d, norm=norm, dtype=dtype)
         self.conv1 = conv(in_channels, bc, 1, stride=s1)
-        self.conv2 = conv(bc, bc, 3, stride=s3, dilation=dilation)
+        self.conv2 = conv(bc, bc, 3, stride=s3, dilation=dilation,
+                          groups=num_groups)
         self.conv3 = conv(bc, out_channels, 1)
         self.shortcut = (conv(in_channels, out_channels, 1, stride=stride)
                          if in_channels != out_channels or stride > 1
@@ -171,6 +184,74 @@ class BottleneckBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.conv1(x))
         out = F.relu(self.conv2(out))
+        out = self.conv3(out)
+        sc = x if self.shortcut is None else self.shortcut(x)
+        out = F.relu(out + sc)
+        return _maxpool2(out, self.pool_stride) if self.has_pool else out
+
+
+class DeformConv2d(Conv2d):
+    """The deformable 3x3 conv of :class:`DeformBottleneckBlock` and its
+    norm: ``weight`` (the JAX package's ``conv2_deform_weight``) is cast to
+    ``dtype`` at each use, and :func:`drn_wsod_torch.ops.deform_conv.
+    deform_conv2d` samples and contracts."""
+
+    def forward(self, x: torch.Tensor, offsets: torch.Tensor,
+                modulation: Optional[torch.Tensor]) -> torch.Tensor:
+        """x (B, C, H, W); offsets (B, H, W, 2*K*K) and modulation (B, H,
+        W, K*K) float32, or None."""
+        dt = self.compute_dtype or x.dtype
+        out = deform_conv2d(x.to(dt).permute(0, 2, 3, 1), offsets,
+                            self.weight.to(dt), modulation,
+                            dilation=self.dilation[0])
+        return self.norm(out.permute(0, 3, 1, 2))
+
+
+class DeformBottleneckBlock(nn.Module):
+    """A bottleneck whose 3x3 conv is deformable (v1) or modulated
+    deformable (v2): ``conv2_offset`` (a 3x3 conv with bias, 18 channels,
+    or 27 modulated) gives each position's per-tap offsets. It runs in
+    float32 on the upcast input, whatever the model's dtype: in the JAX
+    package flax promotes the bfloat16 input with its float32 parameters.
+    The modulated layout is x offsets, y offsets, mask, re-interleaved as
+    (dy, dx) per tap, the mask through a sigmoid. The shortcut projects
+    where the width changes; the block never strides."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 bottleneck_channels: int, dilation: int = 1,
+                 has_pool: bool = False, pool_stride: int = 1,
+                 deform_modulated: bool = False, norm: str = "FrozenBN",
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        bc = bottleneck_channels
+        conv = functools.partial(Conv2d, norm=norm, dtype=dtype)
+        self.conv1 = conv(in_channels, bc, 1)
+        self.modulated = deform_modulated
+        self.conv2_offset = nn.Conv2d(bc, 27 if deform_modulated else 18, 3,
+                                      padding=dilation, dilation=dilation)
+        self.conv2 = DeformConv2d(bc, bc, 3, dilation=dilation, norm=norm,
+                                  dtype=dtype)
+        self.conv3 = conv(bc, out_channels, 1)
+        self.shortcut = (conv(in_channels, out_channels, 1)
+                         if in_channels != out_channels else None)
+        self.has_pool, self.pool_stride = has_pool, pool_stride
+
+    def offsets(self, x: torch.Tensor):
+        """(offsets, modulation or None) of conv1's output ``x``, float32,
+        channels last: the conv's product, then its bias."""
+        c = self.conv2_offset
+        off = F.conv2d(x.float(), c.weight.float(), None, padding=c.padding,
+                       dilation=c.dilation) + c.bias.float()[:, None, None]
+        off = off.permute(0, 2, 3, 1)
+        if not self.modulated:
+            return off, None
+        off_x, off_y, mask = off.chunk(3, dim=-1)
+        offsets = torch.stack([off_y, off_x], -1).flatten(-2)
+        return offsets, torch.sigmoid(mask)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.conv1(x))
+        out = F.relu(self.conv2(out, *self.offsets(out)))
         out = self.conv3(out)
         sc = x if self.shortcut is None else self.shortcut(x)
         out = F.relu(out + sc)
@@ -195,21 +276,29 @@ class BasicStem(nn.Module):
 
 
 def stage_specs(depth: int, res5_dilation: int, res2_out_channels: int,
-                bottleneck_channels: int, max_stage: int = 5) -> List[dict]:
-    """Per-stage structure (``ResNetWS.stage_specs`` without the pyramid
-    variant): res2 pools with stride 2; res3 pools with stride 2 unless
-    res5 is dilated, then with stride 1; res4 and res5 take the dilation."""
+                bottleneck_channels: int, max_stage: int = 5,
+                pyramid: bool = False) -> List[dict]:
+    """Per-stage structure (``ResNetWS.stage_specs``): res2 pools with
+    stride 2; res3 pools with stride 2 unless res5 is dilated, then with
+    stride 1; res4 and res5 take the dilation. ``pyramid``: no dilation,
+    and res3, res4 and res5 each pool with stride 2 (res2 does not)."""
     num_blocks = NUM_BLOCKS_PER_STAGE[depth]
     specs = []
     out_channels, bc = res2_out_channels, bottleneck_channels
     for idx, stage_idx in enumerate(range(2, max_stage + 1)):
+        if pyramid:
+            dilation, pool_stride, has_pool = 1, 2, stage_idx >= 3
+        else:
+            dilation = res5_dilation if stage_idx in (4, 5) else 1
+            pool_stride = (2 if idx == 0 or (stage_idx == 3
+                                             and res5_dilation == 1) else 1)
+            has_pool = stage_idx in (2, 3)
         specs.append(dict(
             stage=f"res{stage_idx}",
             num_blocks=num_blocks[idx],
-            dilation=res5_dilation if stage_idx in (4, 5) else 1,
-            pool_stride=(2 if idx == 0 or (stage_idx == 3 and res5_dilation == 1)
-                         else 1),
-            has_pool=stage_idx in (2, 3),
+            dilation=dilation,
+            pool_stride=pool_stride,
+            has_pool=has_pool,
             out_channels=out_channels,
             bottleneck_channels=bc,
         ))
@@ -219,12 +308,19 @@ def stage_specs(depth: int, res5_dilation: int, res2_out_channels: int,
 
 
 class ResNetWS(nn.Module):
-    """The WS-ResNet tower; returns {stage: NCHW map} for ``out_features``."""
+    """The WS-ResNet tower; returns {stage: NCHW map} for ``out_features``.
+    ``deform_on_per_stage[i]`` makes stage res{i+2}'s bottlenecks
+    deformable (not with ``num_groups`` > 1, which the JAX package's
+    deformable block asserts against)."""
 
-    def __init__(self, depth: int = 50, width_per_group: int = 64,
-                 stem_out_channels: int = 64, res2_out_channels: int = 256,
-                 res5_dilation: int = 2, out_features=("res5",),
-                 norm: str = "FrozenBN", dtype: Optional[torch.dtype] = None):
+    def __init__(self, depth: int = 50, num_groups: int = 1,
+                 width_per_group: int = 64, stem_out_channels: int = 64,
+                 res2_out_channels: int = 256, res5_dilation: int = 2,
+                 out_features=("res5",), pyramid: bool = False,
+                 norm: str = "FrozenBN",
+                 deform_on_per_stage=(False,) * 4,
+                 deform_modulated: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         basic = depth in (18, 34)
         if basic and res2_out_channels != 64:
@@ -233,10 +329,16 @@ class ResNetWS(nn.Module):
         self.stem = BasicStem(stem_out_channels, norm=norm, dtype=dtype)
         max_stage = max(int(f[-1]) for f in self.out_features)
         self.specs = stage_specs(depth, res5_dilation, res2_out_channels,
-                                 width_per_group, max_stage=max_stage)
+                                 num_groups * width_per_group,
+                                 max_stage=max_stage, pyramid=pyramid)
         in_ch = stem_out_channels
         self.stage_names = []
-        for spec in self.specs:
+        for i, spec in enumerate(self.specs):
+            deform = (not basic and i < len(deform_on_per_stage)
+                      and deform_on_per_stage[i])
+            if deform and num_groups != 1:
+                raise ValueError("the deformable bottleneck supports "
+                                 "NUM_GROUPS 1 only")
             blocks = []
             for b in range(spec["num_blocks"]):
                 kwargs = dict(dilation=spec["dilation"],
@@ -247,10 +349,16 @@ class ResNetWS(nn.Module):
                 if basic:
                     blocks.append(BasicBlock(in_ch, spec["out_channels"],
                                              **kwargs))
+                elif deform:
+                    blocks.append(DeformBottleneckBlock(
+                        in_ch, spec["out_channels"],
+                        spec["bottleneck_channels"],
+                        deform_modulated=deform_modulated, **kwargs))
                 else:
                     blocks.append(BottleneckBlock(
                         in_ch, spec["out_channels"],
-                        spec["bottleneck_channels"], **kwargs))
+                        spec["bottleneck_channels"], num_groups=num_groups,
+                        **kwargs))
                 in_ch = spec["out_channels"]
             self.add_module(spec["stage"], nn.Sequential(*blocks))
             self.stage_names.append(spec["stage"])
@@ -278,38 +386,25 @@ class ResNetWS(nn.Module):
         return outputs
 
 
-def _refuse_unported(r) -> None:
-    """Raise for the blocks of ``MODEL.RESNETS`` not ported yet, each
-    naming its ROADMAP.md item."""
-    if any(r.DEFORM_ON_PER_STAGE):
-        raise NotImplementedError(
-            "deformable ResNet blocks are not ported yet: ROADMAP.md queue "
-            "1, item 14 (supervised and pyramid paths)")
-    if r.NUM_GROUPS != 1:
-        raise NotImplementedError(
-            "grouped ResNet convs are not ported yet: ROADMAP.md queue 1, "
-            "item 14 (supervised and pyramid paths)")
-
-
 def model_dtype(cfg) -> torch.dtype:
     """``MODEL.DTYPE`` as a torch dtype."""
     return torch.bfloat16 if cfg.MODEL.DTYPE == "bfloat16" else torch.float32
 
 
 def build_ws_resnet_backbone(cfg) -> ResNetWS:
-    """Config-driven builder (``resnet_ws.py:build_ws_resnet_backbone``).
-    Deformable blocks and grouped convs come with a later slice of the
-    port and raise here."""
+    """Config-driven builder (``resnet_ws.py:build_ws_resnet_backbone``)."""
     r = cfg.MODEL.RESNETS
-    _refuse_unported(r)
     return ResNetWS(
         depth=r.DEPTH,
+        num_groups=r.NUM_GROUPS,
         width_per_group=r.WIDTH_PER_GROUP,
         stem_out_channels=r.STEM_OUT_CHANNELS,
         res2_out_channels=r.RES2_OUT_CHANNELS,
         res5_dilation=r.RES5_DILATION,
         out_features=tuple(r.OUT_FEATURES),
         norm=r.NORM,
+        deform_on_per_stage=tuple(r.DEFORM_ON_PER_STAGE),
+        deform_modulated=r.DEFORM_MODULATED,
         dtype=model_dtype(cfg),
     )
 
@@ -336,7 +431,8 @@ class ResNetPlain(nn.Module):
     and res5's too unless ``res5_dilation`` is 2 (DC5), where every res5
     block is dilated and res5 stays at stride 16."""
 
-    def __init__(self, depth: int = 50, width_per_group: int = 64,
+    def __init__(self, depth: int = 50, num_groups: int = 1,
+                 width_per_group: int = 64,
                  stem_out_channels: int = 64, res2_out_channels: int = 256,
                  res5_dilation: int = 2, stride_in_1x1: bool = True,
                  out_features=("res5",), norm: str = "FrozenBN",
@@ -352,7 +448,7 @@ class ResNetPlain(nn.Module):
         num_blocks = NUM_BLOCKS_PER_STAGE[depth]
         max_stage = max(int(f[-1]) for f in self.out_features)
         in_ch, out_ch, bc = stem_out_channels, res2_out_channels, \
-            width_per_group
+            num_groups * width_per_group
         self.stage_names = []
         for idx, stage_idx in enumerate(range(2, max_stage + 1)):
             dilation = res5_dilation if stage_idx == 5 else 1
@@ -368,7 +464,8 @@ class ResNetPlain(nn.Module):
                 else:
                     blocks.append(BottleneckBlock(
                         in_ch, out_ch, bc, dilation=dilation, stride=stride,
-                        stride_in_1x1=stride_in_1x1, norm=norm, dtype=dtype))
+                        stride_in_1x1=stride_in_1x1, num_groups=num_groups,
+                        norm=norm, dtype=dtype))
                 in_ch = out_ch
             self.add_module(f"res{stage_idx}", nn.Sequential(*blocks))
             self.stage_names.append(f"res{stage_idx}")
@@ -401,11 +498,12 @@ class ResNetPlain(nn.Module):
 
 def build_resnet_backbone(cfg) -> ResNetPlain:
     """The plain (strided) ResNet builder (``resnet_ws.py:
-    build_resnet_backbone``, Detectron2's ``build_resnet_backbone``)."""
+    build_resnet_backbone``, Detectron2's ``build_resnet_backbone``); it
+    ignores ``DEFORM_ON_PER_STAGE``, as the JAX package's does."""
     r = cfg.MODEL.RESNETS
-    _refuse_unported(r)
     return ResNetPlain(
         depth=r.DEPTH,
+        num_groups=r.NUM_GROUPS,
         width_per_group=r.WIDTH_PER_GROUP,
         stem_out_channels=r.STEM_OUT_CHANNELS,
         res2_out_channels=r.RES2_OUT_CHANNELS,

@@ -1,11 +1,14 @@
 """Model builder (counterpart of ``drn_wsod_tpu/models/build.py``).
 
-The port builds the WSOD meta-architecture over the WS-ResNet, the plain
-ResNet or VGG-16, named by ``MODEL.BACKBONE.NAME`` in a registry as in the
-JAX package, with the WSDDN, OICR, PCL, CSC, CSC + OICR or WSJDS (CSC with
-the segmentation branch) head, its backbone frozen or trainable from
-``FREEZE_AT``. Every other configuration the JAX package supports raises
-``NotImplementedError`` naming the ROADMAP.md queue-1 item that ports it.
+The port builds the WSOD meta-architecture over the WS-ResNet (deformable
+and grouped blocks included), the plain ResNet, VGG-16 or the FPN over the
+WS-ResNet, named by ``MODEL.BACKBONE.NAME`` in a registry as in the JAX
+package, with the WSDDN, OICR, PCL, CSC, CSC + OICR or WSJDS (CSC with the
+segmentation branch) head, or the supervised Fast R-CNN or Cascade R-CNN
+head, pooling by ROIPool, ROIAlign or ROIAlignV2 from one level or from the
+FPN's, its backbone frozen or trainable from ``FREEZE_AT``. Every other
+configuration the JAX package supports raises ``NotImplementedError``
+naming the ROADMAP.md queue-1 item that ports it.
 """
 
 from __future__ import annotations
@@ -17,22 +20,27 @@ import torch
 from ..config import CfgNode
 from ..device import resolve_device
 from ..solver.build import make_param_labels
-from .backbones import (build_resnet_backbone, build_vgg_backbone,
-                        build_ws_resnet_backbone)
+from .backbones import (build_resnet_backbone, build_resnet_fpn_backbone,
+                        build_vgg_backbone, build_ws_resnet_backbone)
 from .backbones.resnet_ws import model_dtype
 from .meta_arch import GeneralizedRCNNWSL
 
 # MODEL.BACKBONE.NAME -> builder (the JAX package's BACKBONE_REGISTRY)
 BACKBONES = {"build_ws_resnet_backbone": build_ws_resnet_backbone,
              "build_resnet_backbone": build_resnet_backbone,
-             "build_vgg_backbone": build_vgg_backbone}
+             "build_vgg_backbone": build_vgg_backbone,
+             "build_resnet_fpn_backbone": build_resnet_fpn_backbone}
 
 _HEAD_TYPES = {"WSDDNROIHeads": "WSDDN", "OICRROIHeads": "OICR",
                "PCLROIHeads": "PCL", "CSCROIHeads": "CSC",
                # CSC's weighted image loss with OICR's refinement branches
                "CSCOICRROIHeads": "OICR",
                # CSC with the semantic segmentation branch
-               "WSJDSROIHeads": "CSC"}
+               "WSJDSROIHeads": "CSC",
+               # the supervised heads of pseudo-GT retraining: both
+               # Detectron2 names take the one Fast R-CNN path
+               "StandardROIHeads": "FastRCNN", "Res5ROIHeads": "FastRCNN",
+               "CascadeROIHeads": "CascadeRCNN"}
 
 # heads whose train step takes CPG maps by gradients to the image: the
 # trainer switches to the CSC step for them, and their pool must carry
@@ -41,10 +49,6 @@ CSC_HEAD_NAMES = frozenset({"CSCROIHeads", "CSCOICRROIHeads",
                             "WSJDSROIHeads"})
 
 _NOT_YET = {
-    "StandardROIHeads": "item 14 (supervised and pyramid paths)",
-    "Res5ROIHeads": "item 14 (supervised and pyramid paths)",
-    "CascadeROIHeads": "item 14 (supervised and pyramid paths)",
-    "build_resnet_fpn_backbone": "item 14 (supervised and pyramid paths)",
     "RetinaNet": "item 15 (remaining models)",
     "PanopticFPN": "item 15 (remaining models)",
     "SemanticSegmentor": "item 15 (remaining models)",
@@ -64,29 +68,33 @@ def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
     if head_name not in _HEAD_TYPES:
         raise _not_ported("ROI head", head_name)
     box = cfg.MODEL.ROI_BOX_HEAD
-    if box.POOLER_TYPE != "ROIPool":
-        raise NotImplementedError(
-            f"POOLER_TYPE {box.POOLER_TYPE!r} is not ported yet: ROADMAP.md "
-            "queue 1, item 14 (supervised and pyramid paths)")
-    if len(cfg.MODEL.ROI_HEADS.IN_FEATURES) != 1:
-        raise NotImplementedError(
-            "multi-level pooling is not ported yet: ROADMAP.md queue 1, "
-            "item 14 (supervised and pyramid paths)")
+    if box.POOLER_TYPE not in ("ROIPool", "ROIAlign", "ROIAlignV2"):
+        raise ValueError(f"Unknown POOLER_TYPE {box.POOLER_TYPE!r}")
     if cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINT_ON:
         raise NotImplementedError(
             "mask and keypoint branches are not ported yet: ROADMAP.md "
-            "queue 1, item 14 (supervised and pyramid paths)")
+            "queue 1, item 14 (the mask and keypoint arms)")
 
     backbone = BACKBONES[cfg.MODEL.BACKBONE.NAME](cfg)
-    feature_name = cfg.MODEL.ROI_HEADS.IN_FEATURES[0]
+    in_features = list(cfg.MODEL.ROI_HEADS.IN_FEATURES)
+    feature_name = in_features[0]
+    strides = backbone.feature_strides
     head_type = _HEAD_TYPES[head_name]
     refine_k = cfg.WSL.REFINE_NUM if head_type in ("OICR", "PCL") else 0
     refine_reg = tuple(cfg.WSL.REFINE_REG)
     refine_reg = (refine_reg + (False,) * refine_k)[:refine_k]
+    cascade = cfg.MODEL.ROI_BOX_CASCADE_HEAD
     return GeneralizedRCNNWSL(
         backbone,
         feature_name=feature_name,
-        feature_stride=backbone.feature_strides[feature_name],
+        pyramid_strides=(tuple((f, strides[f]) for f in in_features)
+                         if len(in_features) > 1 else None),
+        pooler_type=box.POOLER_TYPE,
+        pooler_sampling_ratio=box.POOLER_SAMPLING_RATIO or 2,
+        cascade_ious=tuple(cascade.IOUS),
+        cascade_reg_weights=tuple(tuple(w)
+                                  for w in cascade.BBOX_REG_WEIGHTS),
+        feature_stride=strides[feature_name],
         feature_channels=backbone.feature_channels[feature_name],
         num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
         head_type=head_type,
@@ -121,14 +129,20 @@ def build_model(cfg: CfgNode, device=None,
     names another device; raises where CUDA is absent).
 
     Weights are drawn from ``generator`` (default: a generator on the device
-    seeded with 0); load real ones with ``load_state_dict``. The conv
-    weights of the frozen backbone stages (below ``FREEZE_AT``: all of them
-    at 5) are stored in ``MODEL.DTYPE`` and take no gradient; FrozenBN
-    statistics stay float32. The heads' parameters and the trainable
-    stages' conv weights stay float32 masters, cast to ``MODEL.DTYPE`` at
-    each use (flax's ``param_dtype`` float32 with ``dtype`` bfloat16), so
-    that SGD updates below bfloat16's resolution are kept. BatchNorm's
-    affine and statistics (``NORM`` BN) stay float32 and take no gradient.
+    seeded with 0); load real ones with ``load_state_dict``. The parameters
+    the optimizer labels frozen (``solver/build.py:make_param_labels``: the
+    backbone stages below ``FREEZE_AT``, all of them at 5) are stored in
+    ``MODEL.DTYPE`` and take no gradient; FrozenBN statistics stay float32,
+    and so do the deformable blocks' ``conv2_offset``, which computes in
+    float32. Every other parameter stays a float32 master, cast to
+    ``MODEL.DTYPE`` at each use (flax's ``param_dtype`` float32 with
+    ``dtype`` bfloat16), so that SGD updates below bfloat16's resolution
+    are kept. Under an FPN that is the whole backbone but the norms, as in
+    the JAX package, whose labels freeze only the stem and ``res{k}``
+    modules directly under ``backbone``: at ``FREEZE_AT`` 5 those weights
+    take zero gradients (the features run without autograd) and move by
+    weight decay and momentum alone. BatchNorm's affine and statistics
+    (``NORM`` BN) stay float32 and take no gradient.
     """
     dev = resolve_device(device)
     arch = cfg.MODEL.META_ARCHITECTURE
@@ -142,8 +156,9 @@ def build_model(cfg: CfgNode, device=None,
     labels = make_param_labels(
         [n for n, _ in model.named_parameters()], cfg.MODEL.BACKBONE.FREEZE_AT)
     for name, p in model.backbone.named_parameters():
-        if model.freeze_backbone or labels[f"backbone.{name}"] == "frozen":
-            if not name.endswith((".norm.weight", ".norm.bias")):
+        if labels[f"backbone.{name}"] == "frozen":
+            if not name.endswith((".norm.weight", ".norm.bias")) and \
+                    ".conv2_offset." not in name:
                 p.data = p.data.to(model.dtype)
             p.requires_grad_(False)
     model.backbone.to(memory_format=torch.channels_last)

@@ -2,7 +2,7 @@
 ``drn_wsod_tpu/models/heads/seg.py``): the ASPP semantic head over the
 backbone's feature map, its loss from the CPG maps, and the CRF
 constrain-to-boundary targets and loss. ``MaskRCNNHead`` and the mask loss
-come with ROADMAP.md queue 1, item 14 (supervised and pyramid paths).
+come with ROADMAP.md queue 1, item 14 (the mask and keypoint arms).
 
 Maps are NHWC, as the JAX package holds them: the head takes the
 (B, Hf, Wf, C) feature map and returns (B, Hf, Wf, C+1) float32 logits,

@@ -10,14 +10,26 @@ WSDDN image loss, or CSC's weighted pair where ``csc_w`` is given);
 ``with_seg`` (WSJDS) an ASPP head over the feature map adds ``loss_seg``
 from the CPG maps and, with ``seg_constraint``, the CRF's
 ``loss_constraint``; ``semantic_logits`` gives its logits, CRF-refined
-under the constraint. The Fast R-CNN and Cascade arms are a later slice
-(ROADMAP.md queue 1, item 14).
+under the constraint.
 
-Two pools, as in the JAX package. Where ``use_pallas_pooler`` (a frozen
-backbone, no CSC head), the forward-only kernel K1 pools with the scale
-fused into its epilogue. Otherwise the differentiable pool
-(``ops/roi_align.py:roi_pool``) pools one image at a time and the scale is
-two multiplies, each rounded to the map's dtype. A frozen backbone
+The supervised heads retrain on instance GT (pseudo-GT retraining):
+``FastRCNN`` samples 512 slots per image (at most a quarter foreground),
+pools them through the DAN into ``box_predictor`` and takes
+``loss_cls`` and ``loss_box_reg``; ``CascadeRCNN`` runs three stages, each
+its own 2-FC head and class-agnostic predictor on the previous stage's
+detached, clipped boxes re-matched at the stage's IoU, with
+``loss_cls_stage{k}`` and ``loss_box_reg_stage{k}``. Their sampler draws
+its keys from the step's generator.
+
+The pools, as in the JAX package. Where the pooler is ``ROIPool`` and
+``use_pallas_pooler`` (a frozen backbone, no CSC head), the forward-only
+kernel K1 pools with the scale fused into its epilogue. Otherwise the
+differentiable pool (``ops/roi_align.py:roi_pool``, or ``roi_align`` for
+``ROIAlign`` / ``ROIAlignV2``) pools one image at a time and the scale is
+two multiplies, each rounded to the map's dtype. Over an FPN
+(``pyramid_strides``) ``ops/poolers.py:multilevel_roi_pool`` pools each
+RoI from its assigned level. Cascade's stages pool without the
+objectness scale and never through K1. A frozen backbone
 (``FREEZE_AT >= 5``) runs without autograd, the counterpart of
 ``stop_gradient``; a trainable one carries gradients to its stages and to
 the image.
@@ -38,14 +50,17 @@ from torch import nn
 from ..ops import csc as csc_lib
 from ..ops import pcl as pcl_lib
 from ..ops.crf import crf_forward
-from ..ops.roi_align import roi_pool
+from ..ops.poolers import multilevel_roi_pool
+from ..ops.roi_align import roi_align, roi_pool
 from ..ops.roi_pool import roi_pool_batched
 from ..structures import boxes as box_ops
 from ..structures.batch import WSODBatch
+from .heads import fast_rcnn as fast_rcnn_lib
 from .heads import oicr as oicr_lib
 from .heads import seg as seg_lib
 from .heads import wsddn as wsddn_lib
 from .heads.box_head import DiscriminativeAdaptionNeck
+from .heads.cascade import match_and_label
 
 
 class GeneralizedRCNNWSL(nn.Module):
@@ -53,7 +68,10 @@ class GeneralizedRCNNWSL(nn.Module):
 
     Parameter names follow Detectron2's (``backbone.*``, ``box_head.fc1``,
     ``box_predictor.cls``, ``box_refinery.0.cls_score``,
-    ``seg_head.aspp.conv1x1``)."""
+    ``seg_head.aspp.conv1x1``; Fast R-CNN's ``box_predictor.cls_score``,
+    Cascade's ``box_head.{k}.fc1`` and ``box_predictor.{k}.bbox_pred``).
+    ``pyramid_strides`` ((level, stride), ...) pools from those levels of
+    an FPN backbone."""
 
     def __init__(self, backbone: nn.Module, *, feature_name: str,
                  feature_stride: int, feature_channels: int,
@@ -65,11 +83,24 @@ class GeneralizedRCNNWSL(nn.Module):
                  dtype: torch.dtype, dropout: float = 0.5,
                  mean_loss: bool = True, freeze_backbone: bool = True,
                  use_pallas_pooler: bool = True, with_seg: bool = False,
-                 seg_constraint: bool = False):
+                 seg_constraint: bool = False,
+                 pyramid_strides: Optional[Tuple[Tuple[str, int], ...]] = None,
+                 pooler_type: str = "ROIPool",
+                 pooler_sampling_ratio: int = 2,
+                 cascade_ious: Sequence[float] = (0.5, 0.6, 0.7),
+                 cascade_reg_weights: Sequence[Sequence[float]] = (
+                     (10.0, 10.0, 5.0, 5.0), (20.0, 20.0, 10.0, 10.0),
+                     (30.0, 30.0, 15.0, 15.0))):
         super().__init__()
         self.backbone = backbone
         self.feature_name = feature_name
         self.feature_stride = feature_stride
+        self.pyramid_strides = (None if pyramid_strides is None
+                                else tuple(pyramid_strides))
+        self.pooler_type = pooler_type
+        self.pooler_sampling_ratio = max(pooler_sampling_ratio, 1)
+        self.cascade_ious = tuple(cascade_ious)
+        self.cascade_reg_weights = tuple(tuple(w) for w in cascade_reg_weights)
         self.head_type = head_type
         self.refine_k = refine_k
         self.refine_reg = tuple(refine_reg)
@@ -84,10 +115,27 @@ class GeneralizedRCNNWSL(nn.Module):
         self.with_seg = with_seg
         self.seg_constraint = seg_constraint
         R = pooler_resolution
-        self.box_head = DiscriminativeAdaptionNeck(
-            R * R * feature_channels, dan_dims, dropout=dropout, dtype=dtype)
-        self.box_predictor = wsddn_lib.WSDDNOutputLayers(
-            dan_dims[-1], num_classes, dtype=dtype)
+        self.dropout = dropout
+        if head_type == "CascadeRCNN":
+            # per stage: 2 FC of 1024 and a class-agnostic predictor
+            self.box_head = nn.ModuleList([
+                fast_rcnn_lib.FastRCNNConvFCHead(R * R * feature_channels,
+                                                 (1024, 1024), dtype=dtype)
+                for _ in self.cascade_ious])
+            self.box_predictor = nn.ModuleList([
+                fast_rcnn_lib.FastRCNNOutputLayers(1024, num_classes, True,
+                                                   dtype=dtype)
+                for _ in self.cascade_ious])
+        else:
+            self.box_head = DiscriminativeAdaptionNeck(
+                R * R * feature_channels, dan_dims, dropout=dropout,
+                dtype=dtype)
+            self.box_predictor = (
+                fast_rcnn_lib.FastRCNNOutputLayers(
+                    dan_dims[-1], num_classes, cls_agnostic_bbox_reg,
+                    dtype=dtype) if head_type == "FastRCNN"
+                else wsddn_lib.WSDDNOutputLayers(dan_dims[-1], num_classes,
+                                                 dtype=dtype))
         if head_type in ("OICR", "PCL") and refine_k > 0:
             self.box_refinery = nn.ModuleList([
                 oicr_lib.RefinementOutputLayers(
@@ -113,8 +161,11 @@ class GeneralizedRCNNWSL(nn.Module):
                 m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
-        self.box_head.init_weights(generator)
-        self.box_predictor.init_weights(generator)
+        heads = (list(self.box_head) + list(self.box_predictor)
+                 if self.head_type == "CascadeRCNN"
+                 else [self.box_head, self.box_predictor])
+        for head in heads:
+            head.init_weights(generator)
         for branch in getattr(self, "box_refinery", ()):
             branch.init_weights(generator)
         if self.with_seg:
@@ -134,9 +185,10 @@ class GeneralizedRCNNWSL(nn.Module):
         """Normalize raw pixels and cast to the compute dtype."""
         return ((image - self.pixel_mean) / self.pixel_std).to(self.dtype)
 
-    def features(self, image: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) raw pixels -> (B, Hf, Wf, C) contiguous map, with
-        no autograd history where the backbone is frozen.
+    def features(self, image: torch.Tensor):
+        """(B, H, W, 3) raw pixels -> (B, Hf, Wf, C) contiguous map, or over
+        an FPN {level: (B, Hl, Wl, C)} of the pooled levels, with no
+        autograd history where the backbone is frozen.
 
         The NCHW view of an NHWC tensor is ``channels_last`` memory, which
         cuDNN prefers, and the NHWC view of the channels_last output is
@@ -144,27 +196,51 @@ class GeneralizedRCNNWSL(nn.Module):
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not self.freeze_backbone):
             x = self.preprocess(image).permute(0, 3, 1, 2)
-            out = self.backbone(x)[self.feature_name]
-            return out.permute(0, 2, 3, 1).contiguous()
+            out = self.backbone(x)
+            if self.pyramid_strides is not None:
+                return {n: out[n].permute(0, 2, 3, 1).contiguous()
+                        for n, _ in self.pyramid_strides}
+            return out[self.feature_name].permute(0, 2, 3, 1).contiguous()
 
-    def pool(self, feats: torch.Tensor, proposals: torch.Tensor,
+    def pool_raw(self, feats, boxes: torch.Tensor) -> torch.Tensor:
+        """(B, P, 4) boxes -> (B, P, R, R, C) in the map's dtype, unscaled,
+        one image at a time: the multi-level pool over an FPN, else
+        ``roi_pool`` (ROIPool) or ``roi_align`` (ROIAlign, ROIAlignV2)."""
+        R = self.pooler_resolution
+        if self.pyramid_strides is not None:
+            strides = dict(self.pyramid_strides)
+            names = [n for n, _ in self.pyramid_strides]
+            return torch.stack([multilevel_roi_pool(
+                {n: feats[n][i] for n in names}, strides, boxes[i], names,
+                R, self.pooler_type, self.pooler_sampling_ratio)
+                for i in range(boxes.shape[0])])
+        scale = 1.0 / self.feature_stride
+        if self.pooler_type == "ROIPool":
+            return torch.stack([roi_pool(f, b, scale, R)
+                                for f, b in zip(feats, boxes)])
+        return torch.stack([
+            roi_align(f, b, scale, R, self.pooler_sampling_ratio,
+                      aligned=self.pooler_type == "ROIAlignV2")
+            for f, b in zip(feats, boxes)])
+
+    def pool(self, feats, proposals: torch.Tensor,
              prop_mask: torch.Tensor, objectness: torch.Tensor
              ) -> torch.Tensor:
-        """Exact RoIPool scaled by (objectness + 1) * mask:
+        """RoI pool scaled by (objectness + 1) * mask:
         -> (B, P, R, R, C) in the map's dtype. K1 rounds the scale once,
-        ``dtype(roi_scale)``; the differentiable pool multiplies by
+        ``dtype(roi_scale)``; the differentiable pools multiply by
         ``dtype(objectness + 1)`` and then by ``dtype(mask)``, rounding
         after each, as the JAX package does (``meta_arch.py:241-244``)."""
-        scale = 1.0 / self.feature_stride
-        R = self.pooler_resolution
-        if self.use_pallas_pooler:
+        if self.use_pallas_pooler and self.pooler_type == "ROIPool" and \
+                self.pyramid_strides is None:
             obj = (objectness + 1.0 if self.use_objectness
                    else torch.ones_like(objectness))
             roi_scale = obj * prop_mask.to(obj.dtype)
-            return roi_pool_batched(feats, proposals.contiguous(), scale, R,
+            return roi_pool_batched(feats, proposals.contiguous(),
+                                    1.0 / self.feature_stride,
+                                    self.pooler_resolution,
                                     roi_scale.contiguous())
-        pooled = torch.stack([roi_pool(f, b, scale, R)
-                              for f, b in zip(feats, proposals)])
+        pooled = self.pool_raw(feats, proposals)
         if self.use_objectness:
             pooled = pooled * (objectness + 1.0)[..., None, None, None].to(
                 pooled.dtype)
@@ -205,10 +281,14 @@ class GeneralizedRCNNWSL(nn.Module):
         ``loss_seg`` where (B, C, H, W) CPG maps ``cpg`` are given, and
         ``loss_constraint`` under ``seg_constraint`` (the CRF against the
         raw image)."""
-        if train and self.box_head.dropout > 0 and generator is None:
+        if train and self.dropout > 0 and generator is None:
             raise ValueError("training with dropout needs a generator")
         batch = self.sanitize(batch)
         feats = self.features(batch.image)
+        if self.head_type == "FastRCNN":
+            return self.fast_rcnn_losses(feats, batch, generator, train)
+        if self.head_type == "CascadeRCNN":
+            return self.cascade_losses(feats, batch, generator)
         box_feats = self.pooled_features(
             feats, batch.proposals, batch.proposal_mask, batch.objectness,
             generator if train else None)
@@ -272,6 +352,89 @@ class GeneralizedRCNNWSL(nn.Module):
                 fg_probs, crf_fg, w)
         return losses
 
+    # ------------------------------------------------- supervised retraining
+    def sample(self, batch: WSODBatch, generator: Optional[torch.Generator],
+               iou_threshold: float = 0.5
+               ) -> fast_rcnn_lib.SampledProposals:
+        """Stage 0's slots: keys drawn from ``generator``, then
+        ``subsample_proposals`` with its defaults (512 slots, a quarter
+        foreground), as both JAX callers call it: ``ROI_HEADS.
+        BATCH_SIZE_PER_IMAGE`` and ``POSITIVE_FRACTION`` are not read."""
+        if generator is None:
+            raise ValueError("the Fast R-CNN sampler needs a generator")
+        fg_keys, bg_keys = fast_rcnn_lib.draw_sampling_keys(
+            batch.proposal_mask.shape, generator, batch.proposals.device)
+        return fast_rcnn_lib.subsample_proposals(
+            batch.proposals, batch.proposal_mask, batch.gt_boxes,
+            batch.gt_classes, batch.gt_valid, fg_keys, bg_keys,
+            iou_thresholds=(iou_threshold,))
+
+    def fast_rcnn_losses(self, feats, batch: WSODBatch,
+                         generator: Optional[torch.Generator],
+                         train: bool) -> Dict[str, torch.Tensor]:
+        """Sample first, pool only the sampled boxes (scaled by their
+        objectness, masked by their validity), DAN, ``box_predictor``;
+        ``loss_cls`` and ``loss_box_reg``, each the mean over images."""
+        sampled = self.sample(batch, generator)
+        idx = sampled.indices
+        boxes = batch.proposals.gather(1, idx[..., None].expand(-1, -1, 4))
+        box_feats = self.pooled_features(
+            feats, boxes, sampled.valid, batch.objectness.gather(1, idx),
+            generator if train else None)
+        cls_logits, deltas = self.box_predictor(box_feats)
+        loss_cls, loss_box = fast_rcnn_lib.fast_rcnn_losses(
+            cls_logits, deltas, batch.proposals, sampled, self.num_classes,
+            self.reg_weights)
+        return {"loss_cls": loss_cls.mean(), "loss_box_reg": loss_box.mean()}
+
+    def cascade_stage(self, k: int, feats, boxes: torch.Tensor,
+                      mask: torch.Tensor):
+        """Stage k on (B, S, 4) boxes: (cls_logits (B, S, C+1), deltas (B,
+        S, 4), the detached regressed boxes for stage k+1). The pool is
+        masked, not scaled by objectness."""
+        B, S = boxes.shape[:2]
+        pooled = self.pool_raw(feats, boxes)
+        pooled = pooled * mask[..., None, None, None].to(pooled.dtype)
+        h = self.box_head[k](pooled.reshape(B * S, -1))
+        cls_logits, deltas = self.box_predictor[k](h)
+        cls_logits, deltas = cls_logits.reshape(B, S, -1), deltas.reshape(
+            B, S, 4)
+        new_boxes = box_ops.apply_deltas(deltas.detach(), boxes,
+                                         self.cascade_reg_weights[k])
+        return cls_logits, deltas, new_boxes
+
+    def cascade_losses(self, feats, batch: WSODBatch,
+                       generator: Optional[torch.Generator]
+                       ) -> Dict[str, torch.Tensor]:
+        """Stage 0 samples once at the first IoU; stage k > 0 matches the
+        clipped boxes of stage k-1 at its own IoU, on the same slots.
+        ``loss_cls_stage{k}`` and ``loss_box_reg_stage{k}``."""
+        sampled = self.sample(batch, generator, self.cascade_ious[0])
+        boxes = batch.proposals.gather(
+            1, sampled.indices[..., None].expand(-1, -1, 4))
+        valid = sampled.valid
+        slots = torch.arange(boxes.shape[1], device=boxes.device).expand(
+            boxes.shape[0], -1)
+        hw = batch.image_hw[:, None, :]
+        losses = {}
+        for k, iou in enumerate(self.cascade_ious):
+            if k == 0:
+                cls_tgt, box_tgt = sampled.gt_class, sampled.gt_box
+            else:
+                cls_tgt, box_tgt = match_and_label(
+                    boxes, batch.gt_boxes, batch.gt_classes, batch.gt_valid,
+                    iou)
+            cls_logits, deltas, new_boxes = self.cascade_stage(
+                k, feats, boxes, valid)
+            loss_cls, loss_box = fast_rcnn_lib.fast_rcnn_losses(
+                cls_logits, deltas, boxes, fast_rcnn_lib.SampledProposals(
+                    slots, cls_tgt, box_tgt, valid),
+                self.num_classes, self.cascade_reg_weights[k])
+            losses[f"loss_cls_stage{k}"] = loss_cls.mean()
+            losses[f"loss_box_reg_stage{k}"] = loss_box.mean()
+            boxes = box_ops.clip(new_boxes, hw)
+        return losses
+
     # -------------------------------------------------------------- inference
     @torch.inference_mode()
     def semantic_logits(self, batch: WSODBatch) -> torch.Tensor:
@@ -296,15 +459,32 @@ class GeneralizedRCNNWSL(nn.Module):
 
         Returns:
           scores: (B, P, C+1) float32, last column background (zeros for
-            WSDDN), padded rows zero.
+            WSDDN), padded rows zero; Cascade R-CNN's the mean of its
+            stages' softmax.
           boxes: (B, P, 4) class-agnostic, or (B, P, C*4) when the last
-            refinement branch regresses boxes.
+            refinement branch regresses boxes; Fast R-CNN's the decoded
+            deltas (4 or C*4), Cascade's the last stage's clipped boxes.
         """
         batch = self.sanitize(batch)
         feats = self.features(batch.image)
+        mask = batch.proposal_mask[..., None]
+        if self.head_type == "CascadeRCNN":
+            # the stages' softmax averaged, the last stage's boxes
+            boxes, probs = batch.proposals, []
+            hw = batch.image_hw[:, None, :]
+            for k in range(len(self.cascade_ious)):
+                cls_logits, _, new_boxes = self.cascade_stage(
+                    k, feats, boxes, batch.proposal_mask)
+                probs.append(torch.softmax(cls_logits, -1))
+                boxes = box_ops.clip(new_boxes, hw)
+            return torch.where(mask, sum(probs) / len(probs), 0.0), boxes
         box_feats = self.pooled_features(feats, batch.proposals,
                                          batch.proposal_mask, batch.objectness)
-        mask = batch.proposal_mask[..., None]
+        if self.head_type == "FastRCNN":
+            cls_logits, deltas = self.box_predictor(box_feats)
+            boxes = box_ops.apply_deltas(deltas, batch.proposals,
+                                         self.reg_weights)
+            return torch.where(mask, torch.softmax(cls_logits, -1), 0.0), boxes
 
         if self.head_type == "WSDDN" or self.refine_k == 0:
             scores = self.box_predictor(box_feats, batch.proposal_mask)

@@ -91,7 +91,7 @@ def build_evaluator(cfg, dataset_name: str, records):
         raise NotImplementedError(
             f"evaluator type {etype!r} with MASK_ON or KEYPOINT_ON: COCO's "
             "mask and keypoint AP are not ported yet: ROADMAP.md queue 1, "
-            "item 14 (supervised and pyramid paths)")
+            "item 14 (the mask and keypoint arms)")
     if etype in coco_types:
         return COCODetectionEvaluator(meta.thing_classes, gt_by_image,
                                       tasks=("bbox",))

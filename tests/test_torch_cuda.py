@@ -1250,3 +1250,114 @@ def test_toy_bn_coco_eval_on_cuda_matches_cpu(cuda, monkeypatch):
         assert np.isnan(g) == np.isnan(w), k
         if not np.isnan(w):
             assert 0 <= g <= 100 and abs(g - w) <= 0.5, (k, g, w)
+
+
+def _pyramid_boxes(rs, P, side):
+    """Boxes over a side x side image: past every border, tiny and whole."""
+    x1, y1 = rs.uniform(-0.3 * side, side, (2, P))
+    bw, bh = np.exp(rs.uniform(np.log(0.5), np.log(1.2 * side), (2, P)))
+    b = np.stack([x1, y1, x1 + bw, y1 + bh], -1).astype(np.float32)
+    b[:2] = [[0, 0, side, side], [3, 3, 3, 3]]
+    return torch.from_numpy(b)
+
+
+def _within_bf16_ulp(got, want):
+    """``got`` (on the card) within one bfloat16 ulp of each CPU value."""
+    want = want.float()
+    ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp(
+        min=2.0 ** -126))) - 7)
+    assert ((got.float().cpu() - want).abs() <= ulp).all()
+
+
+def test_sampler_core_on_cuda_equals_cpu(cuda):
+    """The Fast R-CNN sampler's deterministic core on the same keys: the
+    sampled indices, classes, boxes and validity equal on both devices
+    (P = 4096 proposals, 512 slots, ties among the invalid ones)."""
+    from drn_wsod_torch.models.heads import fast_rcnn as frcnn
+
+    rs = np.random.RandomState(11)
+    B, P, G = 2, 4096, 6
+    props = _pyramid_boxes(rs, B * P, 800).reshape(B, P, 4)
+    gt = _pyramid_boxes(rs, B * G, 800).reshape(B, G, 4)
+    props[:, :300] = gt[:, rs.randint(G, size=300)] + torch.from_numpy(
+        rs.uniform(-20, 20, (B, 300, 4)).astype(np.float32))
+    args = (props, torch.from_numpy(rs.rand(B, P) > 0.1), gt,
+            torch.from_numpy(rs.randint(0, 20, (B, G)).astype(np.int32)),
+            torch.from_numpy(np.arange(G) < G - 1).expand(B, G),
+            torch.from_numpy(rs.rand(B, P).astype(np.float32)),
+            torch.from_numpy(rs.rand(B, P).astype(np.float32)))
+    want = frcnn.subsample_proposals(*args)
+    got = frcnn.subsample_proposals(*(a.to(cuda) for a in args))
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+    assert (want.gt_class >= 0).sum(1).max() <= 128
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("aligned", [False, True], ids=["v1", "v2"])
+def test_roi_align_on_cuda_matches_cpu(cuda, aligned, dtype):
+    """``roi_align`` at 600 RoIs (two chunks), sampling ratio 2, on the card
+    and the CPU: float32 within 1e-6 of the largest value, bfloat16 within
+    one ulp (each device rounds every operation alike)."""
+    from drn_wsod_torch.ops.roi_align import roi_align
+
+    rs = np.random.RandomState(12)
+    feat = torch.from_numpy(rs.randn(21, 27, 64).astype(np.float32)).to(dtype)
+    boxes = _pyramid_boxes(rs, 600, 27 * 8)
+    want = roi_align(feat, boxes, 0.125, 7, 2, aligned=aligned)
+    got = roi_align(feat.to(cuda), boxes.to(cuda), 0.125, 7, 2,
+                    aligned=aligned)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-6 * want.abs().max().item())
+    else:
+        _within_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("pooler_type", ["ROIAlignV2", "ROIPool"])
+def test_multilevel_roi_pool_on_cuda_matches_cpu(cuda, pooler_type):
+    """The FPN pooler over p2-p5 of a 512x640 image (256 channels, bf16),
+    1000 RoIs of every level: within one bfloat16 ulp of the CPU."""
+    from drn_wsod_torch.ops.poolers import multilevel_roi_pool
+
+    rs = np.random.RandomState(13)
+    strides = {"p2": 4, "p3": 8, "p4": 16, "p5": 32}
+    feats = {n: torch.from_numpy(rs.randn(512 // s, 640 // s, 256).astype(
+        np.float32)).bfloat16() for n, s in strides.items()}
+    boxes = _pyramid_boxes(rs, 1000, 640)
+    names = list(strides)
+    want = multilevel_roi_pool(feats, strides, boxes, names, 7, pooler_type,
+                               2)
+    got = multilevel_roi_pool({n: f.to(cuda) for n, f in feats.items()},
+                              strides, boxes.to(cuda), names, 7, pooler_type,
+                              2)
+    _within_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("modulated", [False, True], ids=["v1", "v2"])
+def test_deform_conv2d_on_cuda_matches_cpu(cuda, modulated, dtype):
+    """``deform_conv2d`` at a res4-like 3x3 of 64 channels, dilation 2,
+    offsets up to +-3 cells (taps off the map): float32 within rtol 1e-5,
+    atol 1e-5 of the largest value (the contraction sums in another
+    order; TF32 off), bfloat16 within one ulp."""
+    from drn_wsod_torch.ops.deform_conv import deform_conv2d
+
+    rs = np.random.RandomState(14)
+    x = torch.from_numpy(rs.randn(2, 23, 29, 64).astype(np.float32)).to(dtype)
+    off = torch.from_numpy((rs.randn(2, 23, 29, 18) * 1.5).astype(np.float32))
+    w = torch.from_numpy((rs.randn(64, 64, 3, 3) / 24).astype(
+        np.float32)).to(dtype)
+    mod = (torch.from_numpy(rs.rand(2, 23, 29, 9).astype(np.float32))
+           if modulated else None)
+    want = deform_conv2d(x, off, w, mod, dilation=2)
+    got = deform_conv2d(x.to(cuda), off.to(cuda), w.to(cuda),
+                        None if mod is None else mod.to(cuda), dilation=2)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+    else:
+        _within_bf16_ulp(got, want)

@@ -254,11 +254,12 @@ def _cfg(*overrides):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("MODEL.ROI_HEADS.NAME", "StandardROIHeads", "item 14 (supervised"),
-    ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, False, True, True],
-     "item 14 (supervised")])
+    ("MODEL.MASK_ON", True, "item 14 (the mask"),
+    ("MODEL.KEYPOINT_ON", True, "item 14 (the mask")])
 def test_build_model_refuses_what_is_not_ported(key, value, item):
-    """What still raises; NORM BN builds (``tests/test_torch_bn.py``)."""
+    """What still raises; NORM BN builds (``tests/test_torch_bn.py``), and
+    so do the supervised heads and deformable blocks
+    (``tests/test_torch_supervised.py``, ``tests/test_torch_deform.py``)."""
     _, pc = _cfg(key, value)
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")):
         drn_wsod_torch.build_model(pc, device="cpu")
