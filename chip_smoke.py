@@ -62,8 +62,8 @@ Phases (any failure exits non-zero):
  10. the flagship's eval protocol ("eval"): ``GeneralizedRCNNWithTTAAVG.
      detect_image`` at full width with the YAML's TTA (8 scales x flip,
      MAX_SIZE 4000, views built on the device), P=4096 VOC-like proposals,
-     on 2 warm-up and 8 timed VOC07-sized u8 images drawn from a seed (the
-     JPEG decode is the one step left out): ms per image by CUDA events and
+     on 2 warm-up and 8 timed VOC07-sized u8 images drawn from a seed (no
+     JPEG decode: phase 22 has it): ms per image by CUDA events and
      the host clock, views and bucket groups per image, one K1 launch per
      group, a per-part split of each timed image, peak memory, K1 against
      its plain version on the largest group's own inputs (B=4, the 1216
@@ -74,7 +74,8 @@ Phases (any failure exits non-zero):
      width (B=4, crop, 24 scales 480-1216 under MAX 2000, flip, DAN [2048,
      4096], dropout 0.5; seeded random weights, as ``MODEL.WEIGHTS`` is not
      in the repository) from a shard of 24 synthetic VOC-sized records
-     packed by ``pack_dataset`` (no JPEG decode) with their proposals in a
+     packed by ``pack_dataset`` (no JPEG decode: phase 22 has it) with
+     their proposals in a
      Detectron2 pickle: (a) 16 steps from scratch, then the TTA eval of the
      4 test and 24 train records; (b) ``--resume`` to 24 steps, its
      restored parameters, momentum and step bit-equal to the checkpoint of
@@ -188,11 +189,25 @@ Phases (any failure exits non-zero):
      plus 2^-15 of the largest), and res4's
      first block with zero offsets and unit masks against the plain
      bottleneck of its weights (within 2 bf16 ulps of the largest value).
-Every path (4-8, 10-21) is run with the kernels' launch counts set to 0
+ 22. JPEG files ("jpeg"), decoded by the port's own decoder
+     (``ops/csrc/jpeg_decode.cpp``, built in phase 2 by the host's C++
+     compiler; no Pillow, no libjpeg): every committed fixture
+     (``drn_wsod_torch/data/jpeg_fixtures``) decoded at scales 1-8 against
+     its manifest digest, the CMYK one named by ``read_image``; the host
+     decode ms an image of the VOC-sized baseline and progressive and the
+     COCO-sized fixtures; a VOC directory of the fixtures (8 trainval and 2
+     test ids, 4096 proposals an image in a Detectron2 pickle) packed by
+     ``pack_dataset``, its pixels the fixtures' digests; then
+     ``train_net.main`` on the flagship YAML at full width, 4 steps of B=4
+     from the shard and the TTA eval of the 2 unpacked test records,
+     which ``read_image`` decodes from their files: losses finite, K1 once
+     per step and per TTA group and exact at the largest map, each image's
+     detections (every finite score kept) present, finite and inside it.
+Every path (4-8, 10-22) is run with the kernels' launch counts set to 0
 just before it and read just after. The line before the kernels' JSON
-line says whether the machine has libjpeg's ``jpeglib.h`` and a loadable
-``libjpeg.so`` (never a failure); the line before that gives the run's
-total seconds. The second-to-last line is the card's name
+line names the JPEG decoder's compiler, its build seconds, the fixture
+decodes matched and the host decode times; the line before that gives the
+run's total seconds. The second-to-last line is the card's name
 and power limit, the line before it a JSON object of per-kernel numbers,
 the last ``{"ok": true, "device": {...}}``.
 """
@@ -3895,29 +3910,253 @@ def phase21_deform(dev, tag) -> dict:
     return run["launches"]
 
 
-def jpeg_probe() -> str:
-    """Whether this machine has libjpeg's header and a loadable library
-    (for binding the system's libjpeg in a JPEG decoder); never raises."""
-    import ctypes
-    import ctypes.util
-    import glob
+PH22_TRAIN, PH22_TEST, PH22_STEPS, PH22_DECODES = 8, 2, 4, 20
+# the fixtures timed on the host: VOC-sized baseline and progressive, and
+# COCO-sized
+PH22_TIMED = ("voc_500x375_q90.jpg", "voc_500x375_q90_progressive.jpg",
+              "coco_640x480_q75.jpg")
+PH22_TEST_FILES = ("voc_500x375_q90.jpg", "coco_640x480_q75.jpg")
 
+
+def sha256_of(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+@contextlib.contextmanager
+def no_pillow():
+    """Pillow unimportable inside the block, whether or not the machine
+    has it: what decodes there decodes with the port's own decoder."""
+    keys = ("PIL", "PIL.Image")
+    saved = {k: sys.modules[k] for k in keys if k in sys.modules}
+    sys.modules.update(dict.fromkeys(keys))
     try:
-        headers = sorted(h for d in ("/usr/include", "/usr/local/include")
-                         for pattern in ("jpeglib.h", "*-linux-gnu/jpeglib.h")
-                         for h in glob.glob(f"{d}/{pattern}"))
-        name = ctypes.util.find_library("jpeg")
-        loaded = "not found"
-        if name:
-            try:
-                ctypes.CDLL(name)
-                loaded = f"{name} loads"
-            except OSError as e:
-                loaded = f"{name} does not load ({e})"
-        return (f"libjpeg: jpeglib.h {headers or 'not found'}; "
-                f"find_library('jpeg'): {loaded}")
-    except Exception as e:               # the probe must never fail the run
-        return f"libjpeg: probe failed ({e!r})"
+        yield
+    finally:
+        for k in keys:
+            sys.modules.pop(k)
+        sys.modules.update(saved)
+
+
+def ph22_voc(root: Path, fixtures: Path, manifest: dict, rs):
+    """A VOC-layout directory from the JPEG fixtures: the colour fixtures
+    the decoder takes under PH22_TRAIN trainval ids, PH22_TEST_FILES under
+    test ids 100+, each with an XML of 1-2 objects of random VOC classes;
+    and a Detectron2 proposal pickle of P proposals an image (phase 10's
+    ``eval_image`` boxes). Returns (directory, proposal file, {id: (H,
+    W)}, {id: fixture name})."""
+    import pickle
+    import shutil
+
+    from drn_wsod_torch.data.datasets.voc import VOC_CLASS_NAMES
+
+    colour = [n for n, e in manifest["files"].items()
+              if "reason" not in e and e["mode"] == "RGB"
+              and e["truncate"] is None]
+    names = {f"{i:06d}": colour[i % len(colour)] for i in range(PH22_TRAIN)}
+    names.update({f"{100 + i:06d}": n
+                  for i, n in enumerate(PH22_TEST_FILES)})
+    d = root / "VOC2007"
+    for sub in ("Annotations", "ImageSets/Main", "JPEGImages"):
+        (d / sub).mkdir(parents=True)
+    props = {"ids": [], "boxes": [], "objectness_logits": [], "bbox_mode": 0}
+    hw = {}
+    for fid, name in names.items():
+        shutil.copyfile(fixtures / name, d / "JPEGImages" / f"{fid}.jpg")
+        H, W, _ = manifest["files"][name]["shape"]
+        hw[fid] = (H, W)
+        _, rec = eval_image(rs, H, W, int(fid))
+        objs = ""
+        for a in rec["annotations"][:2]:
+            x1, y1, x2, y2 = (int(v) for v in a["bbox"])
+            objs += (f"<object><name>{VOC_CLASS_NAMES[a['category_id']]}"
+                     f"</name><difficult>0</difficult><bndbox><xmin>"
+                     f"{x1 + 1}</xmin><ymin>{y1 + 1}</ymin><xmax>{x2 + 1}"
+                     f"</xmax><ymax>{y2 + 1}</ymax></bndbox></object>")
+        (d / "Annotations" / f"{fid}.xml").write_text(
+            f"<annotation><size><width>{W}</width><height>{H}</height>"
+            f"<depth>3</depth></size>{objs}</annotation>\n")
+        props["ids"].append(fid)
+        props["boxes"].append(rec["proposal_boxes"])
+        props["objectness_logits"].append(rec["proposal_objectness_logits"])
+    for split, ids in (("trainval", [i for i in names if int(i) < 100]),
+                       ("test", [i for i in names if int(i) >= 100])):
+        (d / "ImageSets" / "Main" / f"{split}.txt").write_text(
+            "\n".join(ids) + "\n")
+    prop_file = root / "proposals.pkl"
+    with open(prop_file, "wb") as f:
+        pickle.dump(props, f)
+    return d, str(prop_file), hw, names
+
+
+def phase22_jpeg(dev, tag, host_build: dict):
+    """JPEG files on the main path, decoded by the port's own decoder
+    (``ops/csrc/jpeg_decode.cpp``, built by the host's C++ compiler in
+    phase 2; the machine has neither Pillow nor libjpeg, and Pillow is
+    blocked here all the same): (b) every fixture's decode at scales 1-8
+    against its manifest digest; (c) the host decode time of PH22_TIMED;
+    (d) ``read_image`` naming CMYK; (e, f) a VOC directory of the fixtures
+    packed by ``pack_dataset``, its pixels the fixtures' digests in BGR;
+    (g, h) ``train_net.main`` on the flagship YAML at full width, PH22_STEPS
+    steps of B=4 from the shard, then the YAML's TTA eval of the PH22_TEST
+    unpacked test records, each decoded from its file by ``read_image``;
+    (i) losses finite, K1 once per step and per TTA group and exact at the
+    largest map, each test image's detections (every finite score kept:
+    random weights keep none above the YAML's 1e-5) present, finite and
+    inside the image. Returns (K1 launches, the decoder's summary
+    line)."""
+    import shutil
+
+    import drn_wsod_torch
+    from drn_wsod_torch import native, tta
+    from drn_wsod_torch.data import (DatasetCatalog, MetadataCatalog,
+                                     RecordDataset, pack_dataset)
+    from drn_wsod_torch.data import mapper
+    from drn_wsod_torch.data.datasets.voc import (VOC_CLASS_NAMES,
+                                                  load_voc_instances)
+    from drn_wsod_torch.tools import make_jpeg_fixtures
+
+    t_phase = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    fixtures = make_jpeg_fixtures.FIXTURE_DIR
+    manifest = json.loads((fixtures / "manifest.json").read_text())
+    with no_pillow():
+        # (b) every fixture at every scale against the manifest
+        checked = 0
+        for name, entry in manifest["files"].items():
+            data = (fixtures / name).read_bytes()
+            if "reason" in entry:
+                got = native.jpeg_unsupported_reason(data)
+                if got != entry["reason"]:
+                    raise Fail(f"phase 22: {name} gives {got!r}, want "
+                               f"{entry['reason']!r}")
+                continue
+            for s in range(1, 9):
+                a = native.jpeg_decode(data, s)
+                if a is None or sha256_of(a) != entry["sha256"][str(s)]:
+                    raise Fail(f"phase 22: {name} at scale {s}/8 differs "
+                               "from its manifest digest")
+                checked += 1
+        # (c) host decode time, ms an image
+        decode_ms = {}
+        for name in PH22_TIMED:
+            data = (fixtures / name).read_bytes()
+            times = []
+            for _ in range(PH22_DECODES):
+                t = time.perf_counter()
+                native.jpeg_decode(data)
+                times.append((time.perf_counter() - t) * 1e3)
+            decode_ms[name] = statistics.median(times)
+        # (d) what the decoder does not take, read_image names
+        try:
+            mapper.read_image(str(fixtures / "cmyk_64x48.jpg"))
+            raise Fail("phase 22: read_image decoded the CMYK fixture "
+                       "without Pillow")
+        except ValueError as e:
+            if "CMYK" not in str(e):
+                raise Fail(f"phase 22: read_image on CMYK: {e}")
+        # (e, f) a VOC directory of the fixtures, packed
+        work = here / "build" / "chip_smoke_ph22"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        voc, prop_file, hw, names = ph22_voc(work, fixtures, manifest,
+                                             np.random.RandomState(22))
+        shard = work / "ph22_train.rec"
+        t = time.perf_counter()
+        n_packed = pack_dataset(load_voc_instances(str(voc), "trainval"),
+                                str(shard))
+        pack_s = time.perf_counter() - t
+        packed = list(RecordDataset(str(shard)))
+        for r in packed:
+            want = manifest["files"][names[r["image_id"]]]["sha256"]["8"]
+            if sha256_of(r["image"][:, :, ::-1]) != want:
+                raise Fail(f"phase 22: packed pixels of {r['image_id']} "
+                           f"are not {names[r['image_id']]}'s decode")
+        if n_packed != PH22_TRAIN or len(packed) != PH22_TRAIN:
+            raise Fail(f"phase 22: packed {n_packed} records, want "
+                       f"{PH22_TRAIN}")
+        for name, get in (("ph22_train",
+                           lambda: list(RecordDataset(str(shard)))),
+                          ("ph22_test",
+                           lambda: load_voc_instances(str(voc), "test"))):
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+            DatasetCatalog.register(name, get)
+            MetadataCatalog.get(name).set(
+                thing_classes=list(VOC_CLASS_NAMES),
+                evaluator_type="pascal_voc", year=2007, split=name)
+        # (g, h) the flagship from the shard, then TTA from the JPEGs
+        yaml = here / "configs" / "PascalVOC-Detection" / \
+            "oicr_WSR_50_DC5_1x.yaml"
+        yaml_is(22, yaml, MODEL__ROI_BOX_HEAD__DAN_DIM=[2048, 4096],
+                SOLVER__IMS_PER_BATCH=4, INPUT__CROP__ENABLED=True,
+                INPUT__MAX_SIZE_TRAIN=2000, MODEL__DTYPE="bfloat16",
+                TEST__AUG__ENABLED=True, TEST__AUG__FLIP=True)
+        opts = ["DATASETS.TRAIN", "('ph22_train',)",
+                "DATASETS.TEST", "('ph22_test',)",
+                "DATASETS.PROPOSAL_FILES_TRAIN", repr((prop_file,)),
+                "DATASETS.PROPOSAL_FILES_TEST", repr((prop_file,)),
+                "MODEL.WEIGHTS", "", "OUTPUT_DIR", str(work / "output"),
+                "SEED", "0", "TEST.EVAL_PERIOD", "0",
+                "SOLVER.MAX_ITER", str(PH22_STEPS),
+                "SOLVER.CHECKPOINT_PERIOD", str(PH22_STEPS),
+                "TEST.EVAL_TRAIN", "False",
+                # 4 steps from random weights leave no class score above
+                # the YAML's 1e-5, and some images' at exactly 0: keep
+                # every finite score, so that each image keeps detections
+                # to check and only a NaN score leaves it none
+                "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "-1.0"]
+        test_hw = {k: v for k, v in hw.items() if int(k) >= 100}
+        cfg = drn_wsod_torch.get_cfg()
+        cfg.merge_from_file(str(yaml))
+        cfg.merge_from_list(opts)
+        tta_groups = tta_group_count(cfg, test_hw)
+        decoded = []
+        read = tta.read_image
+
+        def counted_read(path, fmt="BGR"):
+            decoded.append(Path(path).name)
+            return read(path, fmt)
+
+        captured = {}
+        run = entry_main(22, dev, yaml, opts, hw, [
+            k1_capture(captured), (tta, "read_image", counted_read)])
+    per_step = check_steps(22, run, ["plain"] * PH22_STEPS,
+                           {"plain": OICR_NAMES})
+    if run["launches"]["roi_pool"] != PH22_STEPS + tta_groups:
+        raise Fail(f"phase 22: K1 launches {run['launches']['roi_pool']}, "
+                   f"want {PH22_STEPS} steps + {tta_groups} TTA groups")
+    check_detections(22, run, PH22_TEST)
+    if any(n == 0 for _, n in run["dets"]):
+        raise Fail(f"phase 22: images without a finite score: "
+                   f"{run['dets']}")
+    if sorted(decoded) != sorted(f"{i}.jpg" for i in test_hw):
+        raise Fail(f"phase 22: the TTA eval decoded {decoded}, want the "
+                   f"{PH22_TEST} test JPEGs")
+    k1 = k1_exact(22, captured)
+    times = ", ".join(f"{n} {decode_ms[n]:.3f}" for n in PH22_TIMED)
+    print_entry(22, f"JPEG: {checked} decodes of "
+                f"{len(manifest['files']) - 1} fixtures equal their "
+                "manifest digests at scales 1-8 (Pillow blocked), CMYK "
+                f"named by read_image; host decode ms an image (median of "
+                f"{PH22_DECODES}, host time, not the card's): {times}; "
+                f"pack_dataset of {PH22_TRAIN} JPEG records in {pack_s:.2f} "
+                "s, pixels equal the fixtures' digests; the flagship "
+                f"train_net.main, {PH22_STEPS} steps of B=4 (DAN [2048, "
+                "4096], bfloat16, crop, 24 scales, flip, P=4096, seeded "
+                "random weights) from the shard, then TTA eval of "
+                f"{PH22_TEST} unpacked test records decoded by read_image "
+                f"from their JPEGs ({len(decoded)} decodes)", per_step, run,
+                k1, f"{PH22_STEPS} steps + {tta_groups} TTA groups",
+                PH22_TEST, f"; phase {time.perf_counter() - t_phase:.1f} s",
+                tag)
+    shutil.rmtree(work, ignore_errors=True)
+    line = (f"jpeg decoder: ops/csrc/jpeg_decode.cpp built by "
+            f"{host_build['compiler']} in {host_build['seconds']:.2f} s "
+            f"(no libjpeg); {checked} fixture decodes matched at scales "
+            "1-8; host ms an image " + times)
+    return run["launches"], line
 
 
 def main() -> int:
@@ -3947,10 +4186,17 @@ def main() -> int:
     from drn_wsod_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    # the JPEG decoder (host code) builds beside the CUDA sources
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(_build.build_host, "jpeg_decode")
+        logs = _build.build_all()
+        host_build = host.result()
     print(f"phase 2: built {sorted(logs)} in "
           f"{time.perf_counter() - t0:.2f} s, one nvcc per source in parallel "
-          f"{tag}", flush=True)
+          f"{tag}; the JPEG decoder by {host_build['compiler']} in "
+          f"{host_build['seconds']:.2f} s", flush=True)
     for name, log in logs.items():
         for kernel, lines in ptxas_report(log):
             print(f"  {name}: {kernel}: {'; '.join(lines)}")
@@ -3991,6 +4237,8 @@ def main() -> int:
         paths["fpn"] = phase20_fpn(dev, tag)
         torch.cuda.empty_cache()
         paths["deform"] = phase21_deform(dev, tag)
+        torch.cuda.empty_cache()
+        paths["jpeg"], jpeg_line = phase22_jpeg(dev, tag, host_build)
     except Fail as e:
         print(f"FAIL {e}")
         return 1
@@ -4006,7 +4254,7 @@ def main() -> int:
     print(f"launches per path: {json.dumps(paths)}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_run:.1f} s {tag}")
-    print(jpeg_probe())
+    print(jpeg_line)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,10 @@ augmentations (crop, multi-scale shortest-edge resize and flip in training,
 the test resize otherwise), the proposals mapped the same way and padded to
 ``BATCH_SIZE_PER_IMAGE`` slots, the image padded into a square size bucket
 (``INPUT.BUCKETS``) as uint8, padded instance GT and image-level labels.
-Packed records (``data/record_dataset.py``) carry decoded pixels and skip
-the decode. The mask, keypoint and semantic-segmentation arms are not ported
-yet (ROADMAP.md queue 1, items 14 and 15).
+JPEG files decode with the port's own decoder (``native.py``), which needs
+no Pillow; packed records (``data/record_dataset.py``) carry decoded pixels
+and skip the decode. The mask, keypoint and semantic-segmentation arms are
+not ported yet (ROADMAP.md queue 1, items 14 and 15).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import native
 from . import transforms as T
 from .datasets.voc import image_level_labels
 from .proposals import transform_proposals
@@ -24,19 +26,34 @@ from .proposals import transform_proposals
 
 def read_image(path: str, fmt: str = "BGR") -> np.ndarray:
     """Decode an image file to an (H, W, 3) uint8 array in ``fmt`` channel
-    order ("BGR" or "RGB") with Pillow. The JAX package decodes JPEGs with
-    its own libjpeg binding, which it holds bit-exact to Pillow's decode;
-    the port has no other decoder. Packed records carry decoded pixels, so
-    training from them needs no decoder."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(
-            "read_image needs Pillow (the PIL package) to decode "
-            f"{path!r}; pack the dataset with decoded pixels "
-            "(drn_wsod_torch.tools.pack_dataset) to train without it") from e
-    with Image.open(path) as im:
-        arr = np.asarray(im.convert("RGB"))
+    order ("BGR" or "RGB"). A ``.jpg``/``.jpeg`` file goes through the
+    port's JPEG decoder (``native.jpeg_decode``, bit-equal to Pillow's
+    decode); a JPEG it does not take (CMYK, arithmetic coding, 12-bit,
+    lossless, a truncated progressive file, a corrupt header) falls back
+    to Pillow where Pillow imports, as the JAX package's ``read_image``
+    does, and raises a ``ValueError`` naming the file and the feature
+    where it does not. Other formats decode with Pillow."""
+    arr, status = None, 0
+    if path.lower().endswith((".jpg", ".jpeg")):
+        with open(path, "rb") as f:
+            arr, status = native.jpeg_decode_status(f.read())
+    if arr is None:
+        try:
+            from PIL import Image
+        except ImportError as e:
+            if status:
+                raise ValueError(
+                    f"cannot decode {path!r}: "
+                    f"{native.REASONS.get(status, f'status {status}')} is "
+                    "not taken by the port's JPEG decoder, and Pillow is "
+                    "not installed to fall back on") from None
+            raise ImportError(
+                "read_image needs Pillow (the PIL package) to decode "
+                f"{path!r}; pack the dataset with decoded pixels "
+                "(drn_wsod_torch.tools.pack_dataset) to train without "
+                "it") from e
+        with Image.open(path) as im:
+            arr = np.asarray(im.convert("RGB"))
     if fmt == "BGR":
         arr = arr[:, :, ::-1]
     return np.ascontiguousarray(arr)

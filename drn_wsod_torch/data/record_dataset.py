@@ -105,7 +105,9 @@ def pack_dataset(records: List[dict], path: str,
                  decode_images: bool = True) -> int:
     """Pack dataset records into a shard, with each image's decoded BGR
     pixels under "image" (``decode_images``) so that training skips the
-    decode."""
+    decode. The pixels come from ``mapper.read_image``: JPEG files decode
+    with the port's own decoder, without Pillow; other formats need
+    Pillow."""
     from .mapper import read_image
 
     def gen():

@@ -1,18 +1,22 @@
 """Host-side image and box transforms and the random augmentations of the
 data path (counterpart of ``drn_wsod_tpu/data/transforms.py``): the
-deterministic transforms (no-op, list, resize, horizontal flip, crop), the
-augmentations that draw them from a ``np.random.RandomState`` (shortest-edge
-resize, flip, crop) and ``apply_augmentations``.
+deterministic transforms (no-op, list, resize, horizontal flip, crop, blend,
+extent, rotation), the augmentations that draw them from a
+``np.random.RandomState`` (shortest-edge resize, flip, crop, rotation,
+extent, brightness, contrast, saturation, lighting) and
+``apply_augmentations``.
 
-The resize computes what Pillow's ``Image.resize(..., BILINEAR)`` computes on
-uint8, bit for bit, in numpy (``resize_bilinear``): the port resizes
-without Pillow, which the GPU machines it trains on may lack. The
-photometric, rotation and extent augmentations are not ported yet
-(ROADMAP.md queue 1, item 10).
+The port resamples without Pillow, which the GPU machines it trains on may
+lack, and computes what Pillow computes: the resize is Pillow's
+``Image.resize(..., BILINEAR)`` on uint8, bit for bit (``resize_bilinear``);
+the extent and the rotation are Pillow's ``Image.transform`` affine sampler
+(``Geometry.c``) and ``Image.rotate``'s canvas rule (``affine_resample``,
+``rotate_like_pillow``), as the JAX package's transforms call them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -97,6 +101,145 @@ def resize_bilinear(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
     return img
 
 
+def _coord(v: np.ndarray) -> np.ndarray:
+    """Geometry.c's ``COORD``: -1 below 0, else truncation to int."""
+    return np.where(v < 0.0, -1, np.trunc(np.maximum(v, 0.0))).astype(
+        np.int64)
+
+
+def affine_resample(img: np.ndarray, out_w: int, out_h: int,
+                    a: Sequence[float], bilinear: bool) -> np.ndarray:
+    """``Image.transform((out_w, out_h), AFFINE, a, BILINEAR or NEAREST)``
+    of an (H, W) or (H, W, C) array, as Pillow's ``Geometry.c`` computes
+    it in float64; pixels that map outside the input are 0.
+
+    Output pixel (x, y) reads input point ``(a0 (x+.5) + a1 (y+.5) + a2,
+    a3 (x+.5) + a4 (y+.5) + a5)``. Bilinear (``ImagingGenericTransform``,
+    ``bilinear_filter8``/``32RGB``) leaves out points outside [0, W) x
+    [0, H), samples at (x-.5, y-.5) between the clipped neighbours and
+    truncates to the dtype. Nearest is ``ImagingScaleAffine`` where a1 =
+    a3 = 0, else ``ImagingTransformAffine``: in 16.16 fixed point
+    (``affine_fixed``) where the corners map within 32768, else in
+    float64; the float loops step their coordinates by repeated addition,
+    as the C loops do, and truncate them."""
+    img = np.asarray(img)
+    H, W = img.shape[:2]
+    a = [float(v) for v in a]
+    out = np.zeros((out_h, out_w) + img.shape[2:], img.dtype)
+    if out_w <= 0 or out_h <= 0:
+        return out
+    if bilinear:
+        xs = np.arange(out_w, dtype=np.float64)[None, :] + 0.5
+        ys = np.arange(out_h, dtype=np.float64)[:, None] + 0.5
+        xin = a[0] * xs + a[1] * ys + a[2]
+        yin = a[3] * xs + a[4] * ys + a[5]
+        valid = (xin >= 0.0) & (xin < W) & (yin >= 0.0) & (yin < H)
+        xin = xin - 0.5
+        yin = yin - 0.5
+        xf = np.floor(xin)
+        yf = np.floor(yin)
+        dx = xin - xf
+        dy = yin - yf
+        x = xf.astype(np.int64)
+        y = yf.astype(np.int64)
+        x0 = np.clip(x, 0, W - 1)
+        x1 = np.clip(x + 1, 0, W - 1)
+        y0 = np.clip(y, 0, H - 1)
+        y1ok = (y + 1 >= 0) & (y + 1 < H)
+        y1 = np.clip(y + 1, 0, H - 1)
+        if img.ndim == 3:
+            dx, dy, y1ok = dx[..., None], dy[..., None], y1ok[..., None]
+        src = img.astype(np.float64)
+        a0, b0 = src[y0, x0], src[y0, x1]
+        v1 = a0 + (b0 - a0) * dx
+        a1, b1 = src[y1, x0], src[y1, x1]
+        v2 = np.where(y1ok, a1 + (b1 - a1) * dx, v1)
+        v = v1 + (v2 - v1) * dy
+        mask = valid[..., None] if img.ndim == 3 else valid
+        out[...] = np.where(mask, v, 0).astype(img.dtype)
+        return out
+    if a[1] == 0 and a[3] == 0:
+        xo = np.add.accumulate(np.r_[a[2] + a[0] * 0.5,
+                                     np.full(out_w - 1, a[0])])
+        yo = np.add.accumulate(np.r_[a[5] + a[4] * 0.5,
+                                     np.full(out_h - 1, a[4])])
+        xi, yi = _coord(xo), _coord(yo)
+        okx = (xi >= 0) & (xi < W)
+        oky = (yi >= 0) & (yi < H)
+        rows = np.nonzero(oky)[0]
+        cols = np.nonzero(okx)[0]
+        out[np.ix_(rows, cols)] = img[np.ix_(yi[rows], xi[cols])]
+        return out
+    if all(abs(x * a[0] + y * a[1] + a[2]) < 32768.0
+           and abs(x * a[3] + y * a[4] + a[5]) < 32768.0
+           for x, y in ((0, 0), (out_w, out_h), (0, out_h), (out_w, 0))):
+        # affine_fixed: 16.16 fixed point, FIX(v) = FLOOR(v * 65536 + .5)
+        def fix(v):
+            return math.floor(v * 65536.0 + 0.5)
+
+        a0, a1, a3, a4 = fix(a[0]), fix(a[1]), fix(a[3]), fix(a[4])
+        a2 = fix(a[2] + a[0] * 0.5 + a[1] * 0.5)
+        a5 = fix(a[5] + a[3] * 0.5 + a[4] * 0.5)
+        xs = np.arange(out_w, dtype=np.int64)[None, :]
+        ys = np.arange(out_h, dtype=np.int64)[:, None]
+        xi = (a2 + ys * a1 + xs * a0) >> 16
+        yi = (a5 + ys * a4 + xs * a3) >> 16
+        ok = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        out[ok] = img[yi[ok], xi[ok]]
+        return out
+    xo = np.add.accumulate(np.r_[a[2] + a[1] * 0.5 + a[0] * 0.5,
+                                 np.full(out_h - 1, a[1])])
+    yo = np.add.accumulate(np.r_[a[5] + a[4] * 0.5 + a[3] * 0.5,
+                                 np.full(out_h - 1, a[4])])
+    xx = np.add.accumulate(np.concatenate(
+        [xo[:, None], np.full((out_h, out_w - 1), a[0])], axis=1), axis=1)
+    yy = np.add.accumulate(np.concatenate(
+        [yo[:, None], np.full((out_h, out_w - 1), a[3])], axis=1), axis=1)
+    xi, yi = _coord(xx), _coord(yy)
+    ok = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+    out[ok] = img[yi[ok], xi[ok]]
+    return out
+
+
+def rotate_like_pillow(img: np.ndarray, angle: float, bilinear: bool,
+                       expand: bool = True) -> np.ndarray:
+    """``Image.rotate(angle, BILINEAR or NEAREST, expand)`` about the
+    centre (``PIL/Image.py``): the right-angle transposes, else the
+    inverse rotation matrix rounded to 15 places, the canvas
+    ``ceil(max) - floor(min)`` of the rotated corners when ``expand``,
+    and :func:`affine_resample`."""
+    img = np.asarray(img)
+    angle = angle % 360.0
+    h, w = img.shape[:2]
+    if angle == 0:
+        return img.copy()
+    if angle == 180:
+        return np.ascontiguousarray(img[::-1, ::-1])
+    if angle in (90, 270) and (expand or w == h):
+        return np.ascontiguousarray(np.rot90(img, 1 if angle == 90 else -1))
+    center = (w / 2, h / 2)
+    rad = -math.radians(angle)
+    matrix = [round(math.cos(rad), 15), round(math.sin(rad), 15), 0.0,
+              round(-math.sin(rad), 15), round(math.cos(rad), 15), 0.0]
+
+    def transform(x, y, m):
+        (a, b, c, d, e, f) = m
+        return a * x + b * y + c, d * x + e * y + f
+
+    matrix[2], matrix[5] = transform(-center[0], -center[1], matrix)
+    matrix[2] += center[0]
+    matrix[5] += center[1]
+    if expand:
+        xx, yy = zip(*(transform(x, y, matrix)
+                       for x, y in ((0, 0), (w, 0), (w, h), (0, h))))
+        nw = math.ceil(max(xx)) - math.floor(min(xx))
+        nh = math.ceil(max(yy)) - math.floor(min(yy))
+        matrix[2], matrix[5] = transform(-(nw - w) / 2.0, -(nh - h) / 2.0,
+                                         matrix)
+        w, h = nw, nh
+    return affine_resample(img, w, h, matrix, bilinear)
+
+
 class Transform:
     """A deterministic transform of images and of XYXY boxes."""
 
@@ -107,6 +250,11 @@ class Transform:
 
     def apply_image(self, img: np.ndarray) -> np.ndarray:
         raise NotImplementedError
+
+    def apply_segmentation(self, seg: np.ndarray) -> np.ndarray:
+        """A label map goes through ``apply_image``; the transforms that
+        interpolate override it with nearest sampling."""
+        return self.apply_image(seg)
 
     def apply_coords(self, coords: np.ndarray) -> np.ndarray:
         raise NotImplementedError
@@ -156,6 +304,11 @@ class TransformList(Transform):
         for t in self.transforms:
             coords = t.apply_coords(coords)
         return coords
+
+    def apply_segmentation(self, seg):
+        for t in self.transforms:
+            seg = t.apply_segmentation(seg)
+        return seg
 
     def inverse(self):
         return TransformList([t.inverse() for t in reversed(self.transforms)])
@@ -228,6 +381,129 @@ class CropTransform(Transform):
 
     def inverse(self):
         raise NotImplementedError("a crop has no inverse (train only)")
+
+
+class BlendTransform(Transform):
+    """The photometric blend ``src_weight * src_image + dst_weight * img``
+    in float32, clipped back to an integer image's dtype; geometry and
+    label maps are untouched."""
+
+    def __init__(self, src_image, src_weight: float, dst_weight: float):
+        self.src_image = src_image
+        self.src_weight = src_weight
+        self.dst_weight = dst_weight
+
+    def apply_image(self, img):
+        out = self.src_weight * self.src_image + self.dst_weight * \
+            img.astype(np.float32)
+        if np.issubdtype(np.asarray(img).dtype, np.integer):
+            return np.clip(out, 0, 255).astype(np.asarray(img).dtype)
+        return out.astype(np.asarray(img).dtype)
+
+    def apply_coords(self, coords):
+        return coords
+
+    def apply_segmentation(self, seg):
+        return seg
+
+    def inverse(self):
+        raise NotImplementedError("a photometric blend has no inverse")
+
+
+class ExtentTransform(Transform):
+    """Resample the rectangle ``src_rect`` (x0, y0, x1, y1; it may reach
+    past the image, which reads as 0) to ``output_size`` (h, w), as
+    Pillow's ``transform(EXTENT, BILINEAR)`` does; label maps by
+    nearest."""
+
+    def __init__(self, src_rect, output_size):
+        self.src_rect = tuple(float(v) for v in src_rect)
+        self.out_hw = tuple(int(v) for v in output_size)
+
+    def output_size(self, hw):
+        return self.out_hw
+
+    def _affine(self):
+        # PIL/Image.py __transformer: EXTENT -> AFFINE
+        x0, y0, x1, y1 = self.src_rect
+        h, w = self.out_hw
+        return ((x1 - x0) / w, 0, x0, 0, (y1 - y0) / h, y0)
+
+    def apply_image(self, img):
+        h, w = self.out_hw
+        return affine_resample(img, w, h, self._affine(), bilinear=True)
+
+    def apply_segmentation(self, seg):
+        h, w = self.out_hw
+        return affine_resample(seg, w, h, self._affine(), bilinear=False)
+
+    def apply_coords(self, coords):
+        x0, y0, x1, y1 = self.src_rect
+        h, w = self.out_hw
+        coords = coords.astype(np.float32).copy()
+        coords[:, 0] = (coords[:, 0] - x0) * (w / max(x1 - x0, 1e-6))
+        coords[:, 1] = (coords[:, 1] - y0) * (h / max(y1 - y0, 1e-6))
+        return coords
+
+    def inverse(self):
+        raise NotImplementedError("an extent has no inverse (train only)")
+
+
+class RotationTransform(Transform):
+    """Rotate by ``angle`` degrees counterclockwise about the centre, the
+    canvas expanded to hold the whole image (``expand``). The pixels are
+    ``Image.rotate``'s (:func:`rotate_like_pillow`); ``new_h``/``new_w``
+    and ``apply_coords`` are the JAX package's formulas, whose canvas
+    ``ceil(|h cos| + |w sin|)`` can differ by a pixel from Pillow's
+    (ROADMAP.md section 3): the port keeps both as the reference has
+    them."""
+
+    def __init__(self, h: int, w: int, angle: float, expand: bool = True):
+        self.h, self.w, self.angle, self.expand = h, w, float(angle), expand
+        rad = np.deg2rad(self.angle)
+        self._cos, self._sin = np.cos(rad), np.sin(rad)
+        # snap float fuzz at right angles so expanded sizes are exact
+        if abs(self._cos) < 1e-12:
+            self._cos = 0.0
+        if abs(self._sin) < 1e-12:
+            self._sin = 0.0
+        if expand:
+            self.new_w = int(np.ceil(abs(w * self._cos) + abs(h * self._sin)))
+            self.new_h = int(np.ceil(abs(h * self._cos) + abs(w * self._sin)))
+        else:
+            self.new_h, self.new_w = h, w
+
+    def output_size(self, hw):
+        return (self.new_h, self.new_w)
+
+    def apply_image(self, img):
+        return rotate_like_pillow(img, self.angle, True, self.expand)
+
+    def apply_segmentation(self, seg):
+        return rotate_like_pillow(seg, self.angle, False, self.expand)
+
+    def apply_coords(self, coords):
+        coords = coords.astype(np.float32).copy()
+        cx, cy = self.w / 2, self.h / 2
+        ncx, ncy = self.new_w / 2, self.new_h / 2
+        x = coords[:, 0] - cx
+        y = coords[:, 1] - cy
+        # image y grows downward: counterclockwise by `angle`
+        coords[:, 0] = x * self._cos + y * self._sin + ncx
+        coords[:, 1] = -x * self._sin + y * self._cos + ncy
+        return coords
+
+    def inverse(self):
+        if not self.expand:
+            raise NotImplementedError("inverse only defined for expand=True")
+        inv = RotationTransform(self.new_h, self.new_w, -self.angle,
+                                expand=True)
+        # the inverse canvas is larger than the original: crop back to
+        # (h, w) about the centre
+        crop = CropTransform(
+            (inv.new_w - self.w) // 2, (inv.new_h - self.h) // 2,
+            self.w, self.h, orig_w=inv.new_w, orig_h=inv.new_h)
+        return TransformList([inv, crop])
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +596,112 @@ class RandomCrop(Augmentation):
             ch, cw = lo + rng.rand(2) * (1 - lo)
             return int(h * ch + 0.5), int(w * cw + 0.5)
         return (min(int(self.crop_size[0]), h), min(int(self.crop_size[1]), w))
+
+
+class RandomRotation(Augmentation):
+    """Rotate by an angle drawn uniformly from ``angle`` = (lo, hi) when
+    ``sample_style`` is "range", else chosen from the list."""
+
+    def __init__(self, angle, expand: bool = True,
+                 sample_style: str = "range"):
+        if isinstance(angle, (int, float)):
+            angle = (angle,)
+        self.angle = tuple(float(a) for a in angle)
+        self.expand = expand
+        self.sample_style = sample_style
+
+    def get_transform(self, image, rng):
+        if self.sample_style == "range" and len(self.angle) == 2:
+            a = float(rng.uniform(self.angle[0], self.angle[1]))
+        else:
+            a = self.angle[int(rng.randint(len(self.angle)))]
+        if a % 360 == 0:
+            return NoOpTransform()
+        h, w = image.shape[:2]
+        return RotationTransform(h, w, a, expand=self.expand)
+
+
+class RandomExtent(Augmentation):
+    """A sub-rectangle scaled by a factor from ``scale_range`` and shifted
+    by up to ``shift_range`` / 2 of each side (it may reach past the
+    image), resampled to its own size."""
+
+    def __init__(self, scale_range, shift_range):
+        self.scale_range = tuple(scale_range)
+        self.shift_range = tuple(shift_range)
+
+    def get_transform(self, image, rng):
+        h, w = image.shape[:2]
+        rect = np.array([-0.5 * w, -0.5 * h, 0.5 * w, 0.5 * h], np.float32)
+        rect *= rng.uniform(self.scale_range[0], self.scale_range[1])
+        rect[0::2] += self.shift_range[0] * w * (rng.rand() - 0.5)
+        rect[1::2] += self.shift_range[1] * h * (rng.rand() - 0.5)
+        rect[0::2] += 0.5 * w
+        rect[1::2] += 0.5 * h
+        return ExtentTransform(rect, (int(rect[3] - rect[1]),
+                                      int(rect[2] - rect[0])))
+
+
+class RandomBrightness(Augmentation):
+    """Scale the intensity by w from [intensity_min, intensity_max]: a
+    blend against black."""
+
+    def __init__(self, intensity_min: float, intensity_max: float):
+        self.intensity_min, self.intensity_max = intensity_min, intensity_max
+
+    def get_transform(self, image, rng):
+        w = rng.uniform(self.intensity_min, self.intensity_max)
+        return BlendTransform(0.0, src_weight=1 - w, dst_weight=w)
+
+
+class RandomContrast(Augmentation):
+    """A blend against the image's mean intensity."""
+
+    def __init__(self, intensity_min: float, intensity_max: float):
+        self.intensity_min, self.intensity_max = intensity_min, intensity_max
+
+    def get_transform(self, image, rng):
+        w = rng.uniform(self.intensity_min, self.intensity_max)
+        return BlendTransform(float(np.asarray(image, np.float32).mean()),
+                              src_weight=1 - w, dst_weight=w)
+
+
+class RandomSaturation(Augmentation):
+    """A blend against each pixel's gray level, with BGR weights (the data
+    path carries BGR)."""
+
+    def __init__(self, intensity_min: float, intensity_max: float):
+        self.intensity_min, self.intensity_max = intensity_min, intensity_max
+
+    def get_transform(self, image, rng):
+        if image.shape[-1] != 3:
+            raise ValueError("RandomSaturation needs a BGR image")
+        w = rng.uniform(self.intensity_min, self.intensity_max)
+        gray = (np.asarray(image, np.float32)
+                @ np.array([0.114, 0.587, 0.299], np.float32))[..., None]
+        return BlendTransform(gray, src_weight=1 - w, dst_weight=w)
+
+
+class RandomLighting(Augmentation):
+    """AlexNet's PCA colour jitter: a shift along ImageNet's colour
+    eigenvectors (BGR order) scaled by their eigenvalues and normal
+    weights of scale ``scale``."""
+
+    _EIGVEC = np.array([[-0.5675, 0.7192, 0.4009],
+                        [-0.5808, -0.0045, -0.8140],
+                        [-0.5836, -0.6948, 0.4203]], np.float32)[:, ::-1]
+    _EIGVAL = np.array([0.2175, 0.0188, 0.0045], np.float32)
+
+    def __init__(self, scale: float):
+        self.scale = scale
+
+    def get_transform(self, image, rng):
+        if image.shape[-1] != 3:
+            raise ValueError("RandomLighting needs a BGR image")
+        weights = rng.normal(scale=self.scale, size=3).astype(np.float32)
+        shift = self._EIGVEC @ (weights * self._EIGVAL)
+        return BlendTransform(shift[None, None, :], src_weight=1.0,
+                              dst_weight=1.0)
 
 
 def apply_augmentations(augs: Sequence[Augmentation], image: np.ndarray,

@@ -1,0 +1,105 @@
+"""The port's host-side native code: the JPEG decoder (counterpart of
+``drn_wsod_tpu/native.py``'s JPEG binding).
+
+``ops/csrc/jpeg_decode.cpp`` is a decoder of its own, with no libjpeg: it
+equals libjpeg-turbo's ISLOW, fancy-upsampled RGB decode bit for bit, which
+is what Pillow returns and what the JAX package's binding returns, at a
+DCT-domain prescale of ``scale_num``/8. It builds with the host's C++
+compiler at first use (``ops/_build.py:build_host``); a missing compiler or
+a failed build raises. ``jpeg_decode`` returns None for a file the decoder
+does not take (see ``REASONS``), as the JAX binding does, and
+:func:`jpeg_unsupported_reason` names why.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+
+from .ops import _build
+
+_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_intp = ctypes.POINTER(ctypes.c_int)
+
+# the decoder's status codes (jpeg_decode.cpp `Status`) -> the feature
+REASONS = {
+    -1: "corrupt header",
+    -2: "scale_num outside 1-8",
+    -3: "output buffer too small",
+    -4: "arithmetic coding",
+    -5: "lossless",
+    -6: "12-bit",
+    -7: "CMYK JPEG",
+    -8: "truncated progressive",
+    -9: "unsupported sampling factors",
+    -10: "hierarchical",
+    -11: "unsupported component count",
+}
+
+
+def _info_fn():
+    return _build.bind_host("jpeg_decode", "jpeg_decode_info", _u8p,
+                            ctypes.c_size_t, _intp, _intp)
+
+
+def _decode_fn():
+    return _build.bind_host("jpeg_decode", "jpeg_decode", _u8p,
+                            ctypes.c_size_t, ctypes.c_int, _u8p,
+                            ctypes.c_size_t, _intp, _intp)
+
+
+def jpeg_available() -> bool:
+    """Whether the decoder builds and loads here."""
+    try:
+        _info_fn()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def jpeg_decode_info(data: bytes) -> Optional[Tuple[int, int]]:
+    """(width, height) from the frame header, or None where none parses."""
+    buf = np.frombuffer(data, np.uint8)
+    w, h = ctypes.c_int(), ctypes.c_int()
+    if _info_fn()(buf, len(data), ctypes.byref(w), ctypes.byref(h)) != 0:
+        return None
+    return w.value, h.value
+
+
+def jpeg_decode_status(data: bytes, scale_num: int = 8
+                       ) -> Tuple[Optional[np.ndarray], int]:
+    """(the (H, W, 3) RGB uint8 decode or None, the decoder's status code:
+    0, or a key of ``REASONS``)."""
+    if not 1 <= scale_num <= 8:
+        return None, -2
+    size = jpeg_decode_info(data)
+    if size is None:
+        return None, -1
+    ow = -(-size[0] * scale_num // 8)
+    oh = -(-size[1] * scale_num // 8)
+    out = np.empty((oh, ow, 3), np.uint8)
+    rw, rh = ctypes.c_int(), ctypes.c_int()
+    buf = np.frombuffer(data, np.uint8)
+    rc = _decode_fn()(buf, len(data), scale_num, out.reshape(-1), out.nbytes,
+                      ctypes.byref(rw), ctypes.byref(rh))
+    if rc != 0:
+        return None, rc
+    return out, 0
+
+
+def jpeg_decode(data: bytes, scale_num: int = 8) -> Optional[np.ndarray]:
+    """Decode JPEG bytes -> (H, W, 3) RGB uint8, prescaled to
+    ``scale_num``/8 of the native size in the DCT domain (each side
+    ``ceil(side * scale_num / 8)``). None where the decoder does not take
+    the file; :func:`jpeg_unsupported_reason` says why."""
+    return jpeg_decode_status(data, scale_num)[0]
+
+
+def jpeg_unsupported_reason(data: bytes) -> Optional[str]:
+    """The feature behind a None from :func:`jpeg_decode` ("CMYK JPEG",
+    "arithmetic coding", "12-bit", "lossless", "truncated progressive",
+    "corrupt header", ...), or None where the file decodes."""
+    rc = jpeg_decode_status(data)[1]
+    return REASONS.get(rc, f"status {rc}") if rc else None

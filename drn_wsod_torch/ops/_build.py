@@ -7,6 +7,10 @@ takes seconds; the stale sources build in parallel, one ``nvcc`` each. A
 library is stale when it is older than its source or than any shared header
 (``csrc/*.cuh``). A missing ``nvcc`` or a failed build raises.
 
+The host code among the sources (``csrc/<name>.cpp``, the JPEG decoder)
+builds alike with the host's C++ compiler (:func:`build_host`): it needs
+no ``nvcc``, so it builds on a machine without CUDA too.
+
 The wrappers issue their launches alike, through helpers that keep the
 host's per-call work small: :func:`bind` sets a C entry point's prototype
 once, and :func:`stream_of` (:data:`raw_stream` for a device index) reads
@@ -21,6 +25,7 @@ import functools
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -29,6 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "drn_wsod_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 
 def _nvcc() -> str:
@@ -79,6 +85,59 @@ def build_all() -> dict:
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+def _host_compiler() -> str:
+    """The host's C++ compiler: ``c++`` or ``g++`` on ``PATH``."""
+    for name in ("c++", "g++"):
+        path = shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError("no C++ compiler (c++ or g++) on PATH: the port's "
+                       "host code (ops/csrc/*.cpp) cannot be built")
+
+
+def build_host(name: str) -> dict:
+    """Compile ``csrc/<name>.cpp`` with the host's C++ compiler into
+    ``lib<name>.so`` where the library is older than its source. Returns
+    {"compiler", "seconds", "built"}; a failed build raises."""
+    src = CSRC / f"{name}.cpp"
+    lib = library_path(name)
+    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        return {"compiler": None, "seconds": 0.0, "built": False}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler = _host_compiler()
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([compiler, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host build of {src.name} failed ({compiler} "
+                           f"exit {proc.returncode}):\n{proc.stdout}"
+                           f"{proc.stderr}")
+    os.replace(tmp, lib)
+    return {"compiler": compiler, "seconds": seconds, "built": True}
+
+
+@functools.lru_cache(maxsize=None)
+def load_host(name: str) -> ctypes.CDLL:
+    """The built library ``csrc/<name>.cpp``, building it first. Loaded
+    as a ``CDLL``: its calls drop the GIL, so threads decode in
+    parallel."""
+    build_host(name)
+    return ctypes.CDLL(str(library_path(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def bind_host(library: str, symbol: str, *argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of ``csrc/<library>.cpp`` with its
+    prototype set once, as :func:`bind` does for the CUDA sources."""
+    fn = getattr(load_host(library), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)

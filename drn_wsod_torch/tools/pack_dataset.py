@@ -7,8 +7,9 @@ record shard for the training data path (counterpart of
         --out datasets/packed/voc_2007_trainval.rec
 
 The datasets ``train_net`` registers (VOC, COCO, the web and VOC-SBD
-sets) live under ``$DETECTRON2_DATASETS`` (default ``datasets``). Decoding
-needs Pillow; training from the shard does not.
+sets) live under ``$DETECTRON2_DATASETS`` (default ``datasets``). JPEG
+images decode with the port's own decoder (``native.py``), without Pillow;
+other formats need Pillow. Training from the shard decodes nothing.
 """
 
 from __future__ import annotations

@@ -194,10 +194,19 @@ def test_read_image_equal(voc, fmt):
         np.testing.assert_array_equal(got, want)
 
 
-def test_read_image_without_pillow(voc, monkeypatch):
-    """No other decoder stands behind Pillow: without it, a clear error."""
+def test_read_image_without_pillow(voc, monkeypatch, tmp_path):
+    """Without Pillow a JPEG decodes with the port's own decoder, equal to
+    the JAX package's ``read_image``; another format is a clear error."""
     import sys
 
+    d, _, images = voc
+    want = {fid: jdata.read_image(f"{d}/JPEGImages/{fid}.jpg", "BGR")
+            for fid in images}
+    png = tmp_path / "x.png"
+    png.write_bytes(b"\x89PNG\r\n\x1a\n")
     monkeypatch.setitem(sys.modules, "PIL", None)
+    for fid in images:
+        np.testing.assert_array_equal(
+            pdata.read_image(f"{d}/JPEGImages/{fid}.jpg"), want[fid])
     with pytest.raises(ImportError, match="Pillow"):
-        pdata.read_image(f"{voc[0]}/JPEGImages/000001.jpg")
+        pdata.read_image(str(png))

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``drn_wsod_torch`` (its ``tools``
 included, nor ``chip_smoke.py``) imports JAX, flax, optax or the JAX
-package, and its entry points refuse to fall back to the CPU silently."""
+package, none imports Pillow at module level, its JPEG decoder needs no
+libjpeg, and its entry points refuse to fall back to the CPU silently."""
 
 import ast
 import subprocess
@@ -34,6 +35,44 @@ def test_source_imports_no_jax(source):
     assert not bad, f"{source} imports {bad}"
 
 
+@pytest.mark.parametrize("source", SOURCES)
+def test_source_imports_no_pillow_at_module_level(source):
+    """Pillow may be missing on the GPU machine: a module imports it, where
+    it needs it, inside the function that uses it."""
+    tree = ast.parse((ROOT / source).read_text(), source)
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    roots = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import)
+             for a in n.names}
+    roots |= {n.module.split(".")[0] for n in top
+              if isinstance(n, ast.ImportFrom) and n.level == 0}
+    assert "PIL" not in roots, f"{source} imports PIL at module level"
+
+
+def test_jpeg_decoder_needs_no_libjpeg():
+    csrc = ROOT / "drn_wsod_torch" / "ops" / "csrc"
+    sources = sorted(csrc.glob("*.c*"))
+    assert any(p.name == "jpeg_decode.cpp" for p in sources)
+    for p in sources:
+        assert "jpeglib.h" not in p.read_text(), p.name
+    build = (ROOT / "drn_wsod_torch" / "ops" / "_build.py").read_text()
+    assert "-ljpeg" not in build and "jpeglib" not in build
+
+
+def test_jpeg_fixtures_committed_and_small():
+    import json
+
+    d = ROOT / "drn_wsod_torch" / "data" / "jpeg_fixtures"
+    manifest = json.loads((d / "manifest.json").read_text())
+    total = 0
+    for name, entry in manifest["files"].items():
+        assert (d / name).stat().st_size == entry["bytes"]
+        total += entry["bytes"]
+    total += (d / "manifest.json").stat().st_size
+    assert total < 256 * 1024, total
+    assert sorted(p.name for p in d.iterdir()) == sorted(
+        [*manifest["files"], "manifest.json"])
+
+
 def test_import_pulls_in_no_jax():
     code = ("import sys, drn_wsod_torch, drn_wsod_torch.ops._build, "
             "drn_wsod_torch.ops.narrow_max, "
@@ -41,7 +80,8 @@ def test_import_pulls_in_no_jax():
             "drn_wsod_torch.tools.pool_banded_probe, "
             "drn_wsod_torch.tools.mosaic_dtype_probe, "
             "drn_wsod_torch.tools.train_net, drn_wsod_torch.tools.demo, "
-            "drn_wsod_torch.tools.pack_dataset; "
+            "drn_wsod_torch.tools.pack_dataset, drn_wsod_torch.native, "
+            "drn_wsod_torch.tools.make_jpeg_fixtures; "
             "print(sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -79,10 +119,10 @@ def test_eval_entry_points_refuse_missing_cuda(monkeypatch):
 
 def test_tools_are_covered():
     for tool in ("ablate_bench", "pool_banded_probe", "mosaic_dtype_probe",
-                 "train_net", "demo", "pack_dataset"):
+                 "train_net", "demo", "pack_dataset", "make_jpeg_fixtures"):
         assert f"drn_wsod_torch/tools/{tool}.py" in SOURCES
     for module in ("ops/narrow_max.py", "ops/crf.py", "models/heads/seg.py",
-                   "models/backbones/vgg.py"):
+                   "models/backbones/vgg.py", "native.py"):
         assert f"drn_wsod_torch/{module}" in SOURCES
 
 

@@ -87,7 +87,7 @@ def test_not_a_shard(tmp_path):
 def test_pack_dataset_equal(tmp_path):
     """Records of a VOC directory, decoded by each package's packer: the
     same pixels and fields (the JAX package decodes with its libjpeg
-    binding, the port with Pillow; the two are bit-exact)."""
+    binding, the port with its own decoder; the two are bit-exact)."""
     d, prop_file, images = write_voc(tmp_path, [(30, 41), (44, 36)],
                                      pvoc.VOC_CLASS_NAMES, seed=4)
     records = pdata.load_proposals_into_dataset(
