@@ -203,7 +203,28 @@ Phases (any failure exits non-zero):
      which ``read_image`` decodes from their files: losses finite, K1 once
      per step and per TTA group and exact at the largest map, each image's
      detections (every finite score kept) present, finite and inside it.
-Every path (4-8, 10-22) is run with the kernels' launch counts set to 0
+ 23. the mask and keypoint arms ("masks"), all from seeded random weights
+     through ``train_net.main``: the rasterizer without Pillow on the
+     committed mask fixtures (``drn_wsod_torch/data/mask_fixtures``), and
+     the Mask R-CNN YAML's training mapper on a packed shard of the
+     fixtures' 8 COCO-sized train images against their digests of
+     Pillow's masks; (a) ``Misc/mask_rcnn_R_50_FPN_1x`` (R50-FPN,
+     ROIAlignV2, 80 classes, the mask head 4 x 256 at 14^2 -> 28^2,
+     FREEZE_AT 2, bf16), 4 steps of B=4 from the shard at BASE_LR 1e-4,
+     then the eval without TTA of the 2 test images into the COCO box and
+     mask evaluator: losses finite with ``loss_mask``, masks pasted at the
+     original size, segm AP finite in [0, 100] (or all NaN), the mask
+     head's forward and ``mask_loss`` on the card against the CPU in
+     float32; (b) the same YAML set as Detectron2's
+     ``keypoint_rcnn_R_50_FPN_1x`` (person only, 17 keypoints, the
+     keypoint head 8 x 512 at 14^2 -> 56^2) on a person shard, 4 steps,
+     keypoint AP, keypoints in the original frame; (c)
+     ``cascade_rcnn_WSR_50_DC5_1x`` with ``MASK_ON`` on (a)'s shard, 2
+     steps and the eval at every finite score, every loss finite, masks
+     pasted; each step's device ms and bucket, the
+     heads' forward ms, the host's paste and segm evaluation seconds, peak
+     memory; no K1 launch (a line says so).
+Every path (4-8, 10-23) is run with the kernels' launch counts set to 0
 just before it and read just after. The line before the kernels' JSON
 line names the JPEG decoder's compiler, its build seconds, the fixture
 decodes matched and the host decode times; the line before that gives the
@@ -537,8 +558,8 @@ def split_request(model, detect, batch):
     marks.hooks.append(model.box_head.register_forward_hook(marks("dan_out")))
     scores_fn = model.inference_scores
 
-    def timed_scores(b):
-        out = scores_fn(b)
+    def timed_scores(b, feats=None):
+        out = scores_fn(b, feats)
         marks("scores_out")()
         return out
 
@@ -1999,17 +2020,23 @@ def entry_setup(prefix: str, seed: int, n_train: int = PH12_TRAIN,
 
 
 def detection_checker(hw: dict, dets: list, bad: list, evaluator=None,
-                      num_classes: int = 20):
+                      num_classes: int = 20, dense: dict = None):
     """A ``process_single`` of ``evaluator`` (the VOC evaluator by
     default) that records (image, detections) in ``dets`` and, in ``bad``,
     every image whose detections are not finite, leave the image or name a
-    class past ``num_classes``, then calls the evaluator's own."""
+    class past ``num_classes``, then calls the evaluator's own. Where the
+    loop passes ``masks`` (the COCO evaluator's segm task), each must be a
+    bool (D, H, W) mask at the image's original size; where it passes
+    ``keypoints``, each valid detection's (K, 3) keypoints must be finite,
+    inside the image and scored in [0, 1]; ``dense`` counts them."""
     from drn_wsod_torch.evaluation import voc_eval
 
     process = (evaluator or voc_eval.PascalVOCDetectionEvaluator
                ).process_single
+    dense = {} if dense is None else dense
 
-    def checked(self, image_id, boxes, scores, classes, valid):
+    def checked(self, image_id, boxes, scores, classes, valid, masks=None,
+                keypoints=None):
         H, W = hw[image_id]
         b, v = np.asarray(boxes), np.asarray(valid)
         finite = all(np.isfinite(np.asarray(a, np.float64)).all()
@@ -2017,10 +2044,29 @@ def detection_checker(hw: dict, dets: list, bad: list, evaluator=None,
         inside = not ((b[v] < 0).any() or (b[v][:, [0, 2]] > W).any()
                       or (b[v][:, [1, 3]] > H).any()
                       or (np.asarray(classes)[v] >= num_classes).any())
+        kw = {}
+        if masks is not None:
+            m = np.asarray(masks)
+            inside &= m.dtype == bool and m.shape == (len(v), H, W)
+            dense["masks"] = dense.get("masks", 0) + int(v.sum())
+            dense["mask_pixels"] = dense.get("mask_pixels", 0) + int(
+                m[v].sum())
+            kw["masks"] = masks
+        if keypoints is not None:
+            k = np.asarray(keypoints, np.float64)[v]
+            finite &= bool(np.isfinite(k).all())
+            inside &= bool((k[..., 0] >= 0).all() and (k[..., 0] <= W).all()
+                           and (k[..., 1] >= 0).all()
+                           and (k[..., 1] <= H).all()
+                           and (k[..., 2] >= 0).all()
+                           and (k[..., 2] <= 1).all())
+            dense["keypoints"] = dense.get("keypoints", 0) + k.shape[0] * \
+                k.shape[1]
+            kw["keypoints"] = keypoints
         dets.append((image_id, int(v.sum())))
         if not (finite and inside):
             bad.append((image_id, finite, inside, int(v.sum())))
-        return process(self, image_id, boxes, scores, classes, valid)
+        return process(self, image_id, boxes, scores, classes, valid, **kw)
 
     return checked
 
@@ -2611,12 +2657,14 @@ PH16_CSC_MAX_ITER, PH16_STEPS, PH16_TEST = 2, 4, 2
 
 
 def entry_main(phase: int, dev, yaml: Path, opts: list, hw: dict,
-               patches=(), coco: bool = False):
+               patches=(), coco: bool = False, num_classes: int = None,
+               dense: dict = None):
     """``train_net.main`` on ``yaml`` with ``opts`` (the TTA eval of the
     test records only), each step recorded by ``step_recorder`` as
     "plain" or "csc", each evaluated image by ``detection_checker`` (of the
-    VOC evaluator, or with ``coco`` of the COCO box evaluator over 80
-    classes), plus ``patches`` ((object, name, value) each), with the
+    VOC evaluator, or with ``coco`` of the COCO evaluator over
+    ``num_classes``, 80 by default, its masks and keypoints counted in
+    ``dense``), plus ``patches`` ((object, name, value) each), with the
     launch counts set to 0 just before and read just after. Returns a dict
     of the results, launches, steps, detections, bad images, main's
     seconds, peak memory and the clock summary."""
@@ -2640,7 +2688,8 @@ def entry_main(phase: int, dev, yaml: Path, opts: list, hw: dict,
                 (trainer_lib, "make_csc_train_step", step_recorder(
                     steps, "csc", trainer_lib.make_csc_train_step)),
                 (evaluator, "process_single", detection_checker(
-                    hw, dets, bad, evaluator, 80 if coco else 20)),
+                    hw, dets, bad, evaluator,
+                    num_classes or (80 if coco else 20), dense)),
                 *patches):
             stack.enter_context(mock.patch.object(obj, name, new))
         t = time.perf_counter()
@@ -4159,6 +4208,464 @@ def phase22_jpeg(dev, tag, host_build: dict):
     return run["launches"], line
 
 
+
+# ------------------------------------------------------------- phase 23
+PH23_STEPS, PH23_CASCADE_STEPS, PH23_NEAR = 4, 2, 48
+PH23_HEAD_ROIS = 128
+# Detectron2's COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml on the Mask
+# R-CNN YAML's base: person only, 17 keypoints, no mask head
+PH23_KEYPOINT = ["MODEL.MASK_ON", "False", "MODEL.KEYPOINT_ON", "True",
+                 "MODEL.ROI_HEADS.NUM_CLASSES", "1"]
+
+
+def ph23_split(root: Path, name: str, coco: dict, rs):
+    """A COCO json dict loaded by ``load_coco_json`` (``name``'s
+    metadata set), its records given random u8 pixels and PH11_PROPOSALS
+    proposals (PH23_NEAR near its GT boxes first, then phase 10's
+    VOC-like ones), packed by ``pack_dataset`` and registered under
+    ``name``. Returns (proposals pickle, {image_id: (H, W)}, shard path)."""
+    import json
+    import pickle
+
+    from drn_wsod_torch.data import (DatasetCatalog, RecordDataset,
+                                     pack_dataset)
+    from drn_wsod_torch.data.datasets import load_coco_json
+
+    json_file = root / f"{name}.json"
+    json_file.write_text(json.dumps(coco))
+    records = load_coco_json(str(json_file), str(root / name), name)
+    props = {"ids": [], "boxes": [], "objectness_logits": [], "bbox_mode": 0}
+    for r in records:
+        H, W = r["height"], r["width"]
+        image, rec = eval_image(rs, H, W, r["image_id"], P=PH11_PROPOSALS)
+        r["image"] = image
+        boxes = rec["proposal_boxes"]
+        gt = np.asarray([a["bbox"] for a in r["annotations"]], np.float32)
+        if len(gt):
+            near = gt[rs.randint(len(gt), size=PH23_NEAR)]
+            near = near + rs.uniform(-0.08, 0.08, near.shape) * np.tile(
+                near[:, 2:] - near[:, :2], 2)
+            near = np.clip(near, 0, [W - 1, H - 1, W - 1, H - 1])
+            boxes = np.concatenate([near, boxes])[:PH11_PROPOSALS]
+        props["ids"].append(r["image_id"])
+        props["boxes"].append(boxes.astype(np.float32))
+        props["objectness_logits"].append(rec["proposal_objectness_logits"])
+    shard = root / f"{name}.rec"
+    pack_dataset(records, str(shard))
+    prop_file = root / f"{name}_proposals.pkl"
+    with open(prop_file, "wb") as f:
+        pickle.dump(props, f)
+    if name in DatasetCatalog:
+        DatasetCatalog.remove(name)
+    DatasetCatalog.register(name, lambda: list(RecordDataset(str(shard))))
+    return str(prop_file), {str(r["image_id"]): (r["height"], r["width"])
+                            for r in records}, shard
+
+
+def ph23_rasterizer(shard: Path, manifest: dict) -> str:
+    """The rasterizer without Pillow against the committed digests of
+    Pillow's masks: every polygon case of the manifest, and the Mask
+    R-CNN YAML's training mapper on the packed shard's records, each with
+    its manifest seed (every instance's mask in its bucket)."""
+    from drn_wsod_torch.data import DatasetMapper, RecordDataset
+    from drn_wsod_torch.structures.masks import fill_polygon
+    from drn_wsod_torch.tools import make_mask_fixtures as fx
+
+    t = time.perf_counter()
+    with no_pillow():
+        for c in manifest["polygons"]:
+            out = np.zeros((c["height"], c["width"]), bool)
+            for poly in c["polygons"]:
+                fill_polygon(out, np.reshape(poly, (-1, 2)))
+            if fx.mask_digest(out) != c["sha256"]:
+                raise Fail(f"phase 23: polygon case {c} differs from "
+                           "Pillow's fill")
+        t_cases = time.perf_counter() - t
+        mapper = DatasetMapper(fx.mask_mapper_cfg(), is_train=True)
+        n, t_map, buckets = 0, 0.0, []
+        records = list(RecordDataset(str(shard)))
+        for r, e in zip(records, manifest["mapper"]):
+            if r["image_id"] != e["image_id"]:
+                raise Fail(f"phase 23: shard record {r['image_id']} is not "
+                           f"the manifest's {e['image_id']}")
+            t0 = time.perf_counter()
+            out = mapper(r, np.random.RandomState(e["seed"]))
+            t_map += time.perf_counter() - t0
+            k = len(e["masks_sha256"])
+            got = [fx.mask_digest(m) for m in out["gt_masks"][:k]]
+            if out["_bucket"] != e["bucket"] or got != e["masks_sha256"] \
+                    or out["gt_masks"][k:].any():
+                raise Fail(f"phase 23: the mapper's masks of image "
+                           f"{r['image_id']} differ from Pillow's")
+            n += k
+            buckets.append(out["_bucket"])
+    if len(records) != len(manifest["mapper"]):
+        raise Fail("phase 23: the shard does not hold the manifest's records")
+    return (f"{len(manifest['polygons'])} polygon cases ({t_cases:.2f} s) "
+            f"and the training mapper's {n} instance masks of "
+            f"{len(records)} shard records (buckets {buckets}, "
+            f"{t_map / len(records) * 1e3:.1f} ms a record, G=100 slots) "
+            "equal to the digests of Pillow's, Pillow blocked")
+
+
+def ph23_captures(captured: dict):
+    """Stand-ins that keep the mask head's and the keypoint head's first
+    training input (the module too), ``mask_loss``'s first arguments, and
+    time the host's mask pasting and dense evaluation."""
+    from drn_wsod_torch.evaluation import coco_eval
+    from drn_wsod_torch.evaluation import evaluator as evaluator_lib
+    from drn_wsod_torch.models.heads import keypoint, seg
+
+    def keep(cls, key):
+        forward = cls.forward
+
+        def capture(self, x):
+            if torch.is_grad_enabled() and key not in captured:
+                captured[key] = (self, x.detach().clone())
+            return forward(self, x)
+        return cls, "forward", capture
+
+    loss = seg.mask_loss
+
+    def mask_loss(*args):
+        captured.setdefault("mask_loss", tuple(a.detach().clone()
+                                               for a in args))
+        return loss(*args)
+
+    def timed(obj, name):
+        fn = getattr(obj, name)
+
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                captured[f"{name}_s"] = captured.get(f"{name}_s", 0.0) + \
+                    time.perf_counter() - t
+        return obj, name, run
+
+    return [keep(seg.MaskRCNNHead, "mask_head"),
+            keep(keypoint.KRCNNConvDeconvUpsampleHead, "keypoint_head"),
+            (seg, "mask_loss", mask_loss),
+            timed(evaluator_lib, "paste_masks_in_image"),
+            timed(coco_eval.COCODetectionEvaluator, "_evaluate_dense_task")]
+
+
+def ph23_head_check(captured: dict) -> str:
+    """The mask head's forward on PH23_HEAD_ROIS of a train step's RoIs
+    and ``mask_loss`` on that step's logits and targets, on the card
+    against the CPU, both in float32 (the head's convs switched from
+    bfloat16 to float32 in a copy): within 1e-4 of the largest value; and
+    each head's forward ms a call at the step's input."""
+    import copy
+
+    head, x = captured["mask_head"]
+    h32 = copy.deepcopy(head).float()
+    for m in h32.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float32
+    x32 = x[:PH23_HEAD_ROIS].float()
+    with torch.no_grad():
+        got = h32(x32)
+        want = h32.cpu()(x32.cpu())
+    top = float(want.abs().max())
+    err = float((got.cpu() - want).abs().max())
+    if not err <= 1e-4 * top:
+        raise Fail(f"phase 23: the mask head on the card differs from the "
+                   f"CPU by {err} (largest {top})")
+    from drn_wsod_torch.models.heads.seg import mask_loss
+
+    args = captured["mask_loss"]
+    card = float(mask_loss(*args))
+    cpu = float(mask_loss(*(a.cpu() for a in args)))
+    if not (math.isfinite(card) and abs(card - cpu) <= 1e-4 * abs(cpu)):
+        raise Fail(f"phase 23: mask_loss on the card {card}, CPU {cpu}")
+    with torch.no_grad():
+        ms = {"mask": cuda_ms(lambda: head(x), 3)}
+        if "keypoint_head" in captured:
+            kh, kx = captured["keypoint_head"]
+            ms["keypoint"] = cuda_ms(lambda: kh(kx), 3)
+    return (f"mask head (4 x 256, deconv, 80 classes) on {PH23_HEAD_ROIS} "
+            f"of a step's {tuple(x.shape)} RoIs on the card == CPU in "
+            f"float32 to {err:.3g} (largest {top:.3g}); mask_loss card "
+            f"{card:.6f} CPU {cpu:.6f} on {tuple(args[0].shape)} logits; "
+            f"forward ms a call at the step's input (bf16, CUDA events): "
+            + ", ".join(f"{k} head {v:.2f}" for k, v in ms.items()))
+
+
+def ph23_crowd(coco: dict) -> str:
+    """The test split's crowd region (uncompressed RLE, on an image with
+    polygon instances of its class) through the segm evaluator that
+    ``build_evaluator`` makes, Pillow blocked: decoded to its area and
+    box; ignored, so that the image's polygon GT, each detected by its own
+    mask, gives AP 100 with the crowd undetected; matched without penalty,
+    so that a detection of the crowd's mask scored above all of them
+    leaves AP at 100."""
+    from drn_wsod_torch.evaluation.coco_eval import (COCODetectionEvaluator,
+                                                     gt_segmentation_mask)
+    from drn_wsod_torch.tools import make_mask_fixtures as fx
+
+    with no_pillow():
+        records = fx.coco_records(coco)
+        gt = {str(r["image_id"]): r["annotations"] for r in records}
+        crowds = [(r, a) for r in records for a in r["annotations"]
+                  if a["iscrowd"]]
+        if len(crowds) != 1 or not isinstance(
+                crowds[0][1]["segmentation"], dict):
+            raise Fail(f"phase 23: the test split holds {len(crowds)} crowd "
+                       "regions, not one as RLE")
+        r, crowd = crowds[0]
+        m = gt_segmentation_mask(crowd["segmentation"], r["height"],
+                                 r["width"])
+        ys, xs = np.nonzero(m)
+        box = [xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]
+        if m.sum() != crowd["area"] or not np.allclose(box, crowd["bbox"]):
+            raise Fail(f"phase 23: the crowd RLE decodes to {m.sum()} pixels "
+                       f"in {box}, not {crowd['area']} in {crowd['bbox']}")
+        names = [f"class{c}" for c in range(len(coco["categories"]))]
+        aps = []
+        for with_crowd in (False, True):
+            ev = COCODetectionEvaluator(names, gt, tasks=("segm",))
+            for rec in records:
+                annos = [a for a in rec["annotations"]
+                         if with_crowd or not a["iscrowd"]]
+                if not annos:
+                    continue
+                annos.sort(key=lambda a: -a["iscrowd"])
+                ev.process_single(
+                    str(rec["image_id"]),
+                    np.array([a["bbox"] for a in annos]),
+                    np.linspace(1.0, 0.5, len(annos)),
+                    np.array([a["category_id"] for a in annos]),
+                    masks=np.stack([gt_segmentation_mask(
+                        a["segmentation"], rec["height"], rec["width"])
+                        for a in annos]))
+            aps.append(ev.evaluate()["segm"]["AP"])
+    if aps != [100.0, 100.0]:
+        raise Fail(f"phase 23: segm AP with the crowd undetected, detected "
+                   f"first: {aps}, not 100 (crowd not ignored)")
+    return (f"the test split's crowd RLE ({int(m.sum())} pixels, class "
+            f"{crowd['category_id']}) decoded and ignored by the segm "
+            f"evaluator: AP {aps[0]} undetected, {aps[1]} detected first")
+
+
+def ph23_dense_metrics(phase_part: str, results: dict, task: str) -> dict:
+    """The dense task's metrics of every test dataset: finite in [0, 100],
+    or NaN where no class has GT (then every one is NaN)."""
+    out = {}
+    for ds, tasks in results.items():
+        if task not in tasks:
+            raise Fail(f"phase 23: {phase_part} gave no {task} AP: {tasks}")
+        vals = {k: tasks[task][k] for k in ("AP", "AP50", "AP75")}
+        if not (all(math.isfinite(v) and 0 <= v <= 100
+                    for v in vals.values())
+                or all(math.isnan(v) for v in vals.values())):
+            raise Fail(f"phase 23: {phase_part} {task} metrics {vals}")
+        out.update({f"{ds}/{task}/{k}": v for k, v in vals.items()})
+    return out
+
+
+def phase23_masks(dev, tag) -> dict:
+    """The mask and keypoint arms at full width from seeded random weights,
+    each through ``train_net.main``: (a) ``Misc/mask_rcnn_R_50_FPN_1x``
+    (R50-FPN, ROIAlignV2 over p2-p5, Fast R-CNN over 80 classes, the mask
+    head 4 x 256 at 14^2 -> 28^2, FREEZE_AT 2, bf16) on a packed COCO
+    shard of the committed fixtures' 8 train and 2 test images (polygon
+    masks, a crowd RLE in each split, an image without annotations):
+    PH23_STEPS steps of B=4 (the YAML's 16 cut), then the eval without TTA
+    into the COCO box and mask evaluator, and the test split's crowd
+    through that evaluator on its own (``ph23_crowd``); (b) the same YAML
+    as Detectron2's keypoint YAML sets it (person only, 17 keypoints, the
+    keypoint head 8 x 512 at 14^2 -> 56^2) on a person shard: PH23_STEPS
+    steps, then keypoint AP; (c) ``cascade_rcnn_WSR_50_DC5_1x`` with
+    ``MASK_ON`` on (a)'s shard: PH23_CASCADE_STEPS steps. The rasterizer
+    and the mapper's masks against the committed digests of Pillow's, the
+    heads' and the losses' names and finiteness, the pasted masks at the
+    original size, the keypoints in the original frame, AP in range, the
+    mask head and ``mask_loss`` on the card against the CPU; no K1
+    launch."""
+    import shutil
+
+    from drn_wsod_torch.data import DatasetCatalog
+    from drn_wsod_torch.tools import make_mask_fixtures as fx
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    mask_yaml = root / "configs" / "Misc" / "mask_rcnn_R_50_FPN_1x.yaml"
+    cascade_yaml = root / "configs" / "PascalVOC-Detection" / \
+        "cascade_rcnn_WSR_50_DC5_1x.yaml"
+    yaml_is(23, mask_yaml, MODEL__MASK_ON=True, MODEL__KEYPOINT_ON=False,
+            MODEL__BACKBONE__NAME="build_resnet_fpn_backbone",
+            MODEL__BACKBONE__FREEZE_AT=2, MODEL__RESNETS__DEPTH=50,
+            MODEL__ROI_HEADS__NAME="StandardROIHeads",
+            MODEL__ROI_HEADS__NUM_CLASSES=80,
+            MODEL__ROI_HEADS__IN_FEATURES=["p2", "p3", "p4", "p5"],
+            MODEL__ROI_BOX_HEAD__POOLER_TYPE="ROIAlignV2",
+            MODEL__ROI_MASK_HEAD__POOLER_RESOLUTION=14,
+            MODEL__ROI_KEYPOINT_HEAD__NUM_KEYPOINTS=17,
+            MODEL__ROI_KEYPOINT_HEAD__POOLER_RESOLUTION=14,
+            MODEL__DTYPE="bfloat16", SOLVER__IMS_PER_BATCH=16,
+            TEST__AUG__ENABLED=False)
+    work = root / "build" / "chip_smoke_ph23"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    manifest = fx.load_manifest()
+    rs = np.random.RandomState(23)
+    names = ("coco_2017_train", "coco_2017_val", "ph23_person_train",
+             "ph23_person_val")
+    launches, lines, captured = {}, [], {}
+    try:
+        train_props, train_hw, shard = ph23_split(
+            work, names[0], manifest["coco"]["train"], rs)
+        test_props, test_hw, _ = ph23_split(
+            work, names[1], manifest["coco"]["test"], rs)
+        lines.append(ph23_rasterizer(shard, manifest))
+        lines.append(ph23_crowd(manifest["coco"]["test"]))
+        base = ["MODEL.WEIGHTS", "", "SEED", "0", "TEST.EVAL_PERIOD", "0",
+                "TEST.EVAL_TRAIN", "False", "SOLVER.IMS_PER_BATCH", "4",
+                "SOLVER.BASE_LR", str(PH19_LR)]
+
+        # (a) Mask R-CNN
+        dense = {}
+        opts = base + [
+            "DATASETS.PROPOSAL_FILES_TRAIN", repr((train_props,)),
+            "DATASETS.PROPOSAL_FILES_TEST", repr((test_props,)),
+            "OUTPUT_DIR", str(work / "out_mask"),
+            "SOLVER.MAX_ITER", str(PH23_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(PH23_STEPS)]
+        run = entry_main(23, dev, mask_yaml, opts, {**train_hw, **test_hw},
+                         ph23_captures(captured), coco=True, dense=dense)
+        per_step = check_steps(23, run, ["plain"] * PH23_STEPS, {"plain": {
+            "loss_cls", "loss_box_reg", "loss_mask", "total_loss"}})
+        check_detections(23, run, len(test_hw))
+        segm = ph23_dense_metrics("(a)", run["results"], "segm")
+        if not dense.get("masks"):
+            raise Fail(f"phase 23: (a) pasted no masks: {dense}")
+        heads = ph23_head_check(captured)
+        launches["mask"] = run["launches"]
+        print_entry(23, f"(a) Mask R-CNN train_net.main "
+                    f"(Misc/mask_rcnn_R_50_FPN_1x: R50-FPN 256, ROIAlignV2 "
+                    f"over p2-p5, DAN [1024, 1024], 80 classes, mask head 4 "
+                    f"x 256 at 14^2 -> 28^2, FREEZE_AT 2, bfloat16, the "
+                    f"YAML's 480-1200 scales under MAX 2000, seeded random "
+                    f"weights) {PH23_STEPS} steps of B=4 (the YAML's 16 "
+                    f"cut) at BASE_LR {PH19_LR} (0.02 cut) on a packed "
+                    f"shard of the mask fixtures' {len(train_hw)} COCO-sized "
+                    f"images, then the eval without TTA of "
+                    f"{len(test_hw)}", per_step, run, None,
+                    "none: the pyramid pools by RoIAlign", len(test_hw),
+                    f"; {dense['masks']} masks pasted at the original size "
+                    f"({dense['mask_pixels']} pixels), paste "
+                    f"{captured.get('paste_masks_in_image_s', 0):.3f} s and "
+                    f"segm evaluation "
+                    f"{captured.get('_evaluate_dense_task_s', 0):.3f} s on "
+                    f"the host; segm " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in segm.items())
+                    + f"; {heads}", tag)
+        captured.clear()
+
+        # (b) Keypoint R-CNN
+        kp_train, kp_train_hw, _ = ph23_split(
+            work, names[2], fx.synthetic_coco(231, 8, keypoints=True), rs)
+        kp_test, kp_test_hw, _ = ph23_split(
+            work, names[3], fx.synthetic_coco(232, 2, first_id=101,
+                                              keypoints=True), rs)
+        dense = {}
+        opts = base + PH23_KEYPOINT + [
+            "DATASETS.TRAIN", f"('{names[2]}',)",
+            "DATASETS.TEST", f"('{names[3]}',)",
+            "DATASETS.PROPOSAL_FILES_TRAIN", repr((kp_train,)),
+            "DATASETS.PROPOSAL_FILES_TEST", repr((kp_test,)),
+            "OUTPUT_DIR", str(work / "out_keypoint"),
+            "SOLVER.MAX_ITER", str(PH23_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(PH23_STEPS)]
+        run = entry_main(23, dev, mask_yaml, opts,
+                         {**kp_train_hw, **kp_test_hw},
+                         ph23_captures(captured), coco=True, num_classes=1,
+                         dense=dense)
+        per_step = check_steps(23, run, ["plain"] * PH23_STEPS, {"plain": {
+            "loss_cls", "loss_box_reg", "loss_keypoint", "total_loss"}})
+        check_detections(23, run, len(kp_test_hw))
+        kps = ph23_dense_metrics("(b)", run["results"], "keypoints")
+        if not dense.get("keypoints") or "mask_head" in captured:
+            raise Fail(f"phase 23: (b) keypoints {dense}, mask head run "
+                       f"{'mask_head' in captured}")
+        kh, kx = captured["keypoint_head"]
+        with torch.no_grad():
+            kp_ms = cuda_ms(lambda: kh(kx), 3)
+        launches["keypoint"] = run["launches"]
+        print_entry(23, f"(b) Keypoint R-CNN train_net.main (the same YAML "
+                    f"with MODEL.MASK_ON False, KEYPOINT_ON True, "
+                    f"NUM_CLASSES 1, as Detectron2's COCO-Keypoints/"
+                    f"keypoint_rcnn_R_50_FPN_1x.yaml: 17 keypoints, keypoint "
+                    f"head 8 x 512 at 14^2 -> 56^2) {PH23_STEPS} steps of "
+                    f"B=4 on a packed person shard of {len(kp_train_hw)} "
+                    f"images (visibility 0/1/2, a quarter with none "
+                    f"labelled), then the eval of {len(kp_test_hw)}",
+                    per_step, run, None, "none", len(kp_test_hw),
+                    f"; {dense['keypoints']} keypoints decoded in the "
+                    f"original frame; keypoints " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in kps.items())
+                    + f"; keypoint head forward {kp_ms:.2f} ms a call at "
+                    f"the step's {tuple(kx.shape)} RoIs (bf16, CUDA events)",
+                    tag)
+        captured.clear()
+
+        # (c) Cascade R-CNN with the mask head, on (a)'s shards; every
+        # finite score kept (the YAML's 0.05 keeps none of 81 classes'
+        # near-uniform scores on random weights), so masks are predicted
+        dense = {}
+        opts = base + [
+            "MODEL.MASK_ON", "True", "MODEL.ROI_HEADS.NUM_CLASSES", "80",
+            "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "-1",
+            "DATASETS.TRAIN", f"('{names[0]}',)",
+            "DATASETS.TEST", f"('{names[1]}',)",
+            "DATASETS.PROPOSAL_FILES_TRAIN", repr((train_props,)),
+            "DATASETS.PROPOSAL_FILES_TEST", repr((test_props,)),
+            "OUTPUT_DIR", str(work / "out_cascade"),
+            "SOLVER.MAX_ITER", str(PH23_CASCADE_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(PH23_CASCADE_STEPS)]
+        run = entry_main(23, dev, cascade_yaml, opts,
+                         {**train_hw, **test_hw}, coco=True, dense=dense)
+        per_step = check_steps(23, run, ["plain"] * PH23_CASCADE_STEPS, {
+            "plain": {"loss_mask", "total_loss", *(
+                f"loss_{n}_stage{k}" for k in range(3)
+                for n in ("cls", "box_reg"))}})
+        check_detections(23, run, len(test_hw))
+        segm = ph23_dense_metrics("(c)", run["results"], "segm")
+        if not dense.get("masks"):
+            raise Fail(f"phase 23: (c) pasted no masks: {dense}")
+        launches["cascade"] = run["launches"]
+        print_entry(23, f"(c) Cascade R-CNN with the mask head "
+                    f"train_net.main (cascade_rcnn_WSR_50_DC5_1x + MASK_ON "
+                    f"True, NUM_CLASSES 80: WS-R50 DC5, FREEZE_AT 2, ROIPool, "
+                    f"3 stages, the mask head on stage 0's sample, bf16) "
+                    f"{PH23_CASCADE_STEPS} steps of B=4 on (a)'s shard, then "
+                    f"the eval of (a)'s {len(test_hw)} test images keeping "
+                    f"every finite score (the YAML's threshold 0.05 cut)",
+                    per_step, run, None, "none: the differentiable pool",
+                    len(test_hw), f"; {dense.get('masks', 0)} masks pasted; "
+                    f"segm " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in segm.items()), tag)
+    finally:
+        for name in names:
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+        captured.clear()
+    k1 = {k: v["roi_pool"] for k, v in launches.items()}
+    if any(k1.values()):
+        raise Fail(f"phase 23: K1 launched {k1}")
+    print(f"phase 23: no K1 launch in (a), (b) or (c) ({k1}): the mask "
+          f"and keypoint arms pool by RoIAlign and the differentiable "
+          f"RoIPool, and their heads are cuDNN convolutions; "
+          f"{'; '.join(lines)}; phase {time.perf_counter() - t_phase:.1f} "
+          f"s {tag}",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {k: sum(v[k] for v in launches.values())
+            for k in launches["mask"]}
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4239,6 +4746,8 @@ def main() -> int:
         paths["deform"] = phase21_deform(dev, tag)
         torch.cuda.empty_cache()
         paths["jpeg"], jpeg_line = phase22_jpeg(dev, tag, host_build)
+        torch.cuda.empty_cache()
+        paths["masks"] = phase23_masks(dev, tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1

@@ -11,7 +11,11 @@ Cascade's ``cascade_head_{k}`` and ``cascade_predictor_{k}`` become
 and ``fpn_output_res{n}`` become ``fpn_lateral{n}`` and ``fpn_output{n}``,
 and a deformable block's ``conv2_deform_weight`` becomes ``conv2.weight``.
 Conv kernels (and ``conv2_deform_weight``, an HWIO kernel by another name)
-go from HWIO to OIHW, dense kernels from (I, O) to (O, I); biases and
+go from HWIO to OIHW, dense kernels from (I, O) to (O, I); the transposed
+convs of the mask and keypoint heads (``mask_head.deconv``,
+``keypoint_head.score_lowres``: flax ``ConvTranspose`` kernels, (k, k, in,
+out)) are flipped in both spatial axes and go to torch's (in, out, k, k),
+which is what ``layers.ConvTranspose2d`` computes flax's result with; biases and
 FrozenBN's four vectors copy unchanged. Both packages flatten the RoI features as (7, 7, C), so fc1 is
 only transposed. Under ``NORM`` BN the flax BatchNorm's ``scale`` becomes
 ``norm.weight``, and its ``batch_stats`` (``mean``, ``var``, passed apart)
@@ -33,11 +37,16 @@ _PORT_NAME = re.compile(
     r"|backbone\.fpn_(lateral|output)\d"
     r"|seg_head\.(aspp\.(conv1x1|conv3x3_d\d+|pool_conv|project)"
     r"|predictor)"
+    r"|mask_head\.(mask_fcn\d+|deconv|predictor)"
+    r"|keypoint_head\.(conv_fcn\d+|score_lowres)"
     r"|box_head\.(\d+\.)?fc\d+"
     r"|box_predictor\.(cls|det|cls_score|bbox_pred)"
     r"|(box_predictor|box_refinery)\.\d+\.(cls_score|bbox_pred))"
     r"\.(weight|bias|norm\.(weight|bias|running_mean|running_var))$")
 
+
+# flax ConvTranspose kernels (the mask and keypoint heads' upsampling)
+_TRANSPOSED = ("mask_head.deconv.kernel", "keypoint_head.score_lowres.kernel")
 
 # a flax BatchNorm's statistics (FrozenBN's are params named running_*)
 _BN_STAT = re.compile(r"_norm\.(mean|var)$")
@@ -84,7 +93,9 @@ def params_from_jax(flat: Dict[str, np.ndarray],
         if name in out:
             raise KeyError(f"flax params map twice to {name!r}")
         v = np.array(value, dtype=np.float32)     # a writable copy
-        if key.endswith((".kernel", ".conv2_deform_weight")):
+        if key.endswith(_TRANSPOSED):
+            v = v[::-1, ::-1].transpose(2, 3, 0, 1)  # flipped HWIO -> IOHW
+        elif key.endswith((".kernel", ".conv2_deform_weight")):
             if v.ndim == 4:
                 v = v.transpose(3, 2, 0, 1)          # HWIO -> OIHW
             elif v.ndim == 2:

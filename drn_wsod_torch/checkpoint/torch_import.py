@@ -7,6 +7,16 @@ layouts, so a reference checkpoint loads by name once the ``module.`` and
 consumes flattened RoI features, (C, 7, 7) in Detectron2 and (7, 7, C) in
 both packages, so its input axis is permuted.
 
+The transposed convs of the mask and keypoint heads (``mask_head.deconv``,
+``keypoint_head.score_lowres``) load as the JAX package loads them: it
+turns every 4-D weight from OIHW to HWIO, so a Detectron2
+``ConvTranspose2d`` weight, (in, out, k, k), becomes a flax kernel
+(k, k, out, in), unflipped. Where in == out (the mask head's 256 -> 256
+deconv) that loads with the two axes swapped, and the port loads the
+same kernel (bridged as ``checkpoint/from_jax.py`` bridges it); where they
+differ (the keypoint head's 512 -> 17) both raise the shape
+``ValueError``.
+
 Where the JAX package's name map reaches no flax parameter, the port
 loads nothing either, so that a checkpoint gives both the same model:
 Cascade R-CNN's per-stage ``box_head.{k}`` and ``box_predictor.{k}`` (flax
@@ -68,8 +78,20 @@ _JAX_UNREACHED = re.compile(r"^(box_head|box_predictor)\.\d+\."
                             r"|^backbone\.fpn_(lateral|output)\d\.")
 
 
+_TRANSPOSED = ("mask_head.deconv.weight", "keypoint_head.score_lowres.weight")
+
+
 def _convert(value: np.ndarray, target: torch.Tensor, key: str) -> np.ndarray:
     v = np.asarray(value)
+    if key in _TRANSPOSED:
+        # the flax kernel the JAX import makes, bridged as from_jax.py does
+        flax = v.transpose(2, 3, 1, 0)
+        i, o, kh, kw = target.shape
+        if flax.shape != (kh, kw, i, o):
+            raise ValueError(
+                f"Shape mismatch for {key[:-len('weight')]}kernel: got "
+                f"{flax.shape}, want {(kh, kw, i, o)}")
+        return flax[::-1, ::-1].transpose(2, 3, 0, 1)
     if key == "box_head.fc1.weight" and v.ndim == 2 and \
             target.shape[1] == v.shape[1] and v.shape[1] % 49 == 0:
         # flattened RoI input: (O, C*7*7) -> (O, 7*7*C)

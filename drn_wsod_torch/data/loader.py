@@ -189,6 +189,12 @@ class EvalLoader:
                                       dtype=img.dtype)
                     canvas[:img.shape[0], :img.shape[1]] = img
                     samples[k] = {**s, "image": canvas, "_bucket": bucket}
+                    if "gt_masks" in s:
+                        old = s["gt_masks"]
+                        m = np.zeros(old.shape[:1] + (bucket, bucket),
+                                     dtype=old.dtype)
+                        m[:, :old.shape[1], :old.shape[2]] = old
+                        samples[k]["gt_masks"] = m
             yield _collate(samples), n_real
 
     def __iter__(self):

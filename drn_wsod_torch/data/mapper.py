@@ -5,11 +5,14 @@
 augmentations (crop, multi-scale shortest-edge resize and flip in training,
 the test resize otherwise), the proposals mapped the same way and padded to
 ``BATCH_SIZE_PER_IMAGE`` slots, the image padded into a square size bucket
-(``INPUT.BUCKETS``) as uint8, padded instance GT and image-level labels.
-JPEG files decode with the port's own decoder (``native.py``), which needs
-no Pillow; packed records (``data/record_dataset.py``) carry decoded pixels
-and skip the decode. The mask, keypoint and semantic-segmentation arms are
-not ported yet (ROADMAP.md queue 1, items 14 and 15).
+(``INPUT.BUCKETS``) as uint8, padded instance GT and image-level labels;
+with ``MASK_ON`` each instance's COCO polygons filled on the bucket's canvas
+(``structures/masks.py:fill_polygon``, Pillow's fill without Pillow) as
+(G, bucket, bucket) uint8 ``gt_masks``, with ``KEYPOINT_ON`` its keypoints
+as (G, K, 3) ``gt_keypoints``. JPEG files decode with the port's own
+decoder (``native.py``), which needs no Pillow; packed records
+(``data/record_dataset.py``) carry decoded pixels and skip the decode. The
+semantic-segmentation arm is not ported yet (ROADMAP.md queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from .. import native
+from ..structures.masks import fill_polygon
 from . import transforms as T
 from .datasets.voc import image_level_labels
 from .proposals import transform_proposals
@@ -76,10 +80,6 @@ class DatasetMapper:
     ``MIN_SIZE_TEST`` resize)."""
 
     def __init__(self, cfg, is_train: bool, num_classes: Optional[int] = None):
-        if cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINT_ON:
-            raise NotImplementedError(
-                "the mapper's mask and keypoint arms are not ported yet: "
-                "ROADMAP.md queue 1, item 14 (the mask and keypoint arms)")
         self.is_train = is_train
         self.num_classes = num_classes or cfg.MODEL.ROI_HEADS.NUM_CLASSES
         self.fmt = cfg.INPUT.FORMAT
@@ -90,6 +90,9 @@ class DatasetMapper:
         self.topk = (cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if is_train
                      else cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
         self.max_gt = cfg.DATASETS.MAX_GT_PER_IMAGE
+        self.mask_on = cfg.MODEL.MASK_ON
+        self.keypoint_on = cfg.MODEL.KEYPOINT_ON
+        self.num_keypoints = cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS
 
         augs: List[T.Augmentation] = []
         if is_train:
@@ -177,7 +180,34 @@ class DatasetMapper:
             gt_classes[i] = a["category_id"]
             gt_valid[i] = True
 
+        extra: Dict[str, np.ndarray] = {}
+        if self.mask_on:
+            # every polygon of the instance filled on the canvas, in the
+            # transformed frame; the JAX mapper draws each with Pillow
+            masks = np.zeros((G, bucket, bucket), dtype=bool)
+            for i, a in enumerate(annos[:G]):
+                for poly in a.get("segmentation") or []:
+                    pts = np.asarray(poly, np.float32).reshape(-1, 2)
+                    fill_polygon(masks[i], tfms.apply_coords(pts))
+            extra["gt_masks"] = masks.view(np.uint8)
+        if self.keypoint_on:
+            # (x, y, visibility) moved with the image; left and right are
+            # not swapped under a flip, as in the JAX mapper, whose flip
+            # indices are always None
+            K = self.num_keypoints
+            kpts = np.zeros((G, K, 3), dtype=np.float32)
+            for i, a in enumerate(annos[:G]):
+                kp = np.asarray(a.get("keypoints", []),
+                                np.float32).reshape(-1, 3)[:K]
+                if not len(kp):
+                    continue
+                kp = kp.copy()
+                kp[:, :2] = tfms.apply_coords(kp[:, :2])
+                kpts[i, :len(kp)] = kp
+            extra["gt_keypoints"] = kpts
+
         return {
+            **extra,
             "gt_boxes": gt_boxes,
             "gt_classes": gt_classes,
             "gt_valid": gt_valid,

@@ -2,12 +2,16 @@
 ``drn_wsod_tpu/evaluation/evaluator.py``: ``make_detect_fn``,
 ``inference_on_dataset``, ``gather_and_evaluate``).
 
-The mask and keypoint arms come with ROADMAP.md queue 1, item 14, the dense
-evaluation loops with item 15, the gather across processes with item 16.
+With masks, the detect function adds each detection's mask probabilities
+in its box and the loop pastes them into the original image (host numpy,
+``ops/mask_ops.py``); with keypoints, it adds the decoded keypoints in the
+original frame. The dense evaluation loops come with ROADMAP.md queue 1,
+item 15, the gather across processes with item 16.
 """
 
 from __future__ import annotations
 
+import inspect
 import logging
 import time
 from typing import Callable, Dict, Iterable, Tuple
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.mask_ops import paste_masks_in_image
 from ..ops.nms import multiclass_nms
 from ..postprocessing import rescale_boxes
 from ..structures.batch import WSODBatch
@@ -24,7 +29,8 @@ logger = logging.getLogger(__name__)
 
 
 def make_detect_fn(model, score_thresh: float, nms_thresh: float,
-                   topk: int, device=None
+                   topk: int, device=None, mask_on: bool = False,
+                   keypoint_on: bool = False
                    ) -> Callable[[WSODBatch], Dict[str, torch.Tensor]]:
     """Move ``model`` to ``device`` (CUDA unless the caller names another
     one) and return ``detect(batch)``: inference scores -> per-class NMS ->
@@ -32,22 +38,39 @@ def make_detect_fn(model, score_thresh: float, nms_thresh: float,
 
     ``detect`` returns boxes (B, topk, 4), scores (B, topk), classes
     (B, topk), valid (B, topk), and the full all_scores (B, P, C+1) and
-    all_boxes matrices.
+    all_boxes matrices. With ``mask_on``, "mask_probs" (B, topk, 2r, 2r):
+    each detection's class mask in its box (``predict_masks`` on the boxes
+    in the resized frame); with ``keypoint_on``, "keypoints" (B, topk, K,
+    3): (x, y) scaled to the original frame by ``orig / resized`` on each
+    axis, and the score. The backbone runs once for all of them.
     """
     dev = resolve_device(device)
     model.to(dev).eval()
 
     @torch.inference_mode()
     def detect(batch: WSODBatch) -> Dict[str, torch.Tensor]:
-        batch = batch.to(dev)
-        scores, boxes = model.inference_scores(batch)
+        batch = model.sanitize(batch.to(dev))
+        feats = model.features(batch.image)
+        scores, boxes = model.inference_scores(batch, feats)
         C = scores.shape[-1] - 1
         nms_boxes = (boxes if boxes.shape[-1] == 4
                      else boxes.reshape(*boxes.shape[:-1], C, 4))
         dets = multiclass_nms(nms_boxes, scores[..., :C], batch.proposal_mask,
                               iou_threshold=nms_thresh,
                               score_threshold=score_thresh, topk=topk)
-        dets["boxes"] = rescale_boxes(dets["boxes"], batch.image_hw,
+        img_boxes = dets["boxes"]          # in the resized frame
+        if mask_on:
+            dets["mask_probs"] = model.predict_masks(feats, img_boxes,
+                                                     dets["classes"])
+        if keypoint_on:
+            kps = model.predict_keypoints(feats, img_boxes)
+            hw, orig = batch.image_hw.float(), batch.orig_hw.float()
+            sx = orig[:, 1] / hw[:, 1].clamp(min=1)
+            sy = orig[:, 0] / hw[:, 0].clamp(min=1)
+            dets["keypoints"] = torch.stack(
+                [kps[..., 0] * sx[:, None, None],
+                 kps[..., 1] * sy[:, None, None], kps[..., 2]], -1)
+        dets["boxes"] = rescale_boxes(img_boxes, batch.image_hw,
                                       batch.orig_hw)
         dets["all_scores"] = scores
         dets["all_boxes"] = boxes
@@ -64,10 +87,14 @@ def inference_on_dataset(detect: Callable[[WSODBatch], Dict[str, torch.Tensor]],
     image's detections to ``evaluator`` and evaluate.
 
     ``records`` are the loader's dataset records, indexed by each batch's
-    ``image_id``. The time per image is logged: each batch is timed from
+    ``image_id``. Where ``detect`` gives "mask_probs" and the evaluator's
+    ``process_single`` takes ``masks``, each image's masks are pasted at
+    its record's height and width; "keypoints" go to ``keypoints`` where
+    it takes them. The time per image is logged: each batch is timed from
     the call to the host copy of its detections (the copy waits for the
     device), the first batch (warm-up) left out.
     """
+    accepted = set(inspect.signature(evaluator.process_single).parameters)
     evaluator.reset()
     total_images = 0
     total_time = 0.0
@@ -76,8 +103,9 @@ def inference_on_dataset(detect: Callable[[WSODBatch], Dict[str, torch.Tensor]],
     for batch, n_real in loader:
         t0 = time.perf_counter()
         dets = detect(batch)
-        host = {k: dets[k].cpu().numpy()
-                for k in ("boxes", "scores", "classes", "valid")}
+        keys = ["boxes", "scores", "classes", "valid"]
+        keys += [k for k in ("mask_probs", "keypoints") if k in dets]
+        host = {k: dets[k].cpu().numpy() for k in keys}
         dt = time.perf_counter() - t0
         n_batches += 1
         if n_batches > warmup:
@@ -86,9 +114,16 @@ def inference_on_dataset(detect: Callable[[WSODBatch], Dict[str, torch.Tensor]],
         ids = np.asarray(batch.image_id.cpu())
         for i in range(n_real):
             record = records[int(ids[i])]
+            kwargs = {}
+            if "mask_probs" in host and "masks" in accepted:
+                kwargs["masks"] = paste_masks_in_image(
+                    np.asarray(host["mask_probs"][i], np.float32),
+                    host["boxes"][i], (record["height"], record["width"]))
+            if "keypoints" in host and "keypoints" in accepted:
+                kwargs["keypoints"] = host["keypoints"][i]
             evaluator.process_single(
                 str(record["image_id"]), host["boxes"][i], host["scores"][i],
-                host["classes"][i], host["valid"][i])
+                host["classes"][i], host["valid"][i], **kwargs)
 
     if total_images:
         logger.info(

@@ -6,9 +6,12 @@ WS-ResNet, named by ``MODEL.BACKBONE.NAME`` in a registry as in the JAX
 package, with the WSDDN, OICR, PCL, CSC, CSC + OICR or WSJDS (CSC with the
 segmentation branch) head, or the supervised Fast R-CNN or Cascade R-CNN
 head, pooling by ROIPool, ROIAlign or ROIAlignV2 from one level or from the
-FPN's, its backbone frozen or trainable from ``FREEZE_AT``. Every other
-configuration the JAX package supports raises ``NotImplementedError``
-naming the ROADMAP.md queue-1 item that ports it.
+FPN's, its backbone frozen or trainable from ``FREEZE_AT``; ``MASK_ON``
+adds the Mask R-CNN head to Fast R-CNN and Cascade R-CNN, ``KEYPOINT_ON``
+the Keypoint R-CNN head to Fast R-CNN (the other heads ignore both, as in
+the JAX package). Every other configuration the JAX package supports
+raises ``NotImplementedError`` naming the ROADMAP.md queue-1 item that
+ports it.
 """
 
 from __future__ import annotations
@@ -70,11 +73,6 @@ def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
     box = cfg.MODEL.ROI_BOX_HEAD
     if box.POOLER_TYPE not in ("ROIPool", "ROIAlign", "ROIAlignV2"):
         raise ValueError(f"Unknown POOLER_TYPE {box.POOLER_TYPE!r}")
-    if cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINT_ON:
-        raise NotImplementedError(
-            "mask and keypoint branches are not ported yet: ROADMAP.md "
-            "queue 1, item 14 (the mask and keypoint arms)")
-
     backbone = BACKBONES[cfg.MODEL.BACKBONE.NAME](cfg)
     in_features = list(cfg.MODEL.ROI_HEADS.IN_FEATURES)
     feature_name = in_features[0]
@@ -119,6 +117,12 @@ def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
         use_pallas_pooler=(box.USE_PALLAS_POOLER
                            and head_name not in CSC_HEAD_NAMES
                            and cfg.MODEL.BACKBONE.FREEZE_AT >= 5),
+        mask_on=cfg.MODEL.MASK_ON,
+        mask_pooler_resolution=cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION,
+        keypoint_on=cfg.MODEL.KEYPOINT_ON,
+        num_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS,
+        keypoint_pooler_resolution=(
+            cfg.MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION),
     )
 
 

@@ -1,8 +1,8 @@
-"""WSJDS segmentation branch (counterpart of the WSJDS half of
-``drn_wsod_tpu/models/heads/seg.py``): the ASPP semantic head over the
-backbone's feature map, its loss from the CPG maps, and the CRF
-constrain-to-boundary targets and loss. ``MaskRCNNHead`` and the mask loss
-come with ROADMAP.md queue 1, item 14 (the mask and keypoint arms).
+"""The WSJDS segmentation branch and the Mask R-CNN head (counterpart of
+``drn_wsod_tpu/models/heads/seg.py`` but its PanopticFPN head): the ASPP
+semantic head over the backbone's feature map, its loss from the CPG maps,
+the CRF constrain-to-boundary targets and loss, and ``MaskRCNNHead`` with
+``mask_loss``.
 
 Maps are NHWC, as the JAX package holds them: the head takes the
 (B, Hf, Wf, C) feature map and returns (B, Hf, Wf, C+1) float32 logits,
@@ -19,7 +19,7 @@ from torch import nn
 
 from ...ops.crf import crf_forward
 from ...ops.resize import resize_linear
-from ..layers import Conv2d
+from ..layers import Conv2d, ConvTranspose2d, lecun_normal_
 
 
 class ASPP(nn.Module):
@@ -156,3 +156,69 @@ def crf_constraint_loss(seg_fg_probs: torch.Tensor, crf_fg: torch.Tensor,
     kl = crf_fg * (torch.log(crf_fg.clamp(min=1e-12)) - inp)
     kl = kl * weights
     return torch.where(kl > 1000.0, 0.0, kl).sum()
+
+
+class MaskRCNNHead(nn.Module):
+    """Mask R-CNN's per-RoI head: ``num_conv`` 3x3 convs of ``conv_dim``
+    with ReLU (``mask_fcn{i}``), a 2x2 stride-2 transposed conv with ReLU
+    (``deconv``), all in ``dtype``, and a float32 1x1 ``predictor`` over
+    the classes: (N, r, r, Cin) -> (N, 2r, 2r, num_classes) float32
+    logits."""
+
+    def __init__(self, in_channels: int, num_classes: int,
+                 num_conv: int = 4, conv_dim: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_conv = num_conv
+        for i in range(1, num_conv + 1):
+            self.add_module(f"mask_fcn{i}", Conv2d(
+                in_channels if i == 1 else conv_dim, conv_dim, 3,
+                dtype=dtype))
+        self.deconv = ConvTranspose2d(conv_dim, conv_dim, 2, 2, dtype=dtype)
+        self.predictor = Conv2d(conv_dim, num_classes, 1, dtype=torch.float32)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """As flax draws them: the convs and the deconv ``lecun_normal``
+        (fan in = k * k * in), the predictor N(0, 0.001); biases 0."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                if m is self.predictor:
+                    m.weight.normal_(0.0, 0.001, generator=generator)
+                else:
+                    k = m.kernel_size[0] * m.kernel_size[1]
+                    lecun_normal_(m.weight, k * m.in_channels, generator)
+                m.bias.zero_()
+
+    def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
+        x = roi_feats.permute(0, 3, 1, 2)
+        for i in range(1, self.num_conv + 1):
+            x = F.relu(getattr(self, f"mask_fcn{i}")(x))
+        x = F.relu(self.deconv(x))
+        return self.predictor(x).float().permute(0, 2, 3, 1)
+
+
+def optax_sigmoid_bce(logits: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+    """Elementwise sigmoid binary cross entropy, as the JAX package writes
+    it: ``-(t * log_sigmoid(x) + (1 - t) * log_sigmoid(-x))``."""
+    return -(targets * F.logsigmoid(logits)
+             + (1.0 - targets) * F.logsigmoid(-logits))
+
+
+def mask_loss(mask_logits: torch.Tensor, gt_class: torch.Tensor,
+              target_masks: torch.Tensor, fg_mask: torch.Tensor
+              ) -> torch.Tensor:
+    """Mask R-CNN's loss: per RoI the BCE of the logits of its class
+    (clamped into [0, C - 1]) against its (m, m) target, summed over the
+    foreground RoIs ``fg_mask`` and divided by their count times m * m
+    (at least 1). mask_logits (N, m, m, C), gt_class (N,), target_masks
+    (N, m, m), fg_mask (N,)."""
+    N, m, _, C = mask_logits.shape
+    cls = gt_class.long().clamp(0, C - 1)
+    sel = torch.gather(mask_logits, -1,
+                       cls[:, None, None, None].expand(N, m, m, 1))[..., 0]
+    bce = optax_sigmoid_bce(sel, target_masks)
+    bce = torch.where(fg_mask[:, None, None], bce, 0.0)
+    denom = (fg_mask.float().sum() * (m * m)).clamp(min=1.0)
+    return bce.sum() / denom

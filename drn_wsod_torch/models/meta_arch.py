@@ -21,6 +21,19 @@ detached, clipped boxes re-matched at the stage's IoU, with
 ``loss_cls_stage{k}`` and ``loss_box_reg_stage{k}``. Their sampler draws
 its keys from the step's generator.
 
+The mask and keypoint arms (Mask R-CNN, Keypoint R-CNN). With ``mask_on``
+Fast R-CNN and Cascade R-CNN (on its stage-0 sample) add ``loss_mask``: the
+sampled boxes pooled at ``mask_pooler_resolution`` into ``mask_head``, BCE
+on each box's class channel against its matched GT mask (IoU 0.5) RoIAligned
+at the head's output size (``sampling_ratio`` 2, aligned) and thresholded
+at 0.5. The G masks of an image are pooled as the G channels of one map
+and each box takes its match's channel: RoIAlign treats channels apart, so
+the values are the JAX package's, which pools each box's mask alone. With
+``keypoint_on`` Fast R-CNN adds ``loss_keypoint``, the spatial cross
+entropy of ``keypoint_head``'s heatmaps at the matched GT keypoints.
+``predict_masks`` and ``predict_keypoints`` take the features that
+``inference_scores`` was given, so that detection computes them once.
+
 The pools, as in the JAX package. Where the pooler is ``ROIPool`` and
 ``use_pallas_pooler`` (a frozen backbone, no CSC head), the forward-only
 kernel K1 pools with the scale fused into its epilogue. Otherwise the
@@ -50,12 +63,14 @@ from torch import nn
 from ..ops import csc as csc_lib
 from ..ops import pcl as pcl_lib
 from ..ops.crf import crf_forward
+from ..ops.matcher import match
 from ..ops.poolers import multilevel_roi_pool
 from ..ops.roi_align import roi_align, roi_pool
 from ..ops.roi_pool import roi_pool_batched
 from ..structures import boxes as box_ops
 from ..structures.batch import WSODBatch
 from .heads import fast_rcnn as fast_rcnn_lib
+from .heads import keypoint as keypoint_lib
 from .heads import oicr as oicr_lib
 from .heads import seg as seg_lib
 from .heads import wsddn as wsddn_lib
@@ -69,9 +84,13 @@ class GeneralizedRCNNWSL(nn.Module):
     Parameter names follow Detectron2's (``backbone.*``, ``box_head.fc1``,
     ``box_predictor.cls``, ``box_refinery.0.cls_score``,
     ``seg_head.aspp.conv1x1``; Fast R-CNN's ``box_predictor.cls_score``,
-    Cascade's ``box_head.{k}.fc1`` and ``box_predictor.{k}.bbox_pred``).
+    Cascade's ``box_head.{k}.fc1`` and ``box_predictor.{k}.bbox_pred``,
+    ``mask_head.mask_fcn1``, ``keypoint_head.score_lowres``).
     ``pyramid_strides`` ((level, stride), ...) pools from those levels of
-    an FPN backbone."""
+    an FPN backbone. The mask head is built for Fast R-CNN and Cascade
+    R-CNN where ``mask_on``, the keypoint head for Fast R-CNN where
+    ``keypoint_on``; other heads ignore both flags in training, as the
+    JAX package does."""
 
     def __init__(self, backbone: nn.Module, *, feature_name: str,
                  feature_stride: int, feature_channels: int,
@@ -90,8 +109,15 @@ class GeneralizedRCNNWSL(nn.Module):
                  cascade_ious: Sequence[float] = (0.5, 0.6, 0.7),
                  cascade_reg_weights: Sequence[Sequence[float]] = (
                      (10.0, 10.0, 5.0, 5.0), (20.0, 20.0, 10.0, 10.0),
-                     (30.0, 30.0, 15.0, 15.0))):
+                     (30.0, 30.0, 15.0, 15.0)),
+                 mask_on: bool = False, mask_pooler_resolution: int = 14,
+                 keypoint_on: bool = False, num_keypoints: int = 17,
+                 keypoint_pooler_resolution: int = 14):
         super().__init__()
+        self.mask_on, self.keypoint_on = mask_on, keypoint_on
+        self.mask_pooler_resolution = mask_pooler_resolution
+        self.num_keypoints = num_keypoints
+        self.keypoint_pooler_resolution = keypoint_pooler_resolution
         self.backbone = backbone
         self.feature_name = feature_name
         self.feature_stride = feature_stride
@@ -145,6 +171,12 @@ class GeneralizedRCNNWSL(nn.Module):
         if with_seg:
             self.seg_head = seg_lib.ASPPSegHead(feature_channels, num_classes,
                                                 dtype=dtype)
+        if mask_on and head_type in ("FastRCNN", "CascadeRCNN"):
+            self.mask_head = seg_lib.MaskRCNNHead(feature_channels,
+                                                  num_classes, dtype=dtype)
+        if keypoint_on and head_type == "FastRCNN":
+            self.keypoint_head = keypoint_lib.KRCNNConvDeconvUpsampleHead(
+                feature_channels, num_keypoints, dtype=dtype)
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean),
                              persistent=False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std),
@@ -170,6 +202,9 @@ class GeneralizedRCNNWSL(nn.Module):
             branch.init_weights(generator)
         if self.with_seg:
             self.seg_head.init_weights(generator)
+        for name in ("mask_head", "keypoint_head"):
+            if hasattr(self, name):
+                getattr(self, name).init_weights(generator)
 
     # ------------------------------------------------------------------ parts
     @staticmethod
@@ -202,11 +237,13 @@ class GeneralizedRCNNWSL(nn.Module):
                         for n, _ in self.pyramid_strides}
             return out[self.feature_name].permute(0, 2, 3, 1).contiguous()
 
-    def pool_raw(self, feats, boxes: torch.Tensor) -> torch.Tensor:
+    def pool_raw(self, feats, boxes: torch.Tensor,
+                 resolution: Optional[int] = None) -> torch.Tensor:
         """(B, P, 4) boxes -> (B, P, R, R, C) in the map's dtype, unscaled,
-        one image at a time: the multi-level pool over an FPN, else
-        ``roi_pool`` (ROIPool) or ``roi_align`` (ROIAlign, ROIAlignV2)."""
-        R = self.pooler_resolution
+        one image at a time, R ``resolution`` (the box head's by default):
+        the multi-level pool over an FPN, else ``roi_pool`` (ROIPool) or
+        ``roi_align`` (ROIAlign, ROIAlignV2)."""
+        R = resolution or self.pooler_resolution
         if self.pyramid_strides is not None:
             strides = dict(self.pyramid_strides)
             names = [n for n, _ in self.pyramid_strides]
@@ -385,7 +422,76 @@ class GeneralizedRCNNWSL(nn.Module):
         loss_cls, loss_box = fast_rcnn_lib.fast_rcnn_losses(
             cls_logits, deltas, batch.proposals, sampled, self.num_classes,
             self.reg_weights)
-        return {"loss_cls": loss_cls.mean(), "loss_box_reg": loss_box.mean()}
+        losses = {"loss_cls": loss_cls.mean(), "loss_box_reg": loss_box.mean()}
+        if self.keypoint_on and batch.gt_keypoints is not None:
+            losses["loss_keypoint"] = self.keypoint_branch_loss(
+                feats, boxes, sampled, batch)
+        if self.mask_on and batch.gt_masks is not None:
+            losses["loss_mask"] = self.mask_branch_loss(feats, boxes, sampled,
+                                                        batch)
+        return losses
+
+    def pool_masked(self, feats, boxes: torch.Tensor, mask: torch.Tensor,
+                    resolution: int) -> torch.Tensor:
+        """``pool_raw`` at ``resolution`` times the (B, S) validity:
+        (B, S, r, r, C)."""
+        pooled = self.pool_raw(feats, boxes, resolution)
+        return pooled * mask[..., None, None, None].to(pooled.dtype)
+
+    @staticmethod
+    def match_gt(batch: WSODBatch, boxes: torch.Tensor) -> torch.Tensor:
+        """Each (B, S) box's best GT index at IoU 0.5 (0 without GT)."""
+        return match(box_ops.pairwise_iou(batch.gt_boxes, boxes),
+                     batch.gt_valid, [0.5], [0, 1])[0]
+
+    def keypoint_branch_loss(self, feats, boxes: torch.Tensor,
+                             sampled: fast_rcnn_lib.SampledProposals,
+                             batch: WSODBatch) -> torch.Tensor:
+        """Keypoint R-CNN's loss on the sampled (B, S) boxes: heatmaps of
+        the boxes pooled at ``keypoint_pooler_resolution``, targets from
+        each box's matched GT keypoints, counted on the valid foreground
+        slots."""
+        B, S = boxes.shape[:2]
+        kr = self.keypoint_pooler_resolution
+        pooled = self.pool_masked(feats, boxes, sampled.valid, kr)
+        logits = self.keypoint_head(pooled.reshape(B * S, kr, kr, -1))
+        hs = logits.shape[1]
+        midx = self.match_gt(batch, boxes)
+        K = batch.gt_keypoints.shape[2]
+        kp = batch.gt_keypoints.gather(
+            1, midx[..., None, None].expand(-1, -1, K, 3))
+        tgt, valid = keypoint_lib.keypoints_to_heatmap_targets(kp, boxes, hs)
+        fg = (sampled.gt_class >= 0) & sampled.valid
+        valid = valid & fg[..., None]
+        return keypoint_lib.keypoint_rcnn_loss(
+            logits, tgt.reshape(B * S, -1), valid.reshape(B * S, -1))
+
+    def mask_branch_loss(self, feats, boxes: torch.Tensor,
+                         sampled: fast_rcnn_lib.SampledProposals,
+                         batch: WSODBatch) -> torch.Tensor:
+        """Mask R-CNN's loss on the sampled (B, S) boxes (module
+        docstring): the GT masks of each image, as the channels of one
+        float32 map, RoIAligned at every box, and each box's matched
+        channel taken."""
+        B, S = boxes.shape[:2]
+        mr = self.mask_pooler_resolution
+        pooled = self.pool_masked(feats, boxes, sampled.valid, mr)
+        logits = self.mask_head(pooled.reshape(B * S, mr, mr, -1))
+        m = logits.shape[1]
+        midx = self.match_gt(batch, boxes)
+        targets = []
+        for i in range(B):
+            maps = batch.gt_masks[i].permute(1, 2, 0).float().contiguous()
+            crops = roi_align(maps, boxes[i].detach(), 1.0, m, 2,
+                              aligned=True)                  # (S, m, m, G)
+            targets.append(torch.gather(
+                crops, -1, midx[i][:, None, None, None].expand(S, m, m, 1)
+            )[..., 0])
+        targets = (torch.stack(targets) >= 0.5).float()
+        fg = (sampled.gt_class >= 0) & sampled.valid
+        return seg_lib.mask_loss(logits, sampled.gt_class.reshape(B * S),
+                                 targets.reshape(B * S, m, m),
+                                 fg.reshape(B * S))
 
     def cascade_stage(self, k: int, feats, boxes: torch.Tensor,
                       mask: torch.Tensor):
@@ -393,8 +499,7 @@ class GeneralizedRCNNWSL(nn.Module):
         S, 4), the detached regressed boxes for stage k+1). The pool is
         masked, not scaled by objectness."""
         B, S = boxes.shape[:2]
-        pooled = self.pool_raw(feats, boxes)
-        pooled = pooled * mask[..., None, None, None].to(pooled.dtype)
+        pooled = self.pool_masked(feats, boxes, mask, self.pooler_resolution)
         h = self.box_head[k](pooled.reshape(B * S, -1))
         cls_logits, deltas = self.box_predictor[k](h)
         cls_logits, deltas = cls_logits.reshape(B, S, -1), deltas.reshape(
@@ -408,10 +513,12 @@ class GeneralizedRCNNWSL(nn.Module):
                        ) -> Dict[str, torch.Tensor]:
         """Stage 0 samples once at the first IoU; stage k > 0 matches the
         clipped boxes of stage k-1 at its own IoU, on the same slots.
-        ``loss_cls_stage{k}`` and ``loss_box_reg_stage{k}``."""
+        ``loss_cls_stage{k}`` and ``loss_box_reg_stage{k}``, and with the
+        mask head ``loss_mask`` on stage 0's sample."""
         sampled = self.sample(batch, generator, self.cascade_ious[0])
         boxes = batch.proposals.gather(
             1, sampled.indices[..., None].expand(-1, -1, 4))
+        boxes0 = boxes
         valid = sampled.valid
         slots = torch.arange(boxes.shape[1], device=boxes.device).expand(
             boxes.shape[0], -1)
@@ -433,6 +540,9 @@ class GeneralizedRCNNWSL(nn.Module):
             losses[f"loss_cls_stage{k}"] = loss_cls.mean()
             losses[f"loss_box_reg_stage{k}"] = loss_box.mean()
             boxes = box_ops.clip(new_boxes, hw)
+        if self.mask_on and batch.gt_masks is not None:
+            losses["loss_mask"] = self.mask_branch_loss(feats, boxes0, sampled,
+                                                        batch)
         return losses
 
     # -------------------------------------------------------------- inference
@@ -453,9 +563,46 @@ class GeneralizedRCNNWSL(nn.Module):
         return logits
 
     @torch.inference_mode()
-    def inference_scores(self, batch: WSODBatch
+    def predict_masks(self, feats, boxes: torch.Tensor,
+                      classes: torch.Tensor) -> torch.Tensor:
+        """Mask probabilities of each (B, D) box's class, from ``feats``
+        (``features`` of the batch) and boxes in the resized frame:
+        (B, D, 2r, 2r) float32 sigmoids."""
+        if not hasattr(self, "mask_head"):
+            raise ValueError(f"predict_masks needs the mask head, which the "
+                             f"{self.head_type} head does not build")
+        mr = self.mask_pooler_resolution
+        B, D = boxes.shape[:2]
+        pooled = self.pool_raw(feats, boxes, mr)
+        logits = self.mask_head(pooled.reshape(B * D, mr, mr, -1))
+        m = logits.shape[1]
+        logits = logits.reshape(B, D, m, m, -1)
+        cls = classes.long().clamp(0, self.num_classes - 1)
+        sel = torch.gather(logits, -1,
+                           cls[:, :, None, None, None].expand(B, D, m, m, 1))
+        return torch.sigmoid(sel[..., 0])
+
+    @torch.inference_mode()
+    def predict_keypoints(self, feats, boxes: torch.Tensor) -> torch.Tensor:
+        """Decoded keypoints of (B, D) boxes in the resized frame, from
+        ``feats``: (B, D, K, 3) as (x, y, score)."""
+        if not hasattr(self, "keypoint_head"):
+            raise ValueError(f"predict_keypoints needs the keypoint head, "
+                             f"which the {self.head_type} head does not "
+                             "build")
+        kr = self.keypoint_pooler_resolution
+        B, D = boxes.shape[:2]
+        pooled = self.pool_raw(feats, boxes, kr)
+        logits = self.keypoint_head(pooled.reshape(B * D, kr, kr, -1))
+        kps = keypoint_lib.heatmaps_to_keypoints(logits, boxes.reshape(-1, 4))
+        return kps.reshape(B, D, self.num_keypoints, 3)
+
+    @torch.inference_mode()
+    def inference_scores(self, batch: WSODBatch, feats=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full score/box matrices for NMS.
+        """Full score/box matrices for NMS, from ``feats`` where the caller
+        computed ``features(batch.image)`` already, on a batch it passed
+        through ``sanitize`` first.
 
         Returns:
           scores: (B, P, C+1) float32, last column background (zeros for
@@ -465,8 +612,9 @@ class GeneralizedRCNNWSL(nn.Module):
             refinement branch regresses boxes; Fast R-CNN's the decoded
             deltas (4 or C*4), Cascade's the last stage's clipped boxes.
         """
-        batch = self.sanitize(batch)
-        feats = self.features(batch.image)
+        if feats is None:
+            batch = self.sanitize(batch)
+            feats = self.features(batch.image)
         mask = batch.proposal_mask[..., None]
         if self.head_type == "CascadeRCNN":
             # the stages' softmax averaged, the last stage's boxes

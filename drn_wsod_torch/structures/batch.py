@@ -26,6 +26,10 @@ class WSODBatch:
       gt_boxes, gt_classes, gt_valid: (B, G, 4) float32, (B, G) int32 and
         (B, G) bool padded instance GT (the WSOD heads read only
         ``labels``).
+      gt_masks: (B, G, H, W) uint8 {0, 1} instance masks on the padded
+        canvas (Mask R-CNN; the model casts them to float32 on the device).
+      gt_keypoints: (B, G, K, 3) float32 (x, y, visibility) (Keypoint
+        R-CNN).
     """
 
     image: torch.Tensor
@@ -39,6 +43,8 @@ class WSODBatch:
     gt_boxes: Optional[torch.Tensor] = None
     gt_classes: Optional[torch.Tensor] = None
     gt_valid: Optional[torch.Tensor] = None
+    gt_masks: Optional[torch.Tensor] = None
+    gt_keypoints: Optional[torch.Tensor] = None
 
     def tensors(self) -> dict:
         """{field: tensor} of the fields that are set."""

@@ -3,7 +3,8 @@
 with periodic checkpoints, metrics and evaluation, then evaluate
 ``DATASETS.TEST`` (and, with ``TEST.EVAL_TRAIN``, the train datasets, for
 CorLoc): with TTA-AVG where ``TEST.AUG.ENABLED``, through the test loader
-otherwise, into the VOC or the COCO box evaluator.
+otherwise, into the VOC or the COCO evaluator (box AP, and mask and
+keypoint AP where ``MODEL.MASK_ON`` and ``MODEL.KEYPOINT_ON`` are set).
 
     python -m drn_wsod_torch.tools.train_net --config-file CONFIG \\
         [--resume] [--eval-only] [KEY VALUE ...]
@@ -19,10 +20,10 @@ sets as COCO-format json where present; a dataset packed with
 under a name of its own. Runs on the CUDA device. The CSC heads train
 with the CSC step while ``iter <= WSL.CSC_MAX_ITER`` and the plain step
 after it (WSJDS among them). ``NORM`` BN/SyncBN or
-``TEST.PRECISE_BN.ENABLED`` adds the PreciseBN hook. LVIS, the rotated and
-semantic segmentation evaluators and COCO's mask and keypoint AP come with
-ROADMAP.md queue 1, items 14 and 15, pseudo-GT visualisation with item
-17, several processes with item 16.
+``TEST.PRECISE_BN.ENABLED`` adds the PreciseBN hook. LVIS, the rotated,
+semantic segmentation and Cityscapes instance-mask evaluators come with
+ROADMAP.md queue 1, item 15, pseudo-GT visualisation with item 17, several
+processes with item 16.
 """
 
 from __future__ import annotations
@@ -76,9 +77,11 @@ def setup(args):
 
 
 def build_evaluator(cfg, dataset_name: str, records):
-    """The dataset's evaluator: Pascal VOC's AP and CorLoc, or COCO's box
-    AP (the "coco" and "coco_panoptic_seg" types, and
-    "cityscapes_instance" without masks)."""
+    """The dataset's evaluator: Pascal VOC's AP and CorLoc, or COCO's AP
+    (the "coco" and "coco_panoptic_seg" types, and "cityscapes_instance"
+    without masks): box AP, with "segm" under ``MASK_ON`` and "keypoints"
+    under ``KEYPOINT_ON``. Cityscapes' own instance-mask AP (under
+    ``MASK_ON``) is item 15."""
     meta = MetadataCatalog.get(dataset_name)
     etype = meta.get("evaluator_type", "pascal_voc")
     gt_by_image = {str(r["image_id"]): r.get("annotations", [])
@@ -86,15 +89,19 @@ def build_evaluator(cfg, dataset_name: str, records):
     if etype == "pascal_voc":
         return PascalVOCDetectionEvaluator(
             meta.thing_classes, gt_by_image, year=meta.get("year", 2007))
-    coco_types = ("coco", "coco_panoptic_seg", "cityscapes_instance")
-    if etype in coco_types and (cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINT_ON):
+    if etype == "cityscapes_instance" and cfg.MODEL.MASK_ON:
         raise NotImplementedError(
-            f"evaluator type {etype!r} with MASK_ON or KEYPOINT_ON: COCO's "
-            "mask and keypoint AP are not ported yet: ROADMAP.md queue 1, "
-            "item 14 (the mask and keypoint arms)")
-    if etype in coco_types:
+            "evaluator type 'cityscapes_instance' with MASK_ON: the "
+            "Cityscapes instance-mask evaluator is not ported yet: "
+            "ROADMAP.md queue 1, item 15 (remaining evaluators)")
+    if etype in ("coco", "coco_panoptic_seg", "cityscapes_instance"):
+        tasks = ["bbox"]
+        if cfg.MODEL.MASK_ON:
+            tasks.append("segm")
+        if cfg.MODEL.KEYPOINT_ON:
+            tasks.append("keypoints")
         return COCODetectionEvaluator(meta.thing_classes, gt_by_image,
-                                      tasks=("bbox",))
+                                      tasks=tuple(tasks))
     if etype in ("sem_seg", "cityscapes_sem_seg"):
         raise NotImplementedError(
             f"evaluator type {etype!r}: semantic segmentation evaluation "
@@ -111,7 +118,9 @@ def do_test(cfg, model, eval_train: bool = False,
     and, with ``eval_train`` and ``TEST.EVAL_TRAIN``, each train dataset,
     on ``device`` (CUDA unless the caller names another one): TTA-AVG over
     ``TEST.AUG`` where enabled, else the test loader (the test resize, one
-    image a batch) into ``make_detect_fn``. Returns {dataset: results}."""
+    image a batch) into ``make_detect_fn``, with its mask and keypoint arms
+    where ``MASK_ON`` / ``KEYPOINT_ON`` are set. Returns {dataset:
+    results}."""
     dev = resolve_device(device)
 
     def _pairs(names, files):
@@ -130,7 +139,9 @@ def do_test(cfg, model, eval_train: bool = False,
         mapper = DatasetMapper(cfg, is_train=False)
         detect = make_detect_fn(model, cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST,
                                 cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST,
-                                cfg.TEST.DETECTIONS_PER_IMAGE, device=dev)
+                                cfg.TEST.DETECTIONS_PER_IMAGE, device=dev,
+                                mask_on=cfg.MODEL.MASK_ON,
+                                keypoint_on=cfg.MODEL.KEYPOINT_ON)
     for name, prop_file in pairs:
         if cfg.TEST.AUG.ENABLED:
             pf = [prop_file] if cfg.MODEL.LOAD_PROPOSALS and prop_file else ()

@@ -151,5 +151,22 @@ def test_primitives_bit_equal_to_jax():
 
 @pytest.mark.parametrize("task", ["segm", "keypoints"])
 def test_dense_tasks_raise(task):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        pe.COCODetectionEvaluator(["a"], {}, tasks=("bbox", task))
+    """The dense tasks raised item 14 here until they were ported; each now
+    evaluates beside "bbox", equal to the JAX evaluator on one image
+    (``tests/test_torch_coco_dense_eval.py`` holds them in full)."""
+    m = np.zeros((20, 30), bool)
+    m[4:12, 5:20] = True
+    kp = np.zeros((17, 3))
+    kp[:, :2], kp[:, 2] = (8.0, 9.0), 2
+    gt = {"0": [{"category_id": 0, "bbox": [5, 4, 20, 12], "difficult": 0,
+                 "iscrowd": 0, "segmentation": pe.rle_encode(m),
+                 "keypoints": kp.ravel().tolist(), "area": 120.0}]}
+    out = []
+    for mod in (pe, je):
+        ev = mod.COCODetectionEvaluator(["a"], gt, tasks=("bbox", task))
+        ev.process_single("0", np.array([[5, 4, 20, 12]], np.float32),
+                          np.array([0.9]), np.array([0]), masks=m[None],
+                          keypoints=kp[None])
+        out.append(ev.evaluate())
+    assert str(out[0]) == str(out[1]) and set(out[0]) == {"bbox", task}
+    assert out[0][task]["AP"] == 100.0

@@ -1361,3 +1361,131 @@ def test_deform_conv2d_on_cuda_matches_cpu(cuda, modulated, dtype):
                                    atol=1e-5 * want.abs().max().item())
     else:
         _within_bf16_ulp(got, want)
+
+
+# ---------------------------------------------------- mask and keypoint arms
+def _dense_batches(n=3, K=17):
+    """``_head_batches`` with instance GT near proposals 2 and 5 (1 to 4
+    foreground proposals an image, so every valid proposal fills the 16
+    slots whatever the device's generator draws), a polygon mask and 17
+    keypoints per GT slot."""
+    from drn_wsod_torch.structures.boxes import pairwise_iou
+    from drn_wsod_torch.structures.masks import fill_polygon
+
+    out = []
+    for s, b in enumerate(_head_batches(n)):
+        rng = np.random.RandomState(100 + s)
+        props = b.proposals.numpy()
+        gt = np.zeros((2, 3, 4), np.float32)
+        gt[:, 0] = props[:, 2] + rng.uniform(-1.5, 1.5, (2, 4))
+        gt[:, 1] = props[:, 5] + rng.uniform(-1.5, 1.5, (2, 4))
+        masks = np.zeros((2, 3, 64, 64), bool)
+        kps = np.zeros((2, 3, K, 3), np.float32)
+        for i in range(2):
+            for g in range(2):
+                x1, y1, x2, y2 = gt[i, g]
+                ang = np.sort(rng.uniform(0, 2 * np.pi, 7))
+                fill_polygon(masks[i, g], np.stack(
+                    [(x1 + x2) / 2 + (x2 - x1) / 2 * np.cos(ang),
+                     (y1 + y2) / 2 + (y2 - y1) / 2 * np.sin(ang)], -1))
+                kps[i, g, :, 0] = rng.uniform(x1, x2, K)
+                kps[i, g, :, 1] = rng.uniform(y1, y2, K)
+                kps[i, g, :, 2] = rng.randint(0, 3, K)
+        b = b.replace(gt_boxes=torch.from_numpy(gt),
+                      gt_classes=torch.from_numpy(
+                          rng.randint(0, 20, (2, 3)).astype(np.int32)),
+                      gt_valid=torch.tensor([[True, True, False]] * 2),
+                      gt_masks=torch.from_numpy(masks.view(np.uint8)),
+                      gt_keypoints=torch.from_numpy(kps))
+        iou = pairwise_iou(b.gt_boxes[:, :2], b.proposals)
+        n_fg = (torch.where(b.proposal_mask, iou.max(1).values, 0.0)
+                >= 0.5).sum(1)
+        assert ((n_fg >= 1) & (n_fg <= 4)).all(), n_fg
+        out.append(b)
+    return out
+
+
+def _dense_cfg(*extra):
+    return _toy_cfg("MODEL.ROI_HEADS.NAME", "StandardROIHeads",
+                    "MODEL.MASK_ON", "True", "MODEL.KEYPOINT_ON", "True",
+                    "MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION", "7",
+                    "MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION", "7",
+                    "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "16", *extra)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_mask_and_keypoint_heads_on_cuda_match_cpu(cuda, dtype):
+    """Both heads at their full widths (4 x 256 to 80 classes; 8 x 512 to
+    17 keypoints) on 64 RoIs of 14 x 14 x 256: cuDNN against the CPU from
+    the same weights, float32 within 1e-4 of the largest logit, bfloat16
+    convs within four bfloat16 ulps of it."""
+    from drn_wsod_torch.models.heads.keypoint import \
+        KRCNNConvDeconvUpsampleHead
+    from drn_wsod_torch.models.heads.seg import MaskRCNNHead
+
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        64, 14, 14, 256).astype(np.float32))
+    for head in (MaskRCNNHead(256, 80, dtype=dtype),
+                 KRCNNConvDeconvUpsampleHead(256, 17, dtype=dtype)):
+        head.init_weights(torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            want = head(x)
+            got = head.to(cuda)(x.to(cuda)).cpu()
+        assert got.shape == want.shape and got.dtype == torch.float32
+        top = want.abs().max().item()
+        tol = 1e-4 if dtype == torch.float32 else \
+            4 * 2.0 ** (np.floor(np.log2(top)) - 7) / top
+        assert (got - want).abs().max().item() <= tol * top
+
+
+def test_toy_mask_keypoint_steps_on_cuda_match_cpu(cuda):
+    """Three Fast R-CNN steps with the mask and keypoint arms on the card
+    and on the CPU from the same weights: every loss (``loss_mask`` and
+    ``loss_keypoint`` among them) within rtol 1e-4."""
+    cfg = _dense_cfg()
+    models = {"cpu": drn_wsod_torch.build_model(cfg, device="cpu")}
+    models["cuda"] = drn_wsod_torch.build_model(cfg, device=cuda)
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    metrics = {}
+    for dev, model in models.items():
+        tx = drn_wsod_torch.build_optimizer(cfg, model)
+        state = drn_wsod_torch.create_train_state(model, tx)
+        step = drn_wsod_torch.make_train_step(model, tx)
+        metrics[dev] = []
+        for b in _dense_batches():
+            state, m = step(state, b.to(model.pixel_mean.device), 0)
+            metrics[dev].append({k: v.item() for k, v in m.items()})
+    for want, got in zip(metrics["cpu"], metrics["cuda"]):
+        assert {"loss_mask", "loss_keypoint"} <= want.keys() == got.keys()
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+
+
+def test_detect_masks_and_keypoints_on_cuda_match_cpu(cuda):
+    """``make_detect_fn`` with both arms on the card against the CPU: the
+    detections, their mask probabilities and keypoint scores within 1e-4
+    (the decoded locations are an argmax of near-equal logits on random
+    weights, and are not compared)."""
+    cfg = _dense_cfg()
+    cpu_model = drn_wsod_torch.build_model(cfg, device="cpu")
+    card_model = drn_wsod_torch.build_model(cfg, device=cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    b = _dense_batches(1)[0]
+    out = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+        detect = drn_wsod_torch.make_detect_fn(
+            model, 1e-5, 0.5, 8, device=dev, mask_on=True, keypoint_on=True)
+        out[dev] = {k: v.cpu().numpy() for k, v in detect(b).items()}
+    want, got = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    np.testing.assert_array_equal(got["classes"], want["classes"])
+    for k in ("scores", "boxes", "mask_probs"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    np.testing.assert_allclose(got["keypoints"][..., 2],
+                               want["keypoints"][..., 2], rtol=1e-4,
+                               atol=1e-6)
+    assert got["mask_probs"].shape == (2, 8, 14, 14)
+    assert got["keypoints"].shape == (2, 8, 17, 3)

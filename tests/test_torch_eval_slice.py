@@ -278,8 +278,10 @@ def test_cli_refuses_what_is_not_ported():
     test_torch_train_net.py``), the WSJDS train step too (``tests/
     test_torch_wsjds_train_net.py``), trainable BatchNorm and the COCO box
     evaluator too (``tests/test_torch_coco_train_net.py``); LVIS, the
-    rotated and semantic segmentation evaluators and COCO's mask AP are
-    not."""
+    rotated and semantic segmentation evaluators and Cityscapes' instance
+    masks are not. COCO's mask and keypoint AP raised item 14 here until
+    they were ported: ``MASK_ON`` and ``KEYPOINT_ON`` now add the "segm"
+    and "keypoints" tasks."""
     _, pc = cfg_pair(*TOY, "MODEL.RESNETS.NORM", "BN")
     meta = pdata.MetadataCatalog.get("torch_eval_slice_coco")
     meta.set(evaluator_type="coco", thing_classes=["a", "b"])
@@ -287,8 +289,16 @@ def test_cli_refuses_what_is_not_ported():
                                                 []), COCODetectionEvaluator)
     mask_on = pc.clone()
     mask_on.MODEL.MASK_ON = True
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train_net.build_evaluator(mask_on, "torch_eval_slice_coco", [])
+    ev = train_net.build_evaluator(mask_on, "torch_eval_slice_coco", [])
+    assert ev._tasks == ("bbox", "segm")
+    mask_on.MODEL.KEYPOINT_ON = True
+    ev = train_net.build_evaluator(mask_on, "torch_eval_slice_coco", [])
+    assert ev._tasks == ("bbox", "segm", "keypoints")
+    meta = pdata.MetadataCatalog.get("torch_eval_slice_cityscapes")
+    meta.set(evaluator_type="cityscapes_instance", thing_classes=["a"])
+    with pytest.raises(NotImplementedError, match="item 15"):
+        train_net.build_evaluator(mask_on, "torch_eval_slice_cityscapes",
+                                  [])
     for etype in ("lvis", "rotated_coco"):
         meta = pdata.MetadataCatalog.get(f"torch_eval_slice_{etype}")
         meta.set(evaluator_type=etype)

@@ -1,7 +1,10 @@
 """The port stands alone: no module of ``drn_wsod_torch`` (its ``tools``
 included, nor ``chip_smoke.py``) imports JAX, flax, optax or the JAX
-package, none imports Pillow at module level, its JPEG decoder needs no
-libjpeg, and its entry points refuse to fall back to the CPU silently."""
+package, none imports Pillow at module level, the modules of the mask and
+keypoint paths import it nowhere (the mapper's masks, the structures, the
+heads, the pasting and the COCO evaluator run with Pillow blocked), its
+JPEG decoder needs no libjpeg, and its entry points refuse to fall back to
+the CPU silently."""
 
 import ast
 import subprocess
@@ -48,6 +51,52 @@ def test_source_imports_no_pillow_at_module_level(source):
     assert "PIL" not in roots, f"{source} imports PIL at module level"
 
 
+# the modules the mask and keypoint paths run through (chip_smoke.py's
+# phase 23), which import Pillow nowhere
+NO_PILLOW = ("structures/masks.py", "structures/keypoints.py",
+             "ops/mask_ops.py", "models/heads/keypoint.py",
+             "models/heads/seg.py", "models/meta_arch.py",
+             "evaluation/coco_eval.py", "evaluation/evaluator.py")
+
+
+@pytest.mark.parametrize("module", NO_PILLOW)
+def test_mask_path_imports_no_pillow(module):
+    path = ROOT / "drn_wsod_torch" / module
+    assert "PIL" not in set(_imported_roots(path)), module
+
+
+def test_mask_path_runs_with_pillow_blocked():
+    """The Mask R-CNN YAML's training mapper on a fixture record (its
+    masks to their digests), pasting and the COCO segm evaluator, in a
+    process where ``import PIL`` fails."""
+    code = """
+import sys
+sys.modules["PIL"] = None
+import numpy as np
+from drn_wsod_torch.data import DatasetMapper
+from drn_wsod_torch.evaluation.coco_eval import COCODetectionEvaluator
+from drn_wsod_torch.ops.mask_ops import paste_masks_in_image
+from drn_wsod_torch.tools import make_mask_fixtures as F
+m = F.load_manifest()
+r = F.coco_records(m["coco"]["train"])[2]
+e = m["mapper"][2]
+out = DatasetMapper(F.mask_mapper_cfg(), True)(r, np.random.RandomState(e["seed"]))
+assert [F.mask_digest(x) for x in out["gt_masks"][:len(e["masks_sha256"])]] == e["masks_sha256"]
+gt = {"1": r["annotations"]}
+masks = paste_masks_in_image(np.full((1, 28, 28), 0.9, np.float32),
+                             np.array([[10, 10, 200, 150]], np.float32),
+                             (r["height"], r["width"]))
+ev = COCODetectionEvaluator(["c"] * 80, gt, tasks=("bbox", "segm"))
+ev.process_single("1", np.array([[10, 10, 200, 150]]), np.array([0.5]),
+                  np.array([r["annotations"][0]["category_id"]]), masks=masks)
+print(sorted(ev.evaluate()), "PIL" in sys.modules and sys.modules["PIL"])
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['bbox', 'segm'] None"
+
+
 def test_jpeg_decoder_needs_no_libjpeg():
     csrc = ROOT / "drn_wsod_torch" / "ops" / "csrc"
     sources = sorted(csrc.glob("*.c*"))
@@ -81,7 +130,10 @@ def test_import_pulls_in_no_jax():
             "drn_wsod_torch.tools.mosaic_dtype_probe, "
             "drn_wsod_torch.tools.train_net, drn_wsod_torch.tools.demo, "
             "drn_wsod_torch.tools.pack_dataset, drn_wsod_torch.native, "
-            "drn_wsod_torch.tools.make_jpeg_fixtures; "
+            "drn_wsod_torch.tools.make_jpeg_fixtures, "
+            "drn_wsod_torch.tools.make_mask_fixtures, "
+            "drn_wsod_torch.structures.masks, "
+            "drn_wsod_torch.structures.keypoints; "
             "print(sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -119,7 +171,8 @@ def test_eval_entry_points_refuse_missing_cuda(monkeypatch):
 
 def test_tools_are_covered():
     for tool in ("ablate_bench", "pool_banded_probe", "mosaic_dtype_probe",
-                 "train_net", "demo", "pack_dataset", "make_jpeg_fixtures"):
+                 "train_net", "demo", "pack_dataset", "make_jpeg_fixtures",
+                 "make_mask_fixtures"):
         assert f"drn_wsod_torch/tools/{tool}.py" in SOURCES
     for module in ("ops/narrow_max.py", "ops/crf.py", "models/heads/seg.py",
                    "models/backbones/vgg.py", "native.py"):

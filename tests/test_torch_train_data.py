@@ -259,14 +259,40 @@ def test_mapper_equal(voc, is_train, source):
 
 
 def test_mapper_refuses_unported_arms():
-    _, pc = cfg_pair(*OPTS)
-    pc.MODEL.MASK_ON = True
-    with pytest.raises(NotImplementedError, match="item 14"):
-        pdata.DatasetMapper(pc, is_train=True)
+    """The semantic-segmentation arm still raises (item 15). The mask arm
+    raised item 14 here until it was ported: with ``MASK_ON`` the mapper's
+    (G, bucket, bucket) uint8 ``gt_masks`` now equal the JAX mapper's
+    float32 ones in training and test (polygons of COCO-format records,
+    some of two polygons, resized and flipped), and ``EvalLoader`` re-pads
+    them to the batch's bucket as the JAX loader does."""
+    from drn_wsod_torch.tools.make_mask_fixtures import (coco_records,
+                                                         synthetic_coco)
+
     _, pc = cfg_pair(*OPTS)
     with pytest.raises(NotImplementedError, match="item 15"):
         pdata.DatasetMapper(pc, is_train=True)(
             {"sem_seg_file_name": "x.png"}, np.random.RandomState(0))
+    jc, pc = cfg_pair(*OPTS, "MODEL.MASK_ON", True)
+    records = coco_records(synthetic_coco(3, 6, num_classes=20))
+    for is_train in (True, False):
+        pm = pdata.DatasetMapper(pc, is_train=is_train)
+        jm = jdata.DatasetMapper(jc, is_train=is_train)
+        for i, r in enumerate(records):
+            got = pm(dict(r), np.random.RandomState(i))
+            want = jm(dict(r), np.random.RandomState(i))
+            assert got["gt_masks"].dtype == np.uint8
+            assert got["gt_masks"].shape == (4, got["_bucket"],
+                                             got["_bucket"])
+            np.testing.assert_array_equal(got["gt_masks"], want["gt_masks"])
+            n = min(len([a for a in r["annotations"] if not a["iscrowd"]]),
+                    4)
+            assert got["gt_masks"][:n].any((1, 2)).all()
+    got = list(pdata.EvalLoader(records, pm, batch_size=3, prefetch=0))
+    want = list(jdata.EvalLoader(records, jm, batch_size=3, prefetch=0))
+    for (g, _), (w, _) in zip(got, want):
+        assert g.gt_masks.dtype == torch.uint8
+        np.testing.assert_array_equal(g.gt_masks.numpy(),
+                                      np.asarray(w.gt_masks))
 
 
 def _assert_batches_equal(got, want):

@@ -253,13 +253,23 @@ def _cfg(*overrides):
     return cfg_pair(*TOY, *overrides)
 
 
-@pytest.mark.parametrize("key,value,item", [
-    ("MODEL.MASK_ON", True, "item 14 (the mask"),
-    ("MODEL.KEYPOINT_ON", True, "item 14 (the mask")])
-def test_build_model_refuses_what_is_not_ported(key, value, item):
-    """What still raises; NORM BN builds (``tests/test_torch_bn.py``), and
-    so do the supervised heads and deformable blocks
-    (``tests/test_torch_supervised.py``, ``tests/test_torch_deform.py``)."""
+# the ids are those of the cases when both flags raised item 14
+@pytest.mark.parametrize("key,value", [
+    ("MODEL.MASK_ON", True), ("MODEL.KEYPOINT_ON", True)],
+    ids=["MODEL.MASK_ON-True-item 14 (the mask",
+         "MODEL.KEYPOINT_ON-True-item 14 (the mask"])
+def test_build_model_refuses_what_is_not_ported(key, value):
+    """``MASK_ON`` and ``KEYPOINT_ON`` raised "item 14 (the mask ..." here
+    until the arms were ported. An OICR head now builds with either flag
+    and, as in the JAX package, without a mask or keypoint head, so its
+    train step is OICR's; Fast R-CNN and Cascade build the heads
+    (``tests/test_torch_mask_rcnn.py``). NORM BN builds
+    (``tests/test_torch_bn.py``), and so do the supervised heads and
+    deformable blocks (``tests/test_torch_supervised.py``,
+    ``tests/test_torch_deform.py``)."""
     _, pc = _cfg(key, value)
-    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")):
-        drn_wsod_torch.build_model(pc, device="cpu")
+    m = drn_wsod_torch.build_model(pc, device="cpu")
+    assert m.head_type == "OICR" and getattr(m, key.split(".")[1].lower())
+    assert not hasattr(m, "mask_head") and not hasattr(m, "keypoint_head")
+    assert {n.split(".")[0] for n, _ in m.named_parameters()} == {
+        "backbone", "box_head", "box_predictor", "box_refinery"}
