@@ -224,7 +224,31 @@ Phases (any failure exits non-zero):
      pasted; each step's device ms and bucket, the
      heads' forward ms, the host's paste and segm evaluation seconds, peak
      memory; no K1 launch (a line says so).
-Every path (4-8, 10-23) is run with the kernels' launch counts set to 0
+ 24. RetinaNet ("retinanet"), from seeded random weights through
+     ``train_net.main``: (a) ``COCO-Detection/retinanet_R_50_FPN_1x``
+     (R50-FPN p3-p6, 9 anchors a cell, 80 classes, focal loss, FREEZE_AT
+     2, bf16, 640-800 scales under MAX 2000) on a packed shard of the mask
+     fixtures' 8 COCO-sized images, 4 steps of B=4 at BASE_LR 1e-4, then
+     the eval without TTA of 2 into COCO box AP: the losses finite,
+     K = sum of min(1000, anchors) candidates over the levels at each
+     test image, at most 100 detections an image, the head in float32 on
+     the card against the CPU; (b) ``quick_schedules/
+     retinanet_R_50_instant_test`` as the YAML stands (R18, 10 steps of
+     B=2 at 512) but BASE_LR 1e-4; each step's device ms and bucket, the
+     detect ms an image, the anchors a level, peak memory; no K1 launch.
+ 25. the dense paths ("dense"): (a) every committed PNG fixture
+     (``drn_wsod_torch/data/png_fixtures``) decoded by the port's reader
+     with Pillow blocked against the digests of Pillow's decode and
+     ``convert("RGB")`` (the interlaced and 16-bit ones named by its
+     error), and the semantic YAML's training mapper's ``sem_seg``
+     canvases against the digests of Pillow's; (b)
+     ``Misc/semantic_R_50_FPN_1x`` (SemanticSegmentor, the SemSegFPN
+     head, 54 classes) on the fixtures' COCO panoptic-separated tree, 4
+     steps of B=4, then mIoU of its val images registered as "sem_seg";
+     (c) ``Misc/panoptic_fpn_R_50_1x`` with a proposal file in opts, 4
+     steps, then box and segm AP and PQ: the losses finite, the metrics in
+     [0, 100]; no K1 launch.
+Every path (4-8, 10-25) is run with the kernels' launch counts set to 0
 just before it and read just after. The line before the kernels' JSON
 line names the JPEG decoder's compiler, its build seconds, the fixture
 decodes matched and the host decode times; the line before that gives the
@@ -2658,16 +2682,18 @@ PH16_CSC_MAX_ITER, PH16_STEPS, PH16_TEST = 2, 4, 2
 
 def entry_main(phase: int, dev, yaml: Path, opts: list, hw: dict,
                patches=(), coco: bool = False, num_classes: int = None,
-               dense: dict = None):
+               dense: dict = None, metrics: dict = None):
     """``train_net.main`` on ``yaml`` with ``opts`` (the TTA eval of the
     test records only), each step recorded by ``step_recorder`` as
     "plain" or "csc", each evaluated image by ``detection_checker`` (of the
     VOC evaluator, or with ``coco`` of the COCO evaluator over
     ``num_classes``, 80 by default, its masks and keypoints counted in
     ``dense``), plus ``patches`` ((object, name, value) each), with the
-    launch counts set to 0 just before and read just after. Returns a dict
-    of the results, launches, steps, detections, bad images, main's
-    seconds, peak memory and the clock summary."""
+    launch counts set to 0 just before and read just after. ``metrics``
+    ({task: keys}, VOC's or COCO's box metrics by default) must each be
+    finite in [0, 100]; where it names no "bbox" task, no detection is
+    checked. Returns a dict of the results, launches, steps, detections,
+    bad images, main's seconds, peak memory and the clock summary."""
     from drn_wsod_torch.engine import defaults
     from drn_wsod_torch.engine import trainer as trainer_lib
     from drn_wsod_torch.evaluation import coco_eval, voc_eval
@@ -2676,6 +2702,12 @@ def entry_main(phase: int, dev, yaml: Path, opts: list, hw: dict,
     steps, dets, bad = [], [], []
     evaluator = (coco_eval.COCODetectionEvaluator if coco
                  else voc_eval.PascalVOCDetectionEvaluator)
+    if metrics is None:
+        metrics = ({"bbox": ("AP", "AP50", "AP75")} if coco else
+                   {"bbox": ("AP50",), "bbox CorLoc": ("CL50",)})
+    checker = [(evaluator, "process_single", detection_checker(
+        hw, dets, bad, evaluator, num_classes or (80 if coco else 20),
+        dense))] if "bbox" in metrics else []
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2687,10 +2719,7 @@ def entry_main(phase: int, dev, yaml: Path, opts: list, hw: dict,
                     steps, "plain", trainer_lib.make_train_step)),
                 (trainer_lib, "make_csc_train_step", step_recorder(
                     steps, "csc", trainer_lib.make_csc_train_step)),
-                (evaluator, "process_single", detection_checker(
-                    hw, dets, bad, evaluator,
-                    num_classes or (80 if coco else 20), dense)),
-                *patches):
+                *checker, *patches):
             stack.enter_context(mock.patch.object(obj, name, new))
         t = time.perf_counter()
         results = train_net.main(train_net.argument_parser().parse_args(
@@ -2701,10 +2730,9 @@ def entry_main(phase: int, dev, yaml: Path, opts: list, hw: dict,
         peak = torch.cuda.max_memory_allocated()
     close_logging()
     torch.cuda.empty_cache()
-    keys = ("AP", "AP50", "AP75") if coco else ("AP50", "CL50")
     metrics = {f"{ds}/{key}": tasks[task][key]
                for ds, tasks in results.items()
-               for task in ("bbox", "bbox CorLoc") if task in tasks
+               for task, keys in metrics.items() if task in tasks
                for key in keys if key in tasks[task]}
     if not metrics or not all(math.isfinite(v) and 0 <= v <= 100
                               for v in metrics.values()):
@@ -4449,18 +4477,21 @@ def ph23_crowd(coco: dict) -> str:
             f"evaluator: AP {aps[0]} undetected, {aps[1]} detected first")
 
 
-def ph23_dense_metrics(phase_part: str, results: dict, task: str) -> dict:
+def ph23_dense_metrics(phase_part: str, results: dict, task: str,
+                       phase: int = 23) -> dict:
     """The dense task's metrics of every test dataset: finite in [0, 100],
     or NaN where no class has GT (then every one is NaN)."""
     out = {}
     for ds, tasks in results.items():
         if task not in tasks:
-            raise Fail(f"phase 23: {phase_part} gave no {task} AP: {tasks}")
+            raise Fail(f"phase {phase}: {phase_part} gave no {task} AP: "
+                       f"{tasks}")
         vals = {k: tasks[task][k] for k in ("AP", "AP50", "AP75")}
         if not (all(math.isfinite(v) and 0 <= v <= 100
                     for v in vals.values())
                 or all(math.isnan(v) for v in vals.values())):
-            raise Fail(f"phase 23: {phase_part} {task} metrics {vals}")
+            raise Fail(f"phase {phase}: {phase_part} {task} metrics "
+                       f"{vals}")
         out.update({f"{ds}/{task}/{k}": v for k, v in vals.items()})
     return out
 
@@ -4665,6 +4696,460 @@ def phase23_masks(dev, tag) -> dict:
     return {k: sum(v[k] for v in launches.values())
             for k in launches["mask"]}
 
+PH24_STEPS, PH24_HEAD_CROP = 4, 32
+PH25_STEPS = 4
+RETINANET_NAMES = {"loss_cls", "loss_box_reg", "total_loss"}
+PANOPTIC_NAMES = {"loss_sem_seg", "loss_cls", "loss_box_reg", "loss_mask",
+                  "total_loss"}
+
+
+def ph24_captures(captured: dict):
+    """Stand-ins that keep RetinaNet's head and its first training input,
+    each ``inference_scores`` call's candidate count beside the levels'
+    anchor counts, and each detect call's host ms (synchronised)."""
+    from drn_wsod_torch.models import retinanet
+    from drn_wsod_torch.tools import train_net
+
+    forward = retinanet.RetinaNetHead.forward
+
+    def head(self, feats):
+        if torch.is_grad_enabled() and "head" not in captured:
+            captured["head"] = (self, [f.detach().clone() for f in feats])
+        return forward(self, feats)
+
+    scores_fn = retinanet.RetinaNet.inference_scores
+
+    @torch.inference_mode()
+    def inference_scores(self, batch, feats=None):
+        out = scores_fn(self, batch, feats)
+        feats = feats if feats is not None else self.features(batch.image)
+        A = len(self.aspect_ratios) * len(self.anchor_sizes[0])
+        n = [feats[f].shape[1] * feats[f].shape[2] * A
+             for f in self.in_features]
+        captured.setdefault("candidates", []).append(
+            (out[0].shape[1], sum(min(self.topk_candidates, k) for k in n),
+             n, int(batch.image.shape[1])))
+        return out
+
+    make = train_net.make_detect_fn
+
+    def make_detect_fn(*a, **k):
+        detect = make(*a, **k)
+
+        def timed(batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = detect(batch)
+            torch.cuda.synchronize()
+            captured.setdefault("detect_ms", []).append(
+                (time.perf_counter() - t) * 1e3)
+            return out
+        return timed
+
+    return [(retinanet.RetinaNetHead, "forward", head),
+            (retinanet.RetinaNet, "inference_scores", inference_scores),
+            (train_net, "make_detect_fn", make_detect_fn)]
+
+
+def ph24_head_check(captured: dict) -> str:
+    """RetinaNet's head (its towers switched from bfloat16 to float32 in a
+    copy) on the first image of a train step's levels, p3 and p4 cut to
+    PH24_HEAD_CROP^2 cells, on the card against the CPU: every output
+    within 1e-4 of the level's largest."""
+    import copy
+
+    head, feats = captured["head"]
+    h32 = copy.deepcopy(head).float()
+    for m in h32.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float32
+    x = [f[:1, :, :PH24_HEAD_CROP, :PH24_HEAD_CROP].float() for f in feats]
+    with torch.no_grad():
+        got = h32(x)
+        want = h32.cpu()([f.cpu() for f in x])
+    errs = []
+    for (gc, gb), (wc, wb) in zip(got, want):
+        for g, w in ((gc, wc), (gb, wb)):
+            top = float(w.abs().max())
+            err = float((g.cpu() - w).abs().max())
+            if not err <= 1e-4 * top:
+                raise Fail(f"phase 24: the RetinaNet head on the card "
+                           f"differs from the CPU by {err} (largest {top})")
+            errs.append(err / top)
+    return (f"the head (4 + 4 convs 256, cls_score 9 x 80, bbox_pred 9 x 4) "
+            f"in float32 on the card == CPU on a train step's "
+            f"{[tuple(f.shape) for f in x]} level maps to {max(errs):.3g} "
+            f"of each output's largest (tolerance 1e-4)")
+
+
+def phase24_retinanet(dev, tag) -> dict:
+    """RetinaNet through ``train_net.main`` from seeded random weights: (a)
+    ``COCO-Detection/retinanet_R_50_FPN_1x`` (R50-FPN p3-p6, 9 anchors a
+    cell, 80 classes, focal loss, FREEZE_AT 2, bf16, the YAML's 640-800
+    scales under MAX 2000) on a packed COCO shard of the mask fixtures' 8
+    train images: PH24_STEPS steps of B=4 (the YAML's 16 cut) at BASE_LR
+    1e-4 (0.01 cut), then the eval without TTA of the 2 test images into
+    COCO box AP, every finite score kept (the YAML's 0.05 keeps none of
+    random weights' near-prior scores); (b)
+    ``quick_schedules/retinanet_R_50_instant_test`` as the YAML stands (10
+    steps of R18 at 512, B=2) but BASE_LR 1e-4 on the same shards. The losses' names and
+    finiteness, the candidates K = sum of min(1000, anchors) over the
+    levels at each test bucket, at most 100 detections an image, AP in
+    range, the head in float32 on the card against the CPU; no K1
+    launch."""
+    import shutil
+
+    from drn_wsod_torch.data import DatasetCatalog
+    from drn_wsod_torch.tools import make_mask_fixtures as fx
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    full = root / "configs" / "COCO-Detection" / "retinanet_R_50_FPN_1x.yaml"
+    instant = root / "configs" / "quick_schedules" / \
+        "retinanet_R_50_instant_test.yaml"
+    yaml_is(24, full, MODEL__META_ARCHITECTURE="RetinaNet",
+            MODEL__BACKBONE__NAME="build_resnet_fpn_backbone",
+            MODEL__BACKBONE__FREEZE_AT=2, MODEL__RESNETS__DEPTH=50,
+            MODEL__RETINANET__NUM_CLASSES=80,
+            MODEL__RETINANET__IN_FEATURES=["p3", "p4", "p5", "p6"],
+            MODEL__DTYPE="bfloat16", SOLVER__IMS_PER_BATCH=16,
+            INPUT__MAX_SIZE_TRAIN=2000, TEST__AUG__ENABLED=False)
+    yaml_is(24, instant, MODEL__RESNETS__DEPTH=18, SOLVER__MAX_ITER=10,
+            SOLVER__IMS_PER_BATCH=2, INPUT__BUCKETS=[512])
+    work = root / "build" / "chip_smoke_ph24"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    manifest = fx.load_manifest()
+    rs = np.random.RandomState(24)
+    names = ("coco_2017_train", "coco_2017_val")
+    launches, captured = {}, {}
+    try:
+        _, train_hw, _ = ph23_split(work, names[0],
+                                    manifest["coco"]["train"], rs)
+        _, test_hw, _ = ph23_split(work, names[1], manifest["coco"]["test"],
+                                   rs)
+        hw = {**train_hw, **test_hw}
+        # ROI_HEADS.NUM_CLASSES 80: the mapper's image-level labels index
+        # by the class, and the YAMLs leave it at 20, which fails on COCO's
+        # classes in both packages
+        base = ["MODEL.WEIGHTS", "", "SEED", "0", "TEST.EVAL_PERIOD", "0",
+                "TEST.EVAL_TRAIN", "False", "MODEL.ROI_HEADS.NUM_CLASSES", "80",
+                "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "-1"]
+        opts = base + ["SOLVER.IMS_PER_BATCH", "4",
+                       "SOLVER.BASE_LR", str(PH19_LR),
+                       "OUTPUT_DIR", str(work / "out_full"),
+                       "SOLVER.MAX_ITER", str(PH24_STEPS),
+                       "SOLVER.CHECKPOINT_PERIOD", str(PH24_STEPS)]
+        run = entry_main(24, dev, full, opts, hw, ph24_captures(captured),
+                         coco=True)
+        per_step = check_steps(24, run, ["plain"] * PH24_STEPS,
+                               {"plain": RETINANET_NAMES})
+        check_detections(24, run, len(test_hw))
+        most = max(n for _, n in run["dets"])
+        cands = captured.get("candidates", [])
+        if most > 100 or not cands or any(k != want
+                                          for k, want, _, _ in cands):
+            raise Fail(f"phase 24: (a) detections an image up to {most}; "
+                       f"candidates (K, sum of min(1000, n), levels, "
+                       f"bucket) {cands}")
+        heads = ph24_head_check(captured)
+        levels = [tuple(f.shape[2:]) for f in captured["head"][1]]
+        detect_ms = captured["detect_ms"][1:] or captured["detect_ms"]
+        launches["full"] = run["launches"]
+        print_entry(24, f"(a) RetinaNet train_net.main "
+                    f"(COCO-Detection/retinanet_R_50_FPN_1x: R50-FPN 256, "
+                    f"p3-p6, 9 anchors a cell (3 sizes x 3 ratios), 80 "
+                    f"classes, FREEZE_AT 2, bf16, the YAML's 640-800 scales "
+                    f"under MAX 2000, seeded random weights) {PH24_STEPS} "
+                    f"steps of B=4 (the YAML's 16 cut) at BASE_LR {PH19_LR} "
+                    f"(0.01 cut) on a packed shard of the mask fixtures' "
+                    f"{len(train_hw)} COCO-sized images, then the eval "
+                    f"without TTA of {len(test_hw)}, every finite score "
+                    f"kept", per_step, run, None,
+                    "none: the dense detector pools nothing", len(test_hw),
+                    f"; step ms past the first (median) "
+                    f"{statistics.median(v for _, _, v, _ in per_step[1:]):.1f}"
+                    f"; the first train step's levels {levels}, anchors a "
+                    f"level {[h * w * 9 for h, w in levels]}; candidates K "
+                    f"at each test image (bucket, K, anchors a level): "
+                    + ", ".join(f"({b}, {k}, {n})" for k, _, n, b in cands)
+                    + f"; at most {most} detections an image; detect "
+                    f"{statistics.median(detect_ms):.1f} ms an image (host "
+                    f"clock, synchronised, B=1, the first left out) ; "
+                    f"{heads}", tag)
+        captured.clear()
+
+        # the YAML's 0.01 drives random weights to NaN within 10 steps
+        opts = base + ["SOLVER.BASE_LR", str(PH19_LR),
+                       "OUTPUT_DIR", str(work / "out_instant")]
+        run = entry_main(24, dev, instant, opts, hw, ph24_captures(captured),
+                         coco=True)
+        per_step = check_steps(24, run, ["plain"] * 10,
+                               {"plain": RETINANET_NAMES})
+        check_detections(24, run, len(test_hw))
+        cands = captured.get("candidates", [])
+        if not cands or any(k != want for k, want, _, _ in cands):
+            raise Fail(f"phase 24: (b) candidates {cands}")
+        launches["instant"] = run["launches"]
+        print_entry(24, f"(b) quick_schedules/retinanet_R_50_instant_test "
+                    f"train_net.main as the YAML stands (R18-FPN, 10 steps "
+                    f"of B=2 at 256 under MAX 512, bucket 512) but BASE_LR "
+                    f"{PH19_LR} (0.01 cut) on (a)'s shards, then the eval "
+                    f"of its test images at 256",
+                    per_step, run, None, "none", len(test_hw),
+                    "; candidates (bucket, K, anchors a level): " + ", ".join(
+                        f"({b}, {k}, {n})" for k, _, n, b in cands), tag)
+    finally:
+        for name in names:
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+        captured.clear()
+    k1 = {k: v["roi_pool"] for k, v in launches.items()}
+    if any(k1.values()):
+        raise Fail(f"phase 24: K1 launched {k1}")
+    print(f"phase 24: no K1 launch in (a) or (b) ({k1}): RetinaNet's towers "
+          f"and predictors are cuDNN convolutions; phase "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {k: sum(v[k] for v in launches.values())
+            for k in launches["full"]}
+
+
+def ph25_tree(split: str):
+    from drn_wsod_torch.tools import make_png_fixtures as pf
+
+    root = pf.FIXTURE_DIR / "panoptic"
+    return (str(root / "annotations" / f"panoptic_{split}.json"), str(root),
+            str(root / f"panoptic_{split}"),
+            str(root / f"panoptic_stuff_{split}"),
+            str(root / "annotations" / f"instances_{split}.json"))
+
+
+def ph25_split(work: Path, name: str, split: str, etype: str, rs):
+    """The PNG fixtures' panoptic-separated ``split`` loaded by
+    ``load_coco_panoptic_separated`` (``name``'s metadata set), each
+    record given random u8 pixels (the packed-record path), registered
+    under ``name`` as ``etype``, with a proposals pickle (PH11_PROPOSALS
+    an image, PH23_NEAR near its GT first). Returns (proposals pickle,
+    {image_id: (H, W)})."""
+    import pickle
+
+    from drn_wsod_torch.data import DatasetCatalog, MetadataCatalog
+    from drn_wsod_torch.data.datasets import load_coco_panoptic_separated
+
+    records = load_coco_panoptic_separated(*ph25_tree(split), name)
+    props = {"ids": [], "boxes": [], "objectness_logits": [], "bbox_mode": 0}
+    for r in records:
+        H, W = r["height"], r["width"]
+        image, rec = eval_image(rs, H, W, r["image_id"], P=PH11_PROPOSALS)
+        r["image"] = image
+        boxes = rec["proposal_boxes"]
+        gt = np.asarray([a["bbox"] for a in r["annotations"]
+                         if not a["iscrowd"]], np.float32)
+        if len(gt):
+            near = gt[rs.randint(len(gt), size=PH23_NEAR)]
+            near = near + rs.uniform(-0.08, 0.08, near.shape) * np.tile(
+                near[:, 2:] - near[:, :2], 2)
+            near = np.clip(near, 0, [W - 1, H - 1, W - 1, H - 1])
+            boxes = np.concatenate([near, boxes])[:PH11_PROPOSALS]
+        props["ids"].append(r["image_id"])
+        props["boxes"].append(boxes.astype(np.float32))
+        props["objectness_logits"].append(rec["proposal_objectness_logits"])
+    prop_file = work / f"{name}_proposals.pkl"
+    with open(prop_file, "wb") as f:
+        pickle.dump(props, f)
+    if name in DatasetCatalog:
+        DatasetCatalog.remove(name)
+    DatasetCatalog.register(name, lambda: records)
+    MetadataCatalog.get(name).set(evaluator_type=etype)
+    return str(prop_file), {str(r["image_id"]): (r["height"], r["width"])
+                            for r in records}
+
+
+def ph25_decodes() -> str:
+    """Every committed PNG fixture decoded by the port's reader with
+    Pillow blocked, against the manifest's digests of Pillow's decode and
+    ``convert("RGB")``; the interlaced and 16-bit ones named by the
+    reader's ``ValueError``; the semantic YAML's training mapper on the
+    tree's train records against the digests of Pillow's canvases."""
+    from drn_wsod_torch.data import DatasetMapper, png
+    from drn_wsod_torch.data.datasets import load_coco_panoptic_separated
+    from drn_wsod_torch.tools import make_png_fixtures as pf
+
+    manifest = pf.load_manifest()
+    n, named, t_decode = 0, [], 0.0
+    with no_pillow():
+        for rel, e in manifest["files"].items():
+            path = str(pf.FIXTURE_DIR / rel)
+            if e["mode"] == "I;16" or "interlaced" in rel:
+                try:
+                    png.read_png(path)
+                except ValueError as err:
+                    named.append(str(err).split(": ", 1)[1].split(" is ")[0])
+                    continue
+                raise Fail(f"phase 25: {rel} decoded without Pillow")
+            t = time.perf_counter()
+            a = png.read_png(path)
+            rgb = png.read_png_rgb(path)
+            t_decode += time.perf_counter() - t
+            if (pf.digest(a), str(a.dtype), list(a.shape),
+                    pf.digest(rgb)) != (e["sha256"], e["dtype"], e["shape"],
+                                        e["rgb_sha256"]):
+                raise Fail(f"phase 25: {rel} decodes unlike Pillow")
+            n += 1
+        records = load_coco_panoptic_separated(*ph25_tree("train2017"))
+        mapper = DatasetMapper(pf.sem_mapper_cfg(), is_train=True)
+        t_map, buckets = 0.0, []
+        for r, e in zip(records, manifest["mapper"]):
+            r = dict(r, image=np.zeros((r["height"], r["width"], 3),
+                                       np.uint8))
+            t = time.perf_counter()
+            out = mapper(r, np.random.RandomState(e["seed"]))
+            t_map += time.perf_counter() - t
+            if out["_bucket"] != e["bucket"] or \
+                    pf.digest(out["sem_seg"]) != e["sha256"]:
+                raise Fail(f"phase 25: the sem_seg canvas of image "
+                           f"{r['image_id']} differs from Pillow's")
+            buckets.append(out["_bucket"])
+    if len(named) != 2 or n + 2 != len(manifest["files"]) or \
+            len(buckets) != len(manifest["mapper"]):
+        raise Fail(f"phase 25: {n} files matched, named {named}")
+    return (f"(a) {n} PNG fixtures (gray 1-8 bits, palette 1-8 bits, "
+            f"gray+alpha, RGB, RGBA, each filter type, several IDAT "
+            f"chunks, and the panoptic tree's RGB and label PNGs) decoded "
+            f"equal to the digests of Pillow's decode and convert('RGB'), "
+            f"Pillow blocked, {t_decode * 1e3 / n:.2f} ms a file (host); "
+            f"{named} named by the reader; the semantic YAML's training "
+            f"mapper's {len(buckets)} sem_seg canvases (buckets {buckets}, "
+            f"{t_map / len(buckets) * 1e3:.1f} ms a record) equal to the "
+            f"digests of Pillow's NEAREST")
+
+
+def phase25_dense(dev, tag) -> dict:
+    """The dense paths: (a) ``ph25_decodes``; (b)
+    ``Misc/semantic_R_50_FPN_1x`` (SemanticSegmentor: R50-FPN, the
+    SemSegFPN head 128 wide over p2-p5, 54 classes, FREEZE_AT 2, bf16)
+    through ``train_net.main`` from seeded random weights on the PNG
+    fixtures' panoptic-separated tree (its 8 train images given random
+    pixels, their label PNGs): PH25_STEPS steps of B=4 (the YAML's 16 cut)
+    at BASE_LR 1e-4 (0.02 cut), then mIoU on the 2 val images registered
+    as "sem_seg" (the YAML's own split is "coco_panoptic_seg", whose
+    evaluation needs instances); (c) ``Misc/panoptic_fpn_R_50_1x``
+    (PanopticFPN: the same backbone and semantic head at loss weight 0.5,
+    Fast R-CNN over ROIAlignV2 of p2-p5, the mask head, 80 thing classes)
+    on the same tree with a proposal file passed in opts (the YAML names
+    none, and without one no slot is live): PH25_STEPS steps, then box and
+    segm AP and PQ of the val images. The losses' names and finiteness,
+    the metrics in [0, 100], no K1 launch."""
+    import shutil
+
+    from drn_wsod_torch.data import DatasetCatalog
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    sem_yaml = root / "configs" / "Misc" / "semantic_R_50_FPN_1x.yaml"
+    pan_yaml = root / "configs" / "Misc" / "panoptic_fpn_R_50_1x.yaml"
+    yaml_is(25, sem_yaml, MODEL__META_ARCHITECTURE="SemanticSegmentor",
+            MODEL__BACKBONE__FREEZE_AT=2, MODEL__SEM_SEG_HEAD__NUM_CLASSES=54,
+            MODEL__LOAD_PROPOSALS=False, MODEL__DTYPE="bfloat16",
+            DATASETS__TRAIN=["coco_2017_train_panoptic_separated"])
+    yaml_is(25, pan_yaml, MODEL__META_ARCHITECTURE="PanopticFPN",
+            MODEL__MASK_ON=True, MODEL__ROI_HEADS__NUM_CLASSES=80,
+            MODEL__SEM_SEG_HEAD__LOSS_WEIGHT=0.5, MODEL__LOAD_PROPOSALS=True,
+            DATASETS__PROPOSAL_FILES_TRAIN=[], MODEL__DTYPE="bfloat16")
+    lines = [ph25_decodes()]
+    work = root / "build" / "chip_smoke_ph25"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rs = np.random.RandomState(25)
+    names = ("coco_2017_train_panoptic_separated",
+             "coco_2017_val_panoptic_separated", "ph25_sem_val")
+    launches = {}
+    try:
+        train_props, train_hw = ph25_split(work, names[0], "train2017",
+                                           "coco_panoptic_seg", rs)
+        test_props, test_hw = ph25_split(work, names[1], "val2017",
+                                         "coco_panoptic_seg", rs)
+        ph25_split(work, names[2], "val2017", "sem_seg", rs)
+        hw = {**train_hw, **test_hw}
+        base = ["MODEL.WEIGHTS", "", "SEED", "0", "TEST.EVAL_PERIOD", "0",
+                "TEST.EVAL_TRAIN", "False", "SOLVER.IMS_PER_BATCH", "4",
+                "SOLVER.BASE_LR", str(PH19_LR),
+                "SOLVER.MAX_ITER", str(PH25_STEPS),
+                "SOLVER.CHECKPOINT_PERIOD", str(PH25_STEPS),
+                # the mapper's image-level labels index by the thing class:
+                # the YAMLs' default 20 fails on COCO's 80 in both packages
+                "MODEL.ROI_HEADS.NUM_CLASSES", "80"]
+
+        # (b) SemanticSegmentor
+        opts = base + ["DATASETS.TEST", f"('{names[2]}',)",
+                       "OUTPUT_DIR", str(work / "out_sem")]
+        sem_keys = ("mIoU", "fwIoU", "pACC", "mACC")
+        run = entry_main(25, dev, sem_yaml, opts, hw,
+                         metrics={"sem_seg": sem_keys})
+        per_step = check_steps(25, run, ["plain"] * PH25_STEPS, {
+            "plain": {"loss_sem_seg", "total_loss"}})
+        launches["semantic"] = run["launches"]
+        lines.append(
+            f"(b) SemanticSegmentor train_net.main "
+            f"(Misc/semantic_R_50_FPN_1x: R50-FPN 256, SemSegFPN head 128 "
+            f"over p2-p5 with GroupNorm, 54 classes, FREEZE_AT 2, bf16, "
+            f"480-1200 scales under MAX 2000, seeded random weights) "
+            f"{PH25_STEPS} steps of B=4 (16 cut) at BASE_LR {PH19_LR} (0.02 "
+            f"cut) on the tree's {len(train_hw)} images; per step (bucket, "
+            f"device ms, loss_sem_seg): " + ", ".join(
+                f"({b}, {v:.1f}, {m['loss_sem_seg']:.4g})"
+                for _, b, v, m in per_step)
+            + "; mIoU of the val images " + ", ".join(
+                f"{k} {v:.4f}" for k, v in run["metrics"].items())
+            + f" (random weights); main {run['main_s']:.2f} s, peak "
+            f"{run['peak'] / 2**30:.2f} GiB; K1 launches "
+            f"{run['launches']['roi_pool']}")
+
+        # (c) PanopticFPN, with a proposal file
+        opts = base + ["DATASETS.PROPOSAL_FILES_TRAIN", repr((train_props,)),
+                       "DATASETS.PROPOSAL_FILES_TEST", repr((test_props,)),
+                       "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "-1",
+                       "OUTPUT_DIR", str(work / "out_pan")]
+        dense = {}
+        run = entry_main(25, dev, pan_yaml, opts, hw, coco=True, dense=dense,
+                         metrics={"bbox": ("AP", "AP50", "AP75"),
+                                  "panoptic_seg": ("PQ", "SQ", "RQ")})
+        per_step = check_steps(25, run, ["plain"] * PH25_STEPS,
+                               {"plain": PANOPTIC_NAMES})
+        check_detections(25, run, len(test_hw))
+        segm = ph23_dense_metrics("(c)", run["results"], "segm", phase=25)
+        pq = [tasks["panoptic_seg"] for tasks in run["results"].values()]
+        if not dense.get("masks") or not pq or not all(p["N"] > 0 for p in pq):
+            raise Fail(f"phase 25: (c) masks {dense}, PQ {pq}")
+        launches["panoptic"] = run["launches"]
+        print_entry(25, f"(c) PanopticFPN train_net.main "
+                    f"(Misc/panoptic_fpn_R_50_1x: R50-FPN 256, Fast R-CNN "
+                    f"over ROIAlignV2 of p2-p5, mask head 4 x 256 at 14^2 "
+                    f"-> 28^2, SemSegFPN head 128 at loss weight 0.5, 80 "
+                    f"thing and 54 semantic classes, FREEZE_AT 2, bf16) "
+                    f"{PH25_STEPS} steps of B=4 on the tree's "
+                    f"{len(train_hw)} images with {PH11_PROPOSALS} proposals "
+                    f"an image passed in opts, then the eval of "
+                    f"{len(test_hw)}: box and segm AP, PQ over "
+                    f"{pq[0]['N']} categories", per_step, run, None,
+                    "none: the pyramid pools by RoIAlign", len(test_hw),
+                    f"; {dense['masks']} masks pasted; segm " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in segm.items()), tag)
+    finally:
+        for name in names:
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+    k1 = {k: v["roi_pool"] for k, v in launches.items()}
+    if any(k1.values()):
+        raise Fail(f"phase 25: K1 launched {k1}")
+    print(f"phase 25: {'; '.join(lines)}; no K1 launch in (b) or (c) "
+          f"({k1}); phase {time.perf_counter() - t_phase:.1f} s {tag}",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {k: sum(v[k] for v in launches.values())
+            for k in launches["semantic"]}
+
 
 def main() -> int:
     t_run = time.perf_counter()
@@ -4748,6 +5233,10 @@ def main() -> int:
         paths["jpeg"], jpeg_line = phase22_jpeg(dev, tag, host_build)
         torch.cuda.empty_cache()
         paths["masks"] = phase23_masks(dev, tag)
+        torch.cuda.empty_cache()
+        paths["retinanet"] = phase24_retinanet(dev, tag)
+        torch.cuda.empty_cache()
+        paths["dense"] = phase25_dense(dev, tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1

@@ -9,7 +9,12 @@ without its ``roi_heads.`` prefix, plus the names that map cannot reach:
 Cascade's ``cascade_head_{k}`` and ``cascade_predictor_{k}`` become
 ``box_head.{k}`` and ``box_predictor.{k}``, the FPN's ``fpn_lateral_res{n}``
 and ``fpn_output_res{n}`` become ``fpn_lateral{n}`` and ``fpn_output{n}``,
-and a deformable block's ``conv2_deform_weight`` becomes ``conv2.weight``.
+a deformable block's ``conv2_deform_weight`` becomes ``conv2.weight``,
+RetinaNet's ``head.cls_subnet_{i}`` (and ``bbox_subnet_{i}``) become
+Detectron2's Sequential index ``head.cls_subnet.{2i}``, and the semantic
+head's ``scale_head_{l}_conv{k}`` and ``scale_head_{l}_gn{k}`` become
+``sem_seg_head.p{l + 2}.{2k}`` and its ``.norm`` (the head's levels taken
+as p2, p3, ... in order, as every YAML names them).
 Conv kernels (and ``conv2_deform_weight``, an HWIO kernel by another name)
 go from HWIO to OIHW, dense kernels from (I, O) to (O, I); the transposed
 convs of the mask and keypoint heads (``mask_head.deconv``,
@@ -41,6 +46,8 @@ _PORT_NAME = re.compile(
     r"|keypoint_head\.(conv_fcn\d+|score_lowres)"
     r"|box_head\.(\d+\.)?fc\d+"
     r"|box_predictor\.(cls|det|cls_score|bbox_pred)"
+    r"|head\.((cls|bbox)_subnet\.\d+|cls_score|bbox_pred)"
+    r"|sem_seg_head\.(p\d\.\d+(\.norm)?|predictor)"
     r"|(box_predictor|box_refinery)\.\d+\.(cls_score|bbox_pred))"
     r"\.(weight|bias|norm\.(weight|bias|running_mean|running_var))$")
 
@@ -61,8 +68,14 @@ def port_name(flax_name: str) -> str:
     n = re.sub(r"^cascade_head_(\d+)\.", r"box_head.\1.", n)
     n = re.sub(r"^cascade_predictor_(\d+)\.", r"box_predictor.\1.", n)
     n = re.sub(r"\.fpn_(lateral|output)_res(\d)\.", r".fpn_\1\2.", n)
+    n = re.sub(r"^head\.(cls|bbox)_subnet_(\d+)\.",
+               lambda m: f"head.{m[1]}_subnet.{2 * int(m[2])}.", n)
+    n = re.sub(r"^sem_seg_head\.scale_head_(\d+)_(conv|gn)(\d+)\.",
+               lambda m: f"sem_seg_head.p{int(m[1]) + 2}.{2 * int(m[3])}."
+               + ("norm." if m[2] == "gn" else ""), n)
     n = re.sub(r"\.conv2_deform_weight$", ".conv2.weight", n)
-    n = re.sub(r"\.norm\.scale$", ".norm.weight", n)        # flax BatchNorm
+    # flax BatchNorm, and the semantic head's GroupNorm
+    n = re.sub(r"\.norm\.scale$", ".norm.weight", n)
     n = re.sub(r"\.norm\.(mean|var)$", r".norm.running_\1", n)
     return re.sub(r"\.kernel$", ".weight", n)
 

@@ -22,9 +22,14 @@ loads nothing either, so that a checkpoint gives both the same model:
 Cascade R-CNN's per-stage ``box_head.{k}`` and ``box_predictor.{k}`` (flax
 ``cascade_head_{k}``, ``cascade_predictor_{k}``), the FPN's
 ``fpn_lateral{n}`` and ``fpn_output{n}`` (flax ``fpn_lateral_res{n}``,
-``fpn_output_res{n}``) and a deformable block's ``conv2.weight`` (flax
-``conv2_deform_weight``) are reported unmatched in the checkpoint and
-missing from the model, and keep their values.
+``fpn_output_res{n}``), a deformable block's ``conv2.weight`` (flax
+``conv2_deform_weight``), RetinaNet's tower convs ``head.cls_subnet.{2i}``
+and ``head.bbox_subnet.{2i}`` (flax ``head.cls_subnet_{i}``) and the
+semantic head's scale heads ``sem_seg_head.p{n}.{2k}`` (flax
+``scale_head_{l}_conv{k}`` and ``_gn{k}``) are reported unmatched in the
+checkpoint and missing from the model, and keep their values. RetinaNet's
+``head.cls_score`` and ``head.bbox_pred`` and the semantic head's
+``predictor`` load in both.
 
 Under ``NORM`` BN the import does what the JAX package's does: of each
 BatchNorm only ``norm.bias`` loads. A Detectron2 ``norm.weight`` finds no
@@ -75,7 +80,9 @@ def _port_key(name: str) -> str:
 
 # state-dict keys the JAX package's Detectron2 name map cannot reach
 _JAX_UNREACHED = re.compile(r"^(box_head|box_predictor)\.\d+\."
-                            r"|^backbone\.fpn_(lateral|output)\d\.")
+                            r"|^backbone\.fpn_(lateral|output)\d\."
+                            r"|^head\.(cls|bbox)_subnet\."
+                            r"|^sem_seg_head\.p\d\.")
 
 
 _TRANSPOSED = ("mask_head.deconv.weight", "keypoint_head.score_lowres.weight")

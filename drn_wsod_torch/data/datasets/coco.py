@@ -1,10 +1,9 @@
 """COCO-format json datasets (counterpart of
 ``drn_wsod_tpu/data/datasets/coco.py``): the boxes and class labels WSOD
 needs; segmentation, keypoints and area are carried through unchanged.
-
-The panoptic ("separated") splits are registered under their names, so
-that the catalog holds what the JAX package's holds, but their loader is
-not ported: loading one raises.
+The panoptic splits in the "separated" flavour add to each image's
+instance record its panoptic PNG and segments (for PQ) and its stuff
+label PNG (for the semantic branch).
 """
 
 from __future__ import annotations
@@ -66,12 +65,67 @@ def register_coco_instances(name: str, json_file: str, image_root: str):
         json_file=json_file, image_root=image_root, evaluator_type="coco")
 
 
-def _panoptic_not_ported(name: str):
-    def load():
-        raise NotImplementedError(
-            f"dataset {name!r}: the COCO panoptic loader is not ported yet: "
-            "ROADMAP.md queue 1, item 15 (remaining datasets)")
-    return load
+def load_coco_panoptic_separated(panoptic_json: str, image_root: str,
+                                 panoptic_root: str, sem_seg_root: str,
+                                 instances_json: str,
+                                 dataset_name: Optional[str] = None
+                                 ) -> List[dict]:
+    """COCO panoptic, "separated": the instances json's records (the thing
+    branch), each with ``sem_seg_file_name`` (its PNG under
+    ``sem_seg_root``: 0 the "thing" class, stuff l >= 1) and
+    ``pan_seg_file_name`` (its panoptic PNG) with ``segments_info``, whose
+    category ids are mapped to the PQ space (thing c -> c, contiguous by
+    id; stuff -> n_thing + l - 1; segments of other categories dropped).
+    Where ``dataset_name`` is given, its metadata gets ``stuff_classes``
+    ("things" first) and ``stuff_dataset_id_to_contiguous_id``."""
+    records = load_coco_json(instances_json, image_root, dataset_name)
+    with open(panoptic_json) as f:
+        pan = json.load(f)
+    things = [c for c in pan.get("categories", []) if c.get("isthing")]
+    stuffs = sorted((c for c in pan.get("categories", [])
+                     if not c.get("isthing")), key=lambda c: c["id"])
+    thing_map = {c["id"]: i for i, c in
+                 enumerate(sorted(things, key=lambda c: c["id"]))}
+    stuff_map = {c["id"]: i + 1 for i, c in enumerate(stuffs)}
+    n_thing = len(thing_map)
+    if dataset_name is not None:
+        MetadataCatalog.get(dataset_name).set(
+            stuff_classes=["things"] + [c["name"] for c in stuffs],
+            stuff_dataset_id_to_contiguous_id=stuff_map)
+
+    by_image = {p["image_id"]: p for p in pan.get("annotations", [])}
+    for r in records:
+        p = by_image.get(r["image_id"])
+        if p is None:
+            continue
+        segments = []
+        for seg in p.get("segments_info", []):
+            cid = seg["category_id"]
+            if cid in thing_map:
+                cat, isthing = thing_map[cid], True
+            elif cid in stuff_map:
+                cat, isthing = n_thing + stuff_map[cid] - 1, False
+            else:
+                continue
+            segments.append({"id": seg["id"], "category_id": cat,
+                             "isthing": isthing})
+        r["pan_seg_file_name"] = os.path.join(panoptic_root, p["file_name"])
+        r["segments_info"] = segments
+        r["sem_seg_file_name"] = os.path.join(sem_seg_root, p["file_name"])
+    return records
+
+
+def register_coco_panoptic_separated(name: str, image_root: str,
+                                     panoptic_root: str, panoptic_json: str,
+                                     sem_seg_root: str, instances_json: str):
+    DatasetCatalog.register(
+        name, lambda: load_coco_panoptic_separated(
+            panoptic_json, image_root, panoptic_root, sem_seg_root,
+            instances_json, name))
+    MetadataCatalog.get(name).set(
+        panoptic_json=panoptic_json, image_root=image_root,
+        panoptic_root=panoptic_root, sem_seg_root=sem_seg_root,
+        json_file=instances_json, evaluator_type="coco_panoptic_seg")
 
 
 # the builtin COCO splits (Detectron2's data/datasets/builtin.py)
@@ -86,19 +140,31 @@ _BUILTIN_COCO = {
                       "coco/annotations/instances_val2017.json"),
 }
 
-_BUILTIN_COCO_PANOPTIC = ("coco_2017_train_panoptic_separated",
-                          "coco_2017_val_panoptic_separated")
+_BUILTIN_COCO_PANOPTIC = {
+    "coco_2017_train_panoptic_separated": (
+        "coco/train2017", "coco/panoptic_train2017",
+        "coco/annotations/panoptic_train2017.json",
+        "coco/panoptic_stuff_train2017",
+        "coco/annotations/instances_train2017.json"),
+    "coco_2017_val_panoptic_separated": (
+        "coco/val2017", "coco/panoptic_val2017",
+        "coco/annotations/panoptic_val2017.json",
+        "coco/panoptic_stuff_val2017",
+        "coco/annotations/instances_val2017.json"),
+}
 
 
 def register_all_coco(root: str = "datasets"):
-    """Register the builtin COCO splits under ``root`` (each name once),
-    and the panoptic names with a loader that raises."""
+    """Register the builtin COCO splits and the panoptic-separated ones
+    under ``root``, each name once."""
     for name, (image_root, json_file) in _BUILTIN_COCO.items():
         if name not in DatasetCatalog:
             register_coco_instances(
                 name, os.path.join(root, json_file),
                 os.path.join(root, image_root))
-    for name in _BUILTIN_COCO_PANOPTIC:
+    for name, paths in _BUILTIN_COCO_PANOPTIC.items():
         if name not in DatasetCatalog:
-            DatasetCatalog.register(name, _panoptic_not_ported(name))
-            MetadataCatalog.get(name).set(evaluator_type="coco_panoptic_seg")
+            image_root, pan_root, pan_json, sem_root, inst_json = (
+                os.path.join(root, p) for p in paths)
+            register_coco_panoptic_separated(name, image_root, pan_root,
+                                             pan_json, sem_root, inst_json)

@@ -153,8 +153,9 @@ class TrainLoader:
 
 class EvalLoader:
     """One sequential pass in dataset order; yields (batch, n_real). Each
-    batch is padded to its largest bucket, and the last one filled up with
-    copies of its last sample (``n_real`` counts the real ones)."""
+    batch is padded to its largest bucket (masks with 0, label maps with
+    255), and the last one filled up with copies of its last sample
+    (``n_real`` counts the real ones)."""
 
     def __init__(self, records: List[dict], mapper: Callable,
                  batch_size: int = 1, prefetch: int = 2,
@@ -195,6 +196,13 @@ class EvalLoader:
                                      dtype=old.dtype)
                         m[:, :old.shape[1], :old.shape[2]] = old
                         samples[k]["gt_masks"] = m
+                    if "sem_seg" in s:
+                        # 255, whatever the mapper's ignore value, as the
+                        # JAX loader pads
+                        old = s["sem_seg"]
+                        m = np.full((bucket, bucket), 255, dtype=np.int32)
+                        m[:old.shape[0], :old.shape[1]] = old
+                        samples[k]["sem_seg"] = m
             yield _collate(samples), n_real
 
     def __iter__(self):

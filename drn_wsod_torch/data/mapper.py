@@ -9,10 +9,13 @@ the test resize otherwise), the proposals mapped the same way and padded to
 with ``MASK_ON`` each instance's COCO polygons filled on the bucket's canvas
 (``structures/masks.py:fill_polygon``, Pillow's fill without Pillow) as
 (G, bucket, bucket) uint8 ``gt_masks``, with ``KEYPOINT_ON`` its keypoints
-as (G, K, 3) ``gt_keypoints``. JPEG files decode with the port's own
-decoder (``native.py``), which needs no Pillow; packed records
-(``data/record_dataset.py``) carry decoded pixels and skip the decode. The
-semantic-segmentation arm is not ported yet (ROADMAP.md queue 1, item 15).
+as (G, K, 3) ``gt_keypoints``; where the record names a
+``sem_seg_file_name``, its label map moved with the image (nearest
+sampling) onto a (bucket, bucket) int32 canvas of
+``SEM_SEG_HEAD.IGNORE_VALUE`` as ``sem_seg``. JPEG files decode with the
+port's own decoder (``native.py``) and PNG files with its own reader
+(``data/png.py``), neither needing Pillow; packed records
+(``data/record_dataset.py``) carry decoded pixels and skip the decode.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 from .. import native
 from ..structures.masks import fill_polygon
 from . import transforms as T
+from .png import read_png, read_png_rgb
 from .datasets.voc import image_level_labels
 from .proposals import transform_proposals
 
@@ -36,9 +40,14 @@ def read_image(path: str, fmt: str = "BGR") -> np.ndarray:
     lossless, a truncated progressive file, a corrupt header) falls back
     to Pillow where Pillow imports, as the JAX package's ``read_image``
     does, and raises a ``ValueError`` naming the file and the feature
-    where it does not. Other formats decode with Pillow."""
+    where it does not. A ``.png`` file goes through the port's PNG reader
+    (``data/png.py:read_png_rgb``, Pillow's ``convert("RGB")``, with the
+    same fallback for interlaced and 16-bit files). Other formats decode
+    with Pillow."""
     arr, status = None, 0
-    if path.lower().endswith((".jpg", ".jpeg")):
+    if path.lower().endswith(".png"):
+        arr = read_png_rgb(path)
+    elif path.lower().endswith((".jpg", ".jpeg")):
         with open(path, "rb") as f:
             arr, status = native.jpeg_decode_status(f.read())
     if arr is None:
@@ -61,6 +70,18 @@ def read_image(path: str, fmt: str = "BGR") -> np.ndarray:
     if fmt == "BGR":
         arr = arr[:, :, ::-1]
     return np.ascontiguousarray(arr)
+
+
+def read_label_map(path: str) -> np.ndarray:
+    """A label map as ``np.asarray(Image.open(path))``: a PNG through the
+    port's reader (a palette file gives its indices), another format
+    through Pillow."""
+    if path.lower().endswith(".png"):
+        return read_png(path)
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im)
 
 
 def pick_bucket(h: int, w: int, buckets: Sequence[int],
@@ -93,6 +114,7 @@ class DatasetMapper:
         self.mask_on = cfg.MODEL.MASK_ON
         self.keypoint_on = cfg.MODEL.KEYPOINT_ON
         self.num_keypoints = cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS
+        self.sem_ignore = cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE
 
         augs: List[T.Augmentation] = []
         if is_train:
@@ -126,10 +148,6 @@ class DatasetMapper:
 
     def __call__(self, record: Dict, rng: np.random.RandomState,
                  dataset_index: int = 0) -> Dict[str, np.ndarray]:
-        if "sem_seg_file_name" in record:
-            raise NotImplementedError(
-                "the mapper's semantic-segmentation arm is not ported yet: "
-                "ROADMAP.md queue 1, item 15 (remaining models)")
         if "image" in record:
             # packed record (data/record_dataset.py): decoded BGR pixels
             image = record["image"]
@@ -205,6 +223,12 @@ class DatasetMapper:
                 kp[:, :2] = tfms.apply_coords(kp[:, :2])
                 kpts[i, :len(kp)] = kp
             extra["gt_keypoints"] = kpts
+        if "sem_seg_file_name" in record:
+            sem = tfms.apply_segmentation(
+                read_label_map(record["sem_seg_file_name"]))
+            canvas_sem = np.full((bucket, bucket), self.sem_ignore, np.int32)
+            canvas_sem[:h, :w] = sem.astype(np.int32)
+            extra["sem_seg"] = canvas_sem
 
         return {
             **extra,

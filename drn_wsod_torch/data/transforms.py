@@ -8,8 +8,9 @@ extent, brightness, contrast, saturation, lighting) and
 
 The port resamples without Pillow, which the GPU machines it trains on may
 lack, and computes what Pillow computes: the resize is Pillow's
-``Image.resize(..., BILINEAR)`` on uint8, bit for bit (``resize_bilinear``);
-the extent and the rotation are Pillow's ``Image.transform`` affine sampler
+``Image.resize(..., BILINEAR)`` on uint8, bit for bit (``resize_bilinear``),
+and a label map's resize is Pillow's ``NEAREST`` (``resize_nearest``); the
+extent and the rotation are Pillow's ``Image.transform`` affine sampler
 (``Geometry.c``) and ``Image.rotate``'s canvas rule (``affine_resample``,
 ``rotate_like_pillow``), as the JAX package's transforms call them.
 """
@@ -99,6 +100,25 @@ def resize_bilinear(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
     if img.shape[0] != new_h:
         img = _resample_axis(img, 0, new_h)
     return img
+
+
+def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """The source index of each of ``n_out`` outputs in Pillow's NEAREST
+    resize (``ImagingScaleAffine``): the position starts at ``a / 2``,
+    ``a = n_in / n_out`` in double, and adds ``a`` in double once per
+    output; each is truncated to int. (``floor((i + 0.5) * a)`` differs
+    from it on about a quarter of size pairs.)"""
+    a = n_in / n_out
+    pos = np.add.accumulate(np.concatenate([[a * 0.5],
+                                            np.full(n_out - 1, a)]))
+    return np.minimum(pos.astype(np.int64), n_in - 1)
+
+
+def resize_nearest(seg: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """An (H, W) label map (any dtype) resized to (new_h, new_w) as
+    Pillow's ``Image.fromarray(seg).resize((new_w, new_h), NEAREST)``."""
+    h, w = seg.shape[:2]
+    return seg[np.ix_(_nearest_index(h, new_h), _nearest_index(w, new_w))]
 
 
 def _coord(v: np.ndarray) -> np.ndarray:
@@ -321,8 +341,8 @@ class TransformList(Transform):
 
 class ResizeTransform(Transform):
     """Resize an (h, w) image to (new_h, new_w): pixels by
-    :func:`resize_bilinear` (Pillow's bilinear filter), coordinates by the
-    float32 ratio."""
+    :func:`resize_bilinear` (Pillow's bilinear filter), label maps by
+    :func:`resize_nearest`, coordinates by the float32 ratio."""
 
     def __init__(self, h: int, w: int, new_h: int, new_w: int):
         self.h, self.w, self.new_h, self.new_w = h, w, new_h, new_w
@@ -334,6 +354,12 @@ class ResizeTransform(Transform):
         if img.shape[:2] == (self.new_h, self.new_w):
             return img
         return resize_bilinear(img, self.new_h, self.new_w)
+
+    def apply_segmentation(self, seg):
+        """Nearest sampling, Pillow's (:func:`resize_nearest`)."""
+        if seg.shape[:2] == (self.new_h, self.new_w):
+            return seg
+        return resize_nearest(seg, self.new_h, self.new_w)
 
     def apply_coords(self, coords):
         coords = coords.astype(np.float32).copy()

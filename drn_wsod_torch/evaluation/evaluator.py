@@ -5,8 +5,12 @@
 With masks, the detect function adds each detection's mask probabilities
 in its box and the loop pastes them into the original image (host numpy,
 ``ops/mask_ops.py``); with keypoints, it adds the decoded keypoints in the
-original frame. The dense evaluation loops come with ROADMAP.md queue 1,
-item 15, the gather across processes with item 16.
+original frame. The dense loops (``make_sem_seg_fn``,
+``sem_seg_inference_on_dataset``, ``decode_panoptic_png``,
+``panoptic_inference_on_dataset``) evaluate semantic segmentation (mIoU)
+and the panoptic fusion (PQ), reading the GT label maps and panoptic PNGs
+with the port's PNG reader. The gather across processes is ROADMAP.md
+queue 1, item 16.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from ..device import resolve_device
 from ..ops.mask_ops import paste_masks_in_image
 from ..ops.nms import multiclass_nms
+from ..ops.resize import resize_linear
 from ..postprocessing import rescale_boxes
 from ..structures.batch import WSODBatch
 
@@ -55,7 +60,13 @@ def make_detect_fn(model, score_thresh: float, nms_thresh: float,
         C = scores.shape[-1] - 1
         nms_boxes = (boxes if boxes.shape[-1] == 4
                      else boxes.reshape(*boxes.shape[:-1], C, 4))
-        dets = multiclass_nms(nms_boxes, scores[..., :C], batch.proposal_mask,
+        # a dense detector (RetinaNet) gives candidates of its own, not
+        # the batch's proposal slots: every row is live then
+        mask = batch.proposal_mask
+        if mask.shape[1] != scores.shape[1]:
+            mask = torch.ones(scores.shape[:2], dtype=torch.bool,
+                              device=scores.device)
+        dets = multiclass_nms(nms_boxes, scores[..., :C], mask,
                               iou_threshold=nms_thresh,
                               score_threshold=score_thresh, topk=topk)
         img_boxes = dets["boxes"]          # in the resized frame
@@ -143,3 +154,121 @@ def gather_and_evaluate(evaluator) -> Dict:
             "gathering predictions across processes is not ported yet: "
             "ROADMAP.md queue 1, item 16 (multi-device)")
     return evaluator.evaluate()
+
+
+# --------------------------------------------------------------- dense eval
+def make_sem_seg_fn(model, device=None
+                    ) -> Callable[[WSODBatch], torch.Tensor]:
+    """Move ``model`` to ``device`` (CUDA unless the caller names another
+    one) and return ``sem(batch)``: the model's ``semantic_logits``
+    upsampled to the canvas by ``jax.image.resize``'s bilinear
+    (``ops/resize.py:resize_linear``) and their argmax, (B, H, W) int32 on
+    the device (a near tie of two classes may take either)."""
+    dev = resolve_device(device)
+    model.to(dev).eval()
+
+    @torch.inference_mode()
+    def sem(batch: WSODBatch) -> torch.Tensor:
+        batch = batch.to(dev)
+        logits = model.semantic_logits(batch)
+        B, _, _, C = logits.shape
+        H, W = batch.image.shape[1:3]
+        up = resize_linear(logits.float(), (B, H, W, C))
+        return up.argmax(-1).to(torch.int32)
+
+    return sem
+
+
+def _resize_nearest(labels: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """The JAX loop's nearest resize of a predicted map: source index
+    ``min(i * in // out, in - 1)`` on each axis."""
+    h, w = labels.shape
+    if (h, w) == (oh, ow):
+        return labels
+    yi = np.minimum((np.arange(oh) * h) // max(oh, 1), h - 1)
+    xi = np.minimum((np.arange(ow) * w) // max(ow, 1), w - 1)
+    return labels[np.ix_(yi, xi)]
+
+
+def sem_seg_inference_on_dataset(sem: Callable[[WSODBatch], torch.Tensor],
+                                 loader: Iterable[Tuple[WSODBatch, int]],
+                                 evaluator, records) -> Dict:
+    """Each real image's predicted map cut to its valid part, resized to
+    the record's height and width by :func:`_resize_nearest`, against the
+    GT label map of its ``sem_seg_file_name`` (int32), into
+    ``evaluator``."""
+    from ..data.mapper import read_label_map
+
+    evaluator.reset()
+    for batch, n_real in loader:
+        pred = sem(batch).cpu().numpy()
+        ids = np.asarray(batch.image_id.cpu())
+        hw = np.asarray(batch.image_hw.cpu())
+        for i in range(n_real):
+            record = records[int(ids[i])]
+            h, w = int(hw[i, 0]), int(hw[i, 1])
+            p = _resize_nearest(pred[i, :h, :w], int(record["height"]),
+                                int(record["width"]))
+            gt = np.asarray(read_label_map(record["sem_seg_file_name"]),
+                            np.int32)
+            evaluator.process_single(p, gt)
+    return gather_and_evaluate(evaluator)
+
+
+def decode_panoptic_png(path: str) -> np.ndarray:
+    """A COCO panoptic PNG -> (H, W) int32 segment ids, R + 256 G + 256^2
+    B of its RGB (Pillow's ``convert("RGB")``, by the port's reader)."""
+    from ..data.png import read_png_rgb
+
+    rgb = read_png_rgb(path).astype(np.int64)
+    return (rgb[..., 0] + 256 * rgb[..., 1]
+            + 256 * 256 * rgb[..., 2]).astype(np.int32)
+
+
+def panoptic_inference_on_dataset(
+        detect: Callable[[WSODBatch], Dict[str, torch.Tensor]],
+        sem: Callable[[WSODBatch], torch.Tensor],
+        loader: Iterable[Tuple[WSODBatch, int]], evaluator, records,
+        num_thing_classes: int, overlap_threshold: float = 0.5,
+        stuff_area_limit: int = 4096, conf_threshold: float = 0.5) -> Dict:
+    """The panoptic loop: each real image's detections, their masks pasted
+    at the record's size and its semantic map (resized by
+    :func:`_resize_nearest`) fused by
+    ``panoptic_eval.combine_semantic_and_instance_outputs``, against the
+    GT panoptic map of its ``pan_seg_file_name`` and ``segments_info``.
+    ``detect`` needs the mask arm. Categories: thing class c is c, stuff
+    label l (> 0; 0 is the "thing" class) is ``num_thing_classes + l -
+    1``, the space the dataset loader gives the GT."""
+    from .panoptic_eval import combine_semantic_and_instance_outputs
+
+    evaluator.reset()
+    for batch, n_real in loader:
+        dets = detect(batch)
+        host = {k: dets[k].cpu().numpy() for k in
+                ("boxes", "scores", "classes", "valid", "mask_probs")}
+        pred = sem(batch).cpu().numpy()
+        ids = np.asarray(batch.image_id.cpu())
+        hw = np.asarray(batch.image_hw.cpu())
+        for i in range(n_real):
+            record = records[int(ids[i])]
+            oh, ow = int(record["height"]), int(record["width"])
+            h, w = int(hw[i, 0]), int(hw[i, 1])
+            valid = np.asarray(host["valid"][i], bool)
+            boxes = host["boxes"][i][valid]
+            masks = paste_masks_in_image(
+                np.asarray(host["mask_probs"][i], np.float32)[valid], boxes,
+                (oh, ow))
+            pan, infos = combine_semantic_and_instance_outputs(
+                masks, host["scores"][i][valid], host["classes"][i][valid],
+                _resize_nearest(pred[i, :h, :w], oh, ow),
+                overlap_threshold=overlap_threshold,
+                stuff_area_limit=stuff_area_limit,
+                instances_confidence_threshold=conf_threshold)
+            for s in infos:
+                if not s.get("isthing", False):
+                    s["category_id"] = (num_thing_classes
+                                        + s["category_id"] - 1)
+            evaluator.process_single(
+                pan, infos, decode_panoptic_png(record["pan_seg_file_name"]),
+                record.get("segments_info", []))
+    return gather_and_evaluate(evaluator)

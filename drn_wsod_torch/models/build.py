@@ -9,9 +9,9 @@ head, pooling by ROIPool, ROIAlign or ROIAlignV2 from one level or from the
 FPN's, its backbone frozen or trainable from ``FREEZE_AT``; ``MASK_ON``
 adds the Mask R-CNN head to Fast R-CNN and Cascade R-CNN, ``KEYPOINT_ON``
 the Keypoint R-CNN head to Fast R-CNN (the other heads ignore both, as in
-the JAX package). Every other configuration the JAX package supports
-raises ``NotImplementedError`` naming the ROADMAP.md queue-1 item that
-ports it.
+the JAX package). ``MODEL.META_ARCHITECTURE`` also names the dense models
+over the FPN: ``RetinaNet``, ``SemanticSegmentor`` and ``PanopticFPN``.
+A backbone or ROI head the port lacks raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +27,9 @@ from .backbones import (build_resnet_backbone, build_resnet_fpn_backbone,
                         build_vgg_backbone, build_ws_resnet_backbone)
 from .backbones.resnet_ws import model_dtype
 from .meta_arch import GeneralizedRCNNWSL
+from .panoptic import PanopticFPN
+from .retinanet import RetinaNet
+from .semantic_seg import SemanticSegmentor
 
 # MODEL.BACKBONE.NAME -> builder (the JAX package's BACKBONE_REGISTRY)
 BACKBONES = {"build_ws_resnet_backbone": build_ws_resnet_backbone,
@@ -51,29 +54,25 @@ _HEAD_TYPES = {"WSDDNROIHeads": "WSDDN", "OICRROIHeads": "OICR",
 CSC_HEAD_NAMES = frozenset({"CSCROIHeads", "CSCOICRROIHeads",
                             "WSJDSROIHeads"})
 
-_NOT_YET = {
-    "RetinaNet": "item 15 (remaining models)",
-    "PanopticFPN": "item 15 (remaining models)",
-    "SemanticSegmentor": "item 15 (remaining models)",
-}
-
-
 def _not_ported(what: str, name: str):
-    return NotImplementedError(
-        f"{what} {name!r} is not ported yet: ROADMAP.md queue 1, "
-        f"{_NOT_YET.get(name, 'a later slice')}")
+    return NotImplementedError(f"{what} {name!r} is not ported: the JAX "
+                               "package has no such component either")
+
+
+def _backbone(cfg: CfgNode):
+    if cfg.MODEL.BACKBONE.NAME not in BACKBONES:
+        raise _not_ported("backbone", cfg.MODEL.BACKBONE.NAME)
+    return BACKBONES[cfg.MODEL.BACKBONE.NAME](cfg)
 
 
 def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
-    if cfg.MODEL.BACKBONE.NAME not in BACKBONES:
-        raise _not_ported("backbone", cfg.MODEL.BACKBONE.NAME)
     head_name = cfg.MODEL.ROI_HEADS.NAME
     if head_name not in _HEAD_TYPES:
         raise _not_ported("ROI head", head_name)
     box = cfg.MODEL.ROI_BOX_HEAD
     if box.POOLER_TYPE not in ("ROIPool", "ROIAlign", "ROIAlignV2"):
         raise ValueError(f"Unknown POOLER_TYPE {box.POOLER_TYPE!r}")
-    backbone = BACKBONES[cfg.MODEL.BACKBONE.NAME](cfg)
+    backbone = _backbone(cfg)
     in_features = list(cfg.MODEL.ROI_HEADS.IN_FEATURES)
     feature_name = in_features[0]
     strides = backbone.feature_strides
@@ -126,9 +125,80 @@ def _build_rcnn_wsl(cfg: CfgNode) -> GeneralizedRCNNWSL:
     )
 
 
+def _build_retinanet(cfg: CfgNode) -> RetinaNet:
+    backbone = _backbone(cfg)
+    r = cfg.MODEL.RETINANET
+    in_features = tuple(r.IN_FEATURES)
+    sizes = tuple(tuple(float(x) for x in s)
+                  for s in cfg.MODEL.ANCHOR_GENERATOR.SIZES)
+    if len(sizes) != len(in_features):
+        raise AssertionError("ANCHOR_GENERATOR.SIZES must list one size "
+                             "group per IN_FEATURE")
+    return RetinaNet(
+        backbone, in_features=in_features,
+        strides=tuple(int(backbone.feature_strides[f]) for f in in_features),
+        anchor_sizes=sizes,
+        aspect_ratios=tuple(
+            float(a) for a in cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS[0]),
+        num_classes=r.NUM_CLASSES, num_convs=r.NUM_CONVS,
+        prior_prob=r.PRIOR_PROB, iou_thresholds=tuple(r.IOU_THRESHOLDS),
+        iou_labels=tuple(r.IOU_LABELS), focal_alpha=r.FOCAL_LOSS_ALPHA,
+        focal_gamma=r.FOCAL_LOSS_GAMMA,
+        smooth_l1_beta=r.SMOOTH_L1_LOSS_BETA,
+        reg_weights=tuple(r.BBOX_REG_WEIGHTS),
+        topk_candidates=r.TOPK_CANDIDATES_TEST,
+        pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
+        pixel_std=tuple(cfg.MODEL.PIXEL_STD), dtype=model_dtype(cfg))
+
+
+def _build_panoptic_fpn(cfg: CfgNode) -> PanopticFPN:
+    backbone = _backbone(cfg)
+    strides = backbone.feature_strides
+    sem = cfg.MODEL.SEM_SEG_HEAD
+    sem_feats = tuple(sem.IN_FEATURES)
+    box_feats = tuple(cfg.MODEL.ROI_HEADS.IN_FEATURES) or sem_feats
+    return PanopticFPN(
+        backbone, pyramid_strides=tuple((f, int(strides[f]))
+                                        for f in box_feats),
+        sem_in_features=sem_feats,
+        sem_strides=tuple(int(strides[f]) for f in sem_feats),
+        num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
+        sem_num_classes=sem.NUM_CLASSES, common_stride=sem.COMMON_STRIDE,
+        sem_conv_dim=sem.CONVS_DIM,
+        pooler_resolution=cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION,
+        mask_on=cfg.MODEL.MASK_ON,
+        instance_loss_weight=cfg.MODEL.PANOPTIC_FPN.INSTANCE_LOSS_WEIGHT,
+        sem_loss_weight=sem.LOSS_WEIGHT,
+        reg_weights=tuple(cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS),
+        pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
+        pixel_std=tuple(cfg.MODEL.PIXEL_STD), dtype=model_dtype(cfg))
+
+
+def _build_semantic_segmentor(cfg: CfgNode) -> SemanticSegmentor:
+    backbone = _backbone(cfg)
+    sem = cfg.MODEL.SEM_SEG_HEAD
+    sem_feats = tuple(sem.IN_FEATURES)
+    return SemanticSegmentor(
+        backbone, sem_in_features=sem_feats,
+        sem_strides=tuple(int(backbone.feature_strides[f])
+                          for f in sem_feats),
+        num_classes=sem.NUM_CLASSES, common_stride=sem.COMMON_STRIDE,
+        conv_dim=sem.CONVS_DIM, loss_weight=sem.LOSS_WEIGHT,
+        ignore_value=sem.IGNORE_VALUE,
+        pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
+        pixel_std=tuple(cfg.MODEL.PIXEL_STD), dtype=model_dtype(cfg))
+
+
+# MODEL.META_ARCHITECTURE -> builder (the JAX package's META_ARCH_REGISTRY)
+META_ARCHS = {"GeneralizedRCNNWSL": _build_rcnn_wsl,
+              "RetinaNet": _build_retinanet,
+              "PanopticFPN": _build_panoptic_fpn,
+              "SemanticSegmentor": _build_semantic_segmentor}
+
+
 def build_model(cfg: CfgNode, device=None,
                 generator: Optional[torch.Generator] = None
-                ) -> GeneralizedRCNNWSL:
+                ) -> torch.nn.Module:
     """Build the configured model on ``device`` (CUDA unless the caller
     names another device; raises where CUDA is absent).
 
@@ -150,13 +220,15 @@ def build_model(cfg: CfgNode, device=None,
     """
     dev = resolve_device(device)
     arch = cfg.MODEL.META_ARCHITECTURE
-    if arch != "GeneralizedRCNNWSL":
-        raise _not_ported("meta-architecture", arch)
+    if arch not in META_ARCHS:
+        raise KeyError(f"{arch} not found in META_ARCH registry; "
+                       f"available: {sorted(META_ARCHS)}")
     with torch.device(dev):
-        model = _build_rcnn_wsl(cfg)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    model.init_weights(generator)
+        model = META_ARCHS[arch](cfg)
+    if dev.type != "meta":      # the meta device holds no values to draw
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        model.init_weights(generator)
     labels = make_param_labels(
         [n for n, _ in model.named_parameters()], cfg.MODEL.BACKBONE.FREEZE_AT)
     for name, p in model.backbone.named_parameters():

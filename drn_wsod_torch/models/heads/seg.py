@@ -1,8 +1,8 @@
-"""The WSJDS segmentation branch and the Mask R-CNN head (counterpart of
-``drn_wsod_tpu/models/heads/seg.py`` but its PanopticFPN head): the ASPP
-semantic head over the backbone's feature map, its loss from the CPG maps,
-the CRF constrain-to-boundary targets and loss, and ``MaskRCNNHead`` with
-``mask_loss``.
+"""The segmentation heads (counterpart of ``drn_wsod_tpu/models/heads/
+seg.py``): the WSJDS branch (the ASPP semantic head over the backbone's
+feature map, its loss from the CPG maps, the CRF constrain-to-boundary
+targets and loss), ``MaskRCNNHead`` with ``mask_loss``, and the
+PanopticFPN semantic head ``SemSegFPNHead`` with ``sem_seg_loss``.
 
 Maps are NHWC, as the JAX package holds them: the head takes the
 (B, Hf, Wf, C) feature map and returns (B, Hf, Wf, C+1) float32 logits,
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -222,3 +223,123 @@ def mask_loss(mask_logits: torch.Tensor, gt_class: torch.Tensor,
     bce = torch.where(fg_mask[:, None, None], bce, 0.0)
     denom = (fg_mask.float().sum() * (m * m)).clamp(min=1.0)
     return bce.sum() / denom
+
+
+class GroupNorm(nn.Module):
+    """Flax's ``nn.GroupNorm(num_groups, dtype=float32)`` over an NCHW map:
+    float32 statistics of each group with its fast variance,
+    ``max(0, E[x^2] - E[x]^2)``, epsilon 1e-6, then ``(x - mean) *
+    (rsqrt(var + eps) * weight) + bias``. (``F.group_norm`` takes the
+    two-pass variance at epsilon 1e-5.) Returns float32, ``channels_last``
+    where the input is."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        G = self.num_groups
+        g = x.permute(0, 2, 3, 1).float().reshape(B, H, W, G, C // G)
+        mean = g.mean((1, 2, 4), keepdim=True)
+        var = ((g * g).mean((1, 2, 4), keepdim=True)
+               - mean * mean).clamp(min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(G, C // G)
+        y = (g - mean) * mul + self.bias.reshape(G, C // G)
+        return y.reshape(B, H, W, C).permute(0, 3, 1, 2)
+
+
+class ConvGN(Conv2d):
+    """A 3x3 conv without bias in ``dtype``, then ``norm``, a float32
+    :class:`GroupNorm`, then ReLU (Detectron2's ``Conv2d`` with ``norm``
+    and ``activation``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_groups: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, 3, dtype=dtype,
+                         bias=False)
+        self.norm = GroupNorm(num_groups, out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.norm(super().forward(x)))
+
+
+class Upsample2x(nn.Module):
+    """2x bilinear upsampling of an NCHW map, as ``jax.image.resize(x,
+    (B, 2H, 2W, C), "bilinear")`` (``ops/resize.py:resize_linear``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        return resize_linear(x, (B, C, 2 * H, 2 * W))
+
+
+class SemSegFPNHead(nn.Module):
+    """PanopticFPN's semantic head: per FPN level (finest first) a scale
+    head of [3x3 conv (no bias, ``dtype``) + float32 GroupNorm + ReLU, 2x
+    bilinear upsampling] repeated until the level reaches
+    ``common_stride`` (one conv at least); the levels summed in float32
+    and a float32 1x1 ``predictor`` gives the class logits. Takes NCHW
+    maps, returns (B, H/cs, W/cs, num_classes) float32 NHWC logits.
+
+    Detectron2's names: the scale head of level ``pN`` is ``pN``, its convs
+    at the even indices (``sem_seg_head.p4.2.norm.weight``), the
+    upsamplings, which hold nothing, at the odd ones (a level at
+    ``common_stride`` has none). Flax's
+    ``scale_head_{i}_conv{k}`` and ``_gn{k}`` (levels numbered from 0)
+    reach them through ``checkpoint/from_jax.py``."""
+
+    def __init__(self, in_channels: Sequence[int], in_features: Sequence[str],
+                 in_strides: Sequence[int], num_classes: int,
+                 common_stride: int = 4, conv_dim: int = 128,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.in_features = tuple(in_features)
+        groups = min(32, conv_dim)
+        for f, cin, stride in zip(self.in_features, in_channels, in_strides):
+            length = max(1, int(np.log2(stride) - np.log2(common_stride)))
+            ops = []
+            for k in range(length):
+                ops.append(ConvGN(cin if k == 0 else conv_dim, conv_dim,
+                                  groups, dtype=dtype))
+                if stride != common_stride:
+                    ops.append(Upsample2x())
+                    stride //= 2
+            self.add_module(f, nn.Sequential(*ops))
+        self.predictor = Conv2d(conv_dim, num_classes, 1, dtype=torch.float32)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """As flax draws them: convs and the predictor ``lecun_normal``,
+        the predictor's bias 0, GroupNorm's weight 1 and bias 0."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                k = m.kernel_size[0] * m.kernel_size[1]
+                lecun_normal_(m.weight, k * m.in_channels, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        summed = None
+        for f, x in zip(self.in_features, feats):
+            x = getattr(self, f)(x)
+            summed = x if summed is None else summed + x
+        return self.predictor(summed).permute(0, 2, 3, 1)
+
+
+def sem_seg_loss(logits: torch.Tensor, targets: torch.Tensor,
+                 ignore_value: int = 255) -> torch.Tensor:
+    """Pixelwise cross entropy of (B, h, w, C) logits at their own
+    resolution against (B, h, w) integer targets, averaged over the pixels
+    that are not ``ignore_value`` (the caller strides the targets down to
+    the logits)."""
+    valid = targets != ignore_value
+    tgt = torch.where(valid, targets, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    ce = torch.where(valid, ce, 0.0)
+    return ce.sum() / valid.sum().clamp(min=1)

@@ -25,22 +25,26 @@ class Dense(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """Conv with bias and symmetric padding ``dilation * (k // 2)``,
-    computed as flax's ``nn.Conv(dtype=...)`` computes it: input, weight
-    and bias cast to ``dtype`` (the input's own where None) at each use,
-    so parameters stay float32 masters; the product is rounded, then the
-    bias added and rounded again (a bias fused into the product would round
-    once)."""
+    """Conv with bias (unless ``bias`` is False) and symmetric padding
+    ``dilation * (k // 2)``, computed as flax's ``nn.Conv(dtype=...)``
+    computes it: input, weight and bias cast to ``dtype`` (the input's own
+    where None) at each use, so parameters stay float32 masters; the
+    product is rounded, then the bias added and rounded again (a bias fused
+    into the product would round once)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
-                 dilation: int = 1, dtype: torch.dtype = None):
+                 dilation: int = 1, dtype: torch.dtype = None,
+                 bias: bool = True):
         super().__init__(in_channels, out_channels, kernel,
-                         padding=dilation * (kernel // 2), dilation=dilation)
+                         padding=dilation * (kernel // 2), dilation=dilation,
+                         bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or x.dtype
         y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        if self.bias is None:
+            return y
         return y + self.bias.to(dt)[:, None, None]
 
 

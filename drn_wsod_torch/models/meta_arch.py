@@ -78,6 +78,26 @@ from .heads.box_head import DiscriminativeAdaptionNeck
 from .heads.cascade import match_and_label
 
 
+def mask_targets(gt_masks: torch.Tensor, boxes: torch.Tensor,
+                 midx: torch.Tensor, m: int) -> torch.Tensor:
+    """Mask R-CNN's (B, S, m, m) float32 0/1 targets: each (B, S) box's
+    matched (B, G, H, W) GT mask ``midx`` RoIAligned at m x m (sampling
+    ratio 2, aligned) and thresholded at 0.5. An image's G masks are
+    pooled as the channels of one float32 map and each box takes its
+    match's channel: RoIAlign treats channels apart, so the values are
+    those of pooling each box's own mask, without a (S, H, W) stack."""
+    B, S = boxes.shape[:2]
+    targets = []
+    for i in range(B):
+        maps = gt_masks[i].permute(1, 2, 0).float().contiguous()
+        crops = roi_align(maps, boxes[i].detach(), 1.0, m, 2,
+                          aligned=True)                      # (S, m, m, G)
+        targets.append(torch.gather(
+            crops, -1, midx[i][:, None, None, None].expand(S, m, m, 1)
+        )[..., 0])
+    return (torch.stack(targets) >= 0.5).float()
+
+
 class GeneralizedRCNNWSL(nn.Module):
     """WSOD detector over precomputed proposals (static shapes throughout).
 
@@ -478,16 +498,8 @@ class GeneralizedRCNNWSL(nn.Module):
         pooled = self.pool_masked(feats, boxes, sampled.valid, mr)
         logits = self.mask_head(pooled.reshape(B * S, mr, mr, -1))
         m = logits.shape[1]
-        midx = self.match_gt(batch, boxes)
-        targets = []
-        for i in range(B):
-            maps = batch.gt_masks[i].permute(1, 2, 0).float().contiguous()
-            crops = roi_align(maps, boxes[i].detach(), 1.0, m, 2,
-                              aligned=True)                  # (S, m, m, G)
-            targets.append(torch.gather(
-                crops, -1, midx[i][:, None, None, None].expand(S, m, m, 1)
-            )[..., 0])
-        targets = (torch.stack(targets) >= 0.5).float()
+        targets = mask_targets(batch.gt_masks, boxes,
+                               self.match_gt(batch, boxes), m)
         fg = (sampled.gt_class >= 0) & sampled.valid
         return seg_lib.mask_loss(logits, sampled.gt_class.reshape(B * S),
                                  targets.reshape(B * S, m, m),

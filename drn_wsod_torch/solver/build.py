@@ -122,7 +122,10 @@ def make_param_labels(names: Iterable[str], freeze_at: int) -> Dict[str, str]:
         # FrozenBN: its statistics and affine are never trained
         if leaf in _FROZEN_BN_LEAVES:
             return "frozen"
-        if any("_norm" in k or k == "norm" for k in keys[:-1]):
+        # (the semantic head's GroupNorms train: flax names them
+        # ``scale_head_*_gn*``, which the JAX labels do not freeze)
+        if keys[0] != "sem_seg_head" and any(
+                "_norm" in k or k == "norm" for k in keys[:-1]):
             return "frozen"
         if "backbone" in keys:
             rest = ".".join(keys[keys.index("backbone") + 1:])

@@ -30,6 +30,9 @@ class WSODBatch:
         canvas (Mask R-CNN; the model casts them to float32 on the device).
       gt_keypoints: (B, G, K, 3) float32 (x, y, visibility) (Keypoint
         R-CNN).
+      sem_seg: (B, H, W) int32 per-pixel class labels on the padded canvas,
+        the ignore value (255 by default) outside the image (the semantic
+        and panoptic models).
     """
 
     image: torch.Tensor
@@ -45,6 +48,7 @@ class WSODBatch:
     gt_valid: Optional[torch.Tensor] = None
     gt_masks: Optional[torch.Tensor] = None
     gt_keypoints: Optional[torch.Tensor] = None
+    sem_seg: Optional[torch.Tensor] = None
 
     def tensors(self) -> dict:
         """{field: tensor} of the fields that are set."""

@@ -4,7 +4,9 @@ with periodic checkpoints, metrics and evaluation, then evaluate
 ``DATASETS.TEST`` (and, with ``TEST.EVAL_TRAIN``, the train datasets, for
 CorLoc): with TTA-AVG where ``TEST.AUG.ENABLED``, through the test loader
 otherwise, into the VOC or the COCO evaluator (box AP, and mask and
-keypoint AP where ``MODEL.MASK_ON`` and ``MODEL.KEYPOINT_ON`` are set).
+keypoint AP where ``MODEL.MASK_ON`` and ``MODEL.KEYPOINT_ON`` are set); a
+"sem_seg" dataset into mIoU, a COCO panoptic one into instance AP and
+PQ (``do_dense_test``).
 
     python -m drn_wsod_torch.tools.train_net --config-file CONFIG \\
         [--resume] [--eval-only] [KEY VALUE ...]
@@ -20,10 +22,10 @@ sets as COCO-format json where present; a dataset packed with
 under a name of its own. Runs on the CUDA device. The CSC heads train
 with the CSC step while ``iter <= WSL.CSC_MAX_ITER`` and the plain step
 after it (WSJDS among them). ``NORM`` BN/SyncBN or
-``TEST.PRECISE_BN.ENABLED`` adds the PreciseBN hook. LVIS, the rotated,
-semantic segmentation and Cityscapes instance-mask evaluators come with
-ROADMAP.md queue 1, item 15, pseudo-GT visualisation with item 17, several
-processes with item 16.
+``TEST.PRECISE_BN.ENABLED`` adds the PreciseBN hook. LVIS, the rotated
+COCO and the Cityscapes evaluators come with ROADMAP.md queue 1, item
+15c, pseudo-GT visualisation with item 17, several processes with item
+16.
 """
 
 from __future__ import annotations
@@ -46,9 +48,12 @@ from ..engine import (CommonMetricPrinter, EvalHook, IterationTimer,
                       create_train_state)
 from ..engine import trainer as trainer_lib
 from ..engine.defaults import default_argument_parser, default_setup
-from ..evaluation import (COCODetectionEvaluator, PascalVOCDetectionEvaluator,
+from ..evaluation import (COCODetectionEvaluator, PanopticQualityEvaluator,
+                          PascalVOCDetectionEvaluator, SemSegEvaluator,
                           gather_and_evaluate, inference_on_dataset,
-                          make_detect_fn)
+                          make_detect_fn, make_sem_seg_fn,
+                          panoptic_inference_on_dataset,
+                          sem_seg_inference_on_dataset)
 from ..evaluation.testing import print_csv_format, verify_results
 from ..models import build_model
 from ..models.build import CSC_HEAD_NAMES
@@ -77,11 +82,13 @@ def setup(args):
 
 
 def build_evaluator(cfg, dataset_name: str, records):
-    """The dataset's evaluator: Pascal VOC's AP and CorLoc, or COCO's AP
+    """The dataset's evaluator: Pascal VOC's AP and CorLoc, COCO's AP
     (the "coco" and "coco_panoptic_seg" types, and "cityscapes_instance"
     without masks): box AP, with "segm" under ``MASK_ON`` and "keypoints"
-    under ``KEYPOINT_ON``. Cityscapes' own instance-mask AP (under
-    ``MASK_ON``) is item 15."""
+    under ``KEYPOINT_ON``; or mIoU ("sem_seg") over the metadata's
+    ``stuff_classes`` (else ``thing_classes``). Cityscapes' own
+    instance-mask AP (under ``MASK_ON``) and semantic evaluator, LVIS and
+    the rotated COCO evaluator are item 15c."""
     meta = MetadataCatalog.get(dataset_name)
     etype = meta.get("evaluator_type", "pascal_voc")
     gt_by_image = {str(r["image_id"]): r.get("annotations", [])
@@ -93,7 +100,7 @@ def build_evaluator(cfg, dataset_name: str, records):
         raise NotImplementedError(
             "evaluator type 'cityscapes_instance' with MASK_ON: the "
             "Cityscapes instance-mask evaluator is not ported yet: "
-            "ROADMAP.md queue 1, item 15 (remaining evaluators)")
+            "ROADMAP.md queue 1, item 15c (remaining evaluators)")
     if etype in ("coco", "coco_panoptic_seg", "cityscapes_instance"):
         tasks = ["bbox"]
         if cfg.MODEL.MASK_ON:
@@ -102,14 +109,13 @@ def build_evaluator(cfg, dataset_name: str, records):
             tasks.append("keypoints")
         return COCODetectionEvaluator(meta.thing_classes, gt_by_image,
                                       tasks=tuple(tasks))
-    if etype in ("sem_seg", "cityscapes_sem_seg"):
-        raise NotImplementedError(
-            f"evaluator type {etype!r}: semantic segmentation evaluation "
-            "(make_sem_seg_fn, SemSegEvaluator) is not ported yet: "
-            "ROADMAP.md queue 1, item 15 (remaining evaluators)")
+    if etype == "sem_seg":
+        return SemSegEvaluator(
+            meta.get("stuff_classes") or meta.thing_classes,
+            ignore_label=meta.get("ignore_label", 255))
     raise NotImplementedError(
         f"evaluator type {etype!r} is not ported yet: ROADMAP.md queue 1, "
-        "item 15 (remaining evaluators)")
+        "item 15c (remaining evaluators)")
 
 
 def do_test(cfg, model, eval_train: bool = False,
@@ -133,17 +139,21 @@ def do_test(cfg, model, eval_train: bool = False,
         pairs += _pairs(cfg.DATASETS.TRAIN, cfg.DATASETS.PROPOSAL_FILES_TRAIN)
 
     results = {}
-    if cfg.TEST.AUG.ENABLED:
-        tta = GeneralizedRCNNWithTTAAVG(cfg, model, device=dev)
-    else:
-        mapper = DatasetMapper(cfg, is_train=False)
-        detect = make_detect_fn(model, cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST,
-                                cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST,
-                                cfg.TEST.DETECTIONS_PER_IMAGE, device=dev,
-                                mask_on=cfg.MODEL.MASK_ON,
-                                keypoint_on=cfg.MODEL.KEYPOINT_ON)
+    mapper = DatasetMapper(cfg, is_train=False)
+    tta = detect = None
     for name, prop_file in pairs:
+        etype = MetadataCatalog.get(name).get("evaluator_type", "pascal_voc")
+        if etype in ("sem_seg", "cityscapes_sem_seg", "coco_panoptic_seg") \
+                or (etype == "cityscapes_instance" and cfg.MODEL.MASK_ON):
+            pf = [prop_file] if cfg.MODEL.LOAD_PROPOSALS and prop_file else ()
+            records = get_detection_dataset_dicts([name], pf,
+                                                  filter_empty=False)
+            results[name] = do_dense_test(cfg, model, name, mapper, records,
+                                          etype, prop_file, device=dev)
+            logger.info(f"Results on {name}: {results[name]}")
+            continue
         if cfg.TEST.AUG.ENABLED:
+            tta = tta or GeneralizedRCNNWithTTAAVG(cfg, model, device=dev)
             pf = [prop_file] if cfg.MODEL.LOAD_PROPOSALS and prop_file else ()
             records = get_detection_dataset_dicts([name], pf,
                                                   filter_empty=False)
@@ -156,6 +166,7 @@ def do_test(cfg, model, eval_train: bool = False,
                     dets["classes"], dets["valid"])
             results[name] = gather_and_evaluate(evaluator)
         else:
+            detect = detect or _detect_fn(cfg, model, dev)
             loader = build_detection_test_loader(cfg, name, mapper,
                                                  proposal_file=prop_file)
             evaluator = build_evaluator(cfg, name, loader._records)
@@ -167,6 +178,60 @@ def do_test(cfg, model, eval_train: bool = False,
     if cfg.TEST.EXPECTED_RESULTS and pairs:
         if not verify_results(cfg, results[pairs[0][0]]):
             raise RuntimeError("Results verification failed!")
+    return results
+
+
+def _detect_fn(cfg, model, device):
+    return make_detect_fn(model, cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST,
+                          cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST,
+                          cfg.TEST.DETECTIONS_PER_IMAGE, device=device,
+                          mask_on=cfg.MODEL.MASK_ON,
+                          keypoint_on=cfg.MODEL.KEYPOINT_ON)
+
+
+def do_dense_test(cfg, model, name: str, mapper, records, etype: str,
+                  proposal_file=None, device=None) -> Dict:
+    """A dense dataset's evaluation through the test loader, without TTA:
+    mIoU of ``make_sem_seg_fn``'s maps for "sem_seg" (and
+    "cityscapes_sem_seg", whose evaluator is item 15c); otherwise the
+    instance AP of ``make_detect_fn`` (masks under ``MASK_ON``) and, where
+    the records carry panoptic PNGs, PQ over the fused output in the
+    space of n_thing + n_stuff - 1 categories (n_stuff counts the "thing"
+    class; ``SEM_SEG_HEAD.NUM_CLASSES`` where the metadata names no
+    ``stuff_classes``)."""
+    dev = resolve_device(device)
+    meta = MetadataCatalog.get(name)
+    loader = build_detection_test_loader(cfg, name, mapper,
+                                         proposal_file=proposal_file)
+    sem = make_sem_seg_fn(model, device=dev)
+    if etype in ("sem_seg", "cityscapes_sem_seg"):
+        evaluator = build_evaluator(cfg, name, records)
+        return sem_seg_inference_on_dataset(sem, loader, evaluator,
+                                            loader._records)
+    if not hasattr(model, "inference_scores"):
+        raise ValueError(
+            f"{type(model).__name__} detects no instances, which the "
+            f"evaluation of {name!r} (evaluator type {etype!r}: instance AP "
+            "and PQ) needs; evaluate it on a 'sem_seg' dataset (the JAX "
+            "CLI stops here too, on the missing inference_scores)")
+    detect = _detect_fn(cfg, model, dev)
+    results = dict(inference_on_dataset(
+        detect, loader, build_evaluator(cfg, name, records),
+        loader._records))
+    if any("pan_seg_file_name" in r for r in records):
+        n_thing = len(meta.thing_classes)
+        n_stuff = len(meta.get("stuff_classes") or []) or \
+            cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+        combine = cfg.MODEL.PANOPTIC_FPN.COMBINE
+        loader = build_detection_test_loader(cfg, name, mapper,
+                                             proposal_file=proposal_file)
+        results.update(panoptic_inference_on_dataset(
+            detect, sem, loader, PanopticQualityEvaluator(
+                n_thing + n_stuff - 1), loader._records,
+            num_thing_classes=n_thing,
+            overlap_threshold=combine.OVERLAP_THRESH,
+            stuff_area_limit=combine.STUFF_AREA_LIMIT,
+            conf_threshold=combine.INSTANCES_CONFIDENCE_THRESH))
     return results
 
 

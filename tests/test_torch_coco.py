@@ -90,6 +90,34 @@ def test_load_without_name_sets_no_metadata(tmp_path):
     assert "torch_coco_unnamed" not in pdata.MetadataCatalog.list()
 
 
+def write_panoptic_tree(root, split: str, seed: int = 1):
+    """The json of a COCO panoptic-separated split under ``root/coco``:
+    the instances json of ``write_coco_json`` and a panoptic json over its
+    images (its things with isthing 1, three stuff categories listed out
+    of id order, a segment of a category in neither list, the last image
+    without a panoptic entry). Returns the panoptic dict."""
+    rs = np.random.RandomState(seed)
+    ann = root / "coco" / "annotations"
+    ann.mkdir(parents=True, exist_ok=True)
+    coco = write_coco_json(str(ann / f"instances_{split}.json"),
+                           n_images=4, n_cats=6, seed=seed)
+    things = [dict(c, isthing=1) for c in coco["categories"]]
+    stuff = [{"id": i, "name": f"stuff_{i}", "isthing": 0}
+             for i in (200, 95, 150)]
+    annos = []
+    for img in coco["images"][:-1]:
+        segs = [{"id": int(k + 1), "category_id": int(c), "iscrowd": 0}
+                for k, c in enumerate(rs.choice(
+                    [c["id"] for c in things + stuff] + [999], 5))]
+        annos.append({"image_id": img["id"],
+                      "file_name": img["file_name"][:-4] + ".png",
+                      "segments_info": segs})
+    pan = {"images": coco["images"], "annotations": annos,
+           "categories": things + stuff}
+    (ann / f"panoptic_{split}.json").write_text(json.dumps(pan))
+    return pan
+
+
 @pytest.fixture
 def clean_catalogs():
     """Both packages' catalogs as they were before the test."""
@@ -135,8 +163,17 @@ def test_registrations_match_jax(tmp_path, clean_catalogs, with_json):
         got = pdata.DatasetCatalog.get("flickr_voc")
         assert got == jdata.DatasetCatalog.get("flickr_voc")
         assert len(got) == 2
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pdata.DatasetCatalog.get("coco_2017_train_panoptic_separated")
+    # the panoptic split (it raised item 15 until its loader was ported)
+    # loads as the JAX package's does
+    write_panoptic_tree(tmp_path, "train2017")
+    name = "coco_2017_train_panoptic_separated"
+    got = pdata.DatasetCatalog.get(name)
+    assert got == jdata.DatasetCatalog.get(name)
+    assert all("sem_seg_file_name" in r for r in got[:-1])
+    for key in ("stuff_classes", "stuff_dataset_id_to_contiguous_id",
+                "thing_classes", "evaluator_type", "panoptic_root"):
+        assert pdata.MetadataCatalog.get(name).get(key) == \
+            jdata.MetadataCatalog.get(name).get(key)
     # registering again adds nothing
     assert _registered(pdata, pcoco.register_all_coco, tmp_path) == []
 

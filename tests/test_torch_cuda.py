@@ -1489,3 +1489,97 @@ def test_detect_masks_and_keypoints_on_cuda_match_cpu(cuda):
                                atol=1e-6)
     assert got["mask_probs"].shape == (2, 8, 14, 14)
     assert got["keypoints"].shape == (2, 8, 17, 3)
+
+
+# ------------------------------------------------------------- dense models
+def test_dense_heads_on_cuda_match_cpu(cuda):
+    """RetinaNet's head (4 + 4 convs of 256, 9 x 80 and 9 x 4 predictors)
+    and the SemSegFPN head (128 wide, GroupNorm, 54 classes) at their full
+    widths on small pyramids: cuDNN against the CPU from the same weights
+    in float32, within 1e-4 of each output's largest."""
+    from drn_wsod_torch.models.heads.seg import SemSegFPNHead
+    from drn_wsod_torch.models.retinanet import RetinaNetHead
+
+    rs = np.random.RandomState(0)
+    feats = [torch.from_numpy(rs.randn(2, 256, s, s).astype(np.float32))
+             for s in (32, 16, 8, 4)]
+    retina = RetinaNetHead(256, 80, 9)
+    retina.init_weights(torch.Generator().manual_seed(1))
+    sem = SemSegFPNHead([256] * 4, ("p2", "p3", "p4", "p5"), (4, 8, 16, 32),
+                        54)
+    sem.init_weights(torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = [t for pair in retina(feats) for t in pair] + [sem(feats)]
+        on_card = [f.to(cuda) for f in feats]
+        got = [t for pair in retina.to(cuda)(on_card) for t in pair] + [
+            sem.to(cuda)(on_card)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        top = w.abs().max().item()
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * top
+
+
+_DENSE_YAMLS = {
+    "retinanet": ("quick_schedules/retinanet_R_50_instant_test.yaml",
+                  # one square power-of-two anchor a cell: anchors tied at a
+                  # GT's best IoU tie on both devices
+                  ["MODEL.ANCHOR_GENERATOR.SIZES", "[[16], [32], [64], [128]]",
+                   "MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS", "[[1.0]]",
+                   "MODEL.RETINANET.NUM_CLASSES", "20"]),
+    "semantic": ("Misc/semantic_R_50_FPN_1x.yaml",
+                 ["MODEL.SEM_SEG_HEAD.NUM_CLASSES", "5"]),
+    "panoptic": ("Misc/panoptic_fpn_R_50_1x.yaml",
+                 ["MODEL.ROI_HEADS.NUM_CLASSES", "20",
+                  "MODEL.SEM_SEG_HEAD.NUM_CLASSES", "5",
+                  "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "16"])}
+
+
+@pytest.mark.parametrize("case", sorted(_DENSE_YAMLS))
+def test_toy_dense_steps_on_cuda_match_cpu(cuda, case):
+    """Three steps of RetinaNet, the SemanticSegmentor and PanopticFPN (R18
+    FPN 32, float32, the semantic head 16 wide, PanopticFPN's mask pool at
+    7, BASE_LR 0.002) on the card and on the CPU from the same weights, on
+    ``_dense_batches`` with label maps (every valid proposal fills the 16
+    slots whatever the device's generator draws): every loss within rtol
+    1e-4."""
+    from pathlib import Path
+
+    yaml, extra = _DENSE_YAMLS[case]
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_file(str(Path(__file__).resolve().parents[1] / "configs"
+                            / yaml))
+    cfg.merge_from_list(["MODEL.RESNETS.DEPTH", "18",
+                         "MODEL.RESNETS.RES2_OUT_CHANNELS", "64",
+                         "MODEL.FPN.OUT_CHANNELS", "32",
+                         "MODEL.SEM_SEG_HEAD.CONVS_DIM", "16",
+                         "MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", "4",
+                         "MODEL.PIXEL_STD", "[57.4, 57.1, 58.4]",
+                         # the YAMLs' 0.01-0.02 on random weights grow the
+                         # two devices' summation orders past 1e-4 within
+                         # three steps
+                         "SOLVER.BASE_LR", "0.002",
+                         "MODEL.DTYPE", "float32", *extra])
+    models = {"cpu": drn_wsod_torch.build_model(cfg, device="cpu")}
+    models["cuda"] = drn_wsod_torch.build_model(cfg, device=cuda)
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    rs = np.random.RandomState(5)
+    batches = [b.replace(sem_seg=torch.from_numpy(
+        rs.randint(0, 5, (2, 64, 64)).astype(np.int32)))
+        for b in _dense_batches()]
+    metrics = {}
+    for dev, model in models.items():
+        if case == "panoptic":
+            model.mask_pooler_resolution = 7
+        tx = drn_wsod_torch.build_optimizer(cfg, model)
+        state = drn_wsod_torch.create_train_state(model, tx)
+        step = drn_wsod_torch.make_train_step(model, tx)
+        metrics[dev] = []
+        for b in batches:
+            state, m = step(state, b.to(model.pixel_mean.device), 0)
+            metrics[dev].append({k: v.item() for k, v in m.items()})
+    for want, got in zip(metrics["cpu"], metrics["cuda"]):
+        assert want.keys() == got.keys() and len(want) > 1
+        for k in want:
+            assert np.isfinite(want[k])
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6,
+                                       err_msg=k)

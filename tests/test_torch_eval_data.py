@@ -196,7 +196,8 @@ def test_read_image_equal(voc, fmt):
 
 def test_read_image_without_pillow(voc, monkeypatch, tmp_path):
     """Without Pillow a JPEG decodes with the port's own decoder, equal to
-    the JAX package's ``read_image``; another format is a clear error."""
+    the JAX package's ``read_image``; a broken PNG (the port's own reader
+    takes PNGs since it has one) and another format are clear errors."""
     import sys
 
     d, _, images = voc
@@ -204,9 +205,13 @@ def test_read_image_without_pillow(voc, monkeypatch, tmp_path):
             for fid in images}
     png = tmp_path / "x.png"
     png.write_bytes(b"\x89PNG\r\n\x1a\n")
+    gif = tmp_path / "x.gif"
+    gif.write_bytes(b"GIF89a")
     monkeypatch.setitem(sys.modules, "PIL", None)
     for fid in images:
         np.testing.assert_array_equal(
             pdata.read_image(f"{d}/JPEGImages/{fid}.jpg"), want[fid])
-    with pytest.raises(ImportError, match="Pillow"):
+    with pytest.raises(ValueError, match=r"x\.png.*IEND"):
         pdata.read_image(str(png))
+    with pytest.raises(ImportError, match="Pillow"):
+        pdata.read_image(str(gif))

@@ -278,10 +278,13 @@ def test_cli_refuses_what_is_not_ported():
     test_torch_train_net.py``), the WSJDS train step too (``tests/
     test_torch_wsjds_train_net.py``), trainable BatchNorm and the COCO box
     evaluator too (``tests/test_torch_coco_train_net.py``); LVIS, the
-    rotated and semantic segmentation evaluators and Cityscapes' instance
-    masks are not. COCO's mask and keypoint AP raised item 14 here until
-    they were ported: ``MASK_ON`` and ``KEYPOINT_ON`` now add the "segm"
-    and "keypoints" tasks."""
+    rotated COCO evaluator and Cityscapes' instance masks and semantic
+    evaluator are not (item 15c). COCO's mask and keypoint AP raised item
+    14 here until they were ported: ``MASK_ON`` and ``KEYPOINT_ON`` now
+    add the "segm" and "keypoints" tasks. The "sem_seg" type raised item
+    15 until it was ported: it now builds a ``SemSegEvaluator`` over the
+    metadata's ``stuff_classes`` and ``ignore_label``, as the JAX CLI's
+    does."""
     _, pc = cfg_pair(*TOY, "MODEL.RESNETS.NORM", "BN")
     meta = pdata.MetadataCatalog.get("torch_eval_slice_coco")
     meta.set(evaluator_type="coco", thing_classes=["a", "b"])
@@ -296,15 +299,19 @@ def test_cli_refuses_what_is_not_ported():
     assert ev._tasks == ("bbox", "segm", "keypoints")
     meta = pdata.MetadataCatalog.get("torch_eval_slice_cityscapes")
     meta.set(evaluator_type="cityscapes_instance", thing_classes=["a"])
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 15c"):
         train_net.build_evaluator(mask_on, "torch_eval_slice_cityscapes",
                                   [])
-    for etype in ("lvis", "rotated_coco"):
+    for etype in ("lvis", "rotated_coco", "cityscapes_sem_seg"):
         meta = pdata.MetadataCatalog.get(f"torch_eval_slice_{etype}")
         meta.set(evaluator_type=etype)
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(NotImplementedError, match="item 15c"):
             train_net.build_evaluator(pc, f"torch_eval_slice_{etype}", [])
+    from drn_wsod_torch.evaluation import SemSegEvaluator
+
     meta = pdata.MetadataCatalog.get("torch_eval_slice_sem_seg")
-    meta.set(evaluator_type="sem_seg")
-    with pytest.raises(NotImplementedError, match="SemSegEvaluator.*item 15"):
-        train_net.build_evaluator(pc, "torch_eval_slice_sem_seg", [])
+    meta.set(evaluator_type="sem_seg", stuff_classes=["things", "sky"],
+             thing_classes=["a"], ignore_label=7)
+    ev = train_net.build_evaluator(pc, "torch_eval_slice_sem_seg", [])
+    assert isinstance(ev, SemSegEvaluator)
+    assert (ev._names, ev._ignore) == (["things", "sky"], 7)

@@ -1,10 +1,11 @@
 """The port stands alone: no module of ``drn_wsod_torch`` (its ``tools``
 included, nor ``chip_smoke.py``) imports JAX, flax, optax or the JAX
 package, none imports Pillow at module level, the modules of the mask and
-keypoint paths import it nowhere (the mapper's masks, the structures, the
-heads, the pasting and the COCO evaluator run with Pillow blocked), its
-JPEG decoder needs no libjpeg, and its entry points refuse to fall back to
-the CPU silently."""
+keypoint paths and of the dense paths import it nowhere (the mapper's
+masks and label maps, the structures, the heads, the pasting, the COCO
+evaluator and the panoptic PNGs run with Pillow blocked; the PNG reader
+imports it only to fall back on), its JPEG decoder needs no libjpeg, and
+its entry points refuse to fall back to the CPU silently."""
 
 import ast
 import subprocess
@@ -51,12 +52,19 @@ def test_source_imports_no_pillow_at_module_level(source):
     assert "PIL" not in roots, f"{source} imports PIL at module level"
 
 
-# the modules the mask and keypoint paths run through (chip_smoke.py's
-# phase 23), which import Pillow nowhere
+# the modules the mask and keypoint paths (chip_smoke.py's phase 23) and
+# the dense paths (phases 24 and 25: RetinaNet, the semantic and panoptic
+# models, their evaluators, the panoptic loader, the label maps' resize)
+# run through, which import Pillow nowhere
 NO_PILLOW = ("structures/masks.py", "structures/keypoints.py",
              "ops/mask_ops.py", "models/heads/keypoint.py",
              "models/heads/seg.py", "models/meta_arch.py",
-             "evaluation/coco_eval.py", "evaluation/evaluator.py")
+             "evaluation/coco_eval.py", "evaluation/evaluator.py",
+             "models/retinanet.py", "models/proposal_generator.py",
+             "models/dense.py", "models/semantic_seg.py",
+             "models/panoptic.py", "evaluation/sem_seg_eval.py",
+             "evaluation/panoptic_eval.py", "data/datasets/coco.py",
+             "data/transforms.py", "ops/resize.py")
 
 
 @pytest.mark.parametrize("module", NO_PILLOW)
@@ -95,6 +103,53 @@ print(sorted(ev.evaluate()), "PIL" in sys.modules and sys.modules["PIL"])
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "['bbox', 'segm'] None"
+
+
+def test_png_reader_imports_pillow_only_to_fall_back():
+    """``data/png.py`` imports Pillow in one place: the fallback of
+    ``_read`` for the files it does not take, inside its ``except``."""
+    tree = ast.parse((ROOT / "drn_wsod_torch" / "data" / "png.py")
+                     .read_text())
+    fns = [f for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
+           and "PIL" in {n.module.split(".")[0] for n in ast.walk(f)
+                         if isinstance(n, ast.ImportFrom) and n.module}]
+    assert [f.name for f in fns] == ["_read"]
+    handlers = [h for h in ast.walk(fns[0])
+                if isinstance(h, ast.ExceptHandler)]
+    assert any(isinstance(n, ast.ImportFrom) and n.module == "PIL"
+               for h in handlers for n in ast.walk(h))
+
+
+def test_dense_path_runs_with_pillow_blocked():
+    """The semantic YAML's training mapper on the PNG fixtures' tree (a
+    canvas to its digest), a panoptic PNG's segment ids and the label
+    reader, in a process where ``import PIL`` fails."""
+    code = """
+import sys
+sys.modules["PIL"] = None
+import numpy as np
+from drn_wsod_torch.data import DatasetMapper
+from drn_wsod_torch.data.datasets.coco import load_coco_panoptic_separated
+from drn_wsod_torch.evaluation import decode_panoptic_png
+from drn_wsod_torch.tools import make_png_fixtures as F
+m = F.load_manifest()
+root = F.FIXTURE_DIR / "panoptic"
+recs = load_coco_panoptic_separated(
+    str(root / "annotations/panoptic_train2017.json"), str(root),
+    str(root / "panoptic_train2017"), str(root / "panoptic_stuff_train2017"),
+    str(root / "annotations/instances_train2017.json"))
+r, e = recs[3], m["mapper"][3]
+r = dict(r, image=np.zeros((r["height"], r["width"], 3), np.uint8))
+out = DatasetMapper(F.sem_mapper_cfg(), True)(r, np.random.RandomState(e["seed"]))
+assert F.digest(out["sem_seg"]) == e["sha256"]
+ids = decode_panoptic_png(r["pan_seg_file_name"])
+assert set(np.unique(ids)) - {0} == {s["id"] for s in r["segments_info"]}
+print("ok", "PIL" in sys.modules and sys.modules["PIL"])
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok None"
 
 
 def test_jpeg_decoder_needs_no_libjpeg():

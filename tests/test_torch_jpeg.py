@@ -258,6 +258,9 @@ def test_read_image_names_what_it_cannot_decode(tmp_path, monkeypatch):
     arith.write_bytes(_with_sof(_encode(_image(16, 24, 11)), marker=0xC9))
     png = tmp_path / "x.png"
     _image(8, 8, 0).save(png)
+    bmp = tmp_path / "x.bmp"
+    _image(8, 8, 0).save(bmp)
+    want_png = np.asarray(_image(8, 8, 0).convert("RGB"))[:, :, ::-1]
     monkeypatch.setitem(sys.modules, "PIL", None)
     monkeypatch.setitem(sys.modules, "PIL.Image", None)
     with pytest.raises(ValueError, match="CMYK"):
@@ -266,8 +269,11 @@ def test_read_image_names_what_it_cannot_decode(tmp_path, monkeypatch):
         pmapper.read_image(str(early))
     with pytest.raises(ValueError, match=r"arith\.jpg.*arithmetic coding"):
         pmapper.read_image(str(arith))
+    # a PNG decodes with the port's own reader since it has one; a format
+    # neither reader takes still names Pillow
+    np.testing.assert_array_equal(pmapper.read_image(str(png)), want_png)
     with pytest.raises(ImportError, match="Pillow"):
-        pmapper.read_image(str(png))
+        pmapper.read_image(str(bmp))
 
 
 @pytest.mark.parametrize("name", FILES)

@@ -258,20 +258,51 @@ def test_mapper_equal(voc, is_train, source):
         assert buckets >= {64, 96} and max(buckets) > 96
 
 
-def test_mapper_refuses_unported_arms():
-    """The semantic-segmentation arm still raises (item 15). The mask arm
-    raised item 14 here until it was ported: with ``MASK_ON`` the mapper's
-    (G, bucket, bucket) uint8 ``gt_masks`` now equal the JAX mapper's
-    float32 ones in training and test (polygons of COCO-format records,
-    some of two polygons, resized and flipped), and ``EvalLoader`` re-pads
-    them to the batch's bucket as the JAX loader does."""
+def test_mapper_refuses_unported_arms(tmp_path):
+    """No arm of the mapper raises now. The semantic-segmentation arm
+    raised item 15 here until it was ported: the (bucket, bucket) int32
+    ``sem_seg`` canvas (``IGNORE_VALUE`` outside the image) and every other
+    field equal the JAX mapper's in training and test, on gray and palette
+    label PNGs (the palette's indices are the labels) resized by nearest
+    sampling and flipped, and ``EvalLoader``'s batches of them are the JAX
+    loader's. The mask arm raised item 14 here until it was
+    ported: with ``MASK_ON`` the mapper's (G, bucket, bucket) uint8
+    ``gt_masks`` now equal the JAX mapper's float32 ones in training and
+    test (polygons of COCO-format records, some of two polygons, resized
+    and flipped), and ``EvalLoader`` re-pads them to the batch's bucket as
+    the JAX loader does."""
     from drn_wsod_torch.tools.make_mask_fixtures import (coco_records,
                                                          synthetic_coco)
 
-    _, pc = cfg_pair(*OPTS)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pdata.DatasetMapper(pc, is_train=True)(
-            {"sem_seg_file_name": "x.png"}, np.random.RandomState(0))
+    jc, pc = cfg_pair(*OPTS, "MODEL.SEM_SEG_HEAD.IGNORE_VALUE", 250)
+    records = coco_records(synthetic_coco(5, 6, num_classes=20))
+    rs = np.random.RandomState(0)
+    for i, r in enumerate(records):
+        labels = rs.randint(0, 60, (r["height"] // 8, r["width"] // 8))
+        labels = np.kron(labels, np.ones((8, 8), int))[:r["height"],
+                                                       :r["width"]]
+        im = Image.fromarray(labels.astype(np.uint8), "L" if i % 2 else "P")
+        if i % 2 == 0:
+            im.putpalette(rs.randint(0, 256, 768).tolist())
+        r["sem_seg_file_name"] = str(tmp_path / f"sem{i}.png")
+        im.save(r["sem_seg_file_name"])
+    for is_train in (True, False):
+        pm = pdata.DatasetMapper(pc, is_train=is_train)
+        jm = jdata.DatasetMapper(jc, is_train=is_train)
+        for i, r in enumerate(records):
+            got = pm(dict(r), np.random.RandomState(i))
+            want = jm(dict(r), np.random.RandomState(i))
+            assert_samples_equal(got, want)
+            h, w = got["image_hw"]
+            assert got["sem_seg"].dtype == np.int32
+            assert (got["sem_seg"][h:] == 250).all()
+            assert (got["sem_seg"][:h, :w] < 60).all()
+    got = list(pdata.EvalLoader(records, pm, batch_size=3, prefetch=0))
+    want = list(jdata.EvalLoader(records, jm, batch_size=3, prefetch=0))
+    for (g, _), (w, _) in zip(got, want):
+        np.testing.assert_array_equal(g.sem_seg.numpy(),
+                                      np.asarray(w.sem_seg))
+
     jc, pc = cfg_pair(*OPTS, "MODEL.MASK_ON", True)
     records = coco_records(synthetic_coco(3, 6, num_classes=20))
     for is_train in (True, False):

@@ -1,23 +1,23 @@
 """Which YAMLs of the config zoo the port runs: each non-base YAML under
-``configs/`` goes through the port's ``models/build.py:_build_rcnn_wsl``
-(on the meta device: no weights are drawn), its backbone builder and
-``tools/train_net.py:_refuse_unported``, and its datasets are looked up
-in the catalog ``train_net.main`` fills (``data/datasets/builtin.py:
-register_all``: VOC, COCO, and the web and VOC-SBD sets whose json
+``configs/`` goes through the port's ``models/build.py:build_model`` (on
+the meta device: no weights are drawn; its meta-architecture's builder,
+``_build_rcnn_wsl`` for the WSOD and supervised heads), its backbone
+builder and ``tools/train_net.py:_refuse_unported``, and its datasets are
+looked up in the catalog ``train_net.main`` fills
+(``data/datasets/builtin.py:register_all``: VOC, COCO with its
+panoptic-separated splits, and the web and VOC-SBD sets whose json
 exists). Every YAML passes all four except those listed in ``BLOCKED``
-with the ROADMAP.md item that raises for them (or the catalog's missing
-names). Run on its own, this file prints nothing; its cases are the audit
-ROADMAP.md section 1 cites."""
+with what stops them (the ROADMAP.md item that raises, or the catalog's
+missing names). Run on its own, this file prints nothing; its cases are
+the audit ROADMAP.md section 1 cites."""
 
 from pathlib import Path
 
 import pytest
-import torch
 
 import drn_wsod_torch
 from drn_wsod_torch.data import DatasetCatalog
 from drn_wsod_torch.data.datasets import register_all
-from drn_wsod_torch.models.build import _build_rcnn_wsl
 from drn_wsod_torch.tools import train_net
 from test_torch_common import CONFIGS
 
@@ -25,13 +25,13 @@ YAMLS = sorted(str(p.relative_to(CONFIGS)) for p in CONFIGS.rglob("*.yaml")
                if not p.name.startswith("Base"))
 ITEM15 = "item 15"
 BLOCKED = {
-    "COCO-Detection/retinanet_R_50_FPN_1x.yaml": ITEM15,
-    "quick_schedules/retinanet_R_50_instant_test.yaml": ITEM15,
-    "Misc/panoptic_fpn_R_50_1x.yaml": ITEM15,
-    "Misc/semantic_R_50_FPN_1x.yaml": ITEM15,
     # the web json is optional and absent here, as in the JAX package
     "Flickr/oicr_WSR_50_DC5_1x.yaml": "flickr_voc",
 }
+DENSE = {"COCO-Detection/retinanet_R_50_FPN_1x.yaml": "RetinaNet",
+         "quick_schedules/retinanet_R_50_instant_test.yaml": "RetinaNet",
+         "Misc/panoptic_fpn_R_50_1x.yaml": "PanopticFPN",
+         "Misc/semantic_R_50_FPN_1x.yaml": "SemanticSegmentor"}
 
 
 def _audit(path: str) -> str:
@@ -39,10 +39,9 @@ def _audit(path: str) -> str:
     cfg = drn_wsod_torch.get_cfg()
     cfg.merge_from_file(str(CONFIGS / path))
     try:
-        if cfg.MODEL.META_ARCHITECTURE != "GeneralizedRCNNWSL":
-            drn_wsod_torch.build_model(cfg, device="meta")
-        with torch.device("meta"):
-            _build_rcnn_wsl(cfg)
+        model = drn_wsod_torch.build_model(cfg, device="meta")
+        if type(model).__name__ != DENSE.get(path, "GeneralizedRCNNWSL"):
+            return f"built a {type(model).__name__}"
         train_net._refuse_unported(cfg)
     except NotImplementedError as e:
         return str(e)
@@ -96,14 +95,16 @@ def test_flickr_runs_once_its_json_exists(tmp_path):
 
 
 def test_audit_counts():
-    """62 YAMLs: 57 run (30 before VGG-16, the plain ResNet and WSJDS, 50
+    """62 YAMLs: 61 run (30 before VGG-16, the plain ResNet and WSJDS, 50
     before the COCO data, 52 before the supervised and pyramid paths, 56
-    before the mask and keypoint arms), 5 are blocked: 4 by item 15, the
-    Flickr one by its absent json."""
+    before the mask and keypoint arms, 57 before RetinaNet, SemanticSegmentor
+    and PanopticFPN), 1 is blocked: the Flickr one, by its absent json. None
+    raises item 15 (the 4 dense YAMLs did until they were ported)."""
     assert len(YAMLS) == 62 and set(BLOCKED) <= set(YAMLS)
-    assert len(YAMLS) - len(BLOCKED) == 57
-    assert sum(v == ITEM15 for v in BLOCKED.values()) == 4
-    item14 = [p for p in YAMLS if p not in BLOCKED and (
+    assert len(YAMLS) - len(BLOCKED) == 61
+    assert not any(ITEM15 in _audit(p) for p in YAMLS)
+    assert set(DENSE) <= set(YAMLS)
+    item14 = [p for p in YAMLS if p not in BLOCKED and p not in DENSE and (
         "fpn" in p or "rcnn" in p or "deform" in p)]
     assert len(item14) == 5, item14
     assert "Misc/mask_rcnn_R_50_FPN_1x.yaml" in item14
