@@ -248,7 +248,32 @@ Phases (any failure exits non-zero):
      (c) ``Misc/panoptic_fpn_R_50_1x`` with a proposal file in opts, 4
      steps, then box and segm AP and PQ: the losses finite, the metrics in
      [0, 100]; no K1 launch.
-Every path (4-8, 10-25) is run with the kernels' launch counts set to 0
+ 26. RPN, RRPN, rotated boxes, LVIS and Cityscapes ("rotated_lvis_
+     cityscapes"), at full width from seeded random weights: the p2-p6
+     maps of the R50-FPN of ``Misc/mask_rcnn_R_50_FPN_1x`` (FREEZE_AT 2,
+     bf16) on 4 images at the 1216 bucket; (a) ``StandardRPNHead`` (3
+     anchors, Detectron2's Base-RCNN-FPN sizes and ratios) with 20 live
+     GT in 100 slots: 4 steps of ``rpn_losses`` + backward + SGD on the
+     head (keys from a generator on the card), then ``select_proposals``
+     per image and level (pre 2000, post 1000, NMS 0.7); (b) the same
+     with rotated anchors (angles -90/0/90, 1.1 M an image) and 20
+     rotated GT in 32 slots: ``rrpn_losses``, ``select_proposals_rotated``,
+     ``roi_align_rotated`` of the kept p4 proposals in bf16 and float32,
+     ``RotatedCOCODetectionEvaluator`` on the host; the card's losses,
+     samples, proposals and pools against the CPU's on the same inputs,
+     ``pairwise_iou_rotated`` against the float64 host IoU within 1e-5;
+     (c) ``COCO-Detection/oicr_WSR_50_DC5_1x`` with 1203 classes and
+     Detectron2's LVIS recipe through ``train_net.main`` on an LVIS
+     v1-shaped tree of PNG images that ``register_all`` finds under
+     ``$DETECTRON2_DATASETS``: 4 steps of B=4, the TTA eval of 2 into the
+     LVIS evaluator, K1 exact at the largest map; (d) a Cityscapes tree of
+     2048x1024 PNGs registered by ``register_all_cityscapes``: (d1) the
+     Mask R-CNN YAML with 8 classes, 4 steps, the eval of 2 into
+     ``CityscapesInstanceEvaluator``; (d2) the semantic YAML on the raw
+     labelIds (``FILTER_EMPTY_ANNOTATIONS False``), 2 steps, then
+     ``CityscapesSemSegEvaluator``. Times by CUDA events, peak memory;
+     K1 in (c) only.
+Every path (4-8, 10-26) is run with the kernels' launch counts set to 0
 just before it and read just after. The line before the kernels' JSON
 line names the JPEG decoder's compiler, its build seconds, the fixture
 decodes matched and the host decode times; the line before that gives the
@@ -2682,26 +2707,28 @@ PH16_CSC_MAX_ITER, PH16_STEPS, PH16_TEST = 2, 4, 2
 
 def entry_main(phase: int, dev, yaml: Path, opts: list, hw: dict,
                patches=(), coco: bool = False, num_classes: int = None,
-               dense: dict = None, metrics: dict = None):
+               dense: dict = None, metrics: dict = None, evaluator=None):
     """``train_net.main`` on ``yaml`` with ``opts`` (the TTA eval of the
     test records only), each step recorded by ``step_recorder`` as
     "plain" or "csc", each evaluated image by ``detection_checker`` (of the
     VOC evaluator, or with ``coco`` of the COCO evaluator over
     ``num_classes``, 80 by default, its masks and keypoints counted in
-    ``dense``), plus ``patches`` ((object, name, value) each), with the
-    launch counts set to 0 just before and read just after. ``metrics``
-    ({task: keys}, VOC's or COCO's box metrics by default) must each be
-    finite in [0, 100]; where it names no "bbox" task, no detection is
-    checked. Returns a dict of the results, launches, steps, detections,
-    bad images, main's seconds, peak memory and the clock summary."""
+    ``dense``; of ``evaluator`` where given), plus ``patches`` ((object,
+    name, value) each), with the launch counts set to 0 just before and
+    read just after. ``metrics`` ({task: keys}, VOC's or COCO's box
+    metrics by default; an evaluator whose results are flat, as LVIS's,
+    counts as the "bbox" task) must each be finite in [0, 100]; where it
+    names no "bbox" task, no detection is checked. Returns a dict of the
+    results, launches, steps, detections, bad images, main's seconds, peak
+    memory and the clock summary."""
     from drn_wsod_torch.engine import defaults
     from drn_wsod_torch.engine import trainer as trainer_lib
     from drn_wsod_torch.evaluation import coco_eval, voc_eval
     from drn_wsod_torch.tools import train_net
 
     steps, dets, bad = [], [], []
-    evaluator = (coco_eval.COCODetectionEvaluator if coco
-                 else voc_eval.PascalVOCDetectionEvaluator)
+    evaluator = evaluator or (coco_eval.COCODetectionEvaluator if coco
+                              else voc_eval.PascalVOCDetectionEvaluator)
     if metrics is None:
         metrics = ({"bbox": ("AP", "AP50", "AP75")} if coco else
                    {"bbox": ("AP50",), "bbox CorLoc": ("CL50",)})
@@ -2732,6 +2759,9 @@ def entry_main(phase: int, dev, yaml: Path, opts: list, hw: dict,
     torch.cuda.empty_cache()
     metrics = {f"{ds}/{key}": tasks[task][key]
                for ds, tasks in results.items()
+               for tasks in [tasks if all(isinstance(v, dict)
+                                          for v in tasks.values())
+                             else {"bbox": tasks}]
                for task, keys in metrics.items() if task in tasks
                for key in keys if key in tasks[task]}
     if not metrics or not all(math.isfinite(v) and 0 <= v <= 100
@@ -2829,6 +2859,12 @@ def yaml_is(phase: int, yaml: Path, **want) -> None:
         raise Fail(f"phase {phase}: {yaml.name} is not as expected: {got}")
 
 
+def metrics_kind(metrics: dict) -> str:
+    if any("APr" in k for k in metrics):
+        return "LVIS"
+    return "COCO" if any("AP75" in k for k in metrics) else "VOC"
+
+
 def print_entry(phase, what, per_step, run, k1, k1_want, n_eval, extra,
                 tag):
     print(f"phase {phase}: {what}; per step (kind, bucket, device ms by CUDA "
@@ -2843,7 +2879,7 @@ def print_entry(phase, what, per_step, run, k1, k1_want, n_eval, extra,
              f"({k1['bound_by']})" if k1 else "")
           + f"; detections finite and inside their images ({n_eval} "
           f"images, {sum(n for _, n in run['dets'])} detections); "
-          f"{'COCO' if any('AP75' in k for k in run['metrics']) else 'VOC'}"
+          f"{metrics_kind(run['metrics'])}"
           " metrics " + ", ".join(f"{k} {v:.4f}"
                                  for k, v in run["metrics"].items())
           + " (random weights: the values mean nothing)" + extra
@@ -5151,6 +5187,896 @@ def phase25_dense(dev, tag) -> dict:
             for k in launches["semantic"]}
 
 
+PH26_B, PH26_BUCKET, PH26_STEPS, PH26_LR = 4, 1216, 4, 1e-3
+PH26_GT, PH26_SLOTS, PH26_RSLOTS = 20, 100, 32
+PH26_PRE, PH26_POST, PH26_NMS, PH26_TOP = 2000, 1000, 0.7, 100
+# Detectron2's configs/Base-RCNN-FPN.yaml anchors and its default angles
+PH26_LEVELS = (("p2", 4, 32.0), ("p3", 8, 64.0), ("p4", 16, 128.0),
+               ("p5", 32, 256.0), ("p6", 64, 512.0))
+PH26_RATIOS, PH26_ANGLES = (0.5, 1.0, 2.0), (-90.0, 0.0, 90.0)
+PH26_LVIS_TRAIN, PH26_LVIS_TEST, PH26_LVIS_STEPS = 8, 2, 4
+# LVIS v1's rare / common / frequent category counts
+PH26_LVIS_FREQ = (("r", 337), ("c", 461), ("f", 405))
+PH26_CITY_TRAIN, PH26_CITY_TEST, PH26_CITY_HW = 8, 2, (1024, 2048)
+PH26_CITY_STEPS, PH26_SEM_STEPS, PH26_CITY_DETS = 4, 2, 20
+PH26_NEAR = 1e-5
+
+
+def write_png(path: Path, arr: np.ndarray) -> None:
+    """An 8-bit gray (H, W) or RGB (H, W, 3) PNG by the standard library's
+    ``zlib``, every row of filter type 0 (no Pillow)."""
+    import struct
+    import zlib
+
+    arr = np.ascontiguousarray(arr, np.uint8)
+    h, w = arr.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, -1)], 1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+    head = struct.pack(">IIBBBBB", w, h, 8, 2 if arr.ndim == 3 else 0, 0, 0,
+                       0)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", head)
+                     + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+                     + chunk(b"IEND", b""))
+
+
+def smooth_image(rs, H: int, W: int) -> np.ndarray:
+    """A u8 (H, W, 3) image of 16x16 blocks of random colour."""
+    cells = rs.randint(0, 256, (-(-H // 16), -(-W // 16), 3)).astype(np.uint8)
+    return np.repeat(np.repeat(cells, 16, 0), 16, 1)[:H, :W]
+
+
+def timed(fn):
+    """(fn's result, its device ms by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def ph26_maps(dev):
+    """p2-p6 of the R50-FPN that ``Misc/mask_rcnn_R_50_FPN_1x`` builds
+    (FREEZE_AT 2, bf16, seeded random weights) on PH26_B smooth random
+    images at the PH26_BUCKET bucket, and the forward's device ms."""
+    import drn_wsod_torch
+
+    yaml = Path(__file__).resolve().parent / "configs" / "Misc" / \
+        "mask_rcnn_R_50_FPN_1x.yaml"
+    yaml_is(26, yaml, MODEL__BACKBONE__NAME="build_resnet_fpn_backbone",
+            MODEL__BACKBONE__FREEZE_AT=2, MODEL__RESNETS__DEPTH=50,
+            MODEL__DTYPE="bfloat16")
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_file(str(yaml))
+    model = drn_wsod_torch.build_model(cfg, device=dev)
+    rs = np.random.RandomState(26)
+    image = torch.from_numpy(np.stack([
+        smooth_image(rs, PH26_BUCKET, PH26_BUCKET) for _ in range(PH26_B)]))
+    image = image.to(dev)
+    with torch.no_grad():
+        model.backbone(model.preprocess(image[:1]).permute(0, 3, 1, 2))
+        maps, ms = timed(lambda: model.backbone(
+            model.preprocess(image).permute(0, 3, 1, 2)))
+    del model
+    return {n: maps[n] for n, _, _ in PH26_LEVELS}, ms
+
+
+def ph26_gt(rs, rotated: bool, slots: int, dev):
+    """PH26_GT live GT boxes an image in ``slots`` slots (XYXY, or (cx,
+    cy, w, h, angle) turned in [-90, 90)), sides 32-400, inside the
+    image."""
+    S = PH26_BUCKET
+    gt = np.zeros((PH26_B, slots, 5 if rotated else 4), np.float32)
+    for i in range(PH26_B):
+        w, h = rs.uniform(32, 400, PH26_GT), rs.uniform(32, 400, PH26_GT)
+        cx = rs.uniform(w / 2, S - w / 2)
+        cy = rs.uniform(h / 2, S - h / 2)
+        gt[i, :PH26_GT] = (np.stack([cx, cy, w, h, rs.uniform(
+            -90, 90, PH26_GT)], 1) if rotated else np.stack(
+            [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], 1))
+    valid = np.zeros((PH26_B, slots), bool)
+    valid[:, :PH26_GT] = True
+    return torch.from_numpy(gt).to(dev), torch.from_numpy(valid).to(dev)
+
+
+def ph26_flatten(outs, box_dim: int):
+    """The head's per-level NCHW outputs -> (B, N) logits and (B, N,
+    box_dim) deltas, anchors of a cell innermost, levels in order, and
+    each level's anchor count."""
+    obj = [o.permute(0, 2, 3, 1).reshape(o.shape[0], -1) for o, _ in outs]
+    deltas = [d.permute(0, 2, 3, 1).reshape(d.shape[0], -1, box_dim)
+              for _, d in outs]
+    return torch.cat(obj, 1), torch.cat(deltas, 1), [o.shape[1] for o in obj]
+
+
+def ph26_match(quality, valid, low_quality: bool):
+    from drn_wsod_torch.ops.matcher import match
+
+    return match(quality, valid, [0.3, 0.7], [0, -1, 1],
+                 allow_low_quality=low_quality)
+
+
+def ph26_sample_check(what, got, want, q_card, q_cpu, valid,
+                      low_quality) -> str:
+    """The card's sampled (indices, valid, foreground) against the CPU's:
+    equal, or different only where an anchor's label differs between the
+    card's IoU ``q_card`` and the CPU's ``q_cpu`` and the CPU's IoU there
+    lies within PH26_NEAR of 0.3, 0.7 or (low-quality matches) a GT's
+    best IoU, where the two devices' float32 rounding decides (at
+    Detectron2's angles every rotated anchor has a twin turned 90 or 180
+    degrees, which ties with it mathematically)."""
+    got = [t.cpu() for t in got]
+    if all(torch.equal(g, w) for g, w in zip(got, want)):
+        return f"{what}: sampled anchors equal"
+    valid = valid.cpu()
+    lab_card = ph26_match(q_card, valid.to(q_card.device),
+                          low_quality)[1].cpu()
+    lab_cpu = ph26_match(q_cpu, valid, low_quality)[1]
+    diff = (lab_card != lab_cpu).nonzero()[:, 0]
+    q = torch.where(valid[:, None], q_cpu, -1.0)
+    qv = q[:, diff]
+    near = ((qv - 0.3).abs() < PH26_NEAR) | ((qv - 0.7).abs() < PH26_NEAR)
+    if low_quality:
+        near |= (qv - q.amax(1, keepdim=True)).abs() < PH26_NEAR
+    if len(diff) == 0 or not bool(near.any(0).all()):
+        raise Fail(f"phase 26: {what}: the card's sampled anchors differ "
+                   f"from the CPU's; labels differ at {diff.tolist()[:8]}, "
+                   f"not all near a threshold or a tie")
+    return (f"{what}: sampled anchors differ from the CPU's, {len(diff)} "
+            f"anchors' labels flip within {PH26_NEAR} of a threshold or a "
+            f"GT's best IoU")
+
+
+def ph26_loss_check(what, got, fn, inputs, quality, iou_fn, low_quality,
+                    encode):
+    """``fn`` (``rpn_losses`` or ``rrpn_losses``) on the CPU on the card's
+    float32 ``inputs`` (anchors, logits, deltas, GT, GT valid, keys)
+    against the card's ``got`` (losses and sample), ``quality`` the card's
+    IoU and ``iou_fn`` the one the CPU computes: the samples as
+    ``ph26_sample_check`` allows, and the losses within rtol 1e-5 of the
+    CPU's on the same sample (where the labels flipped, the CPU's loss
+    terms on the card's labels)."""
+    from drn_wsod_torch.models import proposal_generator as pg
+
+    inputs = [t.detach().cpu() if torch.is_tensor(t) else
+              tuple(k.cpu() for k in t) for t in inputs]
+    t = time.perf_counter()
+    want = fn(*inputs, return_sampled=True)
+    cpu_s = time.perf_counter() - t
+    line = ph26_sample_check(what, got[2], want[2], quality,
+                             iou_fn(inputs[3], inputs[0]), inputs[4],
+                             low_quality)
+    if not line.endswith("equal"):
+        midx, mlab = ph26_match(quality, inputs[4].to(quality.device),
+                                low_quality)
+        anchors, obj, deltas, gt, _, keys = inputs
+        want = pg._sampled_losses(midx.cpu(), mlab.cpu(), keys, anchors, obj,
+                                  deltas, gt, encode, 256, 0.5)[3:]
+    err = max(abs(float(g.detach()) - float(w)) / max(abs(float(w)), 1e-12)
+              for g, w in zip(got[:2], want[:2]))
+    if err > 1e-5:
+        raise Fail(f"phase 26: {what}: losses on the card "
+                   f"{[float(g) for g in got[:2]]}, the CPU "
+                   f"{[float(w) for w in want[:2]]}")
+    return (f"{line}; its losses within rtol {err:.2e} of the CPU's "
+            f"({cpu_s:.1f} s on the CPU)")
+
+
+def ph26_proposals_check(what, got, want, anchors, obj, deltas) -> str:
+    """``select_proposals`` on the card (``got``) against the CPU
+    (``want``) for one image and level: the same slots, scores and
+    (within 1e-2) boxes, or other slots only where two of the top
+    candidates' IoU (float64, on the CPU) lies within PH26_NEAR of the
+    NMS threshold."""
+    from drn_wsod_torch.structures import boxes as box_ops
+
+    gb, gs, gv = (t.cpu() for t in got)
+    wb, ws, wv = want
+    if torch.equal(gv, wv) and torch.equal(gs, ws):
+        if gv.any() and float((gb - wb)[gv].abs().max()) > 1e-2:
+            raise Fail(f"phase 26: {what}: the card keeps the CPU's "
+                       f"proposals, boxes apart")
+        return f"{what}: {int(gv.sum())} kept, equal"
+    b = box_ops.clip(box_ops.apply_deltas(
+        deltas.cpu().double(), anchors.cpu().double(), (1.0,) * 4),
+        (PH26_BUCKET, PH26_BUCKET))
+    top = torch.sort(obj.cpu(), descending=True, stable=True).indices
+    cand = b[top[:PH26_PRE]]
+    iou = box_ops.pairwise_iou(cand, cand)
+    near = int(((iou - PH26_NMS).abs() < PH26_NEAR).triu(1).sum())
+    if not near:
+        raise Fail(f"phase 26: {what}: the card keeps {int(gv.sum())} "
+                   f"proposals, the CPU {int(wv.sum())}, "
+                   f"{int((gs != ws).sum())} slots' scores differ, with no "
+                   f"candidate IoU within {PH26_NEAR} of {PH26_NMS}")
+    return (f"{what}: {int(gv.sum())} kept on the card, {int(wv.sum())} on "
+            f"the CPU; {near} candidate pairs within {PH26_NEAR} of the "
+            f"NMS threshold")
+
+
+def ph26_rotated_nms_check(what, got, want, anchors, obj, deltas) -> str:
+    """``select_proposals_rotated`` on the card (``got``) against the CPU
+    (``want``) for one image and level. Where the kept proposals differ:
+    the card's own NMS decisions, replayed by ``nms_mask`` on the CPU
+    from the card's IoU matrix, must give the card's proposals, and each
+    pair of candidates that one device suppresses and the other does not
+    must sit within PH26_NEAR of the threshold, or be a pair where a
+    device's float32 convex formula lies more than 1e-3 from the float64
+    clip (``iou_matrix_rotated``): near-identical boxes, whose IoU the
+    formula, as the JAX package's, can get far wrong (ROADMAP.md
+    section 3). Checks at most 400 such pairs."""
+    from drn_wsod_torch.evaluation.rotated_coco_eval import \
+        iou_matrix_rotated
+    from drn_wsod_torch.models import proposal_generator as pg
+    from drn_wsod_torch.ops.nms import nms_mask
+    from drn_wsod_torch.structures import rotated_boxes as rb
+
+    gb, gs, gv = (t.cpu() for t in got)
+    wb, ws, wv = want
+    if torch.equal(gv, wv) and torch.equal(gs, ws):
+        d = (gb - wb).abs()
+        d[:, 4] = ((gb[:, 4] - wb[:, 4] + 180.0) % 360.0 - 180.0).abs()
+        if gv.any() and float(d[gv].max()) > 1e-2:
+            raise Fail(f"phase 26: {what}: the card keeps the CPU's "
+                       f"proposals, boxes {float(d[gv].max())} apart")
+        return f"{what}: {int(gv.sum())} kept, equal"
+
+    def candidates(dev):
+        b = rb.apply_deltas_rotated(deltas.to(dev), anchors.to(dev))
+        b = torch.cat([b[:, :2].clamp(0, PH26_BUCKET), b[:, 2:]], 1)
+        s, idx = torch.sort(obj.to(dev), descending=True, stable=True)
+        b, s = b[idx[:PH26_PRE]], s[:PH26_PRE]
+        ok = (b[:, 2] > 0) & (b[:, 3] > 0) & torch.isfinite(s)
+        return b, s, ok, rb.pairwise_iou_rotated(b, b)
+    bc, sc, okc, iouc = (t.cpu() for t in candidates(anchors.device))
+    bh, sh, okh, iouh = candidates("cpu")
+    keep = nms_mask(bc[:, :4], sc, okc, PH26_NMS, iou=iouc)
+    replay = pg._after_nms(bc, sc, keep, PH26_POST)
+    if not (torch.equal(replay[2], gv) and torch.equal(replay[1], gs)):
+        raise Fail(f"phase 26: {what}: nms_mask on the card's IoU on the "
+                   f"CPU does not give the card's proposals")
+    flips = (((iouc > PH26_NMS) != (iouh > PH26_NMS)) & okc[:, None]
+             & okc[None]).triu(1).nonzero()
+    near = far = 0
+    for i, j in flips[:400].tolist():
+        if abs(float(iouh[i, j]) - PH26_NMS) < PH26_NEAR:
+            near += 1
+            continue
+        exact = iou_matrix_rotated(bh[i:i + 1].double().numpy(),
+                                   bh[j:j + 1].double().numpy())[0, 0]
+        if max(abs(float(iouc[i, j]) - exact),
+               abs(float(iouh[i, j]) - exact)) <= 1e-3:
+            raise Fail(f"phase 26: {what}: the devices split on candidates "
+                       f"{i}, {j}: IoU {float(iouc[i, j])} on the card, "
+                       f"{float(iouh[i, j])} on the CPU, {exact} in float64")
+        far += 1
+    return (f"{what}: {int(gv.sum())} kept on the card, "
+            f"{int((gs != ws).sum())} of their slots other than the CPU's: "
+            f"the card's IoU replayed through nms_mask gives the card's; "
+            f"{len(flips)} candidate pairs suppress on one device only, "
+            f"{far} of the {min(len(flips), 400)} checked where a device's "
+            f"float32 IoU is over 1e-3 from the float64 clip, {near} within "
+            f"{PH26_NEAR} of {PH26_NMS}")
+
+
+def ph26_rpn(dev, maps) -> str:
+    """(a) the RPN over p2-p6: PH26_STEPS steps of ``rpn_losses`` + backward
+    + SGD on the head, then ``select_proposals`` per image and level."""
+    from drn_wsod_torch.models import proposal_generator as pg
+    from drn_wsod_torch.structures import boxes as box_ops
+
+    rs = np.random.RandomState(261)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    C = maps["p2"].shape[1]
+    head = pg.StandardRPNHead(C, len(PH26_RATIOS), 256,
+                              dtype=torch.bfloat16)
+    head.init_weights(torch.Generator().manual_seed(26))
+    head.to(dev)
+    opt = torch.optim.SGD(head.parameters(), lr=PH26_LR, momentum=0.9)
+    anchors = torch.cat([pg.generate_anchors(
+        tuple(maps[n].shape[2:]), s, (size,), PH26_RATIOS, device=dev)
+        for n, s, size in PH26_LEVELS])
+    gt, gv = ph26_gt(rs, False, PH26_SLOTS, dev)
+    feats = [maps[n] for n, _, _ in PH26_LEVELS]
+    steps, checks = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(PH26_STEPS):
+        keys = [pg.draw_rpn_keys(anchors.shape[0], gen, dev)
+                for _ in range(PH26_B)]
+        outs, head_ms = timed(lambda: head(feats))
+        obj, deltas, counts = ph26_flatten(outs, 4)
+
+        def losses():
+            return [pg.rpn_losses(anchors, obj[i], deltas[i], gt[i], gv[i],
+                                  keys[i], return_sampled=True)
+                    for i in range(PH26_B)]
+        per, loss_ms = timed(losses)
+        lo = sum(p[0] for p in per) / PH26_B
+        ll = sum(p[1] for p in per) / PH26_B
+        lo_v, ll_v = float(lo.detach()), float(ll.detach())
+
+        def update():
+            (lo + ll).backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+        _, bwd_ms = timed(update)
+        if not (math.isfinite(lo_v) and math.isfinite(ll_v)):
+            raise Fail(f"phase 26: (a) step {step} losses {lo_v}, {ll_v}")
+        steps.append((lo_v, ll_v, head_ms, loss_ms, bwd_ms))
+        if step == 0:           # image 0 on the CPU, same float32 inputs
+            checks.append(ph26_loss_check(
+                "image 0", per[0], pg.rpn_losses,
+                (anchors, obj[0], deltas[0], gt[0], gv[0], keys[0]),
+                box_ops.pairwise_iou(gt[0], anchors), box_ops.pairwise_iou,
+                False,
+                lambda a, g: box_ops.get_deltas(a, g, (1.0,) * 4)))
+    peak_steps = torch.cuda.max_memory_allocated()
+
+    with torch.no_grad():
+        obj, deltas, counts = ph26_flatten(head(feats), 4)
+    offs = np.cumsum([0] + counts)
+    kept, sel_ms = [], []
+    for i in range(PH26_B):
+        for li, (n, _, _) in enumerate(PH26_LEVELS):
+            sl = slice(offs[li], offs[li + 1])
+            out, ms = timed(lambda: pg.select_proposals(
+                anchors[sl], obj[i, sl], deltas[i, sl],
+                (PH26_BUCKET, PH26_BUCKET), PH26_PRE, PH26_POST, PH26_NMS))
+            sel_ms.append(ms)
+            kept.append(int(out[2].sum()))
+            if i == 0:
+                want = pg.select_proposals(
+                    anchors[sl].cpu(), obj[i, sl].cpu(), deltas[i, sl].cpu(),
+                    (PH26_BUCKET, PH26_BUCKET), PH26_PRE, PH26_POST,
+                    PH26_NMS)
+                checks.append(ph26_proposals_check(
+                    f"select_proposals {n}", out, want, anchors[sl],
+                    obj[i, sl], deltas[i, sl]))
+    if not all(kept):
+        raise Fail(f"phase 26: (a) kept proposals {kept}")
+    del head, opt
+    return (f"(a) RPN: StandardRPNHead(256 -> 3 anchors, 3x3 conv bf16) "
+            f"over p2-p6 of {PH26_B} images at {PH26_BUCKET}^2, "
+            f"{anchors.shape[0]} anchors an image (sizes 32-512, ratios "
+            f"0.5/1/2), {PH26_GT} live GT in {PH26_SLOTS} slots; "
+            f"{PH26_STEPS} steps (loss_obj, loss_loc, head fwd ms, "
+            f"rpn_losses ms, backward + SGD ms): " + ", ".join(
+                f"({a:.4f}, {b:.4f}, {c:.2f}, {d:.2f}, {e:.2f})"
+                for a, b, c, d, e in steps)
+            + f"; peak {peak_steps / 2**30:.2f} GiB; select_proposals "
+            f"(pre {PH26_PRE}, post {PH26_POST}, NMS {PH26_NMS}) per image "
+            f"and level: median {statistics.median(sel_ms):.2f} ms, total "
+            f"{sum(sel_ms):.1f} ms, kept {sum(kept)}; " + "; ".join(checks))
+
+
+def ph26_rrpn(dev, maps) -> str:
+    """(b) the RRPN over p2-p6 with rotated anchors: one step of
+    ``rrpn_losses`` + backward + SGD, ``select_proposals_rotated`` per
+    image and level, ``roi_align_rotated`` of the kept p4 proposals in
+    bf16 and float32, and ``RotatedCOCODetectionEvaluator``."""
+    from drn_wsod_torch.evaluation import rotated_coco_eval as rce
+    from drn_wsod_torch.models import proposal_generator as pg
+    from drn_wsod_torch.ops.roi_align_rotated import roi_align_rotated
+    from drn_wsod_torch.structures import rotated_boxes as rb
+
+    rs = np.random.RandomState(262)
+    gen = torch.Generator(device=dev).manual_seed(262)
+    A = len(PH26_RATIOS) * len(PH26_ANGLES)
+    head = pg.StandardRPNHead(maps["p2"].shape[1], A, 256,
+                              dtype=torch.bfloat16, box_dim=5)
+    head.init_weights(torch.Generator().manual_seed(262))
+    head.to(dev)
+    opt = torch.optim.SGD(head.parameters(), lr=PH26_LR, momentum=0.9)
+    anchors = torch.cat([pg.generate_rotated_anchors(
+        tuple(maps[n].shape[2:]), s, (size,), PH26_RATIOS, PH26_ANGLES,
+        device=dev) for n, s, size in PH26_LEVELS])
+    gt, gv = ph26_gt(rs, True, PH26_RSLOTS, dev)
+    feats = [maps[n] for n, _, _ in PH26_LEVELS]
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    keys = [pg.draw_rpn_keys(anchors.shape[0], gen, dev)
+            for _ in range(PH26_B)]
+    outs, head_ms = timed(lambda: head(feats))
+    obj, deltas, counts = ph26_flatten(outs, 5)
+    per, loss_ms = timed(lambda: [pg.rrpn_losses(
+        anchors, obj[i], deltas[i], gt[i], gv[i], keys[i],
+        return_sampled=True) for i in range(PH26_B)])
+    lo = sum(p[0] for p in per) / PH26_B
+    ll = sum(p[1] for p in per) / PH26_B
+    lo_v, ll_v = float(lo.detach()), float(ll.detach())
+
+    def update():
+        (lo + ll).backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    _, bwd_ms = timed(update)
+    if not (math.isfinite(lo_v) and math.isfinite(ll_v)):
+        raise Fail(f"phase 26: (b) losses {lo_v}, {ll_v}")
+    quality, iou_ms = timed(lambda: rb.pairwise_iou_rotated(gt[0], anchors))
+    lines.append(ph26_loss_check(
+        "image 0", per[0], pg.rrpn_losses,
+        (anchors, obj[0], deltas[0], gt[0], gv[0], keys[0]), quality,
+        rb.pairwise_iou_rotated, True,
+        lambda a, g: rb.get_deltas_rotated(a, g, (1.0,) * 5)))
+    del quality
+
+    with torch.no_grad():
+        obj, deltas, counts = ph26_flatten(head(feats), 5)
+    offs = np.cumsum([0] + counts)
+    kept, sel_ms, props = {}, [], []
+    for i in range(PH26_B):
+        image_props = []
+        for li, (n, _, _) in enumerate(PH26_LEVELS):
+            sl = slice(offs[li], offs[li + 1])
+            out, ms = timed(lambda: pg.select_proposals_rotated(
+                anchors[sl], obj[i, sl], deltas[i, sl],
+                (PH26_BUCKET, PH26_BUCKET), PH26_PRE, PH26_POST, PH26_NMS))
+            sel_ms.append(ms)
+            kept[(i, n)] = out
+            image_props.append(out)
+            if i == 0 and n == "p4":
+                top = torch.sort(obj[i, sl], descending=True,
+                                 stable=True).indices[:PH26_PRE]
+                c = rb.apply_deltas_rotated(deltas[i, sl],
+                                            anchors[sl])[top]
+                _, nms_iou_ms = timed(lambda: rb.pairwise_iou_rotated(c, c))
+                want = pg.select_proposals_rotated(
+                    anchors[sl].cpu(), obj[i, sl].cpu(), deltas[i, sl].cpu(),
+                    (PH26_BUCKET, PH26_BUCKET), PH26_PRE, PH26_POST,
+                    PH26_NMS)
+                lines.append(ph26_rotated_nms_check(
+                    f"select_proposals_rotated {n}", out, want, anchors[sl],
+                    obj[i, sl], deltas[i, sl]))
+        props.append(image_props)
+    if not all(int(v[2].sum()) for v in kept.values()):
+        raise Fail("phase 26: (b) a level kept no proposal")
+    peak = torch.cuda.max_memory_allocated()
+
+    # rotated RoIAlign of the kept p4 proposals, 7x7, ratio 2
+    p4 = maps["p4"]
+    rois = [kept[(i, "p4")][0][kept[(i, "p4")][2]] for i in range(PH26_B)]
+    n_rois = sum(len(r) for r in rois)
+
+    def pool(dtype):
+        return [roi_align_rotated(p4[i].permute(1, 2, 0).to(dtype), rois[i],
+                                  1 / 16, 7, 2) for i in range(PH26_B)]
+    pool(torch.bfloat16)
+    pooled, bf16_ms = timed(lambda: pool(torch.bfloat16))
+    pooled32, f32_ms = timed(lambda: pool(torch.float32))
+    sub = rois[0][:64]
+    m0 = p4[0].permute(1, 2, 0)
+    want32 = roi_align_rotated(m0.float().cpu(), sub.cpu(), 1 / 16, 7, 2)
+    want16 = roi_align_rotated(m0.to(torch.bfloat16).cpu(), sub.cpu(),
+                               1 / 16, 7, 2).float()
+    err32 = float((pooled32[0][:64].cpu() - want32).abs().max())
+    d16 = (pooled[0][:64].float().cpu() - want16).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(want16.abs().clamp(
+        min=1e-30))) - 7)
+    if err32 > 1e-4 * float(want32.abs().max()) or bool((d16 > ulp).any()):
+        raise Fail(f"phase 26: (b) roi_align_rotated on the card against "
+                   f"the CPU: float32 {err32}, bf16 ulps "
+                   f"{float((d16 / ulp).max())}")
+    lines.append(f"roi_align_rotated of {n_rois} kept p4 proposals (7x7, "
+                 f"ratio 2, 256 channels, chunks of 512): bf16 "
+                 f"{bf16_ms:.2f} ms, float32 {f32_ms:.2f} ms; 64 RoIs "
+                 f"against the CPU: float32 max|diff| {err32:.2e}, bf16 "
+                 f"within one ulp ({int((d16 > 0).sum())} of {d16.numel()} "
+                 f"values differ)")
+
+    # the rotated COCO evaluator on the host: the top PH26_TOP proposals
+    # of each image over the levels as class-0 detections
+    gt_host = gt.cpu().numpy().astype(np.float64)
+    gvh = gv.cpu().numpy()
+    gt_by_image = {str(i): [{"category_id": 0, "bbox": [float(v) for v in g],
+                             "difficult": 0} for g in gt_host[i][gvh[i]]]
+                   for i in range(PH26_B)}
+    ev = rce.RotatedCOCODetectionEvaluator(["object"], gt_by_image)
+    dets = {}
+    for i, image_props in enumerate(props):
+        b = torch.cat([p[0][p[2]] for p in image_props])
+        s = torch.cat([p[1][p[2]] for p in image_props])
+        top = torch.sort(s, descending=True, stable=True).indices[:PH26_TOP]
+        dets[i] = b[top]
+        ev.process_single(str(i), b[top].cpu().numpy(), s[top].cpu().numpy(),
+                          np.zeros(len(top), np.int64),
+                          np.ones(len(top), bool))
+    t = time.perf_counter()
+    ap = ev.evaluate()["bbox"]
+    eval_s = time.perf_counter() - t
+    if not all(math.isfinite(v) and 0 <= v <= 100 for k, v in ap.items()
+               if k in ("AP", "AP50", "AP75")):
+        raise Fail(f"phase 26: (b) rotated AP {ap}")
+    g0 = gt[0][gv[0]]
+    card = rb.pairwise_iou_rotated(dets[0], g0)
+    host = rce.iou_matrix_rotated(dets[0].cpu().double().numpy(),
+                                  g0.cpu().double().numpy())
+    err = np.abs(card.cpu().numpy() - host)
+    iou_err = float(err.max())
+    if iou_err > 1e-5:
+        i, j = np.unravel_index(err.argmax(), err.shape)
+        a, b = dets[0][i:i + 1], g0[j:j + 1]
+        raise Fail(f"phase 26: (b) pairwise_iou_rotated on the card is "
+                   f"{iou_err} from iou_matrix_rotated at {a.tolist()} "
+                   f"against {b.tolist()}: card {float(card[i, j])}, CPU "
+                   f"{float(rb.pairwise_iou_rotated(a.cpu(), b.cpu()))}, "
+                   f"float64 {host[i, j]}; card corners "
+                   f"{rb.rotated_to_corners(a).tolist()}, CPU "
+                   f"{rb.rotated_to_corners(a.cpu()).tolist()}; card "
+                   f"intersection "
+                   f"{float(rb.convex_intersection_area(rb.rotated_to_corners(a), rb.rotated_to_corners(b)))}")
+    lines.append(f"pairwise_iou_rotated on the card within {iou_err:.2e} of "
+                 f"iou_matrix_rotated (float64, host) on {card.numel()} "
+                 f"pairs ({int((host > 0).sum())} overlapping)")
+    lines.append(f"RotatedCOCODetectionEvaluator (top {PH26_TOP} an image "
+                 f"as class 0, {PH26_GT} GT an image) on the host "
+                 f"{eval_s:.2f} s: " + ", ".join(
+                     f"{k} {v:.4f}" for k, v in ap.items())
+                 + " (random weights)")
+    del head, opt
+    return (f"(b) RRPN: StandardRPNHead(256 -> {A} anchors, 5 deltas each) "
+            f"over p2-p6, {anchors.shape[0]} rotated anchors an image "
+            f"(angles -90/0/90), {PH26_GT} live rotated GT in {PH26_RSLOTS} "
+            f"slots; one step: loss_obj {lo_v:.4f}, loss_loc "
+            f"{ll_v:.4f}, head fwd {head_ms:.2f} ms, rrpn_losses "
+            f"{loss_ms:.2f} ms for {PH26_B} images, backward + SGD "
+            f"{bwd_ms:.2f} ms; the matcher's rotated IoU ({PH26_RSLOTS} x "
+            f"{anchors.shape[0]}, chunks of {rb.DEFAULT_CHUNK} pairs) "
+            f"{iou_ms:.2f} ms an image, the NMS's ({PH26_PRE} x {PH26_PRE} "
+            f"at p4) {nms_iou_ms:.2f} ms; select_proposals_rotated per "
+            f"image and level: median {statistics.median(sel_ms):.2f} ms, "
+            f"total {sum(sel_ms):.1f} ms; peak {peak / 2**30:.2f} GiB; "
+            + "; ".join(lines))
+
+
+def ph26_lvis(root: Path, rs) -> tuple:
+    """An LVIS v1-shaped tree under ``root``: ``lvis/lvis_v1_{train,
+    val}.json`` with 1203 categories of LVIS v1's r/c/f counts, images
+    named only in ``coco_url`` and written as PNGs in ``coco/`` (the
+    COCO-sized synthetic images and proposals of phase 17's split), per
+    image negative and not-exhaustive classes, each val image holding a
+    rare, a common and a frequent class; and a proposals pickle a split.
+    Returns ({split: proposals}, {image_id: (H, W)}, frequencies)."""
+    import json
+    import pickle
+
+    freq = [f for f, n in PH26_LVIS_FREQ for _ in range(n)]
+    freq = [freq[i] for i in rs.permutation(len(freq))]
+    by_freq = {f: [i + 1 for i, g in enumerate(freq) if g == f]
+               for f, _ in PH26_LVIS_FREQ}
+    cats = [{"id": i + 1, "name": f"lvis_{i + 1}", "frequency": f,
+             "synset": f"s{i + 1}.n.01"} for i, f in enumerate(freq)]
+    props, hw = {}, {}
+    (root / "lvis").mkdir(parents=True)
+    for split, n, start in (("train", PH26_LVIS_TRAIN, 0),
+                            ("val", PH26_LVIS_TEST, 1)):
+        (root / "coco").mkdir(parents=True, exist_ok=True)
+        data = {"categories": cats, "images": [], "annotations": []}
+        pr = {"ids": [], "boxes": [], "objectness_logits": [], "bbox_mode": 0}
+        for i in range(n):
+            H, W = COCO_SIZES[(start + i) % len(COCO_SIZES)]
+            image_id = 1000 * start + 37 * i + 9
+            _, rec = eval_image(rs, H, W, image_id, P=PH11_PROPOSALS)
+            # the loaders take the file name alone from coco_url, so the
+            # images sit in coco/ itself, not in its split folder
+            name = f"{image_id:012d}.png"
+            write_png(root / "coco" / name, smooth_image(rs, H, W))
+            classes = [int(rs.choice(by_freq[f])) for f in "rcf"] if \
+                split == "val" else [int(rs.choice(by_freq["f"]))
+                                     for _ in range(rs.randint(1, 5))]
+            for c in classes:
+                w, h = rs.uniform(24, W * 0.6), rs.uniform(24, H * 0.6)
+                x, y = rs.uniform(0, W - w), rs.uniform(0, H - h)
+                data["annotations"].append({
+                    "id": len(data["annotations"]) + 1, "image_id": image_id,
+                    "category_id": c, "bbox": [x, y, w, h], "area": w * h})
+            data["images"].append({
+                "id": image_id, "height": H, "width": W,
+                "coco_url": f"http://images.cocodataset.org/{split}2017/"
+                            f"{name}",
+                "neg_category_ids": [int(c) for c in rs.choice(
+                    [c for c in by_freq["c"] if c not in classes], 3,
+                    replace=False)],
+                "not_exhaustive_category_ids": classes[-1:]})
+            hw[str(image_id)] = (H, W)
+            pr["ids"].append(image_id)
+            pr["boxes"].append(rec["proposal_boxes"])
+            pr["objectness_logits"].append(rec["proposal_objectness_logits"])
+        (root / "lvis" / f"lvis_v1_{split}.json").write_text(json.dumps(data))
+        props[split] = str(root / f"lvis_{split}_proposals.pkl")
+        with open(props[split], "wb") as f:
+            pickle.dump(pr, f)
+    return props, hw, freq
+
+
+def ph26_lvis_run(dev, work: Path, tag) -> tuple:
+    """(c) ``COCO-Detection/oicr_WSR_50_DC5_1x`` on the LVIS tree through
+    ``train_net.main`` (``register_all`` finds it under
+    ``$DETECTRON2_DATASETS``) with Detectron2's LVIS recipe."""
+    from drn_wsod_torch.data import DatasetCatalog, MetadataCatalog
+    from drn_wsod_torch.evaluation import lvis_eval
+
+    yaml = Path(__file__).resolve().parent / "configs" / \
+        "COCO-Detection" / "oicr_WSR_50_DC5_1x.yaml"
+    yaml_is(26, yaml, MODEL__BACKBONE__FREEZE_AT=5, MODEL__DTYPE="bfloat16",
+            TEST__AUG__ENABLED=True, SOLVER__IMS_PER_BATCH=4)
+    root = work / "datasets"
+    props, hw, freq = ph26_lvis(root, np.random.RandomState(263))
+    opts = ["DATASETS.TRAIN", "('lvis_v1_train',)",
+            "DATASETS.TEST", "('lvis_v1_val',)",
+            "DATASETS.PROPOSAL_FILES_TRAIN", repr((props["train"],)),
+            "DATASETS.PROPOSAL_FILES_TEST", repr((props["val"],)),
+            "MODEL.ROI_HEADS.NUM_CLASSES", "1203",
+            "DATALOADER.SAMPLER_TRAIN", "RepeatFactorTrainingSampler",
+            "DATALOADER.REPEAT_THRESHOLD", "0.001",
+            "TEST.DETECTIONS_PER_IMAGE", "300",
+            "MODEL.WEIGHTS", "", "OUTPUT_DIR", str(work / "out_lvis"),
+            "SEED", "0", "TEST.EVAL_PERIOD", "0", "TEST.EVAL_TRAIN", "False",
+            "SOLVER.MAX_ITER", str(PH26_LVIS_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(PH26_LVIS_STEPS)]
+    captured = {}
+    keys = ("AP", "AP50", "AP75", "APr", "APc", "APf")
+    # the earlier phases' train_net.main registered the LVIS names under
+    # the default root: drop them, so that register_all finds this tree
+    for name in ("lvis_v1_train", "lvis_v1_val"):
+        if name in DatasetCatalog:
+            DatasetCatalog.remove(name)
+    try:
+        with mock.patch.dict(os.environ, {"DETECTRON2_DATASETS": str(root)}):
+            run = entry_main(26, dev, yaml, opts, hw, [k1_capture(captured)],
+                             num_classes=1203, metrics={"bbox": keys},
+                             evaluator=lvis_eval.LVISDetectionEvaluator)
+        meta = MetadataCatalog.get("lvis_v1_val")
+        if meta.get("thing_frequencies") != freq or \
+                meta.get("evaluator_type") != "lvis":
+            raise Fail("phase 26: (c) the LVIS metadata is not the json's")
+    finally:
+        for name in ("lvis_v1_train", "lvis_v1_val"):
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+    per_step = check_steps(26, run, ["plain"] * PH26_LVIS_STEPS,
+                           {"plain": OICR_NAMES})
+    check_detections(26, run, PH26_LVIS_TEST)
+    if len(run["metrics"]) != len(keys) or not run["launches"]["roi_pool"]:
+        raise Fail(f"phase 26: (c) LVIS metrics {run['metrics']}, K1 "
+                   f"launches {run['launches']['roi_pool']}")
+    k1 = k1_exact(26, captured)
+    print_entry(26, f"(c) LVIS: train_net.main on COCO-Detection/"
+                f"oicr_WSR_50_DC5_1x (WS-R50 DC5 FREEZE_AT 5, bf16, TTA 8 "
+                f"scales x flip) with NUM_CLASSES 1203, "
+                f"RepeatFactorTrainingSampler at 0.001 and 300 detections "
+                f"an image (Detectron2's LVISv1 recipe) on an LVIS "
+                f"v1-shaped tree ({PH26_LVIS_TRAIN} + {PH26_LVIS_TEST} "
+                f"COCO-sized PNG images named in coco_url, 1203 classes "
+                f"r/c/f 337/461/405, negative and not-exhaustive classes) "
+                f"registered by register_all from $DETECTRON2_DATASETS, "
+                f"{PH26_LVIS_STEPS} steps of B=4, then the TTA eval of "
+                f"{PH26_LVIS_TEST}", per_step, run, k1,
+                f"{PH26_LVIS_STEPS} steps + the TTA groups", PH26_LVIS_TEST,
+                "", tag)
+    return run["launches"]
+
+
+CITY_THINGS = ("person", "rider", "car", "truck", "bus", "train",
+               "motorcycle", "bicycle")
+
+
+def ph26_cityscapes(root: Path, rs) -> tuple:
+    """A Cityscapes tree under ``root/cityscapes``: PH26_CITY_TRAIN +
+    PH26_CITY_TEST smooth random 2048x1024 ``*_leftImg8bit.png`` images in
+    two cities, their ``gtFine`` polygon json (thing objects, a
+    "cargroup" crowd region, a deleted car, a "road" outside the 8
+    classes) and labelIds PNGs (the objects drawn on a road and sky
+    ground), and a proposals pickle a split. Returns ({split: proposals},
+    {image_id: (H, W)})."""
+    import json
+    import pickle
+
+    H, W = PH26_CITY_HW
+    props, hw = {}, {}
+    ids = {"person": 24, "rider": 25, "car": 26, "truck": 27, "bus": 28,
+           "train": 31, "motorcycle": 32, "bicycle": 33}
+    for split, n in (("train", PH26_CITY_TRAIN), ("val", PH26_CITY_TEST)):
+        pr = {"ids": [], "boxes": [], "objectness_logits": [], "bbox_mode": 0}
+        for k in range(n):
+            city = ("aachen", "bremen")[k % 2]
+            stem = f"{city}_{k:06d}_000019_"
+            img_dir = root / "cityscapes" / "leftImg8bit" / split / city
+            gt_dir = root / "cityscapes" / "gtFine" / split / city
+            img_dir.mkdir(parents=True, exist_ok=True)
+            gt_dir.mkdir(parents=True, exist_ok=True)
+            write_png(img_dir / f"{stem}leftImg8bit.png",
+                      smooth_image(rs, H, W))
+            label = np.full((H, W), 7, np.uint8)           # road
+            label[:H // 3] = 23                            # sky
+            objs = []
+            for j in range(rs.randint(4, 9)):
+                name = CITY_THINGS[rs.randint(len(CITY_THINGS))]
+                w, h = rs.uniform(60, 500), rs.uniform(60, 400)
+                x, y = rs.uniform(0, W - w), rs.uniform(H // 3, H - h)
+                objs.append({"label": name, "polygon": [
+                    [x, y], [x + w, y], [x + w * 0.8, y + h], [x, y + h]]})
+                label[int(y):int(y + h), int(x):int(x + w * 0.8)] = ids[name]
+            objs += [{"label": "cargroup", "polygon": [
+                [10, H - 200], [400, H - 200], [400, H - 10], [10, H - 10]]},
+                     {"label": "car", "deleted": 1, "polygon": [
+                         [500, 500], [600, 500], [600, 600]]},
+                     {"label": "road", "polygon": [
+                         [0, H // 2], [W - 1, H // 2], [W - 1, H - 1]]}]
+            (gt_dir / f"{stem}gtFine_polygons.json").write_text(json.dumps(
+                {"imgHeight": H, "imgWidth": W, "objects": objs}))
+            write_png(gt_dir / f"{stem}gtFine_labelIds.png", label)
+            image_id = f"{city}_{k:06d}_000019"
+            hw[image_id] = (H, W)
+            _, rec = eval_image(rs, H, W, 0, P=PH11_PROPOSALS)
+            pr["ids"].append(image_id)
+            pr["boxes"].append(rec["proposal_boxes"])
+            pr["objectness_logits"].append(rec["proposal_objectness_logits"])
+        props[split] = str(root / f"cityscapes_{split}_proposals.pkl")
+        with open(props[split], "wb") as f:
+            pickle.dump(pr, f)
+    return props, hw
+
+
+def ph26_cityscapes_run(dev, work: Path, tag) -> dict:
+    """(d) the Cityscapes tree registered by ``register_all_cityscapes``:
+    (d1) ``Misc/mask_rcnn_R_50_FPN_1x`` with 8 classes into
+    ``CityscapesInstanceEvaluator``; (d2) ``Misc/semantic_R_50_FPN_1x``
+    into ``CityscapesSemSegEvaluator``, trained on the raw labelIds with
+    ``DATALOADER.FILTER_EMPTY_ANNOTATIONS False`` (semantic records carry
+    no annotations: with the filter on, both packages' loaders stop on an
+    empty dataset)."""
+    from drn_wsod_torch.data import DatasetCatalog
+    from drn_wsod_torch.data.datasets import register_all_cityscapes
+    from drn_wsod_torch.evaluation import cityscapes_eval
+
+    root = Path(__file__).resolve().parent
+    mask_yaml = root / "configs" / "Misc" / "mask_rcnn_R_50_FPN_1x.yaml"
+    sem_yaml = root / "configs" / "Misc" / "semantic_R_50_FPN_1x.yaml"
+    data = work / "datasets"
+    props, hw = ph26_cityscapes(data, np.random.RandomState(264))
+    before = set(DatasetCatalog.list())
+    register_all_cityscapes(str(data))
+    names = sorted(set(DatasetCatalog.list()) - before)
+    if len(names) != 6:
+        raise Fail(f"phase 26: (d) register_all_cityscapes added {names}")
+    launches = {}
+    base = ["MODEL.WEIGHTS", "", "SEED", "0", "TEST.EVAL_PERIOD", "0",
+            "TEST.EVAL_TRAIN", "False", "SOLVER.IMS_PER_BATCH", "4",
+            "SOLVER.BASE_LR", str(PH19_LR)]
+    try:
+        instance = DatasetCatalog.get("cityscapes_fine_instance_seg_train")
+        crowd = sum(a["iscrowd"] for r in instance
+                    for a in r["annotations"])
+        if crowd != PH26_CITY_TRAIN or any(
+                a["category_id"] >= 8 for r in instance
+                for a in r["annotations"]):
+            raise Fail(f"phase 26: (d) the loader's crowd regions {crowd}")
+        # (d1) Mask R-CNN, 8 classes
+        opts = base + [
+            "MODEL.ROI_HEADS.NUM_CLASSES", "8",
+            "TEST.DETECTIONS_PER_IMAGE", str(PH26_CITY_DETS),
+            "DATASETS.TRAIN", "('cityscapes_fine_instance_seg_train',)",
+            "DATASETS.TEST", "('cityscapes_fine_instance_seg_val',)",
+            "DATASETS.PROPOSAL_FILES_TRAIN", repr((props["train"],)),
+            "DATASETS.PROPOSAL_FILES_TEST", repr((props["val"],)),
+            "OUTPUT_DIR", str(work / "out_city_mask"),
+            "SOLVER.MAX_ITER", str(PH26_CITY_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(PH26_CITY_STEPS)]
+        evaluated = []
+        process = cityscapes_eval.CityscapesInstanceEvaluator.process_single
+
+        def counting(self, image_id, boxes, scores, classes, valid,
+                     masks=None):
+            m = np.asarray(masks)
+            if m.dtype != bool or m.shape[1:] != hw[image_id]:
+                raise Fail(f"phase 26: (d1) masks {m.dtype} {m.shape}")
+            evaluated.append(int(np.asarray(valid).sum()))
+            return process(self, image_id, boxes, scores, classes, valid,
+                           masks=masks)
+        run = entry_main(26, dev, mask_yaml, opts, hw, [(
+            cityscapes_eval.CityscapesInstanceEvaluator, "process_single",
+            counting)], metrics={"segm": ("AP", "AP50")})
+        per_step = check_steps(26, run, ["plain"] * PH26_CITY_STEPS, {
+            "plain": {"loss_cls", "loss_box_reg", "loss_mask",
+                      "total_loss"}})
+        if len(evaluated) != PH26_CITY_TEST or not sum(evaluated):
+            raise Fail(f"phase 26: (d1) masks evaluated {evaluated}")
+        launches["city_mask"] = run["launches"]
+        d1 = (f"(d1) Misc/mask_rcnn_R_50_FPN_1x with NUM_CLASSES 8 on "
+              f"cityscapes_fine_instance_seg_train ({PH26_CITY_TRAIN} "
+              f"2048x1024 PNGs, polygon masks, a crowd cargroup an image, "
+              f"{PH11_PROPOSALS} proposals an image), {PH26_CITY_STEPS} "
+              f"steps of B=4 at BASE_LR {PH19_LR} (bucket, device ms, "
+              f"total_loss): " + ", ".join(
+                  f"({b}, {v:.1f}, {m['total_loss']:.4g})"
+                  for _, b, v, m in per_step)
+              + f"; the eval of {PH26_CITY_TEST} through do_dense_test "
+              f"({PH26_CITY_DETS} detections an image, 100 cut) into "
+              f"CityscapesInstanceEvaluator, {sum(evaluated)} masks pasted "
+              f"at 2048x1024: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in run["metrics"].items())
+              + f"; main {run['main_s']:.2f} s, peak "
+              f"{run['peak'] / 2**30:.2f} GiB")
+
+        # (d2) SemanticSegmentor on the raw labelIds
+        opts = base + [
+            "DATALOADER.FILTER_EMPTY_ANNOTATIONS", "False",
+            "DATASETS.TRAIN", "('cityscapes_fine_sem_seg_train',)",
+            "DATASETS.TEST", "('cityscapes_fine_sem_seg_val',)",
+            "OUTPUT_DIR", str(work / "out_city_sem"),
+            "SOLVER.MAX_ITER", str(PH26_SEM_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(PH26_SEM_STEPS)]
+        run = entry_main(26, dev, sem_yaml, opts, hw,
+                         metrics={"sem_seg": ("mIoU", "fwIoU", "pACC",
+                                              "mACC")})
+        per_step = check_steps(26, run, ["plain"] * PH26_SEM_STEPS, {
+            "plain": {"loss_sem_seg", "total_loss"}})
+        res = next(iter(run["results"].values()))["sem_seg"]
+        if len([k for k in res if k.startswith("IoU-")]) != 19:
+            raise Fail(f"phase 26: (d2) the evaluator's classes {list(res)}")
+        launches["city_sem"] = run["launches"]
+        d2 = (f"(d2) Misc/semantic_R_50_FPN_1x (54 classes) trained on "
+              f"the raw labelIds of cityscapes_fine_sem_seg_train with "
+              f"FILTER_EMPTY_ANNOTATIONS False, {PH26_SEM_STEPS} steps of "
+              f"B=4 (bucket, device ms, loss_sem_seg): " + ", ".join(
+                  f"({b}, {v:.1f}, {m['loss_sem_seg']:.4g})"
+                  for _, b, v, m in per_step)
+              + f"; CityscapesSemSegEvaluator over the 19 trainIds: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in run["metrics"].items())
+              + f"; main {run['main_s']:.2f} s, peak "
+              f"{run['peak'] / 2**30:.2f} GiB")
+    finally:
+        for name in names:
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+    print(f"phase 26: (d) Cityscapes via register_all_cityscapes: {d1}; "
+          f"{d2} {tag}", flush=True)
+    return launches
+
+
+def phase26_rotated_lvis_cityscapes(dev, tag) -> dict:
+    """The RPN and RRPN, rotated RoIAlign and the rotated, LVIS and
+    Cityscapes evaluators at full width: (a) ``ph26_rpn``, (b)
+    ``ph26_rrpn`` on the R50-FPN maps of ``ph26_maps``, (c)
+    ``ph26_lvis_run``, (d) ``ph26_cityscapes_run``. Returns the launch
+    counts of (c) and (d), the paths through ``train_net``; (a) and (b)
+    launch no kernel of the port."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_ph26"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    reset_launches()
+    maps, fwd_ms = ph26_maps(dev)
+    print(f"phase 26: R50-FPN (Misc/mask_rcnn_R_50_FPN_1x, FREEZE_AT 2, "
+          f"bf16, seeded random weights) forward of {PH26_B} images at "
+          f"{PH26_BUCKET}^2 {fwd_ms:.1f} ms; {ph26_rpn(dev, maps)} "
+          f"{tag}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"phase 26: {ph26_rrpn(dev, maps)} {tag}", flush=True)
+    ab = read_launches()
+    if any(ab.values()):
+        raise Fail(f"phase 26: (a)-(b) launched {ab}")
+    del maps
+    torch.cuda.empty_cache()
+    launches = {"lvis": ph26_lvis_run(dev, work, tag)}
+    torch.cuda.empty_cache()
+    launches.update(ph26_cityscapes_run(dev, work, tag))
+    k1 = {k: v["roi_pool"] for k, v in launches.items()}
+    if not k1["lvis"] or k1["city_mask"] or k1["city_sem"]:
+        raise Fail(f"phase 26: K1 launches {k1}: want some in (c) only")
+    print(f"phase 26: K1 launches {k1}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {k: sum(v[k] for v in launches.values())
+            for k in launches["lvis"]}
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5237,6 +6163,9 @@ def main() -> int:
         paths["retinanet"] = phase24_retinanet(dev, tag)
         torch.cuda.empty_cache()
         paths["dense"] = phase25_dense(dev, tag)
+        torch.cuda.empty_cache()
+        paths["rotated_lvis_cityscapes"] = phase26_rotated_lvis_cityscapes(
+            dev, tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1

@@ -14,7 +14,10 @@ RetinaNet's ``head.cls_subnet_{i}`` (and ``bbox_subnet_{i}``) become
 Detectron2's Sequential index ``head.cls_subnet.{2i}``, and the semantic
 head's ``scale_head_{l}_conv{k}`` and ``scale_head_{l}_gn{k}`` become
 ``sem_seg_head.p{l + 2}.{2k}`` and its ``.norm`` (the head's levels taken
-as p2, p3, ... in order, as every YAML names them).
+as p2, p3, ... in order, as every YAML names them), and the standalone
+RPN head's ``conv``, ``objectness_logits`` and ``anchor_deltas`` become
+``rpn_head.conv``, ``rpn_head.objectness_logits`` and
+``rpn_head.anchor_deltas``.
 Conv kernels (and ``conv2_deform_weight``, an HWIO kernel by another name)
 go from HWIO to OIHW, dense kernels from (I, O) to (O, I); the transposed
 convs of the mask and keypoint heads (``mask_head.deconv``,
@@ -48,6 +51,7 @@ _PORT_NAME = re.compile(
     r"|box_predictor\.(cls|det|cls_score|bbox_pred)"
     r"|head\.((cls|bbox)_subnet\.\d+|cls_score|bbox_pred)"
     r"|sem_seg_head\.(p\d\.\d+(\.norm)?|predictor)"
+    r"|rpn_head\.(conv|objectness_logits|anchor_deltas)"
     r"|(box_predictor|box_refinery)\.\d+\.(cls_score|bbox_pred))"
     r"\.(weight|bias|norm\.(weight|bias|running_mean|running_var))$")
 
@@ -73,6 +77,8 @@ def port_name(flax_name: str) -> str:
     n = re.sub(r"^sem_seg_head\.scale_head_(\d+)_(conv|gn)(\d+)\.",
                lambda m: f"sem_seg_head.p{int(m[1]) + 2}.{2 * int(m[3])}."
                + ("norm." if m[2] == "gn" else ""), n)
+    n = re.sub(r"^(conv|objectness_logits|anchor_deltas)\.", r"rpn_head.\1.",
+               n)
     n = re.sub(r"\.conv2_deform_weight$", ".conv2.weight", n)
     # flax BatchNorm, and the semantic head's GroupNorm
     n = re.sub(r"\.norm\.scale$", ".norm.weight", n)

@@ -57,11 +57,12 @@ def _iou_matrix(det: np.ndarray, gt: np.ndarray) -> np.ndarray:
 
 
 def _match_image(det_boxes, det_scores, gt_boxes, gt_ignore, iou_thrs,
-                 max_det):
-    """Greedy matching of one image's top ``max_det`` detections: (tp (T,
-    D), ignored (T, D), their scores (D,))."""
+                 max_det, iou_fn=_iou_matrix):
+    """Greedy matching of one image's top ``max_det`` detections on
+    ``iou_fn``'s (D, G) IoU: (tp (T, D), ignored (T, D), their scores
+    (D,))."""
     order = np.argsort(-det_scores, kind="stable")[:max_det]
-    ious = _iou_matrix(det_boxes[order], gt_boxes)
+    ious = iou_fn(det_boxes[order], gt_boxes)
     tp, ign = _match_from_ious(ious, gt_ignore, iou_thrs)
     return tp, ign, det_scores[order]
 
@@ -114,10 +115,6 @@ def _average_precision(tp, ign, scores, npos):
         p[valid] = prec[idx[valid]]
         aps[t] = p.mean()
     return aps
-
-
-def _box_areas(boxes: np.ndarray) -> np.ndarray:
-    return (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
 
 
 # COCO's person-keypoint sigmas (pycocotools cocoeval.py kpt_oks_sigmas)
@@ -288,8 +285,18 @@ class COCODetectionEvaluator:
                 for img, d in per.items():
                     self._dense[int(c)][img].extend(d)
 
+    # the box geometry: XYXY here, (cx, cy, w, h, angle) in the rotated
+    # evaluator (``rotated_coco_eval.py``)
+    _box_dim = 4
+    _iou_fn = staticmethod(_iou_matrix)
+
+    @staticmethod
+    def _box_areas(boxes: np.ndarray) -> np.ndarray:
+        return (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+
     def evaluate(self) -> Dict[str, Dict[str, float]]:
         per_class_ap = {}     # area -> (C, T)
+        bd = self._box_dim
         for area_name, (lo, hi) in AREA_RANGES.items():
             ap_list = []
             for cls_id, _ in enumerate(self._class_names):
@@ -298,8 +305,8 @@ class COCODetectionEvaluator:
                 for image_id, annos in self._gt.items():
                     gt = [a for a in annos if a["category_id"] == cls_id]
                     gt_boxes = np.array([a["bbox"] for a in gt],
-                                        dtype=np.float64).reshape(-1, 4)
-                    areas = _box_areas(gt_boxes)
+                                        dtype=np.float64).reshape(-1, bd)
+                    areas = self._box_areas(gt_boxes)
                     gt_ignore = np.array(
                         [bool(a.get("difficult", 0)) for a in gt],
                         dtype=bool) | (areas < lo) | (areas >= hi)
@@ -307,10 +314,11 @@ class COCODetectionEvaluator:
                     d = self._dets[cls_id].get(image_id, [])
                     if not d and len(gt) == 0:
                         continue
-                    d = np.array(d, dtype=np.float64).reshape(-1, 5)
+                    d = np.array(d, dtype=np.float64).reshape(-1, 1 + bd)
                     tp, ign, s = _match_image(d[:, 1:], d[:, 0], gt_boxes,
-                                              gt_ignore, IOU_THRS, MAX_DETS)
-                    d_areas = _box_areas(d[:, 1:])
+                                              gt_ignore, IOU_THRS, MAX_DETS,
+                                              self._iou_fn)
+                    d_areas = self._box_areas(d[:, 1:])
                     oob = ((d_areas < lo) | (d_areas >= hi))[
                         np.argsort(-d[:, 0], kind="stable")[:MAX_DETS]]
                     ign = ign | (oob[None, :] & ~tp)

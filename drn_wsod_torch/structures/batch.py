@@ -1,5 +1,5 @@
-"""Fixed-shape batch container (counterpart of
-``drn_wsod_tpu/structures/batch.py:WSODBatch``)."""
+"""Fixed-shape batch and detection containers (counterparts of
+``drn_wsod_tpu/structures/batch.py:WSODBatch`` and ``Detections``)."""
 
 from __future__ import annotations
 
@@ -66,3 +66,24 @@ class WSODBatch:
 
     def replace(self, **changes) -> "WSODBatch":
         return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass
+class Detections:
+    """Fixed-size detections of a batch, padded slots with score -1.
+
+    Attributes:
+      boxes: (B, D, 4) float32 XYXY.
+      scores: (B, D) float32.
+      classes: (B, D) int32.
+      valid: (B, D) bool.
+      all_scores: optional (B, P, C + 1) proposal-by-class scores, for TTA.
+      all_boxes: optional (B, P, 4) or (B, P, C * 4) boxes, for TTA.
+    """
+
+    boxes: torch.Tensor
+    scores: torch.Tensor
+    classes: torch.Tensor
+    valid: torch.Tensor
+    all_scores: Optional[torch.Tensor] = None
+    all_boxes: Optional[torch.Tensor] = None

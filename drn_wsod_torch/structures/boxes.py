@@ -74,19 +74,60 @@ def clip(boxes: torch.Tensor, image_size) -> torch.Tensor:
                         c(boxes[..., 2], w), c(boxes[..., 3], h)], dim=-1)
 
 
+def nonempty(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
+    """Mask of the (..., 4) boxes whose both sides exceed ``threshold``."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    return (w > threshold) & (h > threshold)
+
+
+def pairwise_intersection(boxes1: torch.Tensor,
+                          boxes2: torch.Tensor) -> torch.Tensor:
+    """Intersection areas of all pairs: (..., N, 4), (..., M, 4) ->
+    (..., N, M)."""
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    return wh[..., 0] * wh[..., 1]
+
+
 def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """IoU between all pairs: (..., N, 4), (..., M, 4) -> (..., N, M).
     Leading dimensions broadcast (the JAX function is 2-D and vmapped).
     Degenerate boxes give IoU 0."""
-    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
-    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
-    wh = (rb - lt).clamp(min=0)
-    inter = wh[..., 0] * wh[..., 1]
+    inter = pairwise_intersection(boxes1, boxes2)
     a1 = area(boxes1)[..., :, None]
     a2 = area(boxes2)[..., None, :]
     union = a1 + a2 - inter
     iou = inter / union.clamp(min=1e-12)
     return torch.where(union > 0, iou, torch.zeros_like(iou))
+
+
+def pairwise_iou_wsl(boxes1: torch.Tensor,
+                     boxes2: torch.Tensor) -> torch.Tensor:
+    """The WSL head's signed IoU, (..., N, 4), (..., M, 4) -> (..., N, M):
+    the IoU, except that a pair where one box holds the other gets the
+    intersection over the smaller area, and a disjoint pair the negative
+    share of the enclosing box that the union leaves empty."""
+    inter = pairwise_intersection(boxes1, boxes2)
+    a1 = area(boxes1)[..., :, None]
+    a2 = area(boxes2)[..., None, :]
+    union = a1 + a2 - inter
+    iou = torch.where(union > 0, inter / union.clamp(min=1e-12), 0.0)
+
+    inside = (inter == a1) | (inter == a2)
+    iou_inner = inter / torch.minimum(a1, a2).clamp(min=1e-12)
+
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    enclosing = wh[..., 0] * wh[..., 1]
+    iou_outer = torch.where(
+        enclosing > 0, -(enclosing - union) / enclosing.clamp(min=1e-12),
+        0.0)
+
+    out = torch.where(inside, iou_inner, iou)
+    return torch.where(inter > 0, out, iou_outer)
 
 
 def get_deltas(src_boxes: torch.Tensor, target_boxes: torch.Tensor,

@@ -16,16 +16,18 @@ PQ (``do_dense_test``).
 loaded); ``--eval-only`` evaluates without training. VOC lives under
 ``$DETECTRON2_DATASETS`` (default ``datasets``) as
 ``VOC2007/{Annotations,ImageSets/Main,JPEGImages}``, COCO as
-``coco/{train2014,val2014,annotations}`` (and 2017), the web and VOC-SBD
-sets as COCO-format json where present; a dataset packed with
+``coco/{train2014,val2014,annotations}`` (and 2017), LVIS v1 as
+``lvis/lvis_v1_{train,val}.json`` over the images in ``coco/``, the web
+and VOC-SBD sets as COCO-format json where present; a dataset packed with
 ``drn_wsod_torch.tools.pack_dataset`` registers in ``DatasetCatalog``
 under a name of its own. Runs on the CUDA device. The CSC heads train
 with the CSC step while ``iter <= WSL.CSC_MAX_ITER`` and the plain step
 after it (WSJDS among them). ``NORM`` BN/SyncBN or
-``TEST.PRECISE_BN.ENABLED`` adds the PreciseBN hook. LVIS, the rotated
-COCO and the Cityscapes evaluators come with ROADMAP.md queue 1, item
-15c, pseudo-GT visualisation with item 17, several processes with item
-16.
+``TEST.PRECISE_BN.ENABLED`` adds the PreciseBN hook. LVIS under
+``lvis/``, Cityscapes where the caller registers it
+(``data.datasets.register_all_cityscapes``), each into its own evaluator.
+Pseudo-GT visualisation comes with ROADMAP.md queue 1, item 17, several
+processes with item 16.
 """
 
 from __future__ import annotations
@@ -48,8 +50,11 @@ from ..engine import (CommonMetricPrinter, EvalHook, IterationTimer,
                       create_train_state)
 from ..engine import trainer as trainer_lib
 from ..engine.defaults import default_argument_parser, default_setup
-from ..evaluation import (COCODetectionEvaluator, PanopticQualityEvaluator,
-                          PascalVOCDetectionEvaluator, SemSegEvaluator,
+from ..evaluation import (COCODetectionEvaluator, CityscapesInstanceEvaluator,
+                          CityscapesSemSegEvaluator, LVISDetectionEvaluator,
+                          PanopticQualityEvaluator,
+                          PascalVOCDetectionEvaluator,
+                          RotatedCOCODetectionEvaluator, SemSegEvaluator,
                           gather_and_evaluate, inference_on_dataset,
                           make_detect_fn, make_sem_seg_fn,
                           panoptic_inference_on_dataset,
@@ -82,13 +87,16 @@ def setup(args):
 
 
 def build_evaluator(cfg, dataset_name: str, records):
-    """The dataset's evaluator: Pascal VOC's AP and CorLoc, COCO's AP
-    (the "coco" and "coco_panoptic_seg" types, and "cityscapes_instance"
-    without masks): box AP, with "segm" under ``MASK_ON`` and "keypoints"
-    under ``KEYPOINT_ON``; or mIoU ("sem_seg") over the metadata's
-    ``stuff_classes`` (else ``thing_classes``). Cityscapes' own
-    instance-mask AP (under ``MASK_ON``) and semantic evaluator, LVIS and
-    the rotated COCO evaluator are item 15c."""
+    """The dataset's evaluator, by its metadata's ``evaluator_type``:
+    Pascal VOC's AP and CorLoc; Cityscapes' instance-mask AP
+    ("cityscapes_instance" under ``MASK_ON``); COCO's AP (the "coco" and
+    "coco_panoptic_seg" types, and "cityscapes_instance" without masks):
+    box AP, with "segm" under ``MASK_ON`` and "keypoints" under
+    ``KEYPOINT_ON``; rotated box AP ("rotated_coco"); Cityscapes' 19-class
+    pixel IoU over raw labelIds ("cityscapes_sem_seg"); mIoU ("sem_seg")
+    over the metadata's ``stuff_classes`` (else ``thing_classes``); or
+    LVIS's federated AP ("lvis"), each image's negative and
+    not-exhaustive classes taken from its record."""
     meta = MetadataCatalog.get(dataset_name)
     etype = meta.get("evaluator_type", "pascal_voc")
     gt_by_image = {str(r["image_id"]): r.get("annotations", [])
@@ -97,10 +105,7 @@ def build_evaluator(cfg, dataset_name: str, records):
         return PascalVOCDetectionEvaluator(
             meta.thing_classes, gt_by_image, year=meta.get("year", 2007))
     if etype == "cityscapes_instance" and cfg.MODEL.MASK_ON:
-        raise NotImplementedError(
-            "evaluator type 'cityscapes_instance' with MASK_ON: the "
-            "Cityscapes instance-mask evaluator is not ported yet: "
-            "ROADMAP.md queue 1, item 15c (remaining evaluators)")
+        return CityscapesInstanceEvaluator(meta.thing_classes, gt_by_image)
     if etype in ("coco", "coco_panoptic_seg", "cityscapes_instance"):
         tasks = ["bbox"]
         if cfg.MODEL.MASK_ON:
@@ -109,13 +114,24 @@ def build_evaluator(cfg, dataset_name: str, records):
             tasks.append("keypoints")
         return COCODetectionEvaluator(meta.thing_classes, gt_by_image,
                                       tasks=tuple(tasks))
+    if etype == "rotated_coco":
+        return RotatedCOCODetectionEvaluator(meta.thing_classes, gt_by_image)
+    if etype == "cityscapes_sem_seg":
+        return CityscapesSemSegEvaluator()
     if etype == "sem_seg":
         return SemSegEvaluator(
             meta.get("stuff_classes") or meta.thing_classes,
             ignore_label=meta.get("ignore_label", 255))
-    raise NotImplementedError(
-        f"evaluator type {etype!r} is not ported yet: ROADMAP.md queue 1, "
-        "item 15c (remaining evaluators)")
+    if etype == "lvis":
+        info = {str(r["image_id"]): {
+            "neg_category_ids": r.get("neg_category_ids", []),
+            "not_exhaustive_category_ids":
+                r.get("not_exhaustive_category_ids", [])}
+            for r in records}
+        return LVISDetectionEvaluator(
+            meta.thing_classes, gt_by_image, info,
+            frequencies=meta.get("thing_frequencies"))
+    raise NotImplementedError(f"evaluator type {etype!r}")
 
 
 def do_test(cfg, model, eval_train: bool = False,
@@ -192,8 +208,8 @@ def _detect_fn(cfg, model, device):
 def do_dense_test(cfg, model, name: str, mapper, records, etype: str,
                   proposal_file=None, device=None) -> Dict:
     """A dense dataset's evaluation through the test loader, without TTA:
-    mIoU of ``make_sem_seg_fn``'s maps for "sem_seg" (and
-    "cityscapes_sem_seg", whose evaluator is item 15c); otherwise the
+    mIoU of ``make_sem_seg_fn``'s maps for "sem_seg" and
+    "cityscapes_sem_seg"; otherwise the
     instance AP of ``make_detect_fn`` (masks under ``MASK_ON``) and, where
     the records carry panoptic PNGs, PQ over the fused output in the
     space of n_thing + n_stuff - 1 categories (n_stuff counts the "thing"
@@ -335,7 +351,7 @@ def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
 
 
 def main(args, device=None):
-    """Register VOC, COCO, the web and the VOC-SBD sets under
+    """Register VOC, COCO, LVIS, the web and the VOC-SBD sets under
     ``$DETECTRON2_DATASETS``, build the model on
     ``device`` (CUDA unless the caller names another one), then train and
     evaluate, or, with ``--eval-only``, load the weights (the latest

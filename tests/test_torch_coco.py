@@ -180,7 +180,10 @@ def test_registrations_match_jax(tmp_path, clean_catalogs, with_json):
 
 def test_register_all_is_the_jax_cli_set(tmp_path, clean_catalogs):
     """``datasets.register_all`` registers what the JAX CLI's ``main``
-    does, LVIS left out."""
+    does, LVIS included; Cityscapes, which that ``main`` does not
+    register, is left out here too."""
+    from drn_wsod_tpu.data.datasets.cityscapes import \
+        register_all_cityscapes
     from drn_wsod_tpu.data.datasets.lvis import register_all_lvis
     from drn_wsod_tpu.data.datasets.voc import register_all_pascal_voc
 
@@ -189,12 +192,14 @@ def test_register_all_is_the_jax_cli_set(tmp_path, clean_catalogs):
     def jax_cli(root):
         register_all_pascal_voc(root)
         jcoco.register_all_coco(root)
+        register_all_lvis(root)
         jweb.register_all_web(root)
         jweb.register_all_voc_sbd(root)
     want = _registered(jdata, jax_cli, tmp_path)
     assert got == want
-    lvis = _registered(jdata, register_all_lvis, tmp_path)
-    assert lvis and not set(lvis) & set(got)
+    assert {"lvis_v1_train", "lvis_v1_val"} <= set(got)
+    cityscapes = _registered(jdata, register_all_cityscapes, tmp_path)
+    assert cityscapes and not set(cityscapes) & set(got)
 
 
 def test_voc_colormap_matches_jax():

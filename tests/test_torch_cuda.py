@@ -1583,3 +1583,111 @@ def test_toy_dense_steps_on_cuda_match_cpu(cuda, case):
             assert np.isfinite(want[k])
             np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6,
                                        err_msg=k)
+
+
+def _rotated(rs, n, hi=120.0):
+    return torch.from_numpy(np.stack([
+        rs.uniform(0, hi, n), rs.uniform(0, hi, n), rs.uniform(4, 50, n),
+        rs.uniform(4, 50, n), rs.uniform(-180, 180, n)], -1).astype(
+            np.float32))
+
+
+def test_rotated_iou_on_cuda_matches_cpu(cuda):
+    """Within 1e-6 (the two devices' ``cos`` and ``atan2`` may round
+    apart); a chunk size changes nothing on the card."""
+    from drn_wsod_torch.structures import rotated_boxes as rb
+
+    rs = np.random.RandomState(0)
+    a, b = _rotated(rs, 64), _rotated(rs, 48)
+    want = rb.pairwise_iou_rotated(a, b)
+    got = rb.pairwise_iou_rotated(a.to(cuda), b.to(cuda))
+    assert (want > 0).sum() > 20
+    assert (got.cpu() - want).abs().max().item() <= 1e-6
+    assert torch.equal(rb.pairwise_iou_rotated(a.to(cuda), b.to(cuda),
+                                               chunk=97), got)
+
+
+def test_roi_align_rotated_on_cuda_matches_cpu(cuda):
+    """float32 within 1e-5; bfloat16 within one bf16 ulp."""
+    from drn_wsod_torch.ops.roi_align_rotated import roi_align_rotated
+
+    rs = np.random.RandomState(1)
+    feat = torch.from_numpy(rs.randn(24, 20, 16).astype(np.float32))
+    rois = _rotated(rs, 70, hi=90.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        want = roi_align_rotated(feat.to(dtype), rois, 0.25, 7, 2,
+                                 chunk=32).float()
+        got = roi_align_rotated(feat.to(dtype).to(cuda), rois.to(cuda),
+                                0.25, 7, 2, chunk=32).float().cpu()
+        diff = (got - want).abs()
+        if dtype == torch.float32:
+            assert diff.max().item() <= 1e-5
+        else:
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.abs().clamp(min=1e-30))) - 7)
+            assert bool((diff <= ulp).all())
+
+
+def _clear(iou, valid, ties):
+    iou = iou[valid]
+    ok = not bool(((iou[..., None] - torch.tensor([0.3, 0.7],
+                                                  dtype=iou.dtype)).abs()
+                   < 1e-4).any())
+    if ties:
+        top2 = iou.topk(2, dim=1).values
+        ok &= bool((top2[:, 0] - top2[:, 1] > 1e-4).all())
+    return ok
+
+
+@pytest.mark.parametrize("rotated", [False, True], ids=["rpn", "rrpn"])
+def test_rpn_losses_on_cuda_match_cpu(cuda, rotated):
+    """``rpn_losses`` / ``rrpn_losses`` on the card against the CPU on the
+    same float32 inputs and keys: the sampled anchors equal, the losses
+    within rtol 1e-5. The GT keeps every IoU 1e-4 from the thresholds and
+    each GT's best anchor 1e-4 above its second (RRPN's low-quality
+    match), so float32 rounding decides no label; the rotated anchors turn
+    by (-60, 0, 60), which gives no anchor a geometric twin."""
+    from drn_wsod_torch.models import proposal_generator as pg
+    from drn_wsod_torch.structures import boxes as box_ops
+    from drn_wsod_torch.structures import rotated_boxes as rb
+
+    rs = np.random.RandomState(2)
+    if rotated:
+        anchors = pg.generate_rotated_anchors((16, 16), 8, (16.0,),
+                                              (0.5, 1.0, 2.0),
+                                              (-60.0, 0.0, 60.0))
+    else:
+        anchors = pg.generate_anchors((16, 16), 8, (16.0, 32.0),
+                                      (0.5, 1.0, 2.0))
+    valid = torch.tensor([True, True, True, False])
+    while True:
+        if rotated:
+            gt = torch.from_numpy(np.stack([
+                rs.uniform(16, 112, 4), rs.uniform(16, 112, 4),
+                rs.uniform(10, 30, 4), rs.uniform(10, 30, 4),
+                rs.uniform(-20, 20, 4)], 1).astype(np.float32))
+            iou = rb.pairwise_iou_rotated(gt.double(), anchors.double())
+        else:
+            xy = rs.uniform(0, 100, (4, 2))
+            gt = torch.from_numpy(np.concatenate(
+                [xy, xy + rs.uniform(10, 40, (4, 2))], 1).astype(np.float32))
+            iou = box_ops.pairwise_iou(gt.double(), anchors.double())
+        if _clear(iou, valid, rotated) and (rotated or bool(
+                (iou[valid] >= 0.7).any())):
+            break
+    n, d = anchors.shape
+    logits = torch.from_numpy(rs.randn(n).astype(np.float32))
+    deltas = torch.from_numpy((rs.randn(n, d) * 0.2).astype(np.float32))
+    keys = tuple(torch.from_numpy(rs.uniform(0, 1, n).astype(np.float32))
+                 for _ in range(2))
+    fn = pg.rrpn_losses if rotated else pg.rpn_losses
+    want = fn(anchors, logits, deltas, gt, valid, keys, batch_size=64,
+              return_sampled=True)
+    got = fn(anchors.to(cuda), logits.to(cuda), deltas.to(cuda), gt.to(cuda),
+             valid.to(cuda), tuple(k.to(cuda) for k in keys), batch_size=64,
+             return_sampled=True)
+    for g, w in zip(got[2], want[2]):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[2][2].sum()) > 0
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.item(), w.item(), rtol=1e-5)

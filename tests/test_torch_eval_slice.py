@@ -277,14 +277,15 @@ def test_cli_refuses_what_is_not_ported():
     """Training and the test loader are ported (``tests/
     test_torch_train_net.py``), the WSJDS train step too (``tests/
     test_torch_wsjds_train_net.py``), trainable BatchNorm and the COCO box
-    evaluator too (``tests/test_torch_coco_train_net.py``); LVIS, the
-    rotated COCO evaluator and Cityscapes' instance masks and semantic
-    evaluator are not (item 15c). COCO's mask and keypoint AP raised item
-    14 here until they were ported: ``MASK_ON`` and ``KEYPOINT_ON`` now
-    add the "segm" and "keypoints" tasks. The "sem_seg" type raised item
-    15 until it was ported: it now builds a ``SemSegEvaluator`` over the
-    metadata's ``stuff_classes`` and ``ignore_label``, as the JAX CLI's
-    does."""
+    evaluator too (``tests/test_torch_coco_train_net.py``). COCO's mask
+    and keypoint AP raised item 14 here until they were ported:
+    ``MASK_ON`` and ``KEYPOINT_ON`` now add the "segm" and "keypoints"
+    tasks. The "sem_seg" type raised item 15 until it was ported: it now
+    builds a ``SemSegEvaluator`` over the metadata's ``stuff_classes`` and
+    ``ignore_label``, as the JAX CLI's does. LVIS, the rotated COCO
+    evaluator and Cityscapes' instance masks and semantic evaluator raised
+    here until they were ported: each now builds its evaluator, as the
+    JAX CLI's does; an unknown type still raises."""
     _, pc = cfg_pair(*TOY, "MODEL.RESNETS.NORM", "BN")
     meta = pdata.MetadataCatalog.get("torch_eval_slice_coco")
     meta.set(evaluator_type="coco", thing_classes=["a", "b"])
@@ -299,14 +300,27 @@ def test_cli_refuses_what_is_not_ported():
     assert ev._tasks == ("bbox", "segm", "keypoints")
     meta = pdata.MetadataCatalog.get("torch_eval_slice_cityscapes")
     meta.set(evaluator_type="cityscapes_instance", thing_classes=["a"])
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        train_net.build_evaluator(mask_on, "torch_eval_slice_cityscapes",
-                                  [])
-    for etype in ("lvis", "rotated_coco", "cityscapes_sem_seg"):
+    from drn_wsod_torch.evaluation import (CityscapesInstanceEvaluator,
+                                           CityscapesSemSegEvaluator,
+                                           LVISDetectionEvaluator,
+                                           RotatedCOCODetectionEvaluator)
+
+    assert isinstance(train_net.build_evaluator(
+        mask_on, "torch_eval_slice_cityscapes", []),
+        CityscapesInstanceEvaluator)
+    ev = train_net.build_evaluator(pc, "torch_eval_slice_cityscapes", [])
+    assert type(ev) is COCODetectionEvaluator and ev._tasks == ("bbox",)
+    for etype, kind in (("lvis", LVISDetectionEvaluator),
+                        ("rotated_coco", RotatedCOCODetectionEvaluator),
+                        ("cityscapes_sem_seg", CityscapesSemSegEvaluator)):
         meta = pdata.MetadataCatalog.get(f"torch_eval_slice_{etype}")
-        meta.set(evaluator_type=etype)
-        with pytest.raises(NotImplementedError, match="item 15c"):
-            train_net.build_evaluator(pc, f"torch_eval_slice_{etype}", [])
+        meta.set(evaluator_type=etype, thing_classes=["a"])
+        assert isinstance(train_net.build_evaluator(
+            pc, f"torch_eval_slice_{etype}", []), kind)
+    meta = pdata.MetadataCatalog.get("torch_eval_slice_unknown")
+    meta.set(evaluator_type="unknown")
+    with pytest.raises(NotImplementedError, match="unknown"):
+        train_net.build_evaluator(pc, "torch_eval_slice_unknown", [])
     from drn_wsod_torch.evaluation import SemSegEvaluator
 
     meta = pdata.MetadataCatalog.get("torch_eval_slice_sem_seg")
