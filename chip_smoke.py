@@ -273,7 +273,34 @@ Phases (any failure exits non-zero):
      labelIds (``FILTER_EMPTY_ANNOTATIONS False``), 2 steps, then
      ``CityscapesSemSegEvaluator``. Times by CUDA events, peak memory;
      K1 in (c) only.
-Every path (4-8, 10-26) is run with the kernels' launch counts set to 0
+ 27. several processes on the card ("multi_device",
+     ``drn_wsod_torch/parallel``), rank processes of this script
+     (``--ph27-rank``) joined by ``torch.distributed`` on a free
+     localhost port, each killed where it outlives PH27_TIMEOUT_S: (a)
+     NCCL at world size 1: the flagship's ``make_sharded_train_step``
+     (bf16, dropout 0.5, global B=4, 704^2, P=4096) for 3 steps bit-equal
+     to ``make_train_step`` from the same seeded init, losses and the
+     digest of every parameter and buffer; (b) two ranks sharing the card
+     over gloo (NCCL puts no two ranks on one device), ``("data",) =
+     (2,)``, B=2 each, the flagship in float32 (TF32 off, so that only
+     the order of float sums parts them): losses within rtol 1e-4 and the
+     trainable parameters within 1e-6 + 1e-4 |p| of one process's B=4
+     steps, the ranks' parameters and buffers bit-equal after every step,
+     each step's device ms, the gradient ``all_reduce``'s ms and each
+     rank's peak memory, one more step split by ``split_step``; (c)
+     ``("data", "model") = (1, 2)`` over the same ranks, the DAN split
+     (fc1 by rows of the torch weight, fc2 by columns, shapes printed),
+     held to (b)'s reference, its checkpoint (written by rank 0 alone)
+     loaded at world size 1 to the same digest; (d) ``train_net.main``
+     as two gloo ranks on ``cuda:0`` from a packed shard: 4 steps and the
+     YAML's TTA eval of 4 test records, 2 a rank, gathered to rank 0:
+     ``metrics.json`` and the checkpoint written once, rank 1's log apart
+     and its results {}, rank 0's VOC metrics and the detections it
+     evaluated equal to a one-process ``--eval-only --resume`` on the
+     checkpoint. K1 launches of the ranks and of that eval are counted, and
+     every rank of (a)-(d) holds K1 exact to its plain version on the
+     largest map it pooled in its train steps (and, in (d), its TTA).
+Every path (4-8, 10-27) is run with the kernels' launch counts set to 0
 just before it and read just after. The line before the kernels' JSON
 line names the JPEG decoder's compiler, its build seconds, the fixture
 decodes matched and the host decode times; the line before that gives the
@@ -1350,14 +1377,18 @@ def phase8_dtype_probe(tag) -> dict:
 
 def phase9_tests(tag) -> None:
     root = Path(__file__).resolve().parent
+    # NCCL across cards needs two of them: left out on one card, not skipped
+    one_card = [] if torch.cuda.device_count() > 1 else [
+        "--deselect", "tests/test_torch_cuda.py::test_nccl_across_cards"]
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q",
-         "-p", "no:cacheprovider", "tests/test_torch_cuda.py"],
+         "-p", "no:cacheprovider", "tests/test_torch_cuda.py", *one_card],
         cwd=root, capture_output=True, text=True,
         env={**os.environ, "PYTHONPATH": str(root)})
     summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    left_out = r", \d+ deselected" if one_card else ""
     if proc.returncode != 0 or not re.fullmatch(
-            r"=* *\d+ passed(, \d+ warnings?)? in .*", summary):
+            rf"=* *\d+ passed{left_out}(, \d+ warnings?)? in .*", summary):
         raise Fail(f"phase 9: tests/test_torch_cuda.py: {summary}\n"
                    f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
     print(f"phase 9: tests/test_torch_cuda.py on the card: {summary} {tag}",
@@ -1607,8 +1638,9 @@ PH11_TRAIN, PH11_TEST, PH11_PROPOSALS = 24, 4, 4500
 PH11_STEPS, PH11_RESUMED, PH11_CKPT, PH11_PREDICTS = 16, 24, 8, 4
 
 
-def entry_logger(output_dir=None, name="drn_wsod_torch"):
-    """``default_setup``'s logger, writing to OUTPUT_DIR/log.txt only."""
+def entry_logger(output_dir=None, name="drn_wsod_torch", distributed_rank=0):
+    """``default_setup``'s logger, writing to OUTPUT_DIR/log.txt only (this
+    script's own process is rank 0 of 1)."""
     import logging
 
     logging.basicConfig(
@@ -1648,9 +1680,7 @@ def ph11_dataset(root: Path, name: str, sizes, rs, start: int):
     path and {image_id: (H, W)}."""
     import pickle
 
-    from drn_wsod_torch.data import (DatasetCatalog, MetadataCatalog,
-                                     RecordDataset, pack_dataset)
-    from drn_wsod_torch.data.datasets.voc import VOC_CLASS_NAMES
+    from drn_wsod_torch.data import pack_dataset
 
     records, props = [], {"ids": [], "boxes": [], "objectness_logits": [],
                           "bbox_mode": 0}
@@ -1667,14 +1697,25 @@ def ph11_dataset(root: Path, name: str, sizes, rs, start: int):
     prop_file = root / f"{name}_proposals.pkl"
     with open(prop_file, "wb") as f:
         pickle.dump(props, f)
+    register_shard(name, shard)
+    return str(prop_file), {r["image_id"]: (r["height"], r["width"])
+                            for r in records}
+
+
+def register_shard(name: str, shard: Path) -> None:
+    """Register a packed VOC-like shard in the port's ``DatasetCatalog``
+    with VOC metadata (the rank processes of phase 27 register the parent's
+    shards again)."""
+    from drn_wsod_torch.data import (DatasetCatalog, MetadataCatalog,
+                                     RecordDataset)
+    from drn_wsod_torch.data.datasets.voc import VOC_CLASS_NAMES
+
     if name in DatasetCatalog:
         DatasetCatalog.remove(name)
     DatasetCatalog.register(name, lambda: list(RecordDataset(str(shard))))
     MetadataCatalog.get(name).set(thing_classes=list(VOC_CLASS_NAMES),
                                   evaluator_type="pascal_voc", year=2007,
                                   split=name)
-    return str(prop_file), {r["image_id"]: (r["height"], r["width"])
-                            for r in records}
 
 
 def phase11_train_entry(dev, tag) -> dict:
@@ -2797,32 +2838,34 @@ def check_detections(phase: int, run: dict, n_eval: int) -> None:
                    f"evaluated, want {n_eval}")
 
 
-def k1_capture(captured: dict):
+def k1_capture(captured: dict, evaluated: dict | None = None):
     """A stand-in for ``meta_arch.roi_pool_batched`` that keeps the inputs
-    of the largest map a train step (autograd on) gives K1."""
+    of the largest map a train step (autograd on) gives K1, and into
+    ``evaluated``, where given, those of the largest map the evaluation
+    (autograd off) gives it."""
     from drn_wsod_torch.models import meta_arch
 
     pool = meta_arch.roi_pool_batched
 
     def capture(feats, boxes, spatial_scale, R, roi_scale):
-        if torch.is_grad_enabled() and \
-                feats.shape[1] * feats.shape[2] > captured.get("cells", 0):
-            captured.update(cells=feats.shape[1] * feats.shape[2],
-                            feats=feats.clone(), boxes=boxes.clone(),
-                            scale=roi_scale.clone(),
-                            spatial_scale=spatial_scale)
+        into = captured if torch.is_grad_enabled() else evaluated
+        if into is not None and \
+                feats.shape[1] * feats.shape[2] > into.get("cells", 0):
+            into.update(cells=feats.shape[1] * feats.shape[2],
+                        feats=feats.clone(), boxes=boxes.clone(),
+                        scale=roi_scale.clone(), spatial_scale=spatial_scale)
         return pool(feats, boxes, spatial_scale, R, roi_scale)
 
     return meta_arch, "roi_pool_batched", capture
 
 
-def k1_exact(phase: int, captured: dict) -> dict:
+def k1_exact(phase: int, captured: dict, what: str = "train step") -> dict:
     """K1 against its plain version on the captured inputs (max |diff| 0),
     with its queued time, the plain version's and the bound."""
     from drn_wsod_torch.ops import roi_pool as rp
 
     if "feats" not in captured:
-        raise Fail(f"phase {phase}: no K1 call captured in a train step")
+        raise Fail(f"phase {phase}: no K1 call captured in a {what}")
     feats, boxes, scale, ss = (captured[k] for k in (
         "feats", "boxes", "scale", "spatial_scale"))
 
@@ -2834,8 +2877,9 @@ def k1_exact(phase: int, captured: dict) -> dict:
 
     out = k1()
     torch.cuda.synchronize()
-    err = exact(f"roi_pool at the train step's {tuple(feats.shape)} map "
-                f"(spatial scale {ss})", out, plain(), phase=phase)
+    err = exact(f"roi_pool at the {what}'s {tuple(feats.shape)} "
+                f"{str(feats.dtype)[6:]} map (spatial scale {ss})", out,
+                plain(), phase=phase)
     rec = dict(err=err, map=tuple(feats.shape), boxes=tuple(boxes.shape),
                spatial_scale=ss, ms=queued_ms(k1, 10), plain_ms=cuda_ms(
                    plain, 2))
@@ -6077,6 +6121,500 @@ def phase26_rotated_lvis_cityscapes(dev, tag) -> dict:
             for k in launches["lvis"]}
 
 
+# ---------------------------------------------------------------- phase 27
+PH27_STEPS, PH27_B = 3, 4
+PH27_TRAIN, PH27_TEST, PH27_MAIN_STEPS = 8, 4, 4
+PH27_TIMEOUT_S = 600
+# (b) and (c) against one process: float32 (TF32 off), where a step of the
+# ranks and one of one process differ by the order of float sums only
+PH27_LOSS_RTOL, PH27_PARAM_ATOL, PH27_PARAM_RTOL = 1e-4, 1e-6, 1e-4
+_PH27_REF = {}      # rank 0's one-process reference, across its cases
+
+
+def state_digest(sd: dict) -> str:
+    """sha256 of every tensor's bytes, by name (bit-equality across
+    processes)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        h.update(k.encode())
+        h.update(sd[k].detach().contiguous().view(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ph27_spawn(work: Path, world: int, payload: dict, tag: str) -> list:
+    """``world`` rank processes of this script (``--ph27-rank``), all on
+    card 0: each joins a ``payload["backend"]`` group on a free localhost port (from torchrun's
+    environment variables), runs the payload's cases and writes its
+    results. Every rank is killed and the phase fails where they do not
+    all end within PH27_TIMEOUT_S; returns the results in rank order."""
+    import socket
+
+    work.mkdir(parents=True, exist_ok=True)
+    torch.save(payload, work / "payload.pt")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log = open(work / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--ph27-rank",
+             str(work)], env=env, stdout=log, stderr=subprocess.STDOUT),
+            log))
+    deadline = time.perf_counter() + PH27_TIMEOUT_S
+    failed = None
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+    except subprocess.TimeoutExpired:
+        failed = f"ranks did not end within {PH27_TIMEOUT_S} s"
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    if failed is None and any(p.returncode for p, _ in procs):
+        failed = f"rank exit codes {[p.returncode for p, _ in procs]}"
+    if failed:
+        tails = "".join(f"\n--- rank {r}:\n"
+                        + (work / f"rank{r}.log").read_text()[-4000:]
+                        for r in range(world))
+        raise Fail(f"phase 27: {failed} {tag}{tails}")
+    return [torch.load(work / f"result{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def ph27_rank(workdir: str) -> int:
+    """One rank of ``ph27_spawn`` (never the driver's entry: main runs
+    without arguments)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import datetime
+
+    import torch.distributed as dist
+
+    from drn_wsod_torch.parallel import multihost
+
+    work = Path(workdir)
+    payload = torch.load(work / "payload.pt", weights_only=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", multihost.get_local_rank())
+    torch.cuda.set_device(dev)
+    # a group of one rank too (NCCL at world size 1), from the environment
+    dist.init_process_group(backend=payload["backend"], init_method="env://",
+                            timeout=datetime.timedelta(seconds=300))
+    results = {}
+    for name, case in payload["cases"].items():
+        fn = ph27_main_case if case["kind"] == "main" else ph27_steps_case
+        results[name] = fn(case, dev, work)
+        torch.cuda.empty_cache()
+    torch.save(results, work / f"result{multihost.get_rank()}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def ph27_cfg(overrides=()):
+    from drn_wsod_torch.tools import ablate_bench
+
+    return ablate_bench.flagship_cfg(overrides=list(overrides))
+
+
+def ph27_batches(cfg, dev):
+    import drn_wsod_torch
+
+    C = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    return [drn_wsod_torch.synthetic_batch(PH27_B, IMG, IMG, P, C,
+                                           seed=270 + s, device=dev)
+            for s in range(PH27_STEPS)]
+
+
+def ph27_plain_run(cfg, dev, batches):
+    """One process's plain steps on the global batches from the seeded
+    init: (metrics per step, {trainable name: tensor}, digest)."""
+    import drn_wsod_torch
+
+    model = drn_wsod_torch.build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    tx = drn_wsod_torch.build_optimizer(cfg, model)
+    state = drn_wsod_torch.create_train_state(model, tx)
+    step = drn_wsod_torch.make_train_step(model, tx)
+    metrics = []
+    for b in batches:
+        state, m = step(state, b, 0)
+        metrics.append({k: v.item() for k, v in m.items()})
+    trainable = {n: p.detach().clone() for n, p in model.named_parameters()
+                 if p.requires_grad}
+    return metrics, trainable, state_digest(model.state_dict())
+
+
+def ph27_k1(captured: dict, what: str = "train step") -> dict:
+    """``k1_exact`` in a rank: its record, or the failure's message."""
+    try:
+        return k1_exact(27, captured, what)
+    except Fail as e:
+        return {"fail": str(e)}
+
+
+def ph27_steps_case(case, dev, work: Path) -> dict:
+    """The flagship's sharded step over the case's mesh on the rank's
+    block of each global batch (B=4, 704^2, P=4096, dropout 0.5): per-step
+    device ms (CUDA events), the gradient all_reduce's ms (host clock around
+    it, synchronised, and CUDA events), peak memory, K1 launches, losses,
+    the digest of the full parameters and buffers, K1 against its plain
+    version on the rank's own pooled inputs; under the split the shards'
+    shapes and a checkpoint; on rank 0 the one-process reference (``bit``:
+    bit-equal, else within the PH27 tolerances)."""
+    import drn_wsod_torch
+    from drn_wsod_torch.checkpoint import Checkpointer
+    from drn_wsod_torch.parallel import context
+    from drn_wsod_torch.parallel import mesh as pmesh
+    from drn_wsod_torch.parallel import multihost
+    from drn_wsod_torch.parallel import train_parallel as tp
+
+    cfg = ph27_cfg(case["overrides"])
+    batches = ph27_batches(cfg, dev)
+    model = drn_wsod_torch.build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    tx = drn_wsod_torch.build_optimizer(cfg, model)
+    state = drn_wsod_torch.create_train_state(model, tx)
+    mesh = pmesh.create_mesh(case["axes"], case["shape"])
+    step = tp.make_sharded_train_step(model, tx, mesh, state=state)
+    reduce_ms = []
+    reduce = context.reduce_gradients
+
+    def timed_reduce(grads):
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        out = reduce(grads)
+        e1.record()
+        torch.cuda.synchronize()
+        reduce_ms.append(((time.perf_counter() - t0) * 1e3,
+                          e0.elapsed_time(e1)))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    metrics, step_ms, digests, captured = [], [], [], {}
+    with mock.patch.object(context, "reduce_gradients", timed_reduce), \
+            mock.patch.object(*k1_capture(captured)):
+        for b in batches:
+            local = pmesh.shard_batch(b, mesh)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            state, m = step(state, local, 0)
+            e1.record()
+            torch.cuda.synchronize()
+            step_ms.append(e0.elapsed_time(e1))
+            metrics.append({k: v.item() for k, v in m.items()})
+            digests.append(state_digest(pmesh.full_state_dict(model)))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(metrics=metrics, step_ms=step_ms, reduce_ms=reduce_ms,
+               digests=digests, peak_gib=peak / 2 ** 30, launches=launches,
+               k1=[ph27_k1(captured)],
+               rank=multihost.get_rank(), split=pmesh.split_dims(model),
+               shapes={n: tuple(p.shape) for n, p in model.named_parameters()
+                       if n.startswith("box_head.")})
+    if case.get("save"):
+        Checkpointer(str(work / case["save"])).save(state, state.step)
+        out["checkpoint_digest"] = digests[-1]
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    # copies: the split step below moves the parameters in place
+    full = {n: t.clone() for n, t in pmesh.full_state_dict(model).items()
+            if n in trainable}
+    if case.get("split_step"):
+        out["parts"] = split_step(model, tx, step, state,
+                                  pmesh.shard_batch(batches[0], mesh))
+    del model, tx, state, step
+    torch.cuda.empty_cache()
+    if case.get("reference") and multihost.get_rank() == 0:
+        key = json.dumps(case["overrides"])
+        if key not in _PH27_REF:
+            _PH27_REF[key] = ph27_plain_run(cfg, dev, batches)
+        ref_metrics, ref_params, ref_digest = _PH27_REF[key]
+        if case.get("bit"):
+            out["bit_equal"] = (metrics == ref_metrics
+                                and digests[-1] == ref_digest)
+        out["ref_metrics"] = ref_metrics
+        out["loss_rel"] = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                              for g, w in zip(metrics, ref_metrics)
+                              for k in w)
+        worst = (0.0, "", 0.0)
+        out["param_diffs"] = {}
+        for n, w in ref_params.items():
+            d = (full[n].float() - w.float()).abs()
+            over = d > PH27_PARAM_ATOL + PH27_PARAM_RTOL * w.float().abs()
+            excess = (d - PH27_PARAM_ATOL
+                      - PH27_PARAM_RTOL * w.float().abs()).max().item()
+            out["param_diffs"][n] = (d.max().item(), int(over.sum()),
+                                     d.numel())
+            if excess > worst[0] or not worst[1]:
+                worst = (excess, n, d.max().item())
+        out["param_worst"] = worst
+    return out
+
+
+def stashing_voc_evaluator():
+    """The VOC evaluator class whose ``evaluate`` keeps the detections it
+    evaluates (sorted, per class) in ``stash``."""
+    from drn_wsod_torch.evaluation import voc_eval
+
+    class Stashing(voc_eval.PascalVOCDetectionEvaluator):
+        stash = []
+
+        def evaluate(self):
+            type(self).stash.append({k: sorted(v)
+                                     for k, v in self._dets.items()})
+            return super().evaluate()
+
+    return Stashing
+
+
+def ph27_main_case(case, dev, work: Path) -> dict:
+    """``train_net.main`` on this rank (the shards registered again), the
+    detections that rank 0 evaluates kept, K1 against its plain version on
+    the largest map of the rank's train steps and of its TTA groups."""
+    from drn_wsod_torch.parallel import multihost
+    from drn_wsod_torch.tools import train_net
+
+    for name, shard in case["shards"]:
+        register_shard(name, Path(shard))
+    stashing = stashing_voc_evaluator()
+    captured, evaluated = {}, {}
+    reset_launches()
+    t = time.perf_counter()
+    with mock.patch.object(train_net, "PascalVOCDetectionEvaluator",
+                           stashing), \
+            mock.patch.object(*k1_capture(captured, evaluated)):
+        results = train_net.main(train_net.argument_parser().parse_args(
+            case["argv"]), device=dev)
+    torch.cuda.synchronize()
+    close_logging()
+    out = dict(results=results, launches=read_launches(),
+               main_s=time.perf_counter() - t, rank=multihost.get_rank(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               dets=stashing.stash)
+    out["k1"] = [ph27_k1(captured), ph27_k1(evaluated, "TTA group")]
+    return out
+
+
+def ph27_k1_exact(part: str, res: list, tag: str) -> None:
+    """Fail unless K1 equalled its plain version on every rank's captured
+    inputs; print the records."""
+    for r in res:
+        for rec in r["k1"]:
+            if "fail" in rec:
+                raise Fail(f"phase 27: ({part}) rank {r['rank']}: "
+                           f"{rec['fail']}")
+            print(f"phase 27: ({part}) rank {r['rank']}: K1 == plain "
+                  f"(max|diff| {rec['err']}) at the rank's {rec['map']} map "
+                  f"(spatial scale {rec['spatial_scale']}, boxes "
+                  f"{rec['boxes']}): kernel {rec['ms']:.4f} ms queued, plain "
+                  f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}); the ranks share the card {tag}",
+                  flush=True)
+
+
+def ph27_print_steps(what: str, res: list, tag: str) -> None:
+    for r in res:
+        ms = ", ".join(f"{v:.1f}" for v in r["step_ms"])
+        red = ", ".join(f"{h:.1f} host / {d:.1f} device"
+                        for h, d in r["reduce_ms"])
+        print(f"phase 27: {what} rank {r['rank']}: step device ms [{ms}]; "
+              f"gradient all_reduce ms [{red}]; peak {r['peak_gib']:.2f} GiB; "
+              f"K1 launches {r['launches']['roi_pool']} {tag}", flush=True)
+
+
+def phase27_multi_device(dev, tag) -> dict:
+    """Several processes on the one card (``drn_wsod_torch/parallel``):
+    (a) NCCL at world size 1, the flagship's ``make_sharded_train_step``
+    for 3 steps bit-equal to ``make_train_step``; (b) two ranks sharing
+    the card over gloo, ``("data",) = (2,)``, B=2 each, against one
+    process's B=4 step; (c) ``("data", "model") = (1, 2)``, the DAN split,
+    against the same reference, its checkpoint loaded at world size 1;
+    (d) ``train_net.main`` as two gloo ranks, 4 steps from a packed shard
+    and the TTA eval through the cross-process gather, against a
+    one-process ``--eval-only --resume``. Returns K1's launches in the
+    ranks."""
+    import shutil
+
+    import drn_wsod_torch
+    from drn_wsod_torch.checkpoint import Checkpointer
+
+    t_phase = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_ph27"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    bf16 = ("MODEL.ROI_BOX_HEAD.DROPOUT", "0.5")
+    f32 = bf16 + ("MODEL.DTYPE", "float32")
+    launches = {}
+
+    # (a) NCCL at world size 1
+    t = time.perf_counter()
+    (a,) = ph27_spawn(work / "a", 1, {"backend": "nccl", "cases": {"a": {
+        "kind": "steps", "overrides": bf16, "axes": ("data",),
+        "shape": (1,), "reference": True, "bit": True}}}, tag)
+    a = a["a"]
+    launches["a"] = a["launches"]["roi_pool"]
+    if not a["bit_equal"] or a["launches"]["roi_pool"] != PH27_STEPS:
+        raise Fail(f"phase 27: (a) NCCL world 1 bit-equal "
+                   f"{a['bit_equal']}, K1 launches {a['launches']}: "
+                   f"{a['metrics']} vs {a['ref_metrics']}")
+    print(f"phase 27: (a) NCCL at world size 1, flagship (bf16, dropout "
+          f"0.5, B={PH27_B}, {IMG}^2, P={P}): {PH27_STEPS} sharded steps "
+          f"bit-equal to make_train_step (losses and the digest of every "
+          f"parameter and buffer); last step {json.dumps(a['metrics'][-1])}"
+          f"; {time.perf_counter() - t:.1f} s {tag}", flush=True)
+    ph27_print_steps("(a)", [a], tag)
+    ph27_k1_exact("a", [a], tag)
+
+    # (b) and (c): two gloo ranks on the card, float32
+    t = time.perf_counter()
+    bc = ph27_spawn(work / "bc", 2, {"backend": "gloo", "cases": {
+        "b": {"kind": "steps", "overrides": f32, "axes": ("data",),
+              "shape": (2,), "reference": True, "split_step": True},
+        "c": {"kind": "steps", "overrides": f32, "axes": ("data", "model"),
+              "shape": (1, 2), "reference": True, "save": "ckpt_split"}}},
+        tag)
+    for part in ("b", "c"):
+        r0, r1 = bc[0][part], bc[1][part]
+        ph27_k1_exact(part, [r0, r1], tag)
+        if r0["digests"] != r1["digests"]:
+            raise Fail(f"phase 27: ({part}) ranks' parameters and buffers "
+                       "differ after a step")
+        excess, name, dmax = r0["param_worst"]
+        if r0["loss_rel"] > PH27_LOSS_RTOL or excess > 0:
+            raise Fail(f"phase 27: ({part}) against one process: loss rel "
+                       f"{r0['loss_rel']:.3g} (tol {PH27_LOSS_RTOL}), "
+                       f"{name} max |diff| {dmax:.3g} (tol "
+                       f"{PH27_PARAM_ATOL} + {PH27_PARAM_RTOL} |p|); per "
+                       f"parameter (max |diff|, elements over, of): "
+                       f"{r0['param_diffs']}; metrics {r0['metrics']} vs "
+                       f"{r0['ref_metrics']}")
+        launches[part] = r0["launches"]["roi_pool"] + \
+            r1["launches"]["roi_pool"]
+        if r0["launches"]["roi_pool"] != PH27_STEPS or \
+                r1["launches"]["roi_pool"] != PH27_STEPS:
+            raise Fail(f"phase 27: ({part}) K1 launches "
+                       f"{r0['launches']} {r1['launches']}")
+    b0, c0, c1 = bc[0]["b"], bc[0]["c"], bc[1]["c"]
+    print(f"phase 27: (b) two gloo ranks on one card, (\"data\",) = (2,), "
+          f"B=2 each, float32 (TF32 off), dropout 0.5: against one process "
+          f"at B={PH27_B} max loss rel diff {b0['loss_rel']:.3g} (tol "
+          f"{PH27_LOSS_RTOL}), worst parameter {b0['param_worst'][1]} max "
+          f"|diff| {b0['param_worst'][2]:.3g} (tol {PH27_PARAM_ATOL} + "
+          f"{PH27_PARAM_RTOL} |p|); parameters and buffers bit-equal across "
+          f"the ranks after every step {tag}", flush=True)
+    ph27_print_steps("(b)", [bc[0]["b"], bc[1]["b"]], tag)
+    print("phase 27: (b) gloo stages each all_reduce through host memory: "
+          "its ms are no yardstick for NCCL across cards, which is not run "
+          "here (one card)", flush=True)
+    print_split("phase 27 (b) rank 0", "steps", [b0["parts"]], tag)
+    fc = {k: v for k, v in c0["shapes"].items() if k in c0["split"]}
+    if set(c0["split"]) != {"box_head.fc1.weight", "box_head.fc1.bias",
+                            "box_head.fc2.weight"} or \
+            c0["shapes"]["box_head.fc1.weight"][0] * 2 != 2048:
+        raise Fail(f"phase 27: (c) split {c0['split']} shapes {fc}")
+    cfg = ph27_cfg(f32)
+    model = drn_wsod_torch.build_model(cfg, device=dev)
+    tx = drn_wsod_torch.build_optimizer(cfg, model)
+    state = Checkpointer(str(work / "bc" / "ckpt_split")).load(
+        drn_wsod_torch.create_train_state(model, tx))
+    loaded = state_digest(model.state_dict())
+    if loaded != c0["checkpoint_digest"] or state.step != PH27_STEPS:
+        raise Fail("phase 27: (c) the split's checkpoint loaded at world "
+                   "size 1 differs from the ranks' gathered state")
+    del model, tx, state
+    torch.cuda.empty_cache()
+    print(f"phase 27: (c) (\"data\", \"model\") = (1, 2), the DAN split: "
+          f"rank 0's shards {fc} (rank 1 {json.dumps({k: c1['shapes'][k] for k in fc})}); "
+          f"against one process max loss rel diff {c0['loss_rel']:.3g}, "
+          f"worst parameter {c0['param_worst'][1]} max |diff| "
+          f"{c0['param_worst'][2]:.3g}; the checkpoint the split wrote "
+          f"loads at world size 1 to the same digest; "
+          f"{time.perf_counter() - t:.1f} s for (b) and (c) {tag}",
+          flush=True)
+    ph27_print_steps("(c)", [c0, c1], tag)
+
+    # (d) train_net.main as two gloo ranks
+    t = time.perf_counter()
+    yaml = Path(__file__).resolve().parent / "configs" / \
+        "PascalVOC-Detection" / "oicr_WSR_50_DC5_1x.yaml"
+    dwork, opts, hw = entry_setup("ph27", 27, n_train=PH27_TRAIN,
+                                  n_test=PH27_TEST)
+    out_dir = dwork / "output"
+    opts += ["SOLVER.MAX_ITER", str(PH27_MAIN_STEPS),
+             "SOLVER.CHECKPOINT_PERIOD", str(PH27_MAIN_STEPS),
+             "TEST.EVAL_TRAIN", "False"]
+    shards = [(n, str(dwork / f"{n}.rec")) for n in ("ph27_train",
+                                                     "ph27_test")]
+    d = ph27_spawn(work / "d", 2, {"backend": "gloo", "cases": {"d": {
+        "kind": "main", "shards": shards,
+        "argv": ["--config-file", str(yaml), *opts]}}}, tag)
+    d0, d1 = d[0]["d"], d[1]["d"]
+    ph27_k1_exact("d", [d0, d1], tag)
+    lines = [json.loads(ln) for ln in
+             (out_dir / "metrics.json").read_text().splitlines()]
+    ckpts = sorted(os.listdir(out_dir / "checkpoints"))
+    if [ln["iteration"] for ln in lines] != [PH27_MAIN_STEPS - 1,
+                                             PH27_MAIN_STEPS] or \
+            ckpts != [f"model_{PH27_MAIN_STEPS:07d}.pth"] or \
+            not (out_dir / "log.txt.rank1").exists():
+        raise Fail(f"phase 27: (d) metrics.json iterations "
+                   f"{[ln['iteration'] for ln in lines]}, checkpoints "
+                   f"{ckpts}: want rank 0's alone")
+    if d1["results"] != {"ph27_test": {}} or d1["dets"]:
+        raise Fail(f"phase 27: (d) rank 1 returned {d1['results']} and "
+                   f"evaluated {len(d1['dets'])} times")
+    from drn_wsod_torch.tools import train_net
+
+    stashing = stashing_voc_evaluator()
+    one = entry_main(27, dev, yaml, ["--eval-only", "--resume", *opts], hw,
+                     patches=((train_net, "PascalVOCDetectionEvaluator",
+                               stashing),), evaluator=stashing)
+    check_detections(27, one, PH27_TEST)
+    n_dets = sum(len(v) for v in stashing.stash[0].values())
+    if one["results"] != d0["results"] or d0["dets"] != stashing.stash \
+            or not n_dets:
+        raise Fail(f"phase 27: (d) two ranks' evaluation {d0['results']} "
+                   f"(of {sum(len(v) for v in d0['dets'][0].values())} "
+                   f"detections) != one process's {one['results']} (of "
+                   f"{n_dets})")
+    launches["d"] = d0["launches"]["roi_pool"] + d1["launches"]["roi_pool"]
+    launches["d_one_process_eval"] = one["launches"]["roi_pool"]
+    losses = [ln.get("total_loss") for ln in lines]
+    print(f"phase 27: (d) train_net.main as two gloo ranks on cuda:0 "
+          f"(flagship YAML, IMS_PER_BATCH 4 = 2 a rank, {PH27_MAIN_STEPS} "
+          f"steps from a packed shard, the YAML's TTA over the "
+          f"{PH27_TEST} test records, 2 a rank, gathered to rank 0): rank 0 "
+          f"alone wrote metrics.json (total_loss {losses}) and {ckpts}; "
+          f"rank 1 returned {d1['results']}; rank 0's VOC metrics "
+          f"{json.dumps(one['metrics'])} and the {n_dets} detections it "
+          f"gathered and evaluated equal a one-process --eval-only "
+          f"--resume's; main {d0['main_s']:.1f} s (rank 0), "
+          f"{d1['main_s']:.1f} s (rank 1), peak {d0['peak_gib']:.2f} / "
+          f"{d1['peak_gib']:.2f} GiB; K1 launches {d0['launches']['roi_pool']}"
+          f" + {d1['launches']['roi_pool']}; {time.perf_counter() - t:.1f} s "
+          f"{tag}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(dwork, ignore_errors=True)
+    print(f"phase 27: K1 launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
+    reset_launches()
+    return {**read_launches(), "roi_pool": sum(launches.values())}
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6166,6 +6704,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["rotated_lvis_cityscapes"] = phase26_rotated_lvis_cityscapes(
             dev, tag)
+        torch.cuda.empty_cache()
+        paths["multi_device"] = phase27_multi_device(dev, tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1
@@ -6191,4 +6731,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ph27-rank":
+        sys.exit(ph27_rank(sys.argv[2]))
     sys.exit(main())

@@ -7,6 +7,12 @@ directory, holding ``{"model": state_dict, "opt_state": ..., "step": n}``;
 it is written to a temporary file and renamed into place, so a reader never
 sees half a file. The JAX package saves through orbax; the port's files are
 its own format and it does not read orbax checkpoints.
+
+Over several processes every rank calls ``save`` (a split DAN is gathered
+to its full Detectron2 shapes first, collectively), rank 0 alone writes,
+and the others wait for it at a barrier; every rank reads on ``load``, and
+a split model takes its blocks of the full tensors. So a checkpoint is the
+same file whatever the mesh that wrote it, and loads on any other.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..parallel import mesh as mesh_lib
+from ..parallel import multihost
 from .torch_import import load_reference_weights
 
 logger = logging.getLogger(__name__)
@@ -66,16 +74,20 @@ class Checkpointer:
 
     def save(self, state, step: int):
         """Write ``state`` (model parameters and buffers, optimizer state,
-        ``state.step``) as the checkpoint of ``step``."""
-        path = self.path(step)
-        tmp = f"{path}.tmp{os.getpid()}"
-        torch.save({"model": state.model.state_dict(),
-                    "opt_state": state.opt_state, "step": int(state.step)},
-                   tmp)
-        os.replace(tmp, path)
-        for old in self.all_steps()[:-self._max_to_keep]:
-            os.remove(self.path(old))
-        logger.info(f"Saved checkpoint at step {step} to {self._dir}")
+        ``state.step``) as the checkpoint of ``step``: on rank 0, the
+        other ranks waiting (every rank calls this)."""
+        model_sd = mesh_lib.full_state_dict(state.model)
+        opt_state = mesh_lib.full_opt_state(state.model, state.opt_state)
+        if multihost.is_main_process():
+            path = self.path(step)
+            tmp = f"{path}.tmp{os.getpid()}"
+            torch.save({"model": model_sd, "opt_state": opt_state,
+                        "step": int(state.step)}, tmp)
+            os.replace(tmp, path)
+            for old in self.all_steps()[:-self._max_to_keep]:
+                os.remove(self.path(old))
+            logger.info(f"Saved checkpoint at step {step} to {self._dir}")
+        multihost.synchronize()
 
     def load(self, state, step: Optional[int] = None):
         """Copy the checkpoint of ``step`` (default: the latest) into
@@ -85,8 +97,10 @@ class Checkpointer:
             raise FileNotFoundError(f"No checkpoint in {self._dir}")
         saved = torch.load(self.path(step), map_location="cpu",
                            weights_only=True)
-        state.model.load_state_dict(saved["model"], strict=True)
-        state.opt_state = _load_into(state.opt_state, saved["opt_state"])
+        model_sd, opt_state = mesh_lib.shard_state_dict(
+            state.model, saved["model"], saved["opt_state"])
+        state.model.load_state_dict(model_sd, strict=True)
+        state.opt_state = _load_into(state.opt_state, opt_state)
         state.step = int(saved["step"])
         logger.info(f"Restored checkpoint step {step} from {self._dir}")
         return state

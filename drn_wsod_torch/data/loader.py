@@ -7,8 +7,14 @@ has one shape); ``EvalLoader`` is one sequential pass, its last batch
 padded. Both collate to host (CPU) tensors, never device tensors: the
 trainer's prefetch copies each batch to the device. Images stay uint8.
 
-The multi-process loader (each process decoding its slice of a global
-batch) is not ported yet (ROADMAP.md queue 1, item 16).
+Over several processes (``process_count`` > 1, by default the process
+group's size) every process runs the same index stream and plans each
+global batch's bucket from the records' metadata alone
+(``DatasetMapper.plan_bucket``), then decodes only its slice
+``b[rank::world]``: its rows of the global batch, which is rank-major (rank
+0's slice first). The eval loader takes ``records[rank::world]`` and keeps
+the whole list as ``all_records``, which the evaluator's ground truth
+needs.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import multihost
 from ..structures.batch import WSODBatch
 from .catalog import DatasetCatalog
 from .proposals import load_proposals_into_dataset
@@ -70,11 +77,17 @@ class TrainLoader:
     So the port yields the JAX loader's batches one for one.
     ``num_workers`` > 1 threads run the mapper on samples in stream order
     (numpy releases the GIL in the resize), and the samples are taken in
-    that order."""
+    that order.
+
+    ``batch_size`` is the global batch. With ``process_count`` > 1 (by
+    default the process group's size; ``process_index`` its rank) the
+    loader yields process ``process_index``'s slice of each global batch,
+    ``batch_size // process_count`` images (module docstring)."""
 
     def __init__(self, records: List[dict], mapper: Callable,
                  batch_size: int, seed: int = 0, prefetch: int = 2,
-                 num_workers: int = 0, process_count: int = 1,
+                 num_workers: int = 0, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None,
                  repeat_factors: Optional[np.ndarray] = None):
         if not records:
             raise ValueError("TrainLoader needs at least one record")
@@ -86,7 +99,10 @@ class TrainLoader:
         self._num_workers = num_workers
         self._repeat_factors = (None if repeat_factors is None
                                 else np.asarray(repeat_factors, np.float64))
-        self._world = process_count
+        self._rank = (multihost.get_rank() if process_index is None
+                      else process_index)
+        self._world = (multihost.get_world_size() if process_count is None
+                       else process_count)
         if batch_size % self._world:
             raise ValueError(f"IMS_PER_BATCH {batch_size} not divisible by "
                              f"{self._world} processes")
@@ -134,9 +150,10 @@ class TrainLoader:
 
     def _batch_iter(self):
         if self._world > 1:
-            raise NotImplementedError(
-                "the multi-process train loader is not ported yet: "
-                "ROADMAP.md queue 1, item 16 (multi-device)")
+            return self._batch_iter_multiprocess()
+        return self._batch_iter_single()
+
+    def _batch_iter_single(self):
         buffers: Dict[int, list] = {}
         for sample in self._sample_iter():
             b = buffers.setdefault(sample["_bucket"], [])
@@ -144,6 +161,46 @@ class TrainLoader:
             if len(b) == self._batch_size:
                 yield _collate(b)
                 buffers[sample["_bucket"]] = []
+
+    def _batch_iter_multiprocess(self):
+        """Buckets planned from metadata on the shared stream; only this
+        process's slice of each global batch is decoded, on
+        ``num_workers`` threads where there are more than one."""
+        local_bs = self._batch_size // self._world
+
+        def decode(item):
+            sample = self._map(*item)
+            if sample is None:
+                raise RuntimeError("the mapper dropped a sample inside a "
+                                   "global batch of several processes")
+            return sample
+
+        def slices():
+            buffers: Dict[int, list] = {}
+            for idx, seed in self._index_iter():
+                bucket = self._mapper.plan_bucket(
+                    self._records[idx], np.random.RandomState(seed))
+                b = buffers.setdefault(bucket, [])
+                b.append((idx, seed))
+                if len(b) == self._batch_size:
+                    yield b[self._rank::self._world][:local_bs]
+                    buffers[bucket] = []
+
+        if self._num_workers <= 1:
+            for local in slices():
+                yield _collate([decode(item) for item in local])
+            return
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(self._num_workers) as pool:
+            inflight = []
+            # about as many samples in flight as _sample_iter keeps
+            depth = -(-self._num_workers * 2 // local_bs)
+            for local in slices():
+                inflight.append([pool.submit(decode, item)
+                                 for item in local])
+                if len(inflight) >= depth:
+                    yield _collate([f.result() for f in inflight.pop(0)])
 
     def __iter__(self) -> Iterator[WSODBatch]:
         if self._prefetch <= 0:
@@ -155,16 +212,21 @@ class EvalLoader:
     """One sequential pass in dataset order; yields (batch, n_real). Each
     batch is padded to its largest bucket (masks with 0, label maps with
     255), and the last one filled up with copies of its last sample
-    (``n_real`` counts the real ones)."""
+    (``n_real`` counts the real ones). With ``process_count`` > 1 (by
+    default the process group's size) it runs over
+    ``records[process_index::process_count]``; ``all_records`` keeps the
+    whole list."""
 
     def __init__(self, records: List[dict], mapper: Callable,
                  batch_size: int = 1, prefetch: int = 2,
-                 process_count: int = 1):
-        if process_count > 1:
-            raise NotImplementedError(
-                "the multi-process eval loader is not ported yet: "
-                "ROADMAP.md queue 1, item 16 (multi-device)")
-        self._records = records
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
+        rank = multihost.get_rank() if process_index is None \
+            else process_index
+        world = multihost.get_world_size() if process_count is None \
+            else process_count
+        self.all_records = records
+        self._records = records[rank::world] if world > 1 else records
         self._mapper = mapper
         self._batch_size = batch_size
         self._prefetch = prefetch
@@ -254,9 +316,13 @@ def repeat_factors_from_category_frequency(records: List[dict],
          for r in records])
 
 
-def build_detection_train_loader(cfg, mapper) -> TrainLoader:
+def build_detection_train_loader(cfg, mapper,
+                                 process_index: Optional[int] = None,
+                                 process_count: Optional[int] = None
+                                 ) -> TrainLoader:
     """The train loader of ``DATASETS.TRAIN`` (with their proposal files
-    where ``MODEL.LOAD_PROPOSALS``), ``IMS_PER_BATCH`` images a batch."""
+    where ``MODEL.LOAD_PROPOSALS``), ``IMS_PER_BATCH`` images a global
+    batch, this process's slice of it (``TrainLoader``)."""
     records = get_detection_dataset_dicts(
         cfg.DATASETS.TRAIN, cfg.DATASETS.PROPOSAL_FILES_TRAIN
         if cfg.MODEL.LOAD_PROPOSALS else (),
@@ -276,16 +342,20 @@ def build_detection_train_loader(cfg, mapper) -> TrainLoader:
                        seed=max(cfg.SEED, 0),
                        prefetch=cfg.DATALOADER.PREFETCH,
                        num_workers=cfg.DATALOADER.NUM_WORKERS,
-                       repeat_factors=rf)
+                       process_index=process_index,
+                       process_count=process_count, repeat_factors=rf)
 
 
 def build_detection_test_loader(cfg, dataset_name: str, mapper,
                                 batch_size: int = 1,
-                                proposal_file: Optional[str] = None
+                                proposal_file: Optional[str] = None,
+                                process_index: Optional[int] = None,
+                                process_count: Optional[int] = None
                                 ) -> EvalLoader:
-    """The eval loader of one dataset. ``proposal_file`` overrides the
-    lookup in ``DATASETS.PROPOSAL_FILES_TEST`` (a train dataset evaluated
-    for CorLoc brings its own)."""
+    """The eval loader of one dataset, this process's shard of it
+    (``EvalLoader``). ``proposal_file`` overrides the lookup in
+    ``DATASETS.PROPOSAL_FILES_TEST`` (a train dataset evaluated for CorLoc
+    brings its own)."""
     if proposal_file is None and cfg.MODEL.LOAD_PROPOSALS:
         names = list(cfg.DATASETS.TEST)
         proposal_files = list(cfg.DATASETS.PROPOSAL_FILES_TEST)
@@ -295,4 +365,6 @@ def build_detection_test_loader(cfg, dataset_name: str, mapper,
     records = get_detection_dataset_dicts([dataset_name], pf,
                                           filter_empty=False)
     return EvalLoader(records, mapper, batch_size,
-                      prefetch=cfg.DATALOADER.PREFETCH)
+                      prefetch=cfg.DATALOADER.PREFETCH,
+                      process_index=process_index,
+                      process_count=process_count)

@@ -37,15 +37,19 @@ def default_argument_parser() -> argparse.ArgumentParser:
 
 
 def setup_logger(output_dir: Optional[str] = None,
-                 name: str = "drn_wsod_torch") -> logging.Logger:
+                 name: str = "drn_wsod_torch",
+                 distributed_rank: int = 0) -> logging.Logger:
     """INFO logging to standard output and, with ``output_dir``, to
-    ``output_dir/log.txt``."""
+    ``output_dir/log.txt``; a rank other than 0 logs to its own
+    ``log.txt.rank{r}`` only."""
     fmt = "[%(asctime)s %(name)s]: %(message)s"
-    handlers = [logging.StreamHandler(sys.stdout)]
+    handlers = ([logging.StreamHandler(sys.stdout)]
+                if distributed_rank == 0 else [])
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
-        handlers.append(logging.FileHandler(
-            os.path.join(output_dir, "log.txt")))
+        fname = "log.txt" if distributed_rank == 0 else \
+            f"log.txt.rank{distributed_rank}"
+        handlers.append(logging.FileHandler(os.path.join(output_dir, fname)))
     logging.basicConfig(level=logging.INFO, format=fmt, handlers=handlers,
                         force=True)
     return logging.getLogger(name)
@@ -83,13 +87,18 @@ def auto_scale_workers(cfg, num_workers: int):
 
 
 def default_setup(cfg, args=None) -> int:
-    """Create ``OUTPUT_DIR``, set up logging, seed numpy and torch from
-    ``SEED`` (a random seed where it is negative) and write the config to
-    ``OUTPUT_DIR/config.yaml``. Returns the seed."""
+    """Create ``OUTPUT_DIR``, set up logging (per rank over several
+    processes), seed numpy and torch from ``SEED`` (a random seed where it
+    is negative) and write the config to
+    ``OUTPUT_DIR/config.yaml`` (rank 0 alone). Returns the seed."""
+    from ..parallel import multihost
+
+    rank = multihost.get_rank()
     output_dir = cfg.OUTPUT_DIR
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
-    setup_logger(output_dir)
+    setup_logger(output_dir, distributed_rank=rank)
+    logger.info(f"Rank {rank} of {multihost.get_world_size()}")
     seed = (cfg.SEED if cfg.SEED >= 0
             else int.from_bytes(os.urandom(4), "little") & 0x7FFFFFFF)
     np.random.seed(seed)
@@ -98,7 +107,7 @@ def default_setup(cfg, args=None) -> int:
                 for i in range(torch.cuda.device_count())]
                if torch.cuda.is_available() else ["cpu"])
     logger.info(f"Seed: {seed}; devices: {devices}")
-    if output_dir:
+    if output_dir and rank == 0:
         with open(os.path.join(output_dir, "config.yaml"), "w") as f:
             f.write(cfg.dump())
     return seed

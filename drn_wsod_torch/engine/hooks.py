@@ -5,8 +5,13 @@ four-phase protocol ``before_train`` / ``before_step`` / ``after_step`` /
 ``EvalHook``.
 
 ``PGTVisualization`` waits for ``utils/visualizer`` (ROADMAP.md queue 1,
-item 17); ``tools/train_net.py:do_train`` raises where the config asks for
+item 17c); ``tools/train_net.py:do_train`` raises where the config asks for
 it.
+
+Over several processes ``tools/train_net.py:do_train`` gives the writers to
+rank 0 alone, as the JAX package does; the checkpointer, PreciseBN and
+evaluation hooks run on every rank (the checkpoint and the evaluation are
+collective, and rank 0 alone writes or evaluates).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import os
 import time
 from typing import Callable, Optional
 
+from ..parallel.mesh import broadcast_buffers
 from .events import get_event_storage
 
 logger = logging.getLogger(__name__)
@@ -150,7 +156,12 @@ class PreciseBNHook(HookBase):
     """Recompute the BatchNorm statistics of the trainer's model
     (``precise_bn.update_bn_stats``) over ``num_iters`` batches of a fresh
     ``data_iter_fn()`` every ``period`` iterations but the last, and after
-    training. A model without BatchNorm is left as it is."""
+    training. A model without BatchNorm is left as it is.
+
+    Over several processes every rank runs it on its own batches (a split
+    DAN's forward is collective) and then takes rank 0's buffers, so that
+    the replicas stay bit-equal: the JAX package runs it on the main
+    process alone, which would leave the replicas' statistics apart."""
 
     def __init__(self, period: int, data_iter_fn: Callable,
                  num_iters: int = 200):
@@ -163,6 +174,7 @@ class PreciseBNHook(HookBase):
 
         batches = (self.trainer.to_device(b) for b in self._data_iter_fn())
         update_bn_stats(self.trainer.state.model, batches, self._num_iters)
+        broadcast_buffers(self.trainer.state.model)
 
     def after_step(self):
         if (self.trainer.iter + 1) % self._period == 0 and \

@@ -33,6 +33,7 @@ from torch import nn
 from ..device import resolve_device
 from ..models.heads.wsddn import image_probs
 from ..ops import csc as csc_lib
+from ..parallel import context
 from ..solver.build import SGD
 from ..structures.batch import WSODBatch
 from .events import EventStorage
@@ -80,8 +81,9 @@ def make_train_step(model: nn.Module, tx: SGD,
 def _apply_gradients(state: TrainState, tx: SGD, losses: dict,
                      loss_weights: Optional[Dict[str, float]]):
     """Weight the losses, take the gradients of their sum with respect to
-    the trainable parameters and update them; returns the detached losses
-    and ``total_loss``."""
+    the trainable parameters, sum them over the data group where a mesh
+    shard is active (``parallel/context.py``), and update; returns the
+    detached losses and ``total_loss``."""
     params = {n: p for n, p in state.model.named_parameters()
               if p.requires_grad}
     if loss_weights:
@@ -91,6 +93,7 @@ def _apply_gradients(state: TrainState, tx: SGD, losses: dict,
                                 allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for (n, p), g in zip(params.items(), grads)}
+    grads = context.reduce_gradients(grads)
     tx.update(grads, state.opt_state, params)
     state.step += 1
     metrics = {k: v.detach() for k, v in losses.items()}
@@ -132,7 +135,7 @@ def make_csc_train_step(model: nn.Module, tx: SGD,
         metrics = _apply_gradients(state, tx, losses, loss_weights)
         present = batch.labels > 0.5
         w_present = torch.where(present[:, None, :], W, 0.0)
-        n_present = present.sum().clamp(min=1)
+        n_present = context.global_sum(present.sum()).clamp(min=1)
         metrics["csc/W_pos_mean"] = (w_present.clamp(min=0).sum()
                                      / (n_present * W.shape[1]))
         metrics["csc/W_neg_mean"] = (-w_present.clamp(max=0)).sum() \

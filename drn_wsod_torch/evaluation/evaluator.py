@@ -9,8 +9,9 @@ original frame. The dense loops (``make_sem_seg_fn``,
 ``sem_seg_inference_on_dataset``, ``decode_panoptic_png``,
 ``panoptic_inference_on_dataset``) evaluate semantic segmentation (mIoU)
 and the panoptic fusion (PQ), reading the GT label maps and panoptic PNGs
-with the port's PNG reader. The gather across processes is ROADMAP.md
-queue 1, item 16.
+with the port's PNG reader. Over several processes each one runs its
+shard of the images and :func:`gather_and_evaluate` gathers the evaluator
+states to rank 0, which alone evaluates.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..device import resolve_device
 from ..ops.mask_ops import paste_masks_in_image
 from ..ops.nms import multiclass_nms
 from ..ops.resize import resize_linear
+from ..parallel import multihost
 from ..postprocessing import rescale_boxes
 from ..structures.batch import WSODBatch
 
@@ -144,15 +146,16 @@ def inference_on_dataset(detect: Callable[[WSODBatch], Dict[str, torch.Tensor]],
 
 
 def gather_and_evaluate(evaluator) -> Dict:
-    """Evaluate the predictions of this process. A process group of more
-    than one process would need them gathered first, which is not ported
-    yet (ROADMAP.md queue 1, item 16), so it raises."""
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized() and \
-            torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "gathering predictions across processes is not ported yet: "
-            "ROADMAP.md queue 1, item 16 (multi-device)")
+    """Evaluate the predictions of every process: each rank's
+    ``state_dict()`` gathered (a pickled all-gather over the process
+    group), folded into rank 0's evaluator after a ``reset``, evaluated
+    there; every other rank returns {}. One process evaluates its own."""
+    if multihost.get_world_size() > 1:
+        states = multihost.all_gather_object(evaluator.state_dict())
+        if not multihost.is_main_process():
+            return {}
+        evaluator.reset()
+        evaluator.merge_states(states)
     return evaluator.evaluate()
 
 

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.matcher import match
+from ...parallel import context
 from ...structures import boxes as box_ops
 from ..layers import Dense
 from .oicr import RefinementOutputLayers
@@ -80,8 +81,11 @@ class SampledProposals(NamedTuple):
 def draw_sampling_keys(shape: Tuple[int, int], generator: torch.Generator,
                        device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sampler's random keys: two (B, P) float32 uniforms in [0, 1),
-    the foreground's then the background's, from ``generator``."""
-    keys = torch.rand((2, *shape), generator=generator, device=device)
+    the foreground's then the background's, from ``generator``; drawn for
+    the global batch under a mesh shard, the rank's rows kept."""
+    keys = context.draw_rows(
+        lambda s: torch.rand(s, generator=generator, device=device),
+        (2, *shape), dim=1)
     return keys[0], keys[1]
 
 

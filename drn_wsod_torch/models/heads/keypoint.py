@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.resize import resize_linear
+from ...parallel import context
 from ..layers import Conv2d, ConvTranspose2d, lecun_normal_
 
 
@@ -83,7 +84,7 @@ def keypoint_rcnn_loss(heatmap_logits: torch.Tensor, targets: torch.Tensor,
     logp = torch.log_softmax(flat, -1)
     ce = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     ce = torch.where(valid, ce, 0.0)
-    return ce.sum() / valid.float().sum().clamp(min=1.0)
+    return ce.sum() / context.global_sum(valid.float().sum()).clamp(min=1.0)
 
 
 def heatmaps_to_keypoints(heatmap_logits: torch.Tensor, boxes: torch.Tensor

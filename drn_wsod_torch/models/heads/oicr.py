@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ...ops.matcher import match
+from ...parallel import context
 from ...structures import boxes as box_ops
 from ..layers import Dense
 
@@ -110,14 +111,16 @@ def label_proposals(pgt: PseudoTargets, proposals: torch.Tensor,
 
 def refinement_loss(cls_logits: torch.Tensor,
                     targets: ProposalTargets) -> torch.Tensor:
-    """Weighted cross-entropy over the batch. cls_logits: (B, P, C+1)."""
+    """Weighted cross-entropy over the batch, over the proposals of weight
+    above 1e-12 (of the global batch under a mesh shard).
+    cls_logits: (B, P, C+1)."""
     logp = torch.log_softmax(cls_logits, dim=-1)
     cls = targets.gt_class.clamp(min=0)
     ce = -logp.gather(-1, cls[..., None])[..., 0]
     ce = torch.where(targets.gt_class >= 0, ce, 0.0)
     w = targets.weight
     valid = (w > 1e-12).float()
-    return (ce * w).sum() / valid.sum().clamp(min=1.0)
+    return (ce * w).sum() / context.global_sum(valid.sum()).clamp(min=1.0)
 
 
 def refinement_box_loss(deltas: torch.Tensor, proposals: torch.Tensor,
@@ -126,7 +129,8 @@ def refinement_box_loss(deltas: torch.Tensor, proposals: torch.Tensor,
                         reg_weights: Sequence[float] = (10.0, 10.0, 5.0, 5.0),
                         smooth_l1_beta: float = 0.0) -> torch.Tensor:
     """Smooth-L1 (L1 at beta 0) regression against the matched pseudo boxes,
-    foreground proposals only, divided by the number of valid proposals.
+    foreground proposals only, divided by the number of valid proposals
+    (of the global batch under a mesh shard).
     deltas: (B, P, R*4); proposals: (B, P, 4)."""
     B, P = targets.gt_class.shape
     fg = (targets.gt_class >= 0) & (targets.gt_class < num_classes)
@@ -143,7 +147,8 @@ def refinement_box_loss(deltas: torch.Tensor, proposals: torch.Tensor,
     else:
         loss = diff
     loss = torch.where(fg[..., None], loss, 0.0)
-    return loss.sum() / prop_mask.float().sum().clamp(min=1.0)
+    return loss.sum() / context.global_sum(
+        prop_mask.float().sum()).clamp(min=1.0)
 
 
 def branch_probs(cls_logits: torch.Tensor) -> torch.Tensor:

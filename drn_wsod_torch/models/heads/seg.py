@@ -20,6 +20,7 @@ from torch import nn
 
 from ...ops.crf import crf_forward
 from ...ops.resize import resize_linear
+from ...parallel import context
 from ..layers import Conv2d, ConvTranspose2d, lecun_normal_
 
 
@@ -110,7 +111,7 @@ def seg_loss_from_cpg(seg_logits: torch.Tensor, cpg: torch.Tensor,
     logp = torch.log_softmax(seg_logits, -1)
     ce = -torch.gather(logp, -1, target[..., None])[..., 0]
     ce = torch.where(valid, ce, 0.0)
-    return ce.sum() / valid.float().sum().clamp(min=1.0)
+    return ce.sum() / context.global_sum(valid.float().sum()).clamp(min=1.0)
 
 
 def resize_images(image: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -221,7 +222,8 @@ def mask_loss(mask_logits: torch.Tensor, gt_class: torch.Tensor,
                        cls[:, None, None, None].expand(N, m, m, 1))[..., 0]
     bce = optax_sigmoid_bce(sel, target_masks)
     bce = torch.where(fg_mask[:, None, None], bce, 0.0)
-    denom = (fg_mask.float().sum() * (m * m)).clamp(min=1.0)
+    denom = (context.global_sum(fg_mask.float().sum()) * (m * m)).clamp(
+        min=1.0)
     return bce.sum() / denom
 
 
@@ -342,4 +344,4 @@ def sem_seg_loss(logits: torch.Tensor, targets: torch.Tensor,
     logp = torch.log_softmax(logits, dim=-1)
     ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
     ce = torch.where(valid, ce, 0.0)
-    return ce.sum() / valid.sum().clamp(min=1)
+    return ce.sum() / context.global_sum(valid.sum()).clamp(min=1)

@@ -17,6 +17,7 @@ import math
 import torch
 from torch import nn
 
+from ...parallel import context
 from ..layers import Dense
 
 CLAMP_LO = 1e-6
@@ -59,12 +60,13 @@ def image_probs(scores: torch.Tensor) -> torch.Tensor:
 def wsddn_loss(scores: torch.Tensor, labels: torch.Tensor,
                mean_loss: bool = True) -> torch.Tensor:
     """Binary cross-entropy between image probs and multi-hot labels,
-    reduced by mean (or sum) and divided by the batch size.
+    reduced by mean (or sum) and divided by the batch size, both over the
+    global batch under a mesh shard (``parallel/context.py``).
     scores: (B, P, C); labels: (B, C) in {0, 1}."""
     p = image_probs(scores)
     bce = -(labels * torch.log(p) + (1.0 - labels) * torch.log(1.0 - p))
-    red = bce.mean() if mean_loss else bce.sum()
-    return red / scores.shape[0]
+    red = context.mean(bce) if mean_loss else bce.sum()
+    return red / context.batch_size(scores.shape[0])
 
 
 def append_background(scores: torch.Tensor) -> torch.Tensor:

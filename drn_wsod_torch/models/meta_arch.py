@@ -67,6 +67,7 @@ from ..ops.matcher import match
 from ..ops.poolers import multilevel_roi_pool
 from ..ops.roi_align import roi_align, roi_pool
 from ..ops.roi_pool import roi_pool_batched
+from ..parallel import context
 from ..structures import boxes as box_ops
 from ..structures.batch import WSODBatch
 from .heads import fast_rcnn as fast_rcnn_lib
@@ -442,7 +443,8 @@ class GeneralizedRCNNWSL(nn.Module):
         loss_cls, loss_box = fast_rcnn_lib.fast_rcnn_losses(
             cls_logits, deltas, batch.proposals, sampled, self.num_classes,
             self.reg_weights)
-        losses = {"loss_cls": loss_cls.mean(), "loss_box_reg": loss_box.mean()}
+        losses = {"loss_cls": context.mean(loss_cls),
+                  "loss_box_reg": context.mean(loss_box)}
         if self.keypoint_on and batch.gt_keypoints is not None:
             losses["loss_keypoint"] = self.keypoint_branch_loss(
                 feats, boxes, sampled, batch)
@@ -549,8 +551,8 @@ class GeneralizedRCNNWSL(nn.Module):
                 cls_logits, deltas, boxes, fast_rcnn_lib.SampledProposals(
                     slots, cls_tgt, box_tgt, valid),
                 self.num_classes, self.cascade_reg_weights[k])
-            losses[f"loss_cls_stage{k}"] = loss_cls.mean()
-            losses[f"loss_box_reg_stage{k}"] = loss_box.mean()
+            losses[f"loss_cls_stage{k}"] = context.mean(loss_cls)
+            losses[f"loss_box_reg_stage{k}"] = context.mean(loss_box)
             boxes = box_ops.clip(new_boxes, hw)
         if self.mask_on and batch.gt_masks is not None:
             losses["loss_mask"] = self.mask_branch_loss(feats, boxes0, sampled,

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.poolers import multilevel_roi_pool
+from ..parallel import context
 from ..structures import boxes as box_ops
 from ..structures.batch import WSODBatch
 from .dense import PyramidModel, nchw
@@ -144,8 +145,8 @@ class PanopticFPN(PyramidModel):
             cls_logits, deltas, batch.proposals, sampled, self.num_classes,
             self.reg_weights)
         w = self.instance_loss_weight
-        losses["loss_cls"] = w * lc.mean()
-        losses["loss_box_reg"] = w * lb.mean()
+        losses["loss_cls"] = w * context.mean(lc)
+        losses["loss_box_reg"] = w * context.mean(lb)
 
         if self.mask_on and batch.gt_masks is not None:
             B, S = boxes.shape[:2]

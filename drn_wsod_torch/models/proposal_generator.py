@@ -26,6 +26,7 @@ from torch import nn
 
 from ..ops.matcher import match
 from ..ops.nms import nms_mask
+from ..parallel import context
 from ..structures import boxes as box_ops
 from ..structures.rotated_boxes import (apply_deltas_rotated,
                                         get_deltas_rotated, nms_rotated,
@@ -241,6 +242,28 @@ def rrpn_losses(anchors: torch.Tensor, obj_logits: torch.Tensor,
         lambda a, g: get_deltas_rotated(a, g, reg_weights), batch_size,
         positive_fraction)
     return (lo, ll, (sel, sv, sp)) if return_sampled else (lo, ll)
+
+
+def rpn_batch_losses(anchors: torch.Tensor, obj_logits: torch.Tensor,
+                     pred_deltas: torch.Tensor, gt_boxes: torch.Tensor,
+                     gt_valid: torch.Tensor, generator: torch.Generator,
+                     rotated: bool = False, **kwargs):
+    """The batch's RPN (with ``rotated``, RRPN) losses: each image's
+    :func:`rpn_losses` (:func:`rrpn_losses`) on its row of keys drawn for
+    the batch from ``generator`` (for the global batch under a mesh shard,
+    the rank's rows kept), each loss averaged over the images. anchors
+    (N, 4 or 5); obj_logits (B, N); pred_deltas (B, N, 4 or 5); gt_boxes
+    (B, G, 4 or 5); gt_valid (B, G). Returns (loss_obj, loss_loc)."""
+    B, N = obj_logits.shape
+    keys = context.draw_rows(
+        lambda s: torch.rand(s, generator=generator,
+                             device=obj_logits.device), (2, B, N), dim=1)
+    fn = rrpn_losses if rotated else rpn_losses
+    per = [fn(anchors, obj_logits[i], pred_deltas[i], gt_boxes[i],
+              gt_valid[i], (keys[0, i], keys[1, i]), **kwargs)
+           for i in range(B)]
+    lo, ll = (torch.stack(t) for t in zip(*per))
+    return context.mean(lo), context.mean(ll)
 
 
 def select_proposals_rotated(anchors: torch.Tensor, obj_logits: torch.Tensor,

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.matcher import match
+from ..parallel import context
 from ..structures import boxes as box_ops
 from ..structures.batch import WSODBatch
 from .dense import PyramidModel, nchw
@@ -178,7 +179,7 @@ class RetinaNet(PyramidModel):
         l1 = (torch.where(diff < beta, 0.5 * diff ** 2 / beta,
                           diff - 0.5 * beta) if beta > 0 else diff)
         box_loss = (l1 * fg[..., None]).sum((1, 2))
-        norm = fg.sum().float().clamp(min=1.0)
+        norm = context.global_sum(fg.sum().float()).clamp(min=1.0)
         return {"loss_cls": cls_loss.sum() / norm,
                 "loss_box_reg": box_loss.sum() / norm}
 

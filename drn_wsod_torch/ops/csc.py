@@ -24,6 +24,8 @@ from typing import Callable, Tuple
 
 import torch
 
+from ..parallel import context
+
 
 def integral_image(x: torch.Tensor) -> torch.Tensor:
     """(..., H, W) -> inclusive 2-D prefix sums. The maps are 0/1, so the
@@ -146,7 +148,8 @@ def csc_forward(cpgs: torch.Tensor, labels: torch.Tensor, preds: torch.Tensor,
 def csc_loss(scores: torch.Tensor, W: torch.Tensor, PL: torch.Tensor,
              NL: torch.Tensor, mean_loss: bool = True
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CSC-weighted image BCE pair. scores, W: (B, P, C); PL, NL:
+    """The CSC-weighted image BCE pair, normalised as ``wsddn_loss`` (over
+    the global batch under a mesh shard). scores, W: (B, P, C); PL, NL:
     (B, C)."""
     W_pos = W.clamp(min=0.0).abs()
     W_neg = W.clamp(max=0.0).abs()
@@ -156,7 +159,8 @@ def csc_loss(scores: torch.Tensor, W: torch.Tensor, PL: torch.Tensor,
 
     def bce(p, t):
         v = -(t * torch.log(p) + (1 - t) * torch.log(1 - p))
-        return (v.mean() if mean_loss else v.sum()) / p.shape[0]
+        return ((context.mean(v) if mean_loss else v.sum())
+                / context.batch_size(p.shape[0]))
 
     return bce(img_pos, PL), bce(img_neg, NL)
 

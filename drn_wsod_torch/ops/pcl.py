@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import context
 from ..structures import boxes as box_ops
 
 # block length of XLA's rewrite of a long cumulative reduce_window
@@ -253,7 +254,8 @@ def pcl_branch_loss(cls_logits: torch.Tensor, prev_scores: torch.Tensor,
                     labels: torch.Tensor, graph_iou: float = 0.4,
                     max_centers: int = 5) -> torch.Tensor:
     """The batch's PCL loss: clusters mined from the previous branch's
-    scores, then the cluster-supervised loss, averaged over images."""
+    scores, then the cluster-supervised loss, averaged over images (of the
+    global batch under a mesh shard)."""
     clusters = mine_pcl_clusters(prev_scores, proposals, prop_mask, labels,
                                  max_centers=max_centers, graph_iou=graph_iou)
-    return pcl_loss(cls_logits, clusters, proposals, prop_mask).mean()
+    return context.mean(pcl_loss(cls_logits, clusters, proposals, prop_mask))

@@ -37,6 +37,8 @@ from typing import (Callable, Dict, Iterable, List, Mapping, Optional,
 import numpy as np
 import torch
 
+from ..parallel import context
+
 _FROZEN_BN_LEAVES = ("running_mean", "running_var")
 _F32 = np.float32
 
@@ -145,11 +147,21 @@ def clip_by_value(grads: List[torch.Tensor], value: float
     return [g.clamp(-value, value) for g in grads]
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        params: Optional[List[torch.Tensor]] = None
                         ) -> List[torch.Tensor]:
     """Scale the tensors by max_norm / norm where their joint L2 norm
-    reaches max_norm (optax's select, on the device)."""
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    reaches max_norm (optax's select, on the device). The gradients of
+    DAN shards among ``params`` (``_split_dim``, set by
+    ``parallel/mesh.py:shard_state``) have their squares summed over the
+    model group (``parallel/context.py:model_sum_sq``)."""
+    split = [getattr(p, "_split_dim", None) is not None
+             for p in (params or ())] or [False] * len(grads)
+    sq = sum((g * g).sum() for g, s in zip(grads, split) if not s)
+    if any(split):
+        sq = sq + context.model_sum_sq([g for g, s in zip(grads, split)
+                                        if s])
+    norm = torch.sqrt(sq)
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
 
@@ -175,7 +187,7 @@ class SGDGroup:
               traces: List[Optional[torch.Tensor]], count: int) -> None:
         """Update ``params`` and ``traces`` in place with ``grads``."""
         if self.clip is not None:
-            grads = self.clip(grads)
+            grads = self.clip(grads, params)
         if self.weight_decay:
             grads = [g + p * self.weight_decay
                      for g, p in zip(grads, params)]
@@ -271,9 +283,9 @@ def build_optimizer(cfg, params: Union[torch.nn.Module,
     if s.CLIP_GRADIENTS.ENABLED:
         v = s.CLIP_GRADIENTS.CLIP_VALUE
         if s.CLIP_GRADIENTS.CLIP_TYPE == "value":
-            clip = lambda g: clip_by_value(g, v)  # noqa: E731
+            clip = lambda g, p: clip_by_value(g, v)  # noqa: E731
         else:
-            clip = lambda g: clip_by_global_norm(g, v)  # noqa: E731
+            clip = lambda g, p: clip_by_global_norm(g, v, p)  # noqa: E731
     mom_dtype = {"": None, "float32": None,
                  "bfloat16": torch.bfloat16}[s.MOMENTUM_DTYPE]
 

@@ -10,7 +10,7 @@ Prints each detection above ``--confidence-threshold`` as
 ``class  score  [x1, y1, x2, y2]`` and a count per image. Several inputs
 are the frames of a sequence (frame i takes the pickle's i-th image, the
 last one past its end). ``--output`` (annotated images) needs
-``utils/visualizer``, not ported yet (ROADMAP.md queue 1, item 17). Runs on
+``utils/visualizer``, not ported yet (ROADMAP.md queue 1, item 17c). Runs on
 the CUDA device.
 """
 
@@ -71,7 +71,7 @@ def argument_parser() -> argparse.ArgumentParser:
                         "sequence")
     p.add_argument("--output", default="",
                    help="annotated images (needs utils/visualizer: "
-                        "ROADMAP.md queue 1, item 17)")
+                        "ROADMAP.md queue 1, item 17c)")
     p.add_argument("--proposals", default="",
                    help="a proposal pickle (trusted: unpickling runs code)")
     p.add_argument("--confidence-threshold", type=float, default=0.3)
@@ -90,7 +90,7 @@ def main(argv=None, device=None) -> int:
     if args.output:
         raise NotImplementedError(
             "--output needs utils/visualizer, not ported yet: ROADMAP.md "
-            "queue 1, item 17 (export, tools, demo)")
+            "queue 1, item 17c (the visualizers, the demo's output)")
     cfg = get_cfg()
     cfg.merge_from_file(args.config_file)
     if args.opts:

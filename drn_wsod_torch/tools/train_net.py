@@ -26,8 +26,22 @@ after it (WSJDS among them). ``NORM`` BN/SyncBN or
 ``TEST.PRECISE_BN.ENABLED`` adds the PreciseBN hook. LVIS under
 ``lvis/``, Cityscapes where the caller registers it
 (``data.datasets.register_all_cityscapes``), each into its own evaluator.
-Pseudo-GT visualisation comes with ROADMAP.md queue 1, item 17, several
-processes with item 16.
+Pseudo-GT visualisation comes with ROADMAP.md queue 1, item 17c.
+
+Several processes, one a card:
+
+    torchrun --nproc_per_node=N -m drn_wsod_torch.tools.train_net \\
+        --config-file CONFIG [KEY VALUE ...]
+
+``main`` initialises the process group from ``torchrun``'s environment
+(NCCL; a caller may initialise its own, gloo included, first) and puts each
+rank on ``cuda:LOCAL_RANK``. ``PARALLEL.MESH_AXES`` / ``MESH_SHAPE`` lay
+the ranks out (``parallel/mesh.py``): each data rank loads and steps on its
+slice of the ``IMS_PER_BATCH`` global batch, and under a ``model`` axis the
+DAN is split. Rank 0 alone writes metrics, logs to standard output and
+writes ``config.yaml``; every rank takes part in the checkpoints (rank 0
+writes them) and in the evaluation (each rank detects on its shard of the
+images, rank 0 evaluates them all; the others' results are {}).
 """
 
 from __future__ import annotations
@@ -36,6 +50,8 @@ import logging
 import math
 import os
 from typing import Dict
+
+import torch
 
 from ..checkpoint import Checkpointer
 from ..config import get_cfg
@@ -62,6 +78,10 @@ from ..evaluation import (COCODetectionEvaluator, CityscapesInstanceEvaluator,
 from ..evaluation.testing import print_csv_format, verify_results
 from ..models import build_model
 from ..models.build import CSC_HEAD_NAMES
+from ..parallel import multihost
+from ..parallel.mesh import create_mesh, gathered
+from ..parallel.train_parallel import (make_sharded_csc_train_step,
+                                       make_sharded_train_step)
 from ..solver import build_optimizer
 from ..solver.build import build_lr_schedule
 from ..tta import GeneralizedRCNNWithTTAAVG
@@ -142,8 +162,14 @@ def do_test(cfg, model, eval_train: bool = False,
     ``TEST.AUG`` where enabled, else the test loader (the test resize, one
     image a batch) into ``make_detect_fn``, with its mask and keypoint arms
     where ``MASK_ON`` / ``KEYPOINT_ON`` are set. Returns {dataset:
-    results}."""
-    dev = resolve_device(device)
+    results}. Over several processes each rank detects on its shard of
+    the images with the DAN made whole, and rank 0 evaluates them all
+    (the others return {} for each dataset)."""
+    with gathered(model):
+        return _do_test(cfg, model, eval_train, resolve_device(device))
+
+
+def _do_test(cfg, model, eval_train: bool, dev) -> Dict[str, Dict]:
 
     def _pairs(names, files):
         files = list(files)
@@ -175,7 +201,8 @@ def do_test(cfg, model, eval_train: bool = False,
                                                   filter_empty=False)
             evaluator = build_evaluator(cfg, name, records)
             evaluator.reset()
-            for r in records:
+            rank, world = multihost.get_rank(), multihost.get_world_size()
+            for r in records[rank::world]:
                 dets = tta(r)
                 evaluator.process_single(
                     str(r["image_id"]), dets["boxes"], dets["scores"],
@@ -185,13 +212,13 @@ def do_test(cfg, model, eval_train: bool = False,
             detect = detect or _detect_fn(cfg, model, dev)
             loader = build_detection_test_loader(cfg, name, mapper,
                                                  proposal_file=prop_file)
-            evaluator = build_evaluator(cfg, name, loader._records)
+            evaluator = build_evaluator(cfg, name, loader.all_records)
             results[name] = inference_on_dataset(detect, loader, evaluator,
                                                  loader._records)
         logger.info(f"Results on {name}: {results[name]}")
         print_csv_format(results[name])
 
-    if cfg.TEST.EXPECTED_RESULTS and pairs:
+    if cfg.TEST.EXPECTED_RESULTS and pairs and multihost.is_main_process():
         if not verify_results(cfg, results[pairs[0][0]]):
             raise RuntimeError("Results verification failed!")
     return results
@@ -274,8 +301,8 @@ def _refuse_unported(cfg):
                                    "WSDDNROIHeads"):
         raise NotImplementedError(
             "pseudo-GT visualisation (VIS_PERIOD, WSL.VIS_TEST) needs "
-            "utils/visualizer, not ported yet: ROADMAP.md queue 1, item 17 "
-            "(export, tools, demo)")
+            "utils/visualizer, not ported yet: ROADMAP.md queue 1, item 17c "
+            "(the visualizers, the demo's output)")
 
 
 def _writers(cfg):
@@ -303,11 +330,21 @@ def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
     PreciseBN hook (every ``TEST.EVAL_PERIOD``, else every
     ``SOLVER.CHECKPOINT_PERIOD``, over ``NUM_ITER`` batches of a fresh
     iterator of the train loader). Returns the trainer (its ``state``
-    holds the model, the optimizer state and the step)."""
+    holds the model, the optimizer state and the step).
+
+    The steps run over the mesh of ``PARALLEL.MESH_AXES`` /
+    ``MESH_SHAPE`` (``parallel/train_parallel.py``; one rank without a
+    process group): the loader yields the data rank's slice of each global
+    batch, the state is resumed or loaded whole, then split where the mesh
+    has a ``model`` axis over 1. The writers run on rank 0 alone."""
     dev = resolve_device(device)
     _refuse_unported(cfg)
+    mesh = create_mesh(tuple(cfg.PARALLEL.MESH_AXES),
+                       tuple(cfg.PARALLEL.MESH_SHAPE))
     mapper = DatasetMapper(cfg, is_train=True)
-    loader = build_detection_train_loader(cfg, mapper)
+    loader = build_detection_train_loader(cfg, mapper,
+                                          process_index=mesh.data_rank,
+                                          process_count=mesh.data_size)
 
     tx = build_optimizer(cfg, model)
     state = create_train_state(model, tx)
@@ -315,10 +352,10 @@ def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
     state, start_iter = checkpointer.resume_or_load(
         state, cfg.MODEL.WEIGHTS, resume=resume)
 
-    step = trainer_lib.make_train_step(model, tx)
+    step = make_sharded_train_step(model, tx, mesh, state=state)
     if cfg.MODEL.ROI_HEADS.NAME in CSC_HEAD_NAMES:
         plain_step = step
-        csc_step = trainer_lib.make_csc_train_step(model, tx)
+        csc_step = make_sharded_csc_train_step(model, tx, mesh, state=state)
 
         def step(state, batch, seed):
             fn = (csc_step if trainer.iter <= cfg.WSL.CSC_MAX_ITER
@@ -333,9 +370,11 @@ def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
         steps_per_dispatch=k, device=dev)
     if k > 1:
         logger.info(f"Chunked training: {k} steps a call")
-    hooks = [IterationTimer(),
-             PeriodicWriter(_writers(cfg)),
-             PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD)]
+    hooks = [IterationTimer()]
+    if multihost.is_main_process():
+        hooks.append(PeriodicWriter(_writers(cfg)))
+    hooks.append(PeriodicCheckpointer(checkpointer,
+                                      cfg.SOLVER.CHECKPOINT_PERIOD))
     if cfg.MODEL.RESNETS.NORM in ("BN", "SyncBN") or \
             cfg.TEST.PRECISE_BN.ENABLED:
         hooks.append(PreciseBNHook(
@@ -355,8 +394,18 @@ def main(args, device=None):
     ``$DETECTRON2_DATASETS``, build the model on
     ``device`` (CUDA unless the caller names another one), then train and
     evaluate, or, with ``--eval-only``, load the weights (the latest
-    checkpoint with ``--resume``, else ``MODEL.WEIGHTS``) and evaluate."""
+    checkpoint with ``--resume``, else ``MODEL.WEIGHTS``) and evaluate.
+
+    Under ``torchrun`` (``WORLD_SIZE`` > 1) the process group is
+    initialised from the environment where the caller has not initialised
+    one, and the rank runs on ``cuda:LOCAL_RANK`` unless the caller names
+    a device."""
+    multihost.init_process_group()
+    if device is None and multihost.get_world_size() > 1:
+        device = f"cuda:{multihost.get_local_rank()}"
     dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
     cfg = setup(args)
     register_all(os.environ.get("DETECTRON2_DATASETS", "datasets"))
     model = build_model(cfg, device=dev)

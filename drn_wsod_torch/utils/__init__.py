@@ -1,0 +1,10 @@
+"""Utilities (counterpart of ``drn_wsod_tpu/utils``): seeding and the
+environment report, throttled logging, the out-of-memory retry. The
+visualizers are ROADMAP.md queue 1, item 17c."""
+
+from .env import collect_env_info, seed_all_rng
+from .logger import log_every_n, log_every_n_seconds, log_first_n
+from .memory import retry_if_oom
+
+__all__ = ["collect_env_info", "seed_all_rng", "retry_if_oom",
+           "log_every_n", "log_every_n_seconds", "log_first_n"]

@@ -1691,3 +1691,96 @@ def test_rpn_losses_on_cuda_match_cpu(cuda, rotated):
     assert int(want[2][2].sum()) > 0
     for g, w in zip(got[:2], want[:2]):
         np.testing.assert_allclose(g.item(), w.item(), rtol=1e-5)
+
+
+# ------------------------------------------------- several processes
+def _dist_case(cfg, batches, axes, shape, **kw):
+    return {"kind": "steps", "cfg": cfg.dump(), "state_dict": None,
+            "batches": [b.tensors() for b in batches], "axes": axes,
+            "shape": shape, **kw}
+
+
+def _dist_batches(n=3, batch=4):
+    return [drn_wsod_torch.synthetic_batch(batch, 64, 64, 16, 20,
+                                           seed=40 + s, device="cpu")
+            for s in range(n)]
+
+
+def test_world_1_nccl_sharded_step_is_the_plain_step(cuda, tmp_path):
+    """NCCL at world size 1 on the card: ``make_sharded_train_step`` (the
+    coalesced gradient ``all_reduce`` and the global normalisers through a
+    one-rank NCCL group) for 3 toy steps, dropout 0.5, is bit-equal to
+    ``make_train_step`` from the same init: every loss and the digest of
+    every parameter and buffer after every step."""
+    from torch_dist_worker import launch
+
+    cfg = _toy_cfg("MODEL.ROI_BOX_HEAD.DROPOUT", "0.5")
+    res = launch({"backend": "nccl", "cases": {"nccl": _dist_case(
+        cfg, _dist_batches(), ("data",), (1,), plain_too=True)}}, 1,
+        tmp_path, timeout=300, device="cuda")
+    got = res[0]["nccl"]
+    assert got["metrics"] == got["plain_metrics"]
+    assert got["digests"] == got["plain_digests"]
+
+
+def _matches_one_process(cuda, cfg, batches, got):
+    """Each rank-0 loss within rtol 1e-4 and the trainable parameters
+    within 1e-6 + 1e-4 |p| of one process's steps on the global batches on
+    card 0 (float summation order only)."""
+    model = drn_wsod_torch.build_model(cfg, device=cuda)
+    tx = drn_wsod_torch.build_optimizer(cfg, model)
+    state = drn_wsod_torch.create_train_state(model, tx)
+    step = drn_wsod_torch.make_train_step(model, tx)
+    for b, g in zip(batches, got["metrics"]):
+        state, m = step(state, b.to(cuda), 0)
+        for k, v in m.items():
+            np.testing.assert_allclose(g[k], v.item(), rtol=1e-4,
+                                       atol=1e-7, err_msg=k)
+    sd = model.state_dict()
+    for k, v in got["state_dict"].items():
+        np.testing.assert_allclose(v.numpy(), sd[k].cpu().numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two gloo ranks on the one card, ``("data",) = (2,)``, 3 toy steps,
+    dropout 0.5: against one process on the rank-major global batch
+    (``_matches_one_process``), and both ranks' parameters and buffers
+    bit-equal after every step."""
+    from torch_dist_worker import launch
+
+    cfg = _toy_cfg("MODEL.ROI_BOX_HEAD.DROPOUT", "0.5")
+    batches = _dist_batches()
+    res = launch({"cases": {"dp": _dist_case(cfg, batches, ("data",),
+                                              (2,))}}, 2, tmp_path,
+                 timeout=300, device="cuda")
+    _matches_one_process(cuda, cfg, batches, res[0]["dp"])
+    assert res[0]["dp"]["digests"] == res[1]["dp"]["digests"]
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs two CUDA devices or more: NCCL puts no "
+                           "two ranks on one device")
+@pytest.mark.parametrize("model_size", [1, 2], ids=["data", "data_model"])
+def test_nccl_across_cards(cuda, tmp_path, model_size):
+    """NCCL over every card of the machine, one rank a card: ``("data",)
+    = (N,)`` and ``("data", "model") = (N/2, 2)`` (the DAN split), 3 toy
+    steps, dropout 0.5, a global batch of N * max(1, 4 // N) images:
+    against one process (``_matches_one_process``), and every rank's
+    parameters and buffers bit-equal after every step."""
+    from torch_dist_worker import launch
+
+    world = torch.cuda.device_count()
+    if world % model_size:
+        pytest.skip(f"{world} cards do not split into model groups of 2")
+    cfg = _toy_cfg("MODEL.ROI_BOX_HEAD.DROPOUT", "0.5")
+    batches = _dist_batches(batch=world * max(1, 4 // world))
+    if model_size == 1:
+        axes, shape = ("data",), (world,)
+    else:
+        axes, shape = ("data", "model"), (world // 2, 2)
+    res = launch({"backend": "nccl", "cases": {"run": _dist_case(
+        cfg, batches, axes, shape)}}, world, tmp_path, timeout=300,
+        device="cuda", one_card_each=True)
+    _matches_one_process(cuda, cfg, batches, res[0]["run"])
+    assert len({r["run"]["digests"][-1] for r in res}) == 1

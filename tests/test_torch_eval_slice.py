@@ -221,12 +221,44 @@ def test_inference_on_dataset_matches_jax(setup, monkeypatch):
 
 
 def test_gather_refuses_several_processes(monkeypatch):
+    """Several processes are no longer refused: the evaluator states are
+    gathered, rank 0 resets, merges them all and evaluates, and every other
+    rank returns {} (a real two-rank group: tests/test_torch_multihost.py)."""
     from drn_wsod_torch.evaluation import gather_and_evaluate
 
+    class Recording:
+        def __init__(self, state):
+            self.state, self.calls = state, []
+
+        def state_dict(self):
+            return self.state
+
+        def reset(self):
+            self.calls.append("reset")
+
+        def merge_states(self, states):
+            self.calls.append(("merge", list(states)))
+
+        def evaluate(self):
+            self.calls.append("evaluate")
+            return {"bbox": {"AP50": 1.0}}
+
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        gather_and_evaluate(None)
+    monkeypatch.setattr(torch.distributed, "get_world_size",
+                        lambda group=None: 2)
+
+    def gather(out, obj, group=None):
+        out[:] = [obj, "rank 1's state"]
+
+    monkeypatch.setattr(torch.distributed, "all_gather_object", gather)
+    for rank, want in ((0, {"bbox": {"AP50": 1.0}}), (1, {})):
+        monkeypatch.setattr(torch.distributed, "get_rank",
+                            lambda group=None, r=rank: r)
+        ev = Recording(f"rank {rank}'s state")
+        assert gather_and_evaluate(ev) == want
+        assert ev.calls == ([] if rank else [
+            "reset", ("merge", ["rank 0's state", "rank 1's state"]),
+            "evaluate"])
 
 
 def test_cli_main_matches_do_test(setup, monkeypatch, tmp_path):

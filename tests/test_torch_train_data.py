@@ -406,10 +406,27 @@ def test_collate_yields_cpu_tensors(voc):
 
 
 def test_loaders_refuse_several_processes(voc):
-    records = voc[3]
-    loader = pdata.TrainLoader(records, lambda *a, **k: None, 2,
-                               process_count=2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        next(iter(loader))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        pdata.EvalLoader(records, None, process_count=2)
+    """Several processes are no longer refused: each rank's train loader
+    yields its slice of every global batch (together the global batch,
+    rank-major), and the eval loader runs over ``records[rank::2]``; an
+    IMS_PER_BATCH the processes do not divide is refused."""
+    records = _packed(voc[3], voc[2])
+    jc, pc = cfg_pair(*OPTS, "SOLVER.IMS_PER_BATCH", 4)
+    mapper = pdata.DatasetMapper(pc, is_train=True)
+    whole = iter(pdata.TrainLoader(records, mapper, 4, seed=3, prefetch=0,
+                                   process_count=1))
+    ranks = [iter(pdata.TrainLoader(records, mapper, 4, seed=3, prefetch=0,
+                                    process_index=r, process_count=2))
+             for r in range(2)]
+    for _ in range(3):
+        want = next(whole)
+        got = [next(it) for it in ranks]
+        assert all(g.image.shape[0] == 2 for g in got)
+        assert sorted(torch.cat([g.image_id for g in got]).tolist()) == \
+            sorted(want.image_id.tolist())
+    with pytest.raises(ValueError, match="not divisible"):
+        pdata.TrainLoader(records, mapper, 3, process_count=2)
+    for r in range(2):
+        ev = pdata.EvalLoader(records, None, process_index=r,
+                              process_count=2)
+        assert ev._records == records[r::2] and ev.all_records is records
