@@ -300,7 +300,25 @@ Phases (any failure exits non-zero):
      checkpoint. K1 launches of the ranks and of that eval are counted, and
      every rank of (a)-(d) holds K1 exact to its plain version on the
      largest map it pooled in its train steps (and, in (d), its TTA).
-Every path (4-8, 10-27) is run with the kernels' launch counts set to 0
+ 28. the last slice ("last_slice"), the flagship at full width:
+     (a) ``export.export_inference`` at the export CLI's default shape
+     (B=1, 512^2, P=2048, seeded random weights): the graph holds the K1
+     op, the export's seconds and bytes, the reloaded program launches K1
+     once a call, K1 exact to its plain version on the pooled inputs, the
+     outputs bit-equal to the live model (else within two bf16 ulps of the
+     largest, printed), CUDA-event latency exported against eager; K1
+     through the ``torch.library`` op against the direct launch it
+     replaced, a call and queued; (b) ``tools/generate_pgt`` over 8
+     VOC-sized JPEGs written by the port's encoder with P=2048, its boxes
+     equal to ``make_detect_fn``'s top box of each present class; (c) (b)'s
+     detections drawn, each PNG read back equal and each JPEG decoded by
+     the port's decoder, the demo's ``--output`` on two frames, and
+     ``train_net.do_train`` with ``PGTVisualization`` for 2 steps (its
+     PNGs written); (d) ``analyze_model``, ``benchmark`` (train, eval,
+     TTA, data), ``plain_train_net`` (2 steps) and ``imagenet`` (3 steps,
+     BN on batch statistics) on the card. Files under
+     ``build/chip_smoke_ph28/``, removed at the end.
+Every path (4-8, 10-28) is run with the kernels' launch counts set to 0
 just before it and read just after. The line before the kernels' JSON
 line names the JPEG decoder's compiler, its build seconds, the fixture
 decodes matched and the host decode times; the line before that gives the
@@ -1377,16 +1395,21 @@ def phase8_dtype_probe(tag) -> dict:
 
 def phase9_tests(tag) -> None:
     root = Path(__file__).resolve().parent
-    # NCCL across cards needs two of them: left out on one card, not skipped
-    one_card = [] if torch.cuda.device_count() > 1 else [
-        "--deselect", "tests/test_torch_cuda.py::test_nccl_across_cards"]
+    # NCCL across cards needs two of them: left out on one card, not
+    # skipped; the full-width data-parallel check (minutes of four ranks)
+    # runs in a call of its own (PERF.md)
+    left = ["tests/test_torch_cuda.py::"
+            "test_data_parallel_full_width_is_float_order"]
+    if torch.cuda.device_count() < 2:
+        left.append("tests/test_torch_cuda.py::test_nccl_across_cards")
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q",
-         "-p", "no:cacheprovider", "tests/test_torch_cuda.py", *one_card],
+         "-p", "no:cacheprovider", "tests/test_torch_cuda.py",
+         *(a for t in left for a in ("--deselect", t))],
         cwd=root, capture_output=True, text=True,
         env={**os.environ, "PYTHONPATH": str(root)})
     summary = (proc.stdout.strip().splitlines() or [""])[-1]
-    left_out = r", \d+ deselected" if one_card else ""
+    left_out = r", \d+ deselected"
     if proc.returncode != 0 or not re.fullmatch(
             rf"=* *\d+ passed{left_out}(, \d+ warnings?)? in .*", summary):
         raise Fail(f"phase 9: tests/test_torch_cuda.py: {summary}\n"
@@ -6615,6 +6638,412 @@ def phase27_multi_device(dev, tag) -> dict:
     return {**read_launches(), "roi_pool": sum(launches.values())}
 
 
+PH28_HW, PH28_P = (512, 512), 2048          # the export CLI's defaults
+PH28_VOC, PH28_VOC_P = 8, 2048
+PH28_CALLS = 5
+PH28_TRAIN_STEPS, PH28_BENCH_ITERS, PH28_IMAGENET_ITERS = 2, 3, 3
+PH28_DATASET = "ph28_voc_2007_trainval"
+
+
+def ph28_voc(root: Path, rs):
+    """A VOC-layout tree as ``tests/test_torch_common.py:write_voc`` writes
+    one: PH28_VOC VOC-sized JPEGs (written by the port's encoder: the
+    machine has no Pillow) of smooth content, XML annotations of 1-3
+    objects of random classes, the trainval split, and a proposal pickle of
+    PH28_VOC_P boxes an image. Returns (directory, proposal file, paths)."""
+    import pickle
+
+    from drn_wsod_torch.data.datasets.voc import VOC_CLASS_NAMES
+    from drn_wsod_torch.native import jpeg_encode
+
+    d = root / "VOC2007"
+    for sub in ("Annotations", "ImageSets/Main", "JPEGImages"):
+        (d / sub).mkdir(parents=True)
+    props = {"ids": [], "boxes": [], "objectness_logits": [], "bbox_mode": 0}
+    paths = []
+    for i in range(PH28_VOC):
+        fid = f"{i + 1:06d}"
+        H, W = EVAL_SIZES[i % len(EVAL_SIZES)]
+        _, rec = eval_image(rs, H, W, i + 1, P=PH28_VOC_P)
+        path = d / "JPEGImages" / f"{fid}.jpg"
+        path.write_bytes(jpeg_encode(smooth_image(rs, H, W)))
+        paths.append(path)
+        objs = ""
+        for a in rec["annotations"]:
+            x1, y1, x2, y2 = (int(v) for v in a["bbox"])
+            objs += (f"<object><name>{VOC_CLASS_NAMES[a['category_id']]}"
+                     f"</name><difficult>0</difficult><bndbox><xmin>"
+                     f"{x1 + 1}</xmin><ymin>{y1 + 1}</ymin><xmax>{x2 + 1}"
+                     f"</xmax><ymax>{y2 + 1}</ymax></bndbox></object>")
+        (d / "Annotations" / f"{fid}.xml").write_text(
+            f"<annotation><size><width>{W}</width><height>{H}</height>"
+            f"<depth>3</depth></size>{objs}</annotation>\n")
+        props["ids"].append(fid)
+        props["boxes"].append(rec["proposal_boxes"])
+        props["objectness_logits"].append(rec["proposal_objectness_logits"])
+    (d / "ImageSets" / "Main" / "trainval.txt").write_text(
+        "\n".join(props["ids"]) + "\n")
+    prop_file = root / "proposals.pkl"
+    with open(prop_file, "wb") as f:
+        pickle.dump(props, f)
+    return d, str(prop_file), paths
+
+
+def ph28_opts(work: Path, props: str) -> list:
+    """The flagship YAML's overrides for the tree: its own data, seeded
+    random weights (``MODEL.WEIGHTS`` is not in the repository)."""
+    return ["MODEL.WEIGHTS", "", "OUTPUT_DIR", str(work / "out"),
+            "DATASETS.TRAIN", f"('{PH28_DATASET}',)",
+            "DATASETS.TEST", f"('{PH28_DATASET}',)",
+            "DATASETS.PROPOSAL_FILES_TRAIN", f"('{props}',)",
+            "DATASETS.PROPOSAL_FILES_TEST", f"('{props}',)"]
+
+
+def ph28_launches(fn):
+    """(fn's result, K1 launches in it), the counts set to 0 just before
+    and read just after."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_launches()["roi_pool"]
+
+
+def ph28_export(dev, tag) -> int:
+    """(a) ``export.export_inference`` of the flagship at the export CLI's
+    default shape, reloaded and run on the card."""
+    import io
+
+    import drn_wsod_torch
+    from drn_wsod_torch.export import (export_inference, holds_roi_pool,
+                                       load_exported)
+    from drn_wsod_torch.ops import roi_pool as rp
+    from drn_wsod_torch.tools import ablate_bench
+
+    cfg = ablate_bench.flagship_cfg(overrides=("TEST.AUG.ENABLED", False))
+    gen = torch.Generator(device=dev).manual_seed(28)
+    model = drn_wsod_torch.build_model(cfg, device=dev, generator=gen)
+    batch = drn_wsod_torch.synthetic_batch(1, *PH28_HW, PH28_P, 20, seed=28,
+                                           device=dev)
+    t = time.perf_counter()
+    data = export_inference(model, batch)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    program = load_exported(data)
+    load_s = time.perf_counter() - t
+    ops = holds_roi_pool(program.program)
+    if ops != 1:
+        raise Fail(f"phase 28: (a) the exported graph holds {ops} K1 ops")
+    captured = {}
+    launch = rp._launch_batched
+
+    def capturing(features, boxes, spatial_scale, resolution, roi_scale,
+                  order):
+        out = launch(features, boxes, spatial_scale, resolution, roi_scale,
+                     order)
+        captured.update(args=(features, boxes, spatial_scale, resolution,
+                              roi_scale), out=out)
+        return out
+    with mock.patch.object(rp, "_launch_batched", capturing):
+        got, launches = ph28_launches(
+            lambda: [program.call(batch) for _ in range(PH28_CALLS)][-1])
+    if launches != PH28_CALLS:
+        raise Fail(f"phase 28: (a) {launches} K1 launches in "
+                   f"{PH28_CALLS} calls of the exported program")
+    err = exact("roi_pool (exported program)", captured["out"],
+                rp.roi_pool_plain(*captured["args"]), phase=28)
+    live = model.inference_scores(batch)
+    diffs = [(g.float() - w.float()).abs().max().item()
+             for g, w in zip(got, live)]
+    equal = all(torch.equal(g, w) for g, w in zip(got, live))
+    # else within two bf16 ulps of the largest output (the model runs in
+    # bf16; a graph op may pick another cuBLAS / cuDNN algorithm)
+    if not equal and any(d > 2 ** -7 * w.float().abs().max().item()
+                         for d, w in zip(diffs, live)):
+        raise Fail(f"phase 28: (a) exported program != live model, "
+                   f"max|diff| {diffs}")
+    ms_prog = cuda_ms(lambda: program.call(batch), 10)
+    ms_live = cuda_ms(lambda: model.inference_scores(batch), 10)
+    # the same calls queued behind a sleep: the card's time, the host's
+    # issue hidden
+    q_prog = queued_ms(lambda: program.call(batch), 10)
+    q_live = queued_ms(lambda: model.inference_scores(batch), 10)
+    print(f"phase 28: (a) export of the flagship (bf16, B=1, "
+          f"{PH28_HW[0]}x{PH28_HW[1]}, P={PH28_P}): torch.export "
+          f"{export_s:.2f} s, {len(data)} bytes, load {load_s:.2f} s; the "
+          f"graph holds the K1 op once; {PH28_CALLS} calls of the loaded "
+          f"program launched K1 {launches} times, K1 == plain on its pooled "
+          f"inputs (max|diff| {err}, map {tuple(captured['args'][0].shape)}); "
+          f"scores and boxes "
+          f"{'bit-equal to' if equal else f'within {diffs} of'} the live "
+          f"model; inference_scores "
+          f"{ms_prog:.3f} ms exported, {ms_live:.3f} ms eager (CUDA events, "
+          f"median of 10), queued {q_prog:.3f} / {q_live:.3f} ms {tag}",
+          flush=True)
+    del program, model, data, live, got, captured
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ph28_k1_dispatch(dev, tag) -> None:
+    """K1 at phase 3's flagship inputs through the ``torch.library`` op
+    (``roi_pool_batched``, the wrapper's route) beside the direct ctypes
+    launch the wrapper made before (check, ``top_row_order``,
+    ``_launch_batched``): a call and queued, in turns."""
+    from drn_wsod_torch.ops import roi_pool as rp
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feats, boxes, scale = pool_inputs(dev, gen)
+
+    def direct():
+        rp._check_batched(feats, boxes, scale)
+        return rp._launch_batched(feats, boxes, 0.125, 7, scale,
+                                  rp.top_row_order(boxes))
+
+    def op():
+        return rp.roi_pool_batched(feats, boxes, 0.125, 7, scale)
+
+    exact("roi_pool (op vs direct)", op(), direct(), phase=28)
+    rows = {"op": ([], []), "direct": ([], [])}
+    for _ in range(3):
+        for name, fn in (("op", op), ("direct", direct)):
+            rows[name][0].append(cuda_ms(fn, 20))
+            rows[name][1].append(queued_ms(fn, 20))
+    med = {k: (statistics.median(a), statistics.median(q))
+           for k, (a, q) in rows.items()}
+    print(f"phase 28: K1 at {tuple(feats.shape)} bf16, P={P}: through the "
+          f"torch.library op {med['op'][0]:.4f} ms a call, "
+          f"{med['op'][1]:.4f} queued; the direct launch "
+          f"{med['direct'][0]:.4f} / {med['direct'][1]:.4f} (medians of 3 "
+          f"turns) {tag}", flush=True)
+    del feats
+
+
+def ph28_generate_pgt(dev, work: Path, props: str, tag):
+    """(b) ``generate_pgt`` over the tree; its boxes against
+    ``make_detect_fn``'s top box for each present class."""
+    import drn_wsod_torch
+    from drn_wsod_torch.data import (DatasetMapper, EvalLoader,
+                                     get_detection_dataset_dicts)
+    from drn_wsod_torch.engine import defaults
+    from drn_wsod_torch.tools import ablate_bench, generate_pgt
+
+    # random weights spread their scores over the classes: a deep top-k
+    # reaches each image's present classes
+    opts = ph28_opts(work, props) + ["TEST.DETECTIONS_PER_IMAGE", "1000",
+                                     "MODEL.ROI_HEADS.SCORE_THRESH_TEST",
+                                     "0.0"]
+    out = work / "pgt.json"
+    t = time.perf_counter()
+    with mock.patch.object(defaults, "setup_logger", entry_logger):
+        coco, launches = ph28_launches(lambda: generate_pgt.main(
+            ["--config-file", ablate_bench.FLAGSHIP, "--out", str(out),
+             *opts], device=dev))
+    pgt_s = time.perf_counter() - t
+    close_logging()
+    if launches != PH28_VOC:
+        raise Fail(f"phase 28: (b) K1 launched {launches} times for "
+                   f"{PH28_VOC} images")
+    cfg = ablate_bench.flagship_cfg(overrides=opts)
+    model = drn_wsod_torch.build_model(cfg, device=dev)
+    detect = drn_wsod_torch.make_detect_fn(
+        model, cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST,
+        cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST, cfg.TEST.DETECTIONS_PER_IMAGE,
+        device=dev)
+    records = get_detection_dataset_dicts([PH28_DATASET], [props])
+    want, dets = {}, {}
+    for batch, _ in EvalLoader(records, DatasetMapper(cfg, False),
+                               process_index=0, process_count=1):
+        d = {k: v[0].cpu().numpy() for k, v in detect(batch).items()}
+        r = records[int(batch.image_id[0])]
+        name = os.path.basename(r["file_name"])
+        dets[name] = d
+        for c in {a["category_id"] for a in r["annotations"]}:
+            hit = d["valid"] & (d["classes"] == c)
+            if hit.any():
+                top = d["scores"][hit].max()
+                # near-ties of the top score may come in either order
+                want[(name, c + 1)] = (float(top), d["boxes"][
+                    hit & (d["scores"] >= top * (1 - 1e-3))])
+    files = {im["id"]: im["file_name"] for im in coco["images"]}
+    got = {(files[a["image_id"]], a["category_id"]):
+           (a["score"], np.asarray(a["bbox"][:2] + [
+               a["bbox"][0] + a["bbox"][2], a["bbox"][1] + a["bbox"][3]]))
+           for a in coco["annotations"]}
+    bad = [k for k in want if k not in got
+           or abs(got[k][0] - want[k][0]) > 1e-3 * want[k][0]
+           or np.abs(want[k][1] - got[k][1]).max(1).min() > 1e-2]
+    if set(got) != set(want) or bad or not got:
+        raise Fail(f"phase 28: (b) generate_pgt's {len(got)} pseudo boxes "
+                   f"against make_detect_fn's {len(want)} top boxes: "
+                   f"{sorted(set(got) ^ set(want))} unmatched, {bad} differ")
+    print(f"phase 28: (b) generate_pgt over {PH28_VOC} VOC-sized JPEGs "
+          f"(flagship YAML, full width, P={PH28_VOC_P}, top 1000, score "
+          f"threshold 0): {len(got)} pseudo boxes over "
+          f"{len(coco['images'])} images, each make_detect_fn's top box of "
+          f"a present class, ids + 1; K1 {launches} launches; "
+          f"{pgt_s:.1f} s {tag}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches, dets
+
+
+def ph28_visualise(dev, work: Path, props: str, paths, dets, tag) -> int:
+    """(c) (b)'s detections drawn and written, PNG and JPEG; the demo's
+    ``--output`` on two frames; ``train_net.do_train`` with
+    ``PGTVisualization``."""
+    import drn_wsod_torch
+    from drn_wsod_torch.data.datasets.voc import VOC_CLASS_NAMES
+    from drn_wsod_torch.data.mapper import read_image
+    from drn_wsod_torch.data.png import read_png
+    from drn_wsod_torch.engine import defaults
+    from drn_wsod_torch.tools import ablate_bench, demo, train_net
+    from drn_wsod_torch.utils.visualizer import Visualizer
+
+    t = time.perf_counter()
+    draw_ms = []
+    for path in paths:
+        d = dets[path.name]
+        t0 = time.perf_counter()
+        v = Visualizer(read_image(str(path), "BGR"), VOC_CLASS_NAMES)
+        v.draw_instance_predictions(d["boxes"], d["scores"], d["classes"],
+                                    d["valid"])
+        draw_ms.append((time.perf_counter() - t0) * 1e3)
+        png, jpg = work / "vis" / f"{path.stem}.png", work / "vis" / path.name
+        v.save(str(png))
+        v.save(str(jpg))
+        if not np.array_equal(read_png(str(png)), v.get_image()):
+            raise Fail(f"phase 28: (c) {png.name} does not read back")
+        back = read_image(str(jpg), "RGB")
+        if back.shape != v.get_image().shape:
+            raise Fail(f"phase 28: (c) {jpg.name} decodes to {back.shape}")
+    opts = ph28_opts(work, props)
+    frames = [str(p) for p in paths[:2]]
+    n, demo_launches = ph28_launches(lambda: demo.main(
+        ["--config-file", ablate_bench.FLAGSHIP, "--input", *frames,
+         "--proposals", props, "--output", str(work / "demo"),
+         "--confidence-threshold", "0.0", "MODEL.WEIGHTS", ""], device=dev))
+    for f in frames:
+        out = read_image(str(work / "demo" / os.path.basename(f)), "RGB")
+        if out.shape != read_image(f, "RGB").shape:
+            raise Fail(f"phase 28: (c) the demo's {f} output {out.shape}")
+    cfg = ablate_bench.flagship_cfg(overrides=opts + [
+        "VIS_PERIOD", "1", "SOLVER.MAX_ITER", str(PH28_TRAIN_STEPS),
+        "SOLVER.IMS_PER_BATCH", "2", "SOLVER.CHECKPOINT_PERIOD", "1000",
+        "TEST.EVAL_PERIOD", "0"])
+    model = drn_wsod_torch.build_model(cfg, device=dev)
+    with mock.patch.object(defaults, "setup_logger", entry_logger):
+        defaults.default_setup(cfg)
+        _, train_launches = ph28_launches(
+            lambda: train_net.do_train(cfg, model, device=dev))
+    close_logging()
+    pngs = sorted((work / "out" / "pgt_vis").iterdir())
+    # one launch a step and one a hook's mining pass
+    if len(pngs) != 2 * PH28_TRAIN_STEPS or train_launches != \
+            2 * PH28_TRAIN_STEPS:
+        raise Fail(f"phase 28: (c) PGTVisualization wrote {len(pngs)} "
+                   f"PNGs, K1 {train_launches} launches in "
+                   f"{PH28_TRAIN_STEPS} steps")
+    shape = read_png(str(pngs[0])).shape
+    print(f"phase 28: (c) {len(paths)} images drawn with (b)'s detections "
+          f"(host ms an image, median {statistics.median(draw_ms):.1f}), "
+          f"each PNG read back equal by data/png.py and each JPEG decoded "
+          f"by the port's decoder; the demo's --output on 2 frames (video "
+          f"visualizer, {n} detections, K1 {demo_launches}); do_train "
+          f"{PH28_TRAIN_STEPS} steps with VIS_PERIOD 1: {len(pngs)} "
+          f"pgt_vis PNGs of {shape}, K1 {train_launches}; "
+          f"{time.perf_counter() - t:.1f} s {tag}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return demo_launches + train_launches
+
+
+def ph28_clis(dev, work: Path, props: str, tag) -> int:
+    """(d) analyze_model, benchmark, plain_train_net and imagenet on the
+    card."""
+    from drn_wsod_torch.engine import defaults
+    from drn_wsod_torch.engine.defaults import default_argument_parser
+    from drn_wsod_torch.tools import (ablate_bench, analyze_model, benchmark,
+                                      imagenet, plain_train_net)
+
+    t = time.perf_counter()
+    (counts, flops), a_launches = ph28_launches(lambda: analyze_model.main(
+        ["--config-file", ablate_bench.FLAGSHIP], device=dev))
+    total = sum(counts.values())
+    cfg = ablate_bench.flagship_cfg(overrides=ph28_opts(work, props) + [
+        "SOLVER.IMS_PER_BATCH", "2", "TEST.AUG.MIN_SIZES",
+        "(480, 576, 688, 864, 1000, 1200)", "TEST.AUG.MAX_SIZE", "2000"])
+    bench = {}
+    for name, fn in (
+            ("train", lambda: benchmark.benchmark_train_synthetic(
+                cfg, PH28_BENCH_ITERS, device=dev)),
+            ("eval", lambda: benchmark.benchmark_eval_synthetic(
+                cfg, PH28_BENCH_ITERS, 2, device=dev)),
+            ("tta", lambda: benchmark.benchmark_tta_synthetic(
+                cfg, 2, device=dev)),
+            ("data", lambda: benchmark.benchmark_data(
+                cfg, PH28_BENCH_ITERS))):
+        bench[name], n = ph28_launches(fn)
+        bench[name]["K1"] = n
+        torch.cuda.empty_cache()
+    args = default_argument_parser().parse_args(
+        ["--config-file", ablate_bench.FLAGSHIP, *ph28_opts(work, props),
+         "SOLVER.MAX_ITER", str(PH28_TRAIN_STEPS), "SOLVER.IMS_PER_BATCH",
+         "2", "OUTPUT_DIR", str(work / "plain")])
+    with mock.patch.object(defaults, "setup_logger", entry_logger):
+        state, p_launches = ph28_launches(
+            lambda: plain_train_net.main(args, device=dev))
+    close_logging()
+    if state.step != PH28_TRAIN_STEPS or p_launches != PH28_TRAIN_STEPS:
+        raise Fail(f"phase 28: (d) plain_train_net step {state.step}, K1 "
+                   f"{p_launches}")
+    del state
+    torch.cuda.empty_cache()
+    last = imagenet.main(["--synthetic", "--batch-size", "8", "--iters",
+                          str(PH28_IMAGENET_ITERS), "--out",
+                          str(work / "imagenet")], device=dev)
+    if not math.isfinite(last["loss"]):
+        raise Fail(f"phase 28: (d) imagenet loss {last}")
+    k1 = a_launches + p_launches + sum(b["K1"] for b in bench.values())
+    print(f"phase 28: (d) analyze_model: {total / 1e6:.2f} M parameters "
+          f"{json.dumps({k: v for k, v in sorted(counts.items())})}, forward "
+          f"{flops / 1e9:.2f} GFLOP (FlopCounterMode, B=1 704^2, P=4096), "
+          f"K1 {a_launches}; benchmark (CUDA events; tta and data by the "
+          f"host clock) {json.dumps(bench)}; plain_train_net "
+          f"{PH28_TRAIN_STEPS} steps, K1 {p_launches}; imagenet (WS-R50, "
+          f"BN on batch statistics, B=8, 112^2) {PH28_IMAGENET_ITERS} steps, "
+          f"loss {last['loss']:.4f}; {time.perf_counter() - t:.1f} s {tag}",
+          flush=True)
+    return k1
+
+
+def phase28_last_slice(dev, tag) -> dict:
+    """Export, generate_pgt, the visualizers and writers, and the other
+    CLIs, at the flagship's full width; every part run with the
+    launch counts set to 0 just before it and read just after."""
+    import shutil
+
+    from drn_wsod_torch.data import DatasetCatalog
+    from drn_wsod_torch.data.datasets.voc import register_pascal_voc
+
+    t_phase = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_ph28"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    launches = {"export": ph28_export(dev, tag)}
+    ph28_k1_dispatch(dev, tag)
+    d, props, paths = ph28_voc(work / "voc", np.random.RandomState(28))
+    if PH28_DATASET not in DatasetCatalog:
+        register_pascal_voc(PH28_DATASET, str(d), "trainval", 2007)
+    launches["generate_pgt"], dets = ph28_generate_pgt(dev, work, props, tag)
+    launches["visualise"] = ph28_visualise(dev, work, props, paths, dets, tag)
+    launches["clis"] = ph28_clis(dev, work, props, tag)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 28: K1 launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
+    reset_launches()
+    return {**read_launches(), "roi_pool": sum(launches.values())}
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6642,17 +7071,20 @@ def main() -> int:
     from drn_wsod_torch.ops import _build
 
     t0 = time.perf_counter()
-    # the JPEG decoder (host code) builds beside the CUDA sources
+    # the JPEG decoder and encoder (host code) build beside the CUDA
+    # sources
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         host = pool.submit(_build.build_host, "jpeg_decode")
+        encoder = pool.submit(_build.build_host, "jpeg_encode")
         logs = _build.build_all()
-        host_build = host.result()
+        host_build, encoder_build = host.result(), encoder.result()
     print(f"phase 2: built {sorted(logs)} in "
           f"{time.perf_counter() - t0:.2f} s, one nvcc per source in parallel "
           f"{tag}; the JPEG decoder by {host_build['compiler']} in "
-          f"{host_build['seconds']:.2f} s", flush=True)
+          f"{host_build['seconds']:.2f} s, the JPEG encoder in "
+          f"{encoder_build['seconds']:.2f} s", flush=True)
     for name, log in logs.items():
         for kernel, lines in ptxas_report(log):
             print(f"  {name}: {kernel}: {'; '.join(lines)}")
@@ -6706,6 +7138,8 @@ def main() -> int:
             dev, tag)
         torch.cuda.empty_cache()
         paths["multi_device"] = phase27_multi_device(dev, tag)
+        torch.cuda.empty_cache()
+        paths["last_slice"] = phase28_last_slice(dev, tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1

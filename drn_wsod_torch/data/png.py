@@ -19,6 +19,10 @@ library's ``zlib``; the row filters undo in host C++
 whose numpy twin is :func:`unfilter_plain`. A CRC, a zlib stream or a
 chunk layout that does not check raises ``ValueError``.
 
+:func:`encode_png` and :func:`write_png` write 8-bit gray, RGB and RGBA
+arrays (filter type 0 on every row, ``zlib`` at level 6): the file reads
+back exactly here and through Pillow.
+
 Interlaced (Adam7) and 16-bit files raise :class:`PNGUnsupported`;
 :func:`read_png` and :func:`read_png_rgb` then fall back to Pillow where it
 imports, and otherwise raise a ``ValueError`` naming the file and the
@@ -241,3 +245,36 @@ def read_png(path: str) -> np.ndarray:
 def read_png_rgb(path: str) -> np.ndarray:
     """The PNG file at ``path`` as ``Image.open(path).convert("RGB")``."""
     return _read(path, rgb=True)
+
+
+_COLOUR_OF = {1: 0, 3: 2, 4: 6}   # samples a pixel -> colour type
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """(H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 -> PNG bytes."""
+    a = np.asarray(image)
+    if a.ndim == 2:
+        a = a[..., None]
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] not in _COLOUR_OF \
+            or 0 in a.shape[:2]:
+        raise ValueError(f"encode_png takes (H, W), (H, W, 3) or (H, W, 4) "
+                         f"uint8, got {np.asarray(image).shape} {a.dtype}")
+    h, w, c = a.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(a).reshape(h, w * c)], 1)
+    header = struct.pack(">IIBBBBB", w, h, 8, _COLOUR_OF[c], 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write ``image`` (see :func:`encode_png`) to ``path``."""
+    data = encode_png(image)
+    with open(path, "wb") as f:
+        f.write(data)

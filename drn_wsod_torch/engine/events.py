@@ -12,6 +12,8 @@ import os
 from collections import defaultdict, deque
 from typing import Dict, Optional
 
+import numpy as np
+
 logger = logging.getLogger(__name__)
 
 _CURRENT_STORAGE_STACK = []
@@ -155,7 +157,9 @@ class JSONWriter(EventWriter):
 class TensorboardWriter(EventWriter):
     """TensorBoard event files through ``torch.utils.tensorboard``, which
     needs the ``tensorboard`` package (an ImportError names it where it is
-    missing): smoothed scalars and any ``put_image`` payloads, then cleared."""
+    missing): smoothed scalars and any ``put_image`` payloads, then cleared.
+    Images are encoded by the port's PNG writer (``data/png.py``) into the
+    image summary directly: ``add_image`` would need Pillow."""
 
     def __init__(self, log_dir: str, window: int = 20):
         from torch.utils.tensorboard import SummaryWriter
@@ -167,8 +171,19 @@ class TensorboardWriter(EventWriter):
         for k, (v, it) in storage.latest_with_smoothing_hint(
                 self._window).items():
             self._writer.add_scalar(k, v, it)
-        for name, img, it in storage.images():
-            self._writer.add_image(name, img, it, dataformats="HWC")
+        if storage.images():
+            from tensorboard.compat.proto.summary_pb2 import Summary
+
+            from ..data.png import encode_png
+
+            for name, img, it in storage.images():
+                img = np.ascontiguousarray(img, np.uint8)
+                h, w, c = img.shape
+                image = Summary.Image(height=h, width=w, colorspace=c,
+                                      encoded_image_string=encode_png(img))
+                self._writer._get_file_writer().add_summary(
+                    Summary(value=[Summary.Value(tag=name, image=image)]),
+                    it)
         storage.clear_images()
 
     def close(self):

@@ -1,17 +1,15 @@
 """Trainer hooks (counterpart of ``drn_wsod_tpu/engine/hooks.py``): the
 four-phase protocol ``before_train`` / ``before_step`` / ``after_step`` /
 ``after_train``, with ``IterationTimer``, ``PeriodicWriter``,
-``PeriodicCheckpointer``, ``ProfilerHook``, ``PreciseBNHook`` and
-``EvalHook``.
-
-``PGTVisualization`` waits for ``utils/visualizer`` (ROADMAP.md queue 1,
-item 17c); ``tools/train_net.py:do_train`` raises where the config asks for
-it.
+``PeriodicCheckpointer``, ``ProfilerHook``, ``PreciseBNHook``, ``EvalHook``
+and ``PGTVisualization``.
 
 Over several processes ``tools/train_net.py:do_train`` gives the writers to
 rank 0 alone, as the JAX package does; the checkpointer, PreciseBN and
 evaluation hooks run on every rank (the checkpoint and the evaluation are
-collective, and rank 0 alone writes or evaluates).
+collective, and rank 0 alone writes or evaluates); so does
+``PGTVisualization``'s forward (collective under a split DAN), and rank 0
+alone writes its images.
 """
 
 from __future__ import annotations
@@ -219,3 +217,52 @@ class EvalHook(HookBase):
     def after_train(self):
         if self.trainer.iter >= self.trainer.max_iter - 1:
             self._do_eval()
+
+
+class PGTVisualization(HookBase):
+    """Every ``period`` iterations, dump the pseudo-GT boxes OICR mines on
+    the last training batch (the JAX package's hook, after the reference's
+    ``_vis_pgt``): a pass of ``model.proposal_scores`` without autograd on
+    ``trainer.last_batch``, ``heads/oicr.py:mine_pgt`` on its WSDDN
+    evidence, then the first ``max_images`` images with their boxes as
+    PNGs under ``output_dir/pgt_vis`` (``utils/visualizer.py``, no Pillow)
+    and ``put_image`` for the TensorBoard writer."""
+
+    def __init__(self, period: int, model, output_dir: str,
+                 class_names=None, max_images: int = 2):
+        self._period = max(int(period), 1)
+        self._model = model
+        self._out = output_dir
+        self._names = class_names
+        self._max = max_images
+
+    def after_step(self):
+        it = self.trainer.iter
+        if (it + 1) % self._period or self.trainer.last_batch is None:
+            return
+        import numpy as np
+        import torch
+
+        from ..models.heads.oicr import mine_pgt
+        from ..models.heads.wsddn import image_probs
+        from ..parallel import multihost
+        from ..utils.visualizer import save_pgt_visualization
+
+        batch = self.trainer.last_batch
+        with torch.no_grad():
+            scores = self._model.proposal_scores(batch)
+            pgt = mine_pgt(scores, batch.proposals, batch.proposal_mask,
+                           batch.labels, image_probs(scores))
+        if not multihost.is_main_process():
+            return
+        boxes, valid = pgt.boxes.cpu().numpy(), pgt.valid.cpu().numpy()
+        imgs = batch.image.cpu().numpy()
+        storage = self.trainer.storage
+        for i in range(min(imgs.shape[0], self._max)):
+            img = np.clip(imgs[i], 0, 255).astype(np.uint8)
+            save_pgt_visualization(
+                img, boxes[i], valid[i], self._names,
+                os.path.join(self._out, "pgt_vis"),
+                prefix=f"iter{it + 1:07d}_im{i}", suffix="")
+            if storage is not None:
+                storage.put_image(f"pgt/im{i}", img[:, :, ::-1])

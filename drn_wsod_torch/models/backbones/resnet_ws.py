@@ -69,26 +69,55 @@ class FrozenBatchNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm as the JAX package runs it (flax's ``nn.BatchNorm`` with
-    ``use_running_average=True``, its backbone never being called in train
-    mode): the running statistics always, never updated. The affine
-    (``weight``, ``bias``) is a float32 parameter the optimizer labels
-    frozen; the statistics are float32 buffers, written only by PreciseBN.
-    Computed in flax's order in float32, ``(x - mean) * (rsqrt(var + eps)
-    * weight) + bias``, and returned in float32."""
+    """BatchNorm as the JAX package runs it (flax's ``nn.BatchNorm``). The
+    detection models use its running statistics always, never updated
+    (``use_running_average=True``: their backbone is never called in
+    train mode). The affine (``weight``, ``bias``) is a float32 parameter
+    the optimizer labels frozen; the statistics are float32 buffers,
+    written only by PreciseBN. Computed in flax's order in float32,
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, and returned in
+    float32.
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    ``batch_stats = True`` (set by :func:`use_batch_stats`; the ImageNet
+    tool alone sets it) is flax's train mode: the mean and the fast
+    variance ``max(0, E[x^2] - E[x]^2)`` of the batch over (N, H, W) in
+    float32 normalise, and the running statistics take
+    ``momentum * running + (1 - momentum) * batch`` (momentum 0.9)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
+        self.batch_stats = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean[:, None, None])
-                * mul[:, None, None] + self.bias[:, None, None])
+        x = x.float()
+        if self.batch_stats:
+            mean = x.mean((0, 2, 3))
+            var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
+
+
+def use_batch_stats(module: nn.Module, on: bool = True) -> None:
+    """Put every :class:`BatchNorm` under ``module`` in flax's train mode
+    (``on``) or back to its running statistics."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.batch_stats = on
 
 
 BATCH_NORMS = ("BN", "SyncBN", "naiveSyncBN")

@@ -1,5 +1,5 @@
 """The port's host-side native code: the JPEG decoder (counterpart of
-``drn_wsod_tpu/native.py``'s JPEG binding).
+``drn_wsod_tpu/native.py``'s JPEG binding) and a JPEG encoder.
 
 ``ops/csrc/jpeg_decode.cpp`` is a decoder of its own, with no libjpeg: it
 equals libjpeg-turbo's ISLOW, fancy-upsampled RGB decode bit for bit, which
@@ -9,6 +9,10 @@ compiler at first use (``ops/_build.py:build_host``); a missing compiler or
 a failed build raises. ``jpeg_decode`` returns None for a file the decoder
 does not take (see ``REASONS``), as the JAX binding does, and
 :func:`jpeg_unsupported_reason` names why.
+
+``ops/csrc/jpeg_encode.cpp`` writes the bytes of Pillow's default
+``Image.save`` of an RGB image (baseline, quality 75, 4:2:0, the standard
+Huffman tables, a JFIF header), built the same way: :func:`jpeg_encode`.
 """
 
 from __future__ import annotations
@@ -103,3 +107,29 @@ def jpeg_unsupported_reason(data: bytes) -> Optional[str]:
     "corrupt header", ...), or None where the file decodes."""
     rc = jpeg_decode_status(data)[1]
     return REASONS.get(rc, f"status {rc}") if rc else None
+
+
+def _encode_fn():
+    return _build.bind_host("jpeg_encode", "jpeg_encode", _u8p, ctypes.c_int,
+                            ctypes.c_int, _u8p, ctypes.c_size_t,
+                            ctypes.POINTER(ctypes.c_size_t))
+
+
+def jpeg_encode(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the JPEG bytes Pillow's default ``save``
+    writes for it. Raises ``ValueError`` for another shape or dtype, or a
+    side outside 1-65500."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"jpeg_encode takes (H, W, 3) uint8, got "
+                         f"{rgb.shape} {rgb.dtype}")
+    h, w = rgb.shape[:2]
+    rgb = np.ascontiguousarray(rgb)
+    cap = 2 * rgb.nbytes + 4096
+    out = np.empty(cap, np.uint8)
+    n = ctypes.c_size_t()
+    rc = _encode_fn()(rgb.reshape(-1), w, h, out, cap, ctypes.byref(n))
+    if rc != 0:
+        raise ValueError(f"jpeg_encode failed (status {rc}) for a "
+                         f"{w}x{h} image")
+    return out[:n.value].tobytes()

@@ -10,7 +10,8 @@ is 0. The batched form then multiplies by ``roi_scale`` cast to the map's
 dtype, rounding once (``drn_wsod_tpu/ops/roi_pool_pallas.py:_xla_fallback``).
 
 :func:`roi_pool_batched` (K1) runs :func:`roi_pool_plain` on CPU tensors and
-the hand-written kernel ``csrc/roi_pool.cu`` on CUDA tensors.
+the hand-written kernel ``csrc/roi_pool.cu`` on CUDA tensors, both as the
+implementations of one ``torch.library`` op, ``drn_wsod::roi_pool_batched``.
 :func:`roi_pool_image` (K2, one image, with an int8 mode) runs
 :func:`roi_pool_image_plain` on CPU tensors and ``csrc/roi_pool_image.cu`` (K1's
 body at B = 1) on CUDA tensors; :func:`roi_pool_looped` launches it once per
@@ -261,9 +262,12 @@ def roi_pool_batched(features: torch.Tensor, boxes: torch.Tensor,
 
     features: (B, H, W, C) bfloat16 or float32, contiguous; boxes: (B, P, 4)
     float32; roi_scale: (B, P) float32. Returns (B, P, R, R, C) in the map's
-    dtype. CPU tensors go through :func:`roi_pool_plain`; CUDA tensors
-    launch the kernel (replaces ``roi_pool_pallas.py:roi_pool_pallas_grid``)
-    and add one to ``roi_pool_batched.launches``.
+    dtype, through the op ``torch.ops.drn_wsod.roi_pool_batched``
+    (:func:`roi_pool_op`): CPU tensors go through :func:`roi_pool_plain`;
+    CUDA tensors launch the kernel (replaces
+    ``roi_pool_pallas.py:roi_pool_pallas_grid``) and add one to
+    ``roi_pool_batched.launches``. Eager calls and programs exported by
+    ``torch.export`` take this one route.
 
     ``allow_banded=True`` takes the banded path, :func:`roi_pool_banded`
     (K3), whatever the map's size: the flag alone decides. The JAX package
@@ -274,12 +278,35 @@ def roi_pool_batched(features: torch.Tensor, boxes: torch.Tensor,
     if allow_banded:
         return roi_pool_banded(features, boxes, spatial_scale, resolution,
                                roi_scale)
-    if not features.is_cuda:
-        return roi_pool_plain(features, boxes, spatial_scale, resolution,
-                              roi_scale)
+    return roi_pool_op(features, boxes, float(spatial_scale),
+                       int(resolution), roi_scale)
+
+
+@torch.library.custom_op("drn_wsod::roi_pool_batched", mutates_args=(),
+                         device_types="cpu")
+def roi_pool_op(features: torch.Tensor, boxes: torch.Tensor,
+                spatial_scale: float, resolution: int,
+                roi_scale: torch.Tensor) -> torch.Tensor:
+    """K1 as a ``torch.library`` op. Its CPU implementation is
+    :func:`roi_pool_plain`; its CUDA implementation (:func:`_roi_pool_cuda`)
+    the checked kernel launch; its fake implementation gives the output's
+    shape and dtype, so that ``torch.export`` traces through it and the
+    exported program holds the op."""
+    return roi_pool_plain(features, boxes, spatial_scale, resolution,
+                          roi_scale)
+
+
+@roi_pool_op.register_kernel("cuda")
+def _roi_pool_cuda(features, boxes, spatial_scale, resolution, roi_scale):
     _check_batched(features, boxes, roi_scale)
     return _launch_batched(features, boxes, spatial_scale, resolution,
                            roi_scale, top_row_order(boxes))
+
+
+@roi_pool_op.register_fake
+def _roi_pool_fake(features, boxes, spatial_scale, resolution, roi_scale):
+    B, _, _, C = features.shape
+    return features.new_empty((B, boxes.shape[1], resolution, resolution, C))
 
 
 def _launch_batched(features: torch.Tensor, boxes: torch.Tensor,

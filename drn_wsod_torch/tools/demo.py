@@ -9,14 +9,18 @@ multi-scale window grid so that the pipeline still runs.
 Prints each detection above ``--confidence-threshold`` as
 ``class  score  [x1, y1, x2, y2]`` and a count per image. Several inputs
 are the frames of a sequence (frame i takes the pickle's i-th image, the
-last one past its end). ``--output`` (annotated images) needs
-``utils/visualizer``, not ported yet (ROADMAP.md queue 1, item 17c). Runs on
-the CUDA device.
+last one past its end). ``--output`` writes the annotated images
+(``utils/visualizer.py``; a sequence through ``utils/video_visualizer.py``,
+whose colours follow each object across frames): to that file for one
+input, else into that directory under each input's basename, as PNG or
+JPEG by the name's extension (``Visualizer.save``; another extension
+raises). Runs on the CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import pickle
 
 import numpy as np
@@ -70,8 +74,8 @@ def argument_parser() -> argparse.ArgumentParser:
                    help="image path(s); several are the frames of a "
                         "sequence")
     p.add_argument("--output", default="",
-                   help="annotated images (needs utils/visualizer: "
-                        "ROADMAP.md queue 1, item 17c)")
+                   help="file (single input) or directory to write "
+                        "annotated images")
     p.add_argument("--proposals", default="",
                    help="a proposal pickle (trusted: unpickling runs code)")
     p.add_argument("--confidence-threshold", type=float, default=0.3)
@@ -85,12 +89,10 @@ def main(argv=None, device=None) -> int:
     from ..data.datasets.voc import VOC_CLASS_NAMES
     from ..data.mapper import read_image
     from ..engine.defaults import DefaultPredictor
+    from ..utils.video_visualizer import VideoVisualizer
+    from ..utils.visualizer import Visualizer, save_image
 
     args = argument_parser().parse_args(argv)
-    if args.output:
-        raise NotImplementedError(
-            "--output needs utils/visualizer, not ported yet: ROADMAP.md "
-            "queue 1, item 17c (the visualizers, the demo's output)")
     cfg = get_cfg()
     cfg.merge_from_file(args.config_file)
     if args.opts:
@@ -104,6 +106,9 @@ def main(argv=None, device=None) -> int:
     predictor = DefaultPredictor(cfg, device=device)
     names = (VOC_CLASS_NAMES if cfg.MODEL.ROI_HEADS.NUM_CLASSES == 20
              else [str(i) for i in range(cfg.MODEL.ROI_HEADS.NUM_CLASSES)])
+    is_sequence = len(args.input) > 1
+    video_vis = (VideoVisualizer(names) if is_sequence and args.output
+                 else None)
     total = 0
     for fi, path in enumerate(args.input):
         image = read_image(path, cfg.INPUT.FORMAT)
@@ -125,6 +130,21 @@ def main(argv=None, device=None) -> int:
                   f"{box[2]:.0f}, {box[3]:.0f}]")
         print(f"{path}: {n} detections above {args.confidence_threshold}")
         total += n
+
+        if args.output:
+            if video_vis is not None:
+                vis = video_vis.draw_frame(
+                    image, out["boxes"], out["scores"], out["classes"],
+                    score_thresh=args.confidence_threshold)
+            else:
+                vis = Visualizer(image, names).draw_instance_predictions(
+                    out["boxes"], out["scores"], out["classes"],
+                    score_thresh=args.confidence_threshold).get_image()
+            if is_sequence or os.path.isdir(args.output):
+                dst = os.path.join(args.output, os.path.basename(path))
+            else:
+                dst = args.output
+            save_image(dst, vis)
     return total
 
 

@@ -26,7 +26,9 @@ after it (WSJDS among them). ``NORM`` BN/SyncBN or
 ``TEST.PRECISE_BN.ENABLED`` adds the PreciseBN hook. LVIS under
 ``lvis/``, Cityscapes where the caller registers it
 (``data.datasets.register_all_cityscapes``), each into its own evaluator.
-Pseudo-GT visualisation comes with ROADMAP.md queue 1, item 17c.
+``VIS_PERIOD`` (or ``WSL.VIS_TEST``) adds ``PGTVisualization`` for the
+OICR, PCL and WSDDN heads: PNGs of the mined pseudo-GT boxes under
+``OUTPUT_DIR/pgt_vis``.
 
 Several processes, one a card:
 
@@ -62,7 +64,8 @@ from ..data.datasets.builtin import register_all
 from ..device import resolve_device
 from ..engine import (CommonMetricPrinter, EvalHook, IterationTimer,
                       JSONWriter, PeriodicCheckpointer, PeriodicWriter,
-                      PreciseBNHook, TensorboardWriter, Trainer,
+                      PGTVisualization, PreciseBNHook, TensorboardWriter,
+                      Trainer,
                       create_train_state)
 from ..engine import trainer as trainer_lib
 from ..engine.defaults import default_argument_parser, default_setup
@@ -287,22 +290,22 @@ def steps_per_dispatch(cfg) -> int:
         return 1
     k = max(int(cfg.SOLVER.STEPS_PER_DISPATCH), 1)
     for period in (LOG_PERIOD, cfg.SOLVER.CHECKPOINT_PERIOD,
-                   cfg.TEST.EVAL_PERIOD):
+                   cfg.TEST.EVAL_PERIOD, vis_period(cfg)):
         if period and period > 0:
             k = math.gcd(k, int(period))
     return k
 
 
-def _refuse_unported(cfg):
-    head = cfg.MODEL.ROI_HEADS.NAME
-    vis_period = cfg.VIS_PERIOD or (
+PGT_HEADS = ("OICRROIHeads", "PCLROIHeads", "WSDDNROIHeads")
+
+
+def vis_period(cfg) -> int:
+    """The pseudo-GT visualisation period: ``VIS_PERIOD``, else
+    ``SOLVER.CHECKPOINT_PERIOD`` under ``WSL.VIS_TEST``, else 0 (off);
+    0 for the heads that mine no pseudo-GT boxes."""
+    period = cfg.VIS_PERIOD or (
         cfg.SOLVER.CHECKPOINT_PERIOD if cfg.WSL.VIS_TEST else 0)
-    if vis_period > 0 and head in ("OICRROIHeads", "PCLROIHeads",
-                                   "WSDDNROIHeads"):
-        raise NotImplementedError(
-            "pseudo-GT visualisation (VIS_PERIOD, WSL.VIS_TEST) needs "
-            "utils/visualizer, not ported yet: ROADMAP.md queue 1, item 17c "
-            "(the visualizers, the demo's output)")
+    return period if cfg.MODEL.ROI_HEADS.NAME in PGT_HEADS else 0
 
 
 def _writers(cfg):
@@ -338,7 +341,6 @@ def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
     batch, the state is resumed or loaded whole, then split where the mesh
     has a ``model`` axis over 1. The writers run on rank 0 alone."""
     dev = resolve_device(device)
-    _refuse_unported(cfg)
     mesh = create_mesh(tuple(cfg.PARALLEL.MESH_AXES),
                        tuple(cfg.PARALLEL.MESH_SHAPE))
     mapper = DatasetMapper(cfg, is_train=True)
@@ -380,6 +382,12 @@ def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
         hooks.append(PreciseBNHook(
             cfg.TEST.EVAL_PERIOD or cfg.SOLVER.CHECKPOINT_PERIOD,
             lambda: iter(loader), num_iters=cfg.TEST.PRECISE_BN.NUM_ITER))
+    if vis_period(cfg) > 0:
+        meta = (MetadataCatalog.get(cfg.DATASETS.TRAIN[0])
+                if cfg.DATASETS.TRAIN else None)
+        hooks.append(PGTVisualization(
+            vis_period(cfg), model, cfg.OUTPUT_DIR,
+            class_names=meta.get("thing_classes") if meta else None))
     if cfg.TEST.EVAL_PERIOD > 0:
         hooks.append(EvalHook(
             cfg.TEST.EVAL_PERIOD,

@@ -1784,3 +1784,130 @@ def test_nccl_across_cards(cuda, tmp_path, model_size):
         device="cuda", one_card_each=True)
     _matches_one_process(cuda, cfg, batches, res[0]["run"])
     assert len({r["run"]["digests"][-1] for r in res}) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_k1_library_op_on_cuda_equals_plain(cuda, dtype):
+    """``torch.ops.drn_wsod.roi_pool_batched`` on CUDA tensors launches
+    K1 once and equals the plain version on the CPU copies."""
+    feat, boxes, scale = _inputs(cuda, dtype, seed=4)
+    before = rp.roi_pool_batched.launches
+    got = torch.ops.drn_wsod.roi_pool_batched(feat, boxes, 0.125, 7, scale)
+    torch.cuda.synchronize()
+    assert rp.roi_pool_batched.launches == before + 1
+    want = rp.roi_pool_plain(feat.cpu(), boxes.cpu(), 0.125, 7, scale.cpu())
+    assert got.dtype == dtype and got.is_cuda
+    assert torch.equal(got.cpu(), want)
+
+
+def test_export_on_cuda(cuda):
+    """The toy flagship exported on the card: the graph holds K1, the
+    loaded program launches it once a call and equals the live model bit
+    for bit, and the live model on the card the CPU's within the slice
+    tolerance."""
+    from drn_wsod_torch.export import (export_inference, holds_roi_pool,
+                                       load_exported)
+
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_file("configs/PascalVOC-Detection/oicr_WSR_50_DC5_1x.yaml")
+    cfg.merge_from_list(["MODEL.RESNETS.DEPTH", "18",
+                         "MODEL.RESNETS.RES2_OUT_CHANNELS", "64",
+                         "MODEL.ROI_BOX_HEAD.DAN_DIM", "[64, 64]",
+                         "MODEL.DTYPE", "float32"])
+    model = drn_wsod_torch.build_model(cfg, device=cuda)
+    batch = drn_wsod_torch.synthetic_batch(2, 96, 96, 64, 20, seed=2,
+                                           device=cuda)
+    program = load_exported(export_inference(model, batch))
+    assert holds_roi_pool(program.program) == 1
+    before = rp.roi_pool_batched.launches
+    got = program.call(batch)
+    torch.cuda.synchronize()
+    assert rp.roi_pool_batched.launches == before + 1
+    live = model.inference_scores(batch)
+    for g, w in zip(got, live):
+        assert g.is_cuda and torch.equal(g, w)
+    cpu = model.to("cpu").inference_scores(batch.to("cpu"))
+    for g, w in zip(got, cpu):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-5 * w.abs().max().item())
+
+
+def test_data_parallel_full_width_is_float_order(cuda, tmp_path):
+    """The flagship at full width in float32 (R50-WS DC5, DAN [2048,
+    4096], 704^2, P = 4096, dropout 0 so that the order of the images
+    changes no draw), 3 steps data-parallel over four ranks, one image a
+    rank (NCCL, one rank a card, on four cards or more; else four gloo
+    ranks sharing card 0), against one process on the same 3 global
+    batches of 4 on card 0; and, for the size of float order alone, that
+    process against itself on the same batches with their images in
+    reverse order (the same sums, added in another order). Holds: the
+    backbone's features of each image are the same bits at B = 1 as at
+    B = 4 (its batching parts nothing); every loss within rtol 1e-4; each
+    tensor's gap to the ranks within phase 27's 1e-6 + 1e-4 |p|, or within
+    4x the gap the reversed order alone opens in it. Prints the worst of
+    each. Minutes long: ``chip_smoke.py`` phase 9 leaves it to a call of
+    its own."""
+    from torch_dist_worker import launch
+
+    cfg = drn_wsod_torch.get_cfg()
+    cfg.merge_from_file("configs/PascalVOC-Detection/oicr_WSR_50_DC5_1x.yaml")
+    cfg.merge_from_list(["MODEL.DTYPE", "float32",
+                         "MODEL.ROI_BOX_HEAD.DROPOUT", "0.0"])
+    batches = [drn_wsod_torch.synthetic_batch(4, 704, 704, 4096, 20,
+                                              seed=60 + s, device="cpu")
+               for s in range(3)]
+    cards = torch.cuda.device_count() >= 4
+    payload = {"cases": {"dp": _dist_case(cfg, batches, ("data",), (4,))}}
+    if cards:
+        payload["backend"] = "nccl"
+    res = launch(payload, 4, tmp_path, timeout=900, device="cuda",
+                 one_card_each=cards)
+    ranks = res[0]["dp"]
+    where = "four cards, NCCL" if cards else "one card, four gloo ranks"
+
+    def one_process(reverse: bool):
+        model = drn_wsod_torch.build_model(cfg, device=cuda)
+        tx = drn_wsod_torch.build_optimizer(cfg, model)
+        state = drn_wsod_torch.create_train_state(model, tx)
+        step = drn_wsod_torch.make_train_step(model, tx)
+        metrics = []
+        for b in batches:
+            b = b.to(cuda)
+            state, m = step(state, b.map(lambda t: t.flip(0)) if reverse
+                            else b, 0)
+            metrics.append({k: v.item() for k, v in m.items()})
+        sd = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model, state
+        torch.cuda.empty_cache()
+        return metrics, sd
+
+    model = drn_wsod_torch.build_model(cfg, device=cuda)
+    with torch.no_grad():
+        x = model.preprocess(batches[0].image.to(cuda)).permute(0, 3, 1, 2)
+        whole = model.backbone(x)
+        for i in range(x.shape[0]):
+            one = model.backbone(x[i:i + 1])
+            for k in whole:
+                assert torch.equal(one[k][0], whole[k][i]), (k, i)
+    del model, x, whole, one
+    torch.cuda.empty_cache()
+
+    metrics, sd = one_process(False)
+    _, sd_rev = one_process(True)
+    loss = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+               for g, w in zip(ranks["metrics"], metrics) for k in w)
+    worst, bad = (None, 0.0, 0.0, 0.0), []
+    for k, v in ranks["state_dict"].items():
+        gap = (v - sd[k]).abs().max().item()
+        rev = (sd_rev[k] - sd[k]).abs().max().item()
+        tol = ((v - sd[k]).abs() / (1e-6 + 1e-4 * sd[k].abs())).max().item()
+        if tol > worst[1]:
+            worst = (k, tol, gap, rev)
+        if tol > 1.0 and gap > 4 * rev:
+            bad.append((k, gap, rev))
+    print(f"data-parallel over 4 ranks ({where}) vs one process: losses "
+          f"rel {loss:.3g}; worst tensor {worst[0]}: {worst[1]:.3g} x "
+          f"(1e-6 + 1e-4 |p|), max|diff| {worst[2]:.3g}, where the reversed "
+          f"image order alone moves it by {worst[3]:.3g}")
+    assert loss < 1e-4 and not bad, bad

@@ -242,3 +242,93 @@ def test_ablate_bench_refuses_missing_cuda(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="CUDA"):
         ablate_bench.run(1)
+
+
+# the visualizers, the image writers, export and the CLIs of the last
+# slice (chip_smoke.py's phase 28), which import Pillow nowhere
+NO_PILLOW_TOOLS = ("utils/visualizer.py", "utils/video_visualizer.py",
+                   "native.py", "export.py", "engine/hooks.py",
+                   "engine/events.py", "tools/export_model.py",
+                   "tools/generate_pgt.py", "tools/convert_weights.py",
+                   "tools/proposal_convert.py", "tools/filter_events.py",
+                   "tools/analyze_model.py", "tools/benchmark.py",
+                   "tools/plain_train_net.py", "tools/imagenet.py",
+                   "tools/visualize_data.py",
+                   "tools/visualize_json_results.py", "tools/demo.py")
+
+
+@pytest.mark.parametrize("module", NO_PILLOW_TOOLS)
+def test_last_slice_imports_no_pillow(module):
+    path = ROOT / "drn_wsod_torch" / module
+    assert "PIL" not in set(_imported_roots(path)), module
+
+
+def test_visualizers_and_writers_run_with_pillow_blocked(tmp_path):
+    """Every drawing method, the video visualizer, the PNG writer and the
+    JPEG encoder (each file read back by the port's own readers), in a
+    process where ``import PIL`` fails."""
+    code = f"""
+import sys
+sys.modules["PIL"] = None
+import numpy as np
+from drn_wsod_torch.data.mapper import read_image
+from drn_wsod_torch.data.png import read_png
+from drn_wsod_torch.utils.video_visualizer import VideoVisualizer
+from drn_wsod_torch.utils.visualizer import Visualizer, save_pgt_visualization
+rs = np.random.RandomState(0)
+img = rs.randint(0, 256, (60, 80, 3)).astype(np.uint8)
+v = Visualizer(img, ["a", "b", "c"])
+v.draw_instance_predictions(np.array([[3.5, 14.2, 40, 50]]), [0.9], [1],
+                            masks=rs.rand(1, 60, 80) > 0.5,
+                            keypoints=rs.uniform(0, 60, (1, 17, 3)))
+v.draw_rotated_box([40, 30, 20, 10, 30], 2, 0.5)
+v.draw_panoptic_seg(rs.randint(0, 3, (60, 80)),
+                    [{{"id": 1, "category_id": 0, "isthing": True}}])
+v.draw_dataset_dict({{"annotations": [{{"category_id": 0, "bbox": [1, 2, 9, 9],
+                     "segmentation": [[1, 1, 20, 2, 9, 30]]}}],
+                     "sem_seg": rs.randint(0, 3, (60, 80))}})
+v.save(r"{tmp_path}/a.png")
+v.save(r"{tmp_path}/a.jpg")
+assert np.array_equal(read_png(r"{tmp_path}/a.png"), v.get_image())
+assert read_image(r"{tmp_path}/a.jpg", "RGB").shape == (60, 80, 3)
+frame = VideoVisualizer(["a", "b"]).draw_frame(img, [[1, 2, 30, 40]], [0.7], [1])
+save_pgt_visualization(img, np.array([[1, 2, 30, 40]]), [True], ["a"],
+                       r"{tmp_path}", "p", "")
+print(frame.shape, read_png(r"{tmp_path}/p.png").shape,
+      "PIL" in sys.modules and sys.modules["PIL"])
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "(60, 80, 3) (60, 80, 3) None"
+
+
+def test_last_slice_tools_are_covered():
+    for tool in ("export_model", "generate_pgt", "convert_weights",
+                 "proposal_convert", "filter_events", "analyze_model",
+                 "benchmark", "plain_train_net", "imagenet",
+                 "visualize_data", "visualize_json_results",
+                 "make_font_fixtures"):
+        assert f"drn_wsod_torch/tools/{tool}.py" in SOURCES
+    for module in ("export.py", "utils/visualizer.py",
+                   "utils/video_visualizer.py"):
+        assert f"drn_wsod_torch/{module}" in SOURCES
+
+
+def test_last_slice_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
+    from drn_wsod_torch.tools import (analyze_model, benchmark,
+                                      export_model, generate_pgt, imagenet)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ["--config-file", str(ROOT / "configs" / "PascalVOC-Detection"
+                                / "oicr_WSR_50_DC5_1x.yaml")]
+    for call in (
+            lambda: export_model.main(cfg + ["--output",
+                                             str(tmp_path / "m.pt2")]),
+            lambda: generate_pgt.main(cfg + ["--out", str(tmp_path / "p"),
+                                             "OUTPUT_DIR", str(tmp_path)]),
+            lambda: imagenet.main(["--synthetic", "--iters", "1"]),
+            lambda: benchmark.main(["--task", "eval"]),
+            lambda: analyze_model.main(cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

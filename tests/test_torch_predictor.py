@@ -179,6 +179,27 @@ def test_demo_cli_prints_detections(weights, tmp_path, capsys):
                              want["classes"]):
         assert line == (f"{VOC_CLASS_NAMES[int(c)]:>14s}  {s:.3f}  "
                         f"[{b[0]:.0f}, {b[1]:.0f}, {b[2]:.0f}, {b[3]:.0f}]")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        pdemo.main(["--output", str(tmp_path / "out.png"), *argv],
+    # --output: a sequence into a directory through the VideoVisualizer,
+    # one input into a file (JPEG by its name), no other extension
+    from drn_wsod_torch.data.png import read_png
+    from drn_wsod_torch.native import jpeg_decode, jpeg_encode
+    from drn_wsod_torch.utils.video_visualizer import VideoVisualizer
+    from drn_wsod_torch.utils.visualizer import Visualizer
+
+    pdemo.main(["--output", str(tmp_path / "out"), *argv], device="cpu")
+    bgr = np.ascontiguousarray(image[:, :, ::-1])
+    video = VideoVisualizer(VOC_CLASS_NAMES)
+    for _ in range(2):
+        frame = video.draw_frame(bgr, want["boxes"], want["scores"],
+                                 want["classes"], score_thresh=0.0)
+    assert np.array_equal(read_png(str(tmp_path / "out" / "im.png")), frame)
+    argv_one = [a for i, a in enumerate(argv) if i != 4]   # one input
+    pdemo.main(["--output", str(tmp_path / "one.jpg"), *argv_one],
+               device="cpu")
+    one = Visualizer(bgr, VOC_CLASS_NAMES).draw_instance_predictions(
+        want["boxes"], want["scores"], want["classes"]).get_image()
+    data = (tmp_path / "one.jpg").read_bytes()
+    assert data == jpeg_encode(one) and jpeg_decode(data) is not None
+    with pytest.raises(ValueError, match="one.bmp"):
+        pdemo.main(["--output", str(tmp_path / "one.bmp"), *argv_one],
                    device="cpu")

@@ -401,17 +401,19 @@ def test_do_train_other_heads_match_jax(setup, monkeypatch, head, overrides):
 
 
 def test_do_train_refuses_what_is_not_ported(setup):
-    """Pseudo-GT visualisation still raises; NORM BN, SyncBN and PreciseBN
-    are ported: ``_refuse_unported`` lets them through, and ``do_train``
-    gives them the PreciseBN hook (``tests/test_torch_coco_train_net.py``
-    trains with it)."""
+    """Nothing is refused any more: pseudo-GT visualisation is ported
+    (``VIS_PERIOD``, or ``WSL.VIS_TEST`` at the checkpoint period, for the
+    OICR, PCL and WSDDN heads; ``tests/test_torch_pgt_vis.py`` trains with
+    it) and joins the periods that bound the steps a dispatch."""
     _, _, pc, _ = setup
-    for key, value in (("MODEL__RESNETS__NORM", "SyncBN"),
-                       ("TEST__PRECISE_BN__ENABLED", True),
-                       ("MODEL__RESNETS__NORM", "BN")):
-        train_net._refuse_unported(_with(pc, **{key: value}))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        train_net.do_train(_with(pc, VIS_PERIOD=10), None, device="cpu")
+    assert train_net.vis_period(_with(pc, VIS_PERIOD=10)) == 10
+    assert train_net.vis_period(_with(pc, WSL__VIS_TEST=True,
+                                      SOLVER__CHECKPOINT_PERIOD=7)) == 7
+    assert train_net.vis_period(_with(
+        pc, VIS_PERIOD=10, MODEL__ROI_HEADS__NAME="CSCROIHeads")) == 0
+    assert train_net.steps_per_dispatch(_with(
+        pc, SOLVER__STEPS_PER_DISPATCH=20, SOLVER__CHECKPOINT_PERIOD=5000,
+        VIS_PERIOD=6)) == 2
     assert train_net.steps_per_dispatch(_with(
         pc, SOLVER__STEPS_PER_DISPATCH=20, SOLVER__CHECKPOINT_PERIOD=8)) == 4
     assert train_net.steps_per_dispatch(_with(

@@ -1,12 +1,12 @@
 """Which YAMLs of the config zoo the port runs: each non-base YAML under
 ``configs/`` goes through the port's ``models/build.py:build_model`` (on
 the meta device: no weights are drawn; its meta-architecture's builder,
-``_build_rcnn_wsl`` for the WSOD and supervised heads), its backbone
-builder and ``tools/train_net.py:_refuse_unported``, and its datasets are
-looked up in the catalog ``train_net.main`` fills
-(``data/datasets/builtin.py:register_all``: VOC, COCO with its
+``_build_rcnn_wsl`` for the WSOD and supervised heads) and the function
+that makes its backbone (``tools/train_net.py`` refuses nothing since the
+visualizers were ported), and its datasets are looked up in the catalog ``train_net.main``
+fills (``data/datasets/builtin.py:register_all``: VOC, COCO with its
 panoptic-separated splits, and the web and VOC-SBD sets whose json
-exists). Every YAML passes all four except those listed in ``BLOCKED``
+exists). Every YAML passes all three except those listed in ``BLOCKED``
 with what stops them (the ROADMAP.md item that raises, or the catalog's
 missing names). Run on its own, this file prints nothing; its cases are
 the audit ROADMAP.md section 1 cites."""
@@ -18,7 +18,6 @@ import pytest
 import drn_wsod_torch
 from drn_wsod_torch.data import DatasetCatalog
 from drn_wsod_torch.data.datasets import register_all
-from drn_wsod_torch.tools import train_net
 from test_torch_common import CONFIGS
 
 YAMLS = sorted(str(p.relative_to(CONFIGS)) for p in CONFIGS.rglob("*.yaml")
@@ -42,7 +41,6 @@ def _audit(path: str) -> str:
         model = drn_wsod_torch.build_model(cfg, device="meta")
         if type(model).__name__ != DENSE.get(path, "GeneralizedRCNNWSL"):
             return f"built a {type(model).__name__}"
-        train_net._refuse_unported(cfg)
     except NotImplementedError as e:
         return str(e)
     missing = [n for n in (*cfg.DATASETS.TRAIN, *cfg.DATASETS.TEST)
