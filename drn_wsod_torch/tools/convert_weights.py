@@ -9,7 +9,8 @@ The configured model is built, the weights imported by
 ``.pth`` Detectron2 state dict), and saved with a fresh optimizer state as
 step 0 of ``checkpoint/checkpointer.py:Checkpointer`` under ``--out``
 (``model_0000000.pth``), which ``Checkpointer.load`` and ``train_net
---resume`` read. Builds on the CPU unless ``main`` is given a device.
+--resume`` read. Builds on the CUDA device unless ``main`` is given
+another one.
 """
 
 from __future__ import annotations
@@ -26,10 +27,11 @@ def argument_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None, device="cpu") -> str:
+def main(argv=None, device=None) -> str:
     """Convert; returns the checkpoint's path."""
     from ..checkpoint import Checkpointer, load_reference_weights
     from ..config import get_cfg
+    from ..device import resolve_device
     from ..engine import create_train_state
     from ..models import build_model
     from ..solver import build_optimizer
@@ -40,7 +42,7 @@ def main(argv=None, device="cpu") -> str:
     if args.opts:
         cfg.merge_from_list(args.opts)
 
-    model = build_model(cfg, device=device)
+    model = build_model(cfg, device=resolve_device(device))
     load_reference_weights(args.weights, model)
     ck = Checkpointer(args.out)
     ck.save(create_train_state(model, build_optimizer(cfg, model)), 0)

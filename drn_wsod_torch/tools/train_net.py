@@ -283,9 +283,9 @@ def do_dense_test(cfg, model, name: str, mapper, records, etype: str,
 
 def steps_per_dispatch(cfg) -> int:
     """``SOLVER.STEPS_PER_DISPATCH`` reduced by gcd against every active
-    hook period (the log period, checkpoints, evaluation), so that each
-    hook sees the state it would see one step at a time; 1 for the CSC
-    heads, whose step is chosen per iteration."""
+    hook period (the log period, checkpoints, evaluation, visualisation),
+    so that each hook sees the state it would see one step at a time; 1
+    for the CSC heads, whose step is chosen per iteration."""
     if cfg.MODEL.ROI_HEADS.NAME in CSC_HEAD_NAMES:
         return 1
     k = max(int(cfg.SOLVER.STEPS_PER_DISPATCH), 1)
@@ -301,11 +301,11 @@ PGT_HEADS = ("OICRROIHeads", "PCLROIHeads", "WSDDNROIHeads")
 
 def vis_period(cfg) -> int:
     """The pseudo-GT visualisation period: ``VIS_PERIOD``, else
-    ``SOLVER.CHECKPOINT_PERIOD`` under ``WSL.VIS_TEST``, else 0 (off);
-    0 for the heads that mine no pseudo-GT boxes."""
-    period = cfg.VIS_PERIOD or (
+    ``SOLVER.CHECKPOINT_PERIOD`` under ``WSL.VIS_TEST``, else 0 (off).
+    It bounds the steps a dispatch for every head, as in the JAX trainer;
+    the hook itself is added only for ``PGT_HEADS``."""
+    return cfg.VIS_PERIOD or (
         cfg.SOLVER.CHECKPOINT_PERIOD if cfg.WSL.VIS_TEST else 0)
-    return period if cfg.MODEL.ROI_HEADS.NAME in PGT_HEADS else 0
 
 
 def _writers(cfg):
@@ -382,7 +382,7 @@ def do_train(cfg, model, resume: bool = False, device=None) -> Trainer:
         hooks.append(PreciseBNHook(
             cfg.TEST.EVAL_PERIOD or cfg.SOLVER.CHECKPOINT_PERIOD,
             lambda: iter(loader), num_iters=cfg.TEST.PRECISE_BN.NUM_ITER))
-    if vis_period(cfg) > 0:
+    if vis_period(cfg) > 0 and cfg.MODEL.ROI_HEADS.NAME in PGT_HEADS:
         meta = (MetadataCatalog.get(cfg.DATASETS.TRAIN[0])
                 if cfg.DATASETS.TRAIN else None)
         hooks.append(PGTVisualization(

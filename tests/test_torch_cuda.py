@@ -6,6 +6,8 @@ steps on the card against the CPU. They skip where no CUDA device exists
 (the kernels have no CPU mode); run them on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py``."""
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -1833,27 +1835,31 @@ def test_export_on_cuda(cuda):
                                    atol=1e-5 * w.abs().max().item())
 
 
-def test_data_parallel_full_width_is_float_order(cuda, tmp_path):
+@pytest.mark.parametrize("dropout", [0.0, 0.5],
+                         ids=["dropout0", "dropout0.5"])
+def test_data_parallel_full_width_is_float_order(cuda, tmp_path, dropout):
     """The flagship at full width in float32 (R50-WS DC5, DAN [2048,
-    4096], 704^2, P = 4096, dropout 0 so that the order of the images
-    changes no draw), 3 steps data-parallel over four ranks, one image a
-    rank (NCCL, one rank a card, on four cards or more; else four gloo
-    ranks sharing card 0), against one process on the same 3 global
-    batches of 4 on card 0; and, for the size of float order alone, that
-    process against itself on the same batches with their images in
-    reverse order (the same sums, added in another order). Holds: the
-    backbone's features of each image are the same bits at B = 1 as at
-    B = 4 (its batching parts nothing); every loss within rtol 1e-4; each
-    tensor's gap to the ranks within phase 27's 1e-6 + 1e-4 |p|, or within
-    4x the gap the reversed order alone opens in it. Prints the worst of
-    each. Minutes long: ``chip_smoke.py`` phase 9 leaves it to a call of
-    its own."""
+    4096], 704^2, P = 4096, dropout 0 and the YAML's 0.5), 3 steps
+    data-parallel over four ranks, one image a rank (NCCL, one rank a
+    card, on four cards or more; else four gloo ranks sharing card 0),
+    against one process on the same 3 global batches of 4 on card 0, run
+    twice: as it is, and with every ``Dense`` product (the DAN's and the
+    predictors') taken image by image, as the ranks take them. The two
+    processes compute the same sums blocked otherwise: their gap is float
+    order alone. Holds: the backbone's features of each image are the same
+    bits at B = 1 as at B = 4 (its batching parts nothing); every loss
+    within rtol 1e-4; each tensor of the ranks within phase 27's 1e-6 +
+    1e-4 |p| of the process as it is, or else of the blocked one. Prints
+    the worst of each and the gap blocking alone opens. Minutes long:
+    ``chip_smoke.py`` phase 9 leaves it to a call of its own."""
     from torch_dist_worker import launch
+
+    from drn_wsod_torch.models.layers import Dense
 
     cfg = drn_wsod_torch.get_cfg()
     cfg.merge_from_file("configs/PascalVOC-Detection/oicr_WSR_50_DC5_1x.yaml")
     cfg.merge_from_list(["MODEL.DTYPE", "float32",
-                         "MODEL.ROI_BOX_HEAD.DROPOUT", "0.0"])
+                         "MODEL.ROI_BOX_HEAD.DROPOUT", str(dropout)])
     batches = [drn_wsod_torch.synthetic_batch(4, 704, 704, 4096, 20,
                                               seed=60 + s, device="cpu")
                for s in range(3)]
@@ -1865,18 +1871,23 @@ def test_data_parallel_full_width_is_float_order(cuda, tmp_path):
                  one_card_each=cards)
     ranks = res[0]["dp"]
     where = "four cards, NCCL" if cards else "one card, four gloo ranks"
+    forward = Dense.forward
 
-    def one_process(reverse: bool):
+    def by_image(self, x):
+        # the rows are image-major: each image's rows multiplied alone
+        return torch.cat([forward(self, rows) for rows in x.chunk(4)])
+
+    def one_process(blocked: bool):
         model = drn_wsod_torch.build_model(cfg, device=cuda)
         tx = drn_wsod_torch.build_optimizer(cfg, model)
         state = drn_wsod_torch.create_train_state(model, tx)
         step = drn_wsod_torch.make_train_step(model, tx)
         metrics = []
-        for b in batches:
-            b = b.to(cuda)
-            state, m = step(state, b.map(lambda t: t.flip(0)) if reverse
-                            else b, 0)
-            metrics.append({k: v.item() for k, v in m.items()})
+        with mock.patch.object(Dense, "forward",
+                               by_image if blocked else forward):
+            for b in batches:
+                state, m = step(state, b.to(cuda), 0)
+                metrics.append({k: v.item() for k, v in m.items()})
         sd = {k: v.cpu() for k, v in model.state_dict().items()}
         del model, state
         torch.cuda.empty_cache()
@@ -1894,20 +1905,23 @@ def test_data_parallel_full_width_is_float_order(cuda, tmp_path):
     torch.cuda.empty_cache()
 
     metrics, sd = one_process(False)
-    _, sd_rev = one_process(True)
+    _, sd_blocked = one_process(True)
     loss = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
                for g, w in zip(ranks["metrics"], metrics) for k in w)
-    worst, bad = (None, 0.0, 0.0, 0.0), []
+
+    def tol(a, b):
+        return ((a - b).abs() / (1e-6 + 1e-4 * b.abs())).max().item()
+    worst, bad = (None, 0.0, 0.0, 0.0, 0.0), []
     for k, v in ranks["state_dict"].items():
-        gap = (v - sd[k]).abs().max().item()
-        rev = (sd_rev[k] - sd[k]).abs().max().item()
-        tol = ((v - sd[k]).abs() / (1e-6 + 1e-4 * sd[k].abs())).max().item()
-        if tol > worst[1]:
-            worst = (k, tol, gap, rev)
-        if tol > 1.0 and gap > 4 * rev:
-            bad.append((k, gap, rev))
-    print(f"data-parallel over 4 ranks ({where}) vs one process: losses "
-          f"rel {loss:.3g}; worst tensor {worst[0]}: {worst[1]:.3g} x "
-          f"(1e-6 + 1e-4 |p|), max|diff| {worst[2]:.3g}, where the reversed "
-          f"image order alone moves it by {worst[3]:.3g}")
+        plain, blocked = tol(v, sd[k]), tol(v, sd_blocked[k])
+        if plain > worst[1]:
+            worst = (k, plain, (v - sd[k]).abs().max().item(), blocked,
+                     (sd_blocked[k] - sd[k]).abs().max().item())
+        if plain > 1.0 and blocked > 1.0:
+            bad.append((k, plain, blocked))
+    print(f"data-parallel over 4 ranks ({where}, dropout {dropout}) vs "
+          f"one process: losses rel {loss:.3g}; worst tensor {worst[0]}: "
+          f"{worst[1]:.3g} x (1e-6 + 1e-4 |p|), max|diff| {worst[2]:.3g}; "
+          f"{worst[3]:.3g} x against the process with its products blocked "
+          f"by image, which blocking alone moves by {worst[4]:.3g}")
     assert loss < 1e-4 and not bad, bad

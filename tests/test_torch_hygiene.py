@@ -317,7 +317,8 @@ def test_last_slice_tools_are_covered():
 
 def test_last_slice_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
     from drn_wsod_torch.tools import (analyze_model, benchmark,
-                                      export_model, generate_pgt, imagenet)
+                                      convert_weights, export_model,
+                                      generate_pgt, imagenet)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ["--config-file", str(ROOT / "configs" / "PascalVOC-Detection"
@@ -329,6 +330,8 @@ def test_last_slice_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
                                              "OUTPUT_DIR", str(tmp_path)]),
             lambda: imagenet.main(["--synthetic", "--iters", "1"]),
             lambda: benchmark.main(["--task", "eval"]),
-            lambda: analyze_model.main(cfg)):
+            lambda: analyze_model.main(cfg),
+            lambda: convert_weights.main(cfg + ["--weights", "w.pkl",
+                                                "--out", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

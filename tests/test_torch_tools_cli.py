@@ -314,7 +314,7 @@ def test_convert_weights(tree):
     path = convert_weights.main(["--config-file", FLAGSHIP, "--weights",
                                  str(tree["weights"]), "--out",
                                  str(root / "converted"),
-                                 *_opts(tree["opts"])])
+                                 *_opts(tree["opts"])], device="cpu")
     assert Path(path).name == "model_0000000.pth"
     jc, pc = cfg_pair(*tree["opts"])
     model = drn_wsod_torch.build_model(pc, device="cpu")

@@ -403,14 +403,19 @@ def test_do_train_other_heads_match_jax(setup, monkeypatch, head, overrides):
 def test_do_train_refuses_what_is_not_ported(setup):
     """Nothing is refused any more: pseudo-GT visualisation is ported
     (``VIS_PERIOD``, or ``WSL.VIS_TEST`` at the checkpoint period, for the
-    OICR, PCL and WSDDN heads; ``tests/test_torch_pgt_vis.py`` trains with
-    it) and joins the periods that bound the steps a dispatch."""
+    OICR, PCL and WSDDN heads; ``tests/test_torch_tools_cli.py`` trains
+    with it). Its period joins the periods that bound the steps a dispatch
+    for every head, as in the JAX trainer (``tools/train_net.py``)."""
     _, _, pc, _ = setup
     assert train_net.vis_period(_with(pc, VIS_PERIOD=10)) == 10
     assert train_net.vis_period(_with(pc, WSL__VIS_TEST=True,
                                       SOLVER__CHECKPOINT_PERIOD=7)) == 7
     assert train_net.vis_period(_with(
-        pc, VIS_PERIOD=10, MODEL__ROI_HEADS__NAME="CSCROIHeads")) == 0
+        pc, VIS_PERIOD=10, MODEL__ROI_HEADS__NAME="CSCROIHeads")) == 10
+    assert "CSCROIHeads" not in train_net.PGT_HEADS
+    assert train_net.steps_per_dispatch(_with(
+        pc, SOLVER__STEPS_PER_DISPATCH=20, SOLVER__CHECKPOINT_PERIOD=5000,
+        VIS_PERIOD=6, MODEL__ROI_HEADS__NAME="StandardROIHeads")) == 2
     assert train_net.steps_per_dispatch(_with(
         pc, SOLVER__STEPS_PER_DISPATCH=20, SOLVER__CHECKPOINT_PERIOD=5000,
         VIS_PERIOD=6)) == 2
