@@ -191,9 +191,10 @@ Phases (any failure exits non-zero):
      bottleneck of its weights (within 2 bf16 ulps of the largest value).
  22. JPEG files ("jpeg"), decoded by the port's own decoder
      (``ops/csrc/jpeg_decode.cpp``, built in phase 2 by the host's C++
-     compiler; no Pillow, no libjpeg): every committed fixture
-     (``drn_wsod_torch/data/jpeg_fixtures``) decoded at scales 1-8 against
-     its manifest digest, the CMYK one named by ``read_image``; the host
+     compiler; no Pillow, no libjpeg): every fixture Pillow wrote
+     (``drn_wsod_torch/data/jpeg_fixtures``, ``FIXTURES``) decoded at each scale its
+     manifest records against the digest there (CMYK at 8), the CMYK one
+     through ``read_image`` to Pillow's digest; the host
      decode ms an image of the VOC-sized baseline and progressive and the
      COCO-sized fixtures; a VOC directory of the fixtures (8 trainval and 2
      test ids, 4096 proposals an image in a Detectron2 pickle) packed by
@@ -239,8 +240,8 @@ Phases (any failure exits non-zero):
  25. the dense paths ("dense"): (a) every committed PNG fixture
      (``drn_wsod_torch/data/png_fixtures``) decoded by the port's reader
      with Pillow blocked against the digests of Pillow's decode and
-     ``convert("RGB")`` (the interlaced and 16-bit ones named by its
-     error), and the semantic YAML's training mapper's ``sem_seg``
+     ``convert("RGB")`` (the interlaced and 16-bit ones among them), and
+     the semantic YAML's training mapper's ``sem_seg``
      canvases against the digests of Pillow's; (b)
      ``Misc/semantic_R_50_FPN_1x`` (SemanticSegmentor, the SemSegFPN
      head, 54 classes) on the fixtures' COCO panoptic-separated tree, 4
@@ -320,7 +321,23 @@ Phases (any failure exits non-zero):
      TTA, data), ``plain_train_net`` (2 steps) and ``imagenet`` (3 steps,
      BN on batch statistics) on the card. Files under
      ``build/chip_smoke_ph28/``, removed at the end.
-Every path (4-8, 10-28) is run with the kernels' launch counts set to 0
+ 29. every image file the JAX package's readers decode ("image_formats"),
+     Pillow blocked: (a) the fixtures of CMYK, YCCK, arithmetic coding,
+     progressive files cut at three points (libjpeg's block smoothing),
+     lossless files and the misnamed pair at each scale their manifest
+     records and through ``read_image``, the Adam7 and 16-bit PNGs
+     through ``read_png`` and ``read_png_rgb``, against their digests;
+     (b) a VOC tree of VOC-sized files of those kinds and a baseline one,
+     all named .jpg, packed by ``pack_dataset``, then ``train_net.main``
+     on the flagship YAML at full width, 4 steps of B=4 from the shard and
+     the TTA eval of the 2 unpacked test records (YCCK, Adam7 PNG) decoded
+     by ``read_image``: losses finite, K1 once per step and per TTA group
+     and exact at the largest map, detections finite and inside; (c) the
+     ``imagenet`` tool for 3 steps (WS-R50, B=8, 224^2) over a two-class
+     tree of those files named .JPEG; (d) the host ms of a 500x375 decode
+     of each new path. Files under ``build/chip_smoke_ph29/``, removed at
+     the end.
+Every path (4-8, 10-29) is run with the kernels' launch counts set to 0
 just before it and read just after. The line before the kernels' JSON
 line names the JPEG decoder's compiler, its build seconds, the fixture
 decodes matched and the host decode times; the line before that gives the
@@ -4122,31 +4139,44 @@ def no_pillow():
 
 
 def ph22_voc(root: Path, fixtures: Path, manifest: dict, rs):
-    """A VOC-layout directory from the JPEG fixtures: the colour fixtures
-    the decoder takes under PH22_TRAIN trainval ids, PH22_TEST_FILES under
-    test ids 100+, each with an XML of 1-2 objects of random VOC classes;
+    """A VOC-layout directory (``voc_tree``) from the JPEG fixtures Pillow
+    wrote (``make_jpeg_fixtures.FIXTURES``): the RGB ones not cut short
+    under PH22_TRAIN trainval ids, PH22_TEST_FILES under test ids 100+. Returns (directory, proposal file, {id: (H, W)}, {id: fixture
+    name})."""
+    from drn_wsod_torch.tools.make_jpeg_fixtures import FIXTURES
+
+    colour = [n for n, e in manifest["files"].items()
+              if n in FIXTURES and e["mode"] == "RGB"
+              and e["truncate"] is None]
+    names = {f"{i:06d}": colour[i % len(colour)] for i in range(PH22_TRAIN)}
+    names.update({f"{100 + i:06d}": n
+                  for i, n in enumerate(PH22_TEST_FILES)})
+    sources = {fid: (fixtures / n, manifest["files"][n]["shape"][:2])
+               for fid, n in names.items()}
+    d, prop_file, hw = voc_tree(root, sources, rs)
+    return d, prop_file, hw, names
+
+
+def voc_tree(root: Path, sources: dict, rs):
+    """A VOC-layout directory: each of ``sources`` ({id: (file, (H, W))})
+    copied to ``JPEGImages/<id>.jpg`` whatever its format, as VOC names
+    its files, ids below 100 in the trainval split and the others in the
+    test split, each with an XML of 1-2 objects of random VOC classes;
     and a Detectron2 proposal pickle of P proposals an image (phase 10's
     ``eval_image`` boxes). Returns (directory, proposal file, {id: (H,
-    W)}, {id: fixture name})."""
+    W)})."""
     import pickle
     import shutil
 
     from drn_wsod_torch.data.datasets.voc import VOC_CLASS_NAMES
 
-    colour = [n for n, e in manifest["files"].items()
-              if "reason" not in e and e["mode"] == "RGB"
-              and e["truncate"] is None]
-    names = {f"{i:06d}": colour[i % len(colour)] for i in range(PH22_TRAIN)}
-    names.update({f"{100 + i:06d}": n
-                  for i, n in enumerate(PH22_TEST_FILES)})
     d = root / "VOC2007"
     for sub in ("Annotations", "ImageSets/Main", "JPEGImages"):
         (d / sub).mkdir(parents=True)
     props = {"ids": [], "boxes": [], "objectness_logits": [], "bbox_mode": 0}
     hw = {}
-    for fid, name in names.items():
-        shutil.copyfile(fixtures / name, d / "JPEGImages" / f"{fid}.jpg")
-        H, W, _ = manifest["files"][name]["shape"]
+    for fid, (src, (H, W)) in sources.items():
+        shutil.copyfile(src, d / "JPEGImages" / f"{fid}.jpg")
         hw[fid] = (H, W)
         _, rec = eval_image(rs, H, W, int(fid))
         objs = ""
@@ -4162,23 +4192,25 @@ def ph22_voc(root: Path, fixtures: Path, manifest: dict, rs):
         props["ids"].append(fid)
         props["boxes"].append(rec["proposal_boxes"])
         props["objectness_logits"].append(rec["proposal_objectness_logits"])
-    for split, ids in (("trainval", [i for i in names if int(i) < 100]),
-                       ("test", [i for i in names if int(i) >= 100])):
+    for split, ids in (("trainval", [i for i in sources if int(i) < 100]),
+                       ("test", [i for i in sources if int(i) >= 100])):
         (d / "ImageSets" / "Main" / f"{split}.txt").write_text(
             "\n".join(ids) + "\n")
     prop_file = root / "proposals.pkl"
     with open(prop_file, "wb") as f:
         pickle.dump(props, f)
-    return d, str(prop_file), hw, names
+    return d, str(prop_file), hw
 
 
 def phase22_jpeg(dev, tag, host_build: dict):
     """JPEG files on the main path, decoded by the port's own decoder
     (``ops/csrc/jpeg_decode.cpp``, built by the host's C++ compiler in
     phase 2; the machine has neither Pillow nor libjpeg, and Pillow is
-    blocked here all the same): (b) every fixture's decode at scales 1-8
-    against its manifest digest; (c) the host decode time of PH22_TIMED;
-    (d) ``read_image`` naming CMYK; (e, f) a VOC directory of the fixtures
+    blocked here all the same): (b) the decode of every fixture Pillow
+    wrote (``make_jpeg_fixtures.FIXTURES``) at each scale its manifest records
+    against the digest there (CMYK at 8, the only scale Pillow decodes);
+    (c) the host decode time of PH22_TIMED; (d) ``read_image`` decoding
+    CMYK to its digest; (e, f) a VOC directory of the fixtures
     packed by ``pack_dataset``, its pixels the fixtures' digests in BGR;
     (g, h) ``train_net.main`` on the flagship YAML at full width, PH22_STEPS
     steps of B=4 from the shard, then the YAML's TTA eval of the PH22_TEST
@@ -4204,22 +4236,9 @@ def phase22_jpeg(dev, tag, host_build: dict):
     fixtures = make_jpeg_fixtures.FIXTURE_DIR
     manifest = json.loads((fixtures / "manifest.json").read_text())
     with no_pillow():
-        # (b) every fixture at every scale against the manifest
-        checked = 0
-        for name, entry in manifest["files"].items():
-            data = (fixtures / name).read_bytes()
-            if "reason" in entry:
-                got = native.jpeg_unsupported_reason(data)
-                if got != entry["reason"]:
-                    raise Fail(f"phase 22: {name} gives {got!r}, want "
-                               f"{entry['reason']!r}")
-                continue
-            for s in range(1, 9):
-                a = native.jpeg_decode(data, s)
-                if a is None or sha256_of(a) != entry["sha256"][str(s)]:
-                    raise Fail(f"phase 22: {name} at scale {s}/8 differs "
-                               "from its manifest digest")
-                checked += 1
+        # (b) every fixture Pillow wrote, at each recorded scale
+        checked = check_jpeg_digests(22, fixtures, manifest,
+                                     make_jpeg_fixtures.FIXTURES)
         # (c) host decode time, ms an image
         decode_ms = {}
         for name in PH22_TIMED:
@@ -4230,14 +4249,12 @@ def phase22_jpeg(dev, tag, host_build: dict):
                 native.jpeg_decode(data)
                 times.append((time.perf_counter() - t) * 1e3)
             decode_ms[name] = statistics.median(times)
-        # (d) what the decoder does not take, read_image names
-        try:
-            mapper.read_image(str(fixtures / "cmyk_64x48.jpg"))
-            raise Fail("phase 22: read_image decoded the CMYK fixture "
-                       "without Pillow")
-        except ValueError as e:
-            if "CMYK" not in str(e):
-                raise Fail(f"phase 22: read_image on CMYK: {e}")
+        # (d) CMYK, which only Pillow decodes, through read_image
+        cmyk = mapper.read_image(str(fixtures / "cmyk_64x48.jpg"), "RGB")
+        if sha256_of(cmyk) != \
+                manifest["files"]["cmyk_64x48.jpg"]["read_image_sha256"]:
+            raise Fail("phase 22: read_image on the CMYK fixture differs "
+                       "from Pillow's decode")
         # (e, f) a VOC directory of the fixtures, packed
         work = here / "build" / "chip_smoke_ph22"
         shutil.rmtree(work, ignore_errors=True)
@@ -4319,9 +4336,10 @@ def phase22_jpeg(dev, tag, host_build: dict):
     k1 = k1_exact(22, captured)
     times = ", ".join(f"{n} {decode_ms[n]:.3f}" for n in PH22_TIMED)
     print_entry(22, f"JPEG: {checked} decodes of "
-                f"{len(manifest['files']) - 1} fixtures equal their "
-                "manifest digests at scales 1-8 (Pillow blocked), CMYK "
-                f"named by read_image; host decode ms an image (median of "
+                f"{len(make_jpeg_fixtures.FIXTURES)} fixtures equal their "
+                "manifest digests at each recorded scale (Pillow blocked), "
+                "CMYK decoded by read_image to Pillow's digest; host decode "
+                f"ms an image (median of "
                 f"{PH22_DECODES}, host time, not the card's): {times}; "
                 f"pack_dataset of {PH22_TRAIN} JPEG records in {pack_s:.2f} "
                 "s, pixels equal the fixtures' digests; the flagship "
@@ -4336,9 +4354,30 @@ def phase22_jpeg(dev, tag, host_build: dict):
     shutil.rmtree(work, ignore_errors=True)
     line = (f"jpeg decoder: ops/csrc/jpeg_decode.cpp built by "
             f"{host_build['compiler']} in {host_build['seconds']:.2f} s "
-            f"(no libjpeg); {checked} fixture decodes matched at scales "
-            "1-8; host ms an image " + times)
+            f"(no libjpeg); {checked} fixture decodes matched at their "
+            "recorded scales; host ms an image " + times)
     return run["launches"], line
+
+
+def check_jpeg_digests(phase: int, fixtures: Path, manifest: dict,
+                       names) -> int:
+    """The decode of each of the JPEG fixtures ``names`` at each scale its
+    manifest entry records, against the digest there (Pillow blocked by
+    the caller); returns the count of decodes."""
+    from drn_wsod_torch import native
+
+    checked = 0
+    for name in names:
+        entry = manifest["files"][name]
+        data = (fixtures / name).read_bytes()
+        for s, want in entry["sha256"].items():
+            a = native.jpeg_decode(data, int(s))
+            if a is None or sha256_of(a) != want:
+                raise Fail(f"phase {phase}: {name} at scale {s}/8 differs "
+                           "from its manifest digest ("
+                           f"{native.jpeg_unsupported_reason(data)})")
+            checked += 1
+    return checked
 
 
 
@@ -5074,25 +5113,18 @@ def ph25_split(work: Path, name: str, split: str, etype: str, rs):
 def ph25_decodes() -> str:
     """Every committed PNG fixture decoded by the port's reader with
     Pillow blocked, against the manifest's digests of Pillow's decode and
-    ``convert("RGB")``; the interlaced and 16-bit ones named by the
-    reader's ``ValueError``; the semantic YAML's training mapper on the
+    ``convert("RGB")``, the interlaced and 16-bit ones among them; the
+    semantic YAML's training mapper on the
     tree's train records against the digests of Pillow's canvases."""
     from drn_wsod_torch.data import DatasetMapper, png
     from drn_wsod_torch.data.datasets import load_coco_panoptic_separated
     from drn_wsod_torch.tools import make_png_fixtures as pf
 
     manifest = pf.load_manifest()
-    n, named, t_decode = 0, [], 0.0
+    n, t_decode = 0, 0.0
     with no_pillow():
         for rel, e in manifest["files"].items():
             path = str(pf.FIXTURE_DIR / rel)
-            if e["mode"] == "I;16" or "interlaced" in rel:
-                try:
-                    png.read_png(path)
-                except ValueError as err:
-                    named.append(str(err).split(": ", 1)[1].split(" is ")[0])
-                    continue
-                raise Fail(f"phase 25: {rel} decoded without Pillow")
             t = time.perf_counter()
             a = png.read_png(path)
             rgb = png.read_png_rgb(path)
@@ -5116,16 +5148,16 @@ def ph25_decodes() -> str:
                 raise Fail(f"phase 25: the sem_seg canvas of image "
                            f"{r['image_id']} differs from Pillow's")
             buckets.append(out["_bucket"])
-    if len(named) != 2 or n + 2 != len(manifest["files"]) or \
+    if n != len(manifest["files"]) or \
             len(buckets) != len(manifest["mapper"]):
-        raise Fail(f"phase 25: {n} files matched, named {named}")
-    return (f"(a) {n} PNG fixtures (gray 1-8 bits, palette 1-8 bits, "
-            f"gray+alpha, RGB, RGBA, each filter type, several IDAT "
-            f"chunks, and the panoptic tree's RGB and label PNGs) decoded "
-            f"equal to the digests of Pillow's decode and convert('RGB'), "
-            f"Pillow blocked, {t_decode * 1e3 / n:.2f} ms a file (host); "
-            f"{named} named by the reader; the semantic YAML's training "
-            f"mapper's {len(buckets)} sem_seg canvases (buckets {buckets}, "
+        raise Fail(f"phase 25: {n} files matched")
+    return (f"(a) {n} PNG fixtures (gray 1-16 bits, palette 1-8 bits, "
+            f"gray+alpha, RGB, RGBA at 8 and 16 bits, plain and Adam7, "
+            f"each filter type, several IDAT chunks, the panoptic tree's "
+            f"RGB and label PNGs and two VOC-sized ones) decoded equal to "
+            f"the digests of Pillow's decode and convert('RGB'), Pillow "
+            f"blocked, {t_decode * 1e3 / n:.2f} ms a file (host); the "
+            f"semantic YAML's training mapper's {len(buckets)} sem_seg canvases (buckets {buckets}, "
             f"{t_map / len(buckets) * 1e3:.1f} ms a record) equal to the "
             f"digests of Pillow's NEAREST")
 
@@ -7088,6 +7120,279 @@ def phase28_last_slice(dev, tag) -> dict:
     return {**read_launches(), "roi_pool": sum(launches.values())}
 
 
+# ------------------------------------------------------------- phase 29
+PH29_STEPS, PH29_DECODES, PH29_IMAGENET_ITERS = 4, 20, 3
+# (fixture tool, file) of the VOC tree's JPEGImages, each copied as
+# <id>.jpg: the new kinds at VOC size beside a baseline file; the
+# last two are the test split, evaluated from their files
+PH29_TRAIN = (("jpeg", "voc/cmyk_500x375.jpg"),
+              ("jpeg", "voc/arith_500x375.jpg"),
+              ("jpeg", "voc/arith_500x375_progressive.jpg"),
+              ("jpeg", "voc/truncated_500x375_ac1.jpg"),
+              ("jpeg", "voc/truncated_500x375_between.jpg"),
+              ("jpeg", "voc/truncated_500x375_refine.jpg"),
+              ("png", "voc/rgb16_500x375.png"),
+              ("jpeg", "voc_500x375_q90.jpg"))
+PH29_TEST = (("jpeg", "voc/ycck_500x375.jpg"),
+             ("png", "voc/adam7_rgb8_500x375.png"))
+# the imagenet tool's two-class tree (each file named .JPEG)
+PH29_IMAGENET = {"n01": PH29_TRAIN[:4] + (PH29_TEST[1],),
+                 "n02": (PH29_TEST[0], PH29_TRAIN[6], PH29_TRAIN[7],
+                         ("jpeg", "voc_500x375_q90_progressive.jpg"),
+                         ("jpeg", "voc/truncated_500x375_refine.jpg"))}
+PH29_TIMED = {"CMYK": ("jpeg", "voc/cmyk_500x375.jpg"),
+              "YCCK": ("jpeg", "voc/ycck_500x375.jpg"),
+              "arithmetic": ("jpeg", "voc/arith_500x375.jpg"),
+              "arithmetic progressive": (
+                  "jpeg", "voc/arith_500x375_progressive.jpg"),
+              "block smoothing": ("jpeg", "voc/truncated_500x375_refine.jpg"),
+              "baseline": ("jpeg", "voc_500x375_q90.jpg"),
+              "Adam7 PNG": ("png", "voc/adam7_rgb8_500x375.png"),
+              "16-bit PNG": ("png", "voc/rgb16_500x375.png")}
+
+
+def ph29_fixture(tool: str, name: str):
+    """(path, RGB digest of the JAX package's read_image, (H, W)) of a
+    fixture of the JPEG or the PNG tool."""
+    from drn_wsod_torch.tools import make_jpeg_fixtures, make_png_fixtures
+
+    if tool == "jpeg":
+        e = json.loads((make_jpeg_fixtures.FIXTURE_DIR / "manifest.json")
+                       .read_text())["files"][name]
+        return (make_jpeg_fixtures.FIXTURE_DIR / name,
+                e["read_image_sha256"], tuple(e["shape"][:2]))
+    e = make_png_fixtures.load_manifest()["files"][name]
+    return (make_png_fixtures.FIXTURE_DIR / name, e["rgb_sha256"],
+            tuple(e["shape"][:2]))
+
+
+def ph29_decodes(tag) -> str:
+    """(a) Pillow blocked: every fixture added for this phase's kinds at
+    each scale its manifest records, and through ``read_image`` to the
+    JAX package's digest (misnamed files included); every PNG fixture of
+    ``modes/`` and ``voc/`` (Adam7 and 16-bit among them) through
+    ``read_png`` and ``read_png_rgb`` to Pillow's digests; (d) the host
+    ms of a decode of each PH29_TIMED file, median of PH29_DECODES."""
+    from drn_wsod_torch import native
+    from drn_wsod_torch.data import mapper, png
+    from drn_wsod_torch.tools import make_jpeg_fixtures, make_png_fixtures
+
+    jdir = make_jpeg_fixtures.FIXTURE_DIR
+    jman = json.loads((jdir / "manifest.json").read_text())
+    pman = make_png_fixtures.load_manifest()
+    with no_pillow():
+        scales = check_jpeg_digests(29, jdir, jman, make_jpeg_fixtures.MADE)
+        for name in make_jpeg_fixtures.MADE:
+            got = sha256_of(mapper.read_image(str(jdir / name), "RGB"))
+            if got != jman["files"][name]["read_image_sha256"]:
+                raise Fail(f"phase 29: read_image on {name} differs from "
+                           "the JAX package's")
+        pngs = [n for n in pman["files"] if n.startswith(("modes/", "voc/"))]
+        for name in pngs:
+            path, e = str(make_png_fixtures.FIXTURE_DIR / name), \
+                pman["files"][name]
+            if make_png_fixtures.digest(png.read_png(path)) != e["sha256"]:
+                raise Fail(f"phase 29: read_png on {name} differs from "
+                           "Pillow's")
+            if sha256_of(png.read_png_rgb(path)) != e["rgb_sha256"]:
+                raise Fail(f"phase 29: read_png_rgb on {name} differs "
+                           "from Pillow's")
+        ms = {}
+        for what, (tool, name) in PH29_TIMED.items():
+            data = ph29_fixture(tool, name)[0].read_bytes()
+            decode = native.jpeg_decode if tool == "jpeg" else \
+                png.decode_png_rgb
+            times = []
+            for _ in range(PH29_DECODES):
+                t = time.perf_counter()
+                decode(data)
+                times.append((time.perf_counter() - t) * 1e3)
+            ms[what] = statistics.median(times)
+    line = (f"phase 29: (a) {scales} JPEG decodes of "
+            f"{len(make_jpeg_fixtures.MADE)} new fixtures at their recorded "
+            f"scales and {len(make_jpeg_fixtures.MADE)} read_image decodes "
+            f"equal their manifest digests, {len(pngs)} PNG fixtures through "
+            "read_png and read_png_rgb equal Pillow's (Pillow blocked); (d) "
+            f"host ms a 500x375 decode (median of {PH29_DECODES}, the "
+            "host's clock, not the card's): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in ms.items()) + f" {tag}")
+    print(line, flush=True)
+    return line
+
+
+def ph29_imagenet(dev, work: Path, tag) -> dict:
+    """(c) the imagenet tool, PH29_IMAGENET_ITERS steps of WS-R50 at B=8
+    (224^2, the size it reads a folder at) over a two-class tree holding
+    CMYK, YCCK, PNGs named .JPEG, arithmetic coding and progressive files
+    cut short, each decoded by ``read_image`` (counted), Pillow blocked."""
+    import shutil
+
+    from drn_wsod_torch.data import mapper
+    from drn_wsod_torch.tools import imagenet
+
+    root = work / "imagenet"
+    for cls, files in PH29_IMAGENET.items():
+        (root / cls).mkdir(parents=True)
+        for i, (tool, name) in enumerate(files):
+            shutil.copyfile(ph29_fixture(tool, name)[0],
+                            root / cls / f"{cls}_{i}.JPEG")
+    decoded = []
+    read = mapper.read_image
+
+    def counted(path, fmt="BGR"):
+        decoded.append(Path(path).name)
+        return read(path, fmt)
+
+    t = time.perf_counter()
+    with no_pillow(), mock.patch.object(mapper, "read_image", counted):
+        last = imagenet.main(["--data", str(root), "--batch-size", "8",
+                              "--iters", str(PH29_IMAGENET_ITERS),
+                              "--num-classes", "2", "--out",
+                              str(work / "imagenet_out")], device=dev)
+    torch.cuda.synchronize()
+    if not math.isfinite(last.get("loss", float("nan"))) or \
+            len(decoded) != 8 * PH29_IMAGENET_ITERS:
+        raise Fail(f"phase 29: (c) imagenet {last}, {len(decoded)} "
+                   "decodes")
+    print(f"phase 29: (c) imagenet (WS-R50, BN on batch statistics, B=8, "
+          f"224^2) {PH29_IMAGENET_ITERS} steps over a two-class tree of "
+          f"{sum(len(v) for v in PH29_IMAGENET.values())} files (CMYK, YCCK, "
+          "PNGs named .JPEG, arithmetic, cut progressive), "
+          f"{len(decoded)} read_image decodes, Pillow blocked; loss "
+          f"{last['loss']:.4f}; {time.perf_counter() - t:.1f} s {tag}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return last
+
+
+def phase29_image_formats(dev, tag) -> dict:
+    """Every image file the JAX package's readers decode, decoded by the
+    port without Pillow (blocked here, absent on the machine): (a) the
+    new fixtures' digests; (b) a VOC tree whose JPEGImages mix VOC-sized
+    CMYK, arithmetic, cut progressive, 16-bit and interlaced PNG files
+    with a baseline one, all named .jpg, packed by ``pack_dataset``
+    (pixels the JAX package's ``read_image`` digests in BGR), then
+    ``train_net.main`` on the flagship YAML at full width, PH29_STEPS
+    steps of B=4 from the shard and the YAML's TTA eval of the two test
+    records (YCCK and an Adam7 PNG), each decoded from its file by
+    ``read_image``: losses finite, K1 once a step and a TTA group and
+    exact at the largest map, detections finite and inside their images;
+    (c) the imagenet tool (``ph29_imagenet``); (d) host decode ms
+    (``ph29_decodes``). Returns the K1 launches of (b)."""
+    import shutil
+
+    import drn_wsod_torch
+    from drn_wsod_torch import tta
+    from drn_wsod_torch.data import (DatasetCatalog, MetadataCatalog,
+                                     RecordDataset, pack_dataset)
+    from drn_wsod_torch.data.datasets.voc import (VOC_CLASS_NAMES,
+                                                  load_voc_instances)
+
+    t_phase = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    ph29_decodes(tag)
+    work = here / "build" / "chip_smoke_ph29"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    sources, want = {}, {}
+    for i, (tool, name) in enumerate(PH29_TRAIN + PH29_TEST):
+        fid = f"{i:06d}" if i < len(PH29_TRAIN) else \
+            f"{100 + i - len(PH29_TRAIN):06d}"
+        path, digest, shape = ph29_fixture(tool, name)
+        sources[fid] = (path, shape)
+        want[fid] = digest
+    with no_pillow():
+        voc, prop_file, hw = voc_tree(work, sources,
+                                      np.random.RandomState(29))
+        shard = work / "ph29_train.rec"
+        t = time.perf_counter()
+        n_packed = pack_dataset(load_voc_instances(str(voc), "trainval"),
+                                str(shard))
+        pack_s = time.perf_counter() - t
+        packed = list(RecordDataset(str(shard)))
+        if n_packed != len(PH29_TRAIN) or len(packed) != len(PH29_TRAIN):
+            raise Fail(f"phase 29: packed {n_packed} records, want "
+                       f"{len(PH29_TRAIN)}")
+        for r in packed:
+            if sha256_of(r["image"][:, :, ::-1]) != want[r["image_id"]]:
+                raise Fail(f"phase 29: packed pixels of {r['image_id']} are "
+                           "not the JAX package's read_image decode")
+        for name, get in (("ph29_train",
+                           lambda: list(RecordDataset(str(shard)))),
+                          ("ph29_test",
+                           lambda: load_voc_instances(str(voc), "test"))):
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+            DatasetCatalog.register(name, get)
+            MetadataCatalog.get(name).set(
+                thing_classes=list(VOC_CLASS_NAMES),
+                evaluator_type="pascal_voc", year=2007, split=name)
+        yaml = here / "configs" / "PascalVOC-Detection" / \
+            "oicr_WSR_50_DC5_1x.yaml"
+        yaml_is(29, yaml, MODEL__ROI_BOX_HEAD__DAN_DIM=[2048, 4096],
+                SOLVER__IMS_PER_BATCH=4, INPUT__CROP__ENABLED=True,
+                INPUT__MAX_SIZE_TRAIN=2000, MODEL__DTYPE="bfloat16",
+                TEST__AUG__ENABLED=True, TEST__AUG__FLIP=True)
+        opts = ["DATASETS.TRAIN", "('ph29_train',)",
+                "DATASETS.TEST", "('ph29_test',)",
+                "DATASETS.PROPOSAL_FILES_TRAIN", repr((prop_file,)),
+                "DATASETS.PROPOSAL_FILES_TEST", repr((prop_file,)),
+                "MODEL.WEIGHTS", "", "OUTPUT_DIR", str(work / "output"),
+                "SEED", "0", "TEST.EVAL_PERIOD", "0",
+                "SOLVER.MAX_ITER", str(PH29_STEPS),
+                "SOLVER.CHECKPOINT_PERIOD", str(PH29_STEPS),
+                "TEST.EVAL_TRAIN", "False",
+                # as phase 22: every finite score kept
+                "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "-1.0"]
+        test_hw = {k: v for k, v in hw.items() if int(k) >= 100}
+        cfg = drn_wsod_torch.get_cfg()
+        cfg.merge_from_file(str(yaml))
+        cfg.merge_from_list(opts)
+        tta_groups = tta_group_count(cfg, test_hw)
+        decoded = []
+        read = tta.read_image
+
+        def counted_read(path, fmt="BGR"):
+            decoded.append(Path(path).name)
+            return read(path, fmt)
+
+        captured = {}
+        run = entry_main(29, dev, yaml, opts, hw, [
+            k1_capture(captured), (tta, "read_image", counted_read)])
+    per_step = check_steps(29, run, ["plain"] * PH29_STEPS,
+                           {"plain": OICR_NAMES})
+    if run["launches"]["roi_pool"] != PH29_STEPS + tta_groups:
+        raise Fail(f"phase 29: K1 launches {run['launches']['roi_pool']}, "
+                   f"want {PH29_STEPS} steps + {tta_groups} TTA groups")
+    check_detections(29, run, len(PH29_TEST))
+    if any(n == 0 for _, n in run["dets"]):
+        raise Fail(f"phase 29: images without a finite score: "
+                   f"{run['dets']}")
+    if sorted(decoded) != sorted(f"{i}.jpg" for i in test_hw):
+        raise Fail(f"phase 29: the TTA eval decoded {decoded}, want the "
+                   f"{len(PH29_TEST)} test files")
+    k1 = k1_exact(29, captured)
+    print_entry(29, f"(b) a VOC tree of {len(PH29_TRAIN)} + "
+                f"{len(PH29_TEST)} VOC-sized files named .jpg (CMYK, YCCK, "
+                "arithmetic sequential and progressive, progressive cut in "
+                "its first AC scan, between scans and in a refinement "
+                "scan, 16-bit and Adam7 PNG, baseline), Pillow blocked: "
+                f"pack_dataset of {len(PH29_TRAIN)} records in {pack_s:.2f} "
+                "s, pixels equal the JAX package's read_image digests; the "
+                f"flagship train_net.main, {PH29_STEPS} steps of B=4 (DAN "
+                "[2048, 4096], bfloat16, crop, P=4096, seeded random "
+                f"weights) from the shard, then TTA eval of the "
+                f"{len(PH29_TEST)} unpacked test records (YCCK, Adam7 PNG) "
+                f"decoded by read_image ({len(decoded)} decodes)", per_step,
+                run, k1, f"{PH29_STEPS} steps + {tta_groups} TTA groups",
+                len(PH29_TEST), "", tag)
+    ph29_imagenet(dev, work, tag)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 29: {time.perf_counter() - t_phase:.1f} s {tag}",
+          flush=True)
+    return run["launches"]
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7184,6 +7489,8 @@ def main() -> int:
         paths["multi_device"] = phase27_multi_device(dev, tag)
         torch.cuda.empty_cache()
         paths["last_slice"] = phase28_last_slice(dev, tag)
+        torch.cuda.empty_cache()
+        paths["image_formats"] = phase29_image_formats(dev, tag)
     except Fail as e:
         print(f"FAIL {e}")
         return 1

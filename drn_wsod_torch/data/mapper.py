@@ -14,8 +14,9 @@ as (G, K, 3) ``gt_keypoints``; where the record names a
 sampling) onto a (bucket, bucket) int32 canvas of
 ``SEM_SEG_HEAD.IGNORE_VALUE`` as ``sem_seg``. JPEG files decode with the
 port's own decoder (``native.py``) and PNG files with its own reader
-(``data/png.py``), neither needing Pillow; packed records
-(``data/record_dataset.py``) carry decoded pixels and skip the decode.
+(``data/png.py``), told apart by their content, neither needing Pillow;
+packed records (``data/record_dataset.py``) carry decoded pixels and skip
+the decode.
 """
 
 from __future__ import annotations
@@ -27,61 +28,84 @@ import numpy as np
 from .. import native
 from ..structures.masks import fill_polygon
 from . import transforms as T
-from .png import read_png, read_png_rgb
+from .png import SIGNATURE, read_png, read_png_rgb
 from .datasets.voc import image_level_labels
 from .proposals import transform_proposals
 
 
+def _sniff(path: str):
+    """(the file's bytes, "png", "jpeg" or None) by its first bytes, as
+    Pillow tells formats apart; the file's name plays no part."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(SIGNATURE):
+        return data, "png"
+    if data.startswith(b"\xff\xd8"):
+        return data, "jpeg"
+    return data, None
+
+
+def _pillow(path: str, rgb: bool) -> np.ndarray:
+    """A format neither of the port's readers takes (GIF, BMP, WebP,
+    TIFF, ...), through Pillow where it imports."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"decoding {path!r} needs Pillow (the PIL package): it is "
+            "neither PNG nor JPEG; pack the dataset with decoded pixels "
+            "(drn_wsod_torch.tools.pack_dataset) to train without it"
+        ) from e
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB") if rgb else im)
+
+
+def _jpeg(path: str, data: bytes, native_mode: bool) -> np.ndarray:
+    arr, status = native.jpeg_decode_status(data, 8, native_mode)
+    if arr is None:
+        raise ValueError(
+            f"cannot decode {path!r}: "
+            f"{native.REASONS.get(status, f'status {status}')}, which "
+            "neither libjpeg nor Pillow decodes")
+    return arr
+
+
 def read_image(path: str, fmt: str = "BGR") -> np.ndarray:
     """Decode an image file to an (H, W, 3) uint8 array in ``fmt`` channel
-    order ("BGR" or "RGB"). A ``.jpg``/``.jpeg`` file goes through the
-    port's JPEG decoder (``native.jpeg_decode``, bit-equal to Pillow's
-    decode); a JPEG it does not take (CMYK, arithmetic coding, 12-bit,
-    lossless, a truncated progressive file, a corrupt header) falls back
-    to Pillow where Pillow imports, as the JAX package's ``read_image``
-    does, and raises a ``ValueError`` naming the file and the feature
-    where it does not. A ``.png`` file goes through the port's PNG reader
-    (``data/png.py:read_png_rgb``, Pillow's ``convert("RGB")``, with the
-    same fallback for interlaced and 16-bit files). Other formats decode
-    with Pillow."""
-    arr, status = None, 0
-    if path.lower().endswith(".png"):
+    order ("BGR" or "RGB"), as the JAX package's ``read_image`` does with
+    Pillow present, on a machine without it. The file's content decides,
+    not its name: a JPEG goes through the port's JPEG decoder
+    (``native.jpeg_decode_status``: libjpeg's decode where libjpeg takes
+    the file, Pillow's ``convert("RGB")`` for the CMYK, YCCK and lossless
+    files only Pillow takes), a PNG through the port's PNG reader
+    (``data/png.py:read_png_rgb``, Pillow's ``convert("RGB")``). A JPEG
+    neither reference decodes (12-bit, hierarchical, a corrupt header,
+    ...) raises a ``ValueError`` naming the file and the feature; another
+    format decodes with Pillow, and raises an ``ImportError`` without
+    it."""
+    data, kind = _sniff(path)
+    if kind == "png":
         arr = read_png_rgb(path)
-    elif path.lower().endswith((".jpg", ".jpeg")):
-        with open(path, "rb") as f:
-            arr, status = native.jpeg_decode_status(f.read())
-    if arr is None:
-        try:
-            from PIL import Image
-        except ImportError as e:
-            if status:
-                raise ValueError(
-                    f"cannot decode {path!r}: "
-                    f"{native.REASONS.get(status, f'status {status}')} is "
-                    "not taken by the port's JPEG decoder, and Pillow is "
-                    "not installed to fall back on") from None
-            raise ImportError(
-                "read_image needs Pillow (the PIL package) to decode "
-                f"{path!r}; pack the dataset with decoded pixels "
-                "(drn_wsod_torch.tools.pack_dataset) to train without "
-                "it") from e
-        with Image.open(path) as im:
-            arr = np.asarray(im.convert("RGB"))
+    elif kind == "jpeg":
+        arr = _jpeg(path, data, False)
+    else:
+        arr = _pillow(path, rgb=True)
     if fmt == "BGR":
         arr = arr[:, :, ::-1]
     return np.ascontiguousarray(arr)
 
 
 def read_label_map(path: str) -> np.ndarray:
-    """A label map as ``np.asarray(Image.open(path))``: a PNG through the
-    port's reader (a palette file gives its indices), another format
-    through Pillow."""
-    if path.lower().endswith(".png"):
+    """A label map as ``np.asarray(Image.open(path))``, by the file's
+    content: a PNG through the port's reader (a palette file gives its
+    indices, a 16-bit one uint16), a JPEG through its decoder in Pillow's
+    mode (L, RGB or CMYK), another format through Pillow."""
+    data, kind = _sniff(path)
+    if kind == "png":
         return read_png(path)
-    from PIL import Image
-
-    with Image.open(path) as im:
-        return np.asarray(im)
+    if kind == "jpeg":
+        return _jpeg(path, data, True)
+    return _pillow(path, rgb=False)
 
 
 def pick_bucket(h: int, w: int, buckets: Sequence[int],

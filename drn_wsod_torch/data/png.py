@@ -2,32 +2,29 @@
 panoptic datasets, and PNG images).
 
 :func:`decode_png` returns what ``np.asarray(Image.open(f))`` returns for
-the files it takes, non-interlaced at 1-8 bits a sample:
+every PNG, plain or interlaced (Adam7, each of its seven passes unfiltered
+on its own and its pixels put in place), at 1-16 bits a sample:
 
   * gray ("L", (H, W) uint8; at 1 bit Pillow's mode "1", a bool array; at 2
     and 4 bits the samples scaled to 0-255 by 85 and 17, as Pillow's "L;2"
-    and "L;4" unpackers do);
+    and "L;4" unpackers do; at 16 bits "I;16", (H, W) uint16);
   * palette ("P", (H, W) uint8 indices at 1, 2, 4 or 8 bits);
   * gray with alpha ("LA", (H, W, 2)), RGB ((H, W, 3)) and RGBA
-    ((H, W, 4)), all uint8.
+    ((H, W, 4)), all uint8; at 16 bits each sample's high byte, and gray
+    with alpha as RGBA (Pillow's "LA;16B" and "RGB(A);16B" raw modes).
 
 :func:`decode_png_rgb` returns ``Image.open(f).convert("RGB")``: gray
-replicated (0/255 at 1 bit), the alpha dropped, a palette index looked up
-in the PLTE colours (black past its end). The inflate is the standard
-library's ``zlib``; the row filters undo in host C++
-(``ops/csrc/png_unfilter.cpp``, built by ``ops/_build.py:build_host``),
-whose numpy twin is :func:`unfilter_plain`. A CRC, a zlib stream or a
-chunk layout that does not check raises ``ValueError``.
+replicated (0/255 at 1 bit, 16-bit gray clipped at 255), the alpha
+dropped, a palette index looked up in the PLTE colours (black past its
+end). The inflate is the standard library's ``zlib``; the row filters undo
+in host C++ (``ops/csrc/png_unfilter.cpp``, built by
+``ops/_build.py:build_host``), whose numpy twin is :func:`unfilter_plain`.
+A CRC, a zlib stream or a chunk layout that does not check raises
+``ValueError``; :func:`read_png` and :func:`read_png_rgb` name the file.
 
 :func:`encode_png` and :func:`write_png` write 8-bit gray, RGB and RGBA
 arrays (filter type 0 on every row, ``zlib`` at level 6): the file reads
 back exactly here and through Pillow.
-
-Interlaced (Adam7) and 16-bit files raise :class:`PNGUnsupported`;
-:func:`read_png` and :func:`read_png_rgb` then fall back to Pillow where it
-imports, and otherwise raise a ``ValueError`` naming the file and the
-feature, as ``mapper.read_image`` does for the JPEGs its decoder does not
-take.
 """
 
 from __future__ import annotations
@@ -42,15 +39,14 @@ import numpy as np
 from ..ops import _build
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# Adam7: (x0, y0, dx, dy) of each pass
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # colour type (gray, RGB, palette, gray+alpha, RGBA) -> samples a pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
            6: (8, 16)}
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-
-
-class PNGUnsupported(ValueError):
-    """A valid PNG this reader does not take (interlaced, 16-bit)."""
 
 
 def _unfilter_fn():
@@ -161,30 +157,48 @@ def _parse(data: bytes):
     return header, palette, b"".join(idat)
 
 
+def _samples(rows: np.ndarray, width: int, depth: int, ch: int
+             ) -> np.ndarray:
+    """Unfiltered scanlines -> (rows, width, ch) samples: uint8 at 1-8 bits,
+    uint16 at 16."""
+    h = rows.shape[0]
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1)
+        samples = bits[:, :width * depth].reshape(h, width, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        return (samples * weights).sum(-1, dtype=np.uint8)[..., None]
+    if depth == 16:
+        return rows[:, :width * ch * 2].view(">u2").astype(np.uint16) \
+            .reshape(h, width, ch)
+    return rows[:, :width * ch].reshape(h, width, ch)
+
+
 def _decode(data: bytes, plain: bool = False) -> Tuple[np.ndarray, dict,
                                                        np.ndarray]:
-    """(samples (H, W, channels) uint8, header, palette)."""
+    """(samples (H, W, channels), uint8 or at 16 bits uint16, header,
+    palette)."""
     hd, palette, idat = _parse(data)
-    if hd["interlace"]:
-        raise PNGUnsupported("interlaced (Adam7) PNG")
-    if hd["depth"] == 16:
-        raise PNGUnsupported("16-bit PNG")
     H, W, depth = hd["height"], hd["width"], hd["depth"]
     ch = _CHANNELS[hd["colour"]]
-    stride = -(-W * ch * depth // 8)
     bpp = max(1, ch * depth // 8)
     try:
         raw = np.frombuffer(zlib.decompress(idat), np.uint8)
     except zlib.error as e:
         raise ValueError(f"PNG image data does not inflate: {e}") from None
-    rows = (unfilter_plain if plain else unfilter)(raw, H, stride, bpp)
-    if depth < 8:
-        bits = np.unpackbits(rows, axis=1)
-        samples = bits[:, :W * depth].reshape(H, W, depth)
-        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        out = (samples * weights).sum(-1, dtype=np.uint8)[..., None]
-    else:
-        out = rows[:, :W * ch].reshape(H, W, ch)
+    unfilter_fn = unfilter_plain if plain else unfilter
+    if not hd["interlace"]:
+        rows = unfilter_fn(raw, H, -(-W * ch * depth // 8), bpp)
+        return _samples(rows, W, depth, ch), hd, palette
+    out = np.zeros((H, W, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in ADAM7:
+        pw, ph = -(-(W - x0) // dx), -(-(H - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue            # an empty pass has no scanlines
+        stride = -(-pw * ch * depth // 8)
+        rows = unfilter_fn(raw[pos:], ph, stride, bpp)
+        pos += ph * (stride + 1)
+        out[y0::dy, x0::dx] = _samples(rows, pw, depth, ch)
     return out, hd, palette
 
 
@@ -196,9 +210,16 @@ def decode_png(data: bytes, plain: bool = False) -> np.ndarray:
         g = out[..., 0]
         if hd["depth"] == 1:
             return g.astype(bool)
+        if hd["depth"] == 16:
+            return g
         return g * np.uint8(255 // ((1 << hd["depth"]) - 1))
     if hd["colour"] == 3:
         return out[..., 0]
+    if hd["depth"] == 16:
+        out = (out >> 8).astype(np.uint8)
+        if hd["colour"] == 4:
+            return np.concatenate([np.repeat(out[..., :1], 3, -1),
+                                   out[..., 1:]], -1)
     return out
 
 
@@ -210,9 +231,12 @@ def decode_png_rgb(data: bytes, plain: bool = False) -> np.ndarray:
         lut = np.zeros((256, 3), np.uint8)
         lut[:len(palette)] = palette[:256]
         return lut[out[..., 0]]
+    if hd["depth"] == 16:
+        out = (np.minimum(out, 255) if hd["colour"] == 0 else out >> 8
+               ).astype(np.uint8)
     if hd["colour"] in (0, 4):
         g = out[..., 0]
-        if hd["colour"] == 0:
+        if hd["colour"] == 0 and hd["depth"] < 8:
             g = g * np.uint8(255 // ((1 << hd["depth"]) - 1))
         return np.repeat(g[..., None], 3, axis=-1)
     return np.ascontiguousarray(out[..., :3])
@@ -223,16 +247,6 @@ def _read(path: str, rgb: bool) -> np.ndarray:
         data = f.read()
     try:
         return decode_png_rgb(data) if rgb else decode_png(data)
-    except PNGUnsupported as e:
-        try:
-            from PIL import Image
-        except ImportError:
-            raise ValueError(
-                f"cannot decode {path!r}: {e} is not taken by the port's "
-                "PNG reader, and Pillow is not installed to fall back "
-                "on") from None
-        with Image.open(path) as im:
-            return np.asarray(im.convert("RGB") if rgb else im)
     except ValueError as e:
         raise ValueError(f"cannot decode {path!r}: {e}") from None
 

@@ -1,14 +1,21 @@
 """The port's host-side native code: the JPEG decoder (counterpart of
 ``drn_wsod_tpu/native.py``'s JPEG binding) and a JPEG encoder.
 
-``ops/csrc/jpeg_decode.cpp`` is a decoder of its own, with no libjpeg: it
-equals libjpeg-turbo's ISLOW, fancy-upsampled RGB decode bit for bit, which
-is what Pillow returns and what the JAX package's binding returns, at a
-DCT-domain prescale of ``scale_num``/8. It builds with the host's C++
-compiler at first use (``ops/_build.py:build_host``); a missing compiler or
-a failed build raises. ``jpeg_decode`` returns None for a file the decoder
-does not take (see ``REASONS``), as the JAX binding does, and
-:func:`jpeg_unsupported_reason` names why.
+``ops/csrc/jpeg_decode.cpp`` is a decoder of its own, with no libjpeg. It
+decodes every file that libjpeg-turbo (the JAX package's binding) or
+Pillow decodes. Where libjpeg takes the file (Huffman or arithmetic
+coded, baseline or progressive, whole or cut short, where libjpeg smooths
+the blocks), it equals libjpeg-turbo's ISLOW, fancy-upsampled RGB decode
+bit for bit, which is what Pillow returns and what the JAX package's
+binding returns, at a DCT-domain prescale of ``scale_num``/8. Where only
+Pillow takes it (CMYK and YCCK, lossless at 8 bits), it equals Pillow's
+``convert("RGB")``, at ``scale_num`` 8 only, as Pillow decodes no other.
+It builds with the host's C++ compiler at first use
+(``ops/_build.py:build_host``); a missing compiler or a failed build
+raises. ``jpeg_decode`` returns None for a file neither reference decodes
+(see ``REASONS``), and :func:`jpeg_unsupported_reason` names why.
+``jpeg_decode_status(..., native=True)`` returns Pillow's mode array
+instead (L, RGB, or CMYK as ``np.asarray(Image.open(f))`` holds it).
 
 ``ops/csrc/jpeg_encode.cpp`` writes the bytes of Pillow's default
 ``Image.save`` of an RGB image (baseline, quality 75, 4:2:0, the standard
@@ -27,19 +34,19 @@ from .ops import _build
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _intp = ctypes.POINTER(ctypes.c_int)
 
-# the decoder's status codes (jpeg_decode.cpp `Status`) -> the feature
+# the decoder's status codes (jpeg_decode.cpp `Status`) -> the feature;
+# neither libjpeg nor Pillow decodes these files
 REASONS = {
     -1: "corrupt header",
     -2: "scale_num outside 1-8",
     -3: "output buffer too small",
-    -4: "arithmetic coding",
-    -5: "lossless",
+    -5: "lossless in YCbCr or YCCK, or arithmetic lossless",
     -6: "12-bit",
-    -7: "CMYK JPEG",
-    -8: "truncated progressive",
+    -8: "CMYK, YCCK or lossless file cut short",
     -9: "unsupported sampling factors",
     -10: "hierarchical",
     -11: "unsupported component count",
+    -12: "CMYK, YCCK or lossless at scale_num below 8",
 }
 
 
@@ -50,8 +57,8 @@ def _info_fn():
 
 def _decode_fn():
     return _build.bind_host("jpeg_decode", "jpeg_decode", _u8p,
-                            ctypes.c_size_t, ctypes.c_int, _u8p,
-                            ctypes.c_size_t, _intp, _intp)
+                            ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                            _u8p, ctypes.c_size_t, _intp, _intp, _intp)
 
 
 def jpeg_available() -> bool:
@@ -72,10 +79,13 @@ def jpeg_decode_info(data: bytes) -> Optional[Tuple[int, int]]:
     return w.value, h.value
 
 
-def jpeg_decode_status(data: bytes, scale_num: int = 8
+def jpeg_decode_status(data: bytes, scale_num: int = 8, native: bool = False
                        ) -> Tuple[Optional[np.ndarray], int]:
-    """(the (H, W, 3) RGB uint8 decode or None, the decoder's status code:
-    0, or a key of ``REASONS``)."""
+    """(the decode or None, the decoder's status code: 0, or a key of
+    ``REASONS``). The decode is (H, W, 3) RGB uint8, or with ``native``
+    ``np.asarray(Image.open(f))``: (H, W) for a grayscale file, (H, W, 4)
+    CMYK (a YCCK file converted, each value inverted as Pillow's "CMYK;I"
+    mode reads it)."""
     if not 1 <= scale_num <= 8:
         return None, -2
     size = jpeg_decode_info(data)
@@ -83,14 +93,16 @@ def jpeg_decode_status(data: bytes, scale_num: int = 8
         return None, -1
     ow = -(-size[0] * scale_num // 8)
     oh = -(-size[1] * scale_num // 8)
-    out = np.empty((oh, ow, 3), np.uint8)
-    rw, rh = ctypes.c_int(), ctypes.c_int()
+    out = np.empty(oh * ow * 4, np.uint8)
+    rw, rh, ch = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     buf = np.frombuffer(data, np.uint8)
-    rc = _decode_fn()(buf, len(data), scale_num, out.reshape(-1), out.nbytes,
-                      ctypes.byref(rw), ctypes.byref(rh))
+    rc = _decode_fn()(buf, len(data), scale_num, int(native), out,
+                      out.nbytes, ctypes.byref(rw), ctypes.byref(rh),
+                      ctypes.byref(ch))
     if rc != 0:
         return None, rc
-    return out, 0
+    a = out[:oh * ow * ch.value].reshape(oh, ow, ch.value)
+    return (a[..., 0] if ch.value == 1 else a).copy(), 0
 
 
 def jpeg_decode(data: bytes, scale_num: int = 8) -> Optional[np.ndarray]:
@@ -102,9 +114,9 @@ def jpeg_decode(data: bytes, scale_num: int = 8) -> Optional[np.ndarray]:
 
 
 def jpeg_unsupported_reason(data: bytes) -> Optional[str]:
-    """The feature behind a None from :func:`jpeg_decode` ("CMYK JPEG",
-    "arithmetic coding", "12-bit", "lossless", "truncated progressive",
-    "corrupt header", ...), or None where the file decodes."""
+    """The feature behind a None from :func:`jpeg_decode` at ``scale_num``
+    8 ("12-bit", "hierarchical", "corrupt header", ...), or None where the
+    file decodes."""
     rc = jpeg_decode_status(data)[1]
     return REASONS.get(rc, f"status {rc}") if rc else None
 

@@ -1,32 +1,49 @@
-// A self-contained JPEG decoder for the host data path: baseline and
-// progressive Huffman-coded files, 8-bit, grayscale or three components,
-// with a DCT-domain prescale of scale_num/8 (scale_num 1-8).
+// A self-contained JPEG decoder for the host data path: every file that
+// libjpeg-turbo (the JAX package's binding, native/jpeg_decode.cpp) or
+// Pillow decodes, with a DCT-domain prescale of scale_num/8 (scale_num
+// 1-8) where libjpeg takes the file.
 //
-// Its output equals libjpeg-turbo's with JDCT_ISLOW, do_fancy_upsampling
-// and JCS_RGB bit for bit, which is what Pillow and the JAX package's
-// libjpeg binding (native/jpeg_decode.cpp) return. It follows libjpeg's
-// own code, file by file:
-//   jdmarker.c   markers, tables, JFIF / Adobe colour-space hints
+// Where libjpeg-turbo 2.1 takes a file (baseline, extended and
+// progressive, Huffman or arithmetic coded, 8-bit, one or three
+// components, cut short or whole), the output equals its JDCT_ISLOW,
+// fancy-upsampled JCS_RGB decode bit for bit, block smoothing included,
+// which is what Pillow and the binding return. Where only Pillow takes a
+// file (four components: CMYK and YCCK; lossless SOF3 at 8 bits), the
+// output equals Pillow 12's decode: its mode array (L, RGB, or CMYK
+// inverted as its "CMYK;I" raw mode does) or its convert("RGB"), at
+// scale_num 8, the only scale it decodes. It follows libjpeg's own code,
+// file by file:
+//   jdmarker.c   markers, tables, DAC conditioning, JFIF / Adobe hints
 //   jdhuff.c     sequential Huffman decoding, zero bits past the data's end
 //   jdphuff.c    progressive DC/AC first and refinement scans, EOB runs
+//   jdarith.c    the QM decoder, sequential and progressive scans
+//   jdlhuff.c,   lossless differences, predictors 1-7, point transform
+//   jddiffct.c,
+//   jdlossls.c
+//   jdcoefct.c   block smoothing of progressive files whose scans stopped
+//                short (decompress_smooth_data, coef_bits latched per scan)
 //   jddctmgr.c   the IDCT chosen by each component's scaled DCT size
 //   jidctint.c   jpeg_idct_islow (8x8) and the 3x3/5x5/6x6/7x7 and
 //                10x10/12x12/14x14 IDCTs
 //   jidctred.c   jpeg_idct_1x1, 2x2, 4x4
 //   jdmaster.c   output size and each component's scaled DCT size
 //   jdsample.c   fancy (triangle) and box upsampling
-//   jdcolor.c    YCbCr -> RGB, gray -> RGB
-// It keeps no state between calls and needs no library but the C++ one.
+//   jdcolor.c    YCbCr -> RGB, gray -> RGB, YCCK -> CMYK
+// and Pillow's JpegDecode.c (out_color_space per mode), Unpack.c
+// ("CMYK;I") and Convert.c (cmyk2rgb). It keeps no state between calls
+// and needs no library but the C++ one.
 //
-// Files it does not decode return a negative code (see `Status`): the
-// caller names the feature and falls back to another decoder or raises.
+// Files neither reference decodes return a negative code (see `Status`):
+// the caller names the feature and raises.
 //
 // C API (ctypes, see drn_wsod_torch/native.py):
 //   jpeg_decode_info(data, len, &w, &h)            -> 0 once a frame
 //                                                     header parsed
-//   jpeg_decode(data, len, scale_num, out, cap,
-//               &out_w, &out_h)                    -> 0 on success; RGB8
-//     output is ceil(dim * scale_num / 8); `cap` is out's size in bytes.
+//   jpeg_decode(data, len, scale_num, native, out, cap,
+//               &out_w, &out_h, &channels)         -> 0 on success; RGB8,
+//     or with `native` set Pillow's mode array: 1 (L), 3 (RGB) or 4
+//     (CMYK) channels. The output is ceil(dim * scale_num / 8); `cap` is
+//     out's size in bytes.
 
 #include <cstdint>
 #include <cstring>
@@ -39,14 +56,13 @@ enum Status {
   kCorrupt = -1,          // a header or table that does not parse
   kBadScale = -2,         // scale_num outside 1-8
   kCapacity = -3,         // the output buffer is too small
-  kArithmetic = -4,       // SOF9-SOF15: arithmetic coding
-  kLossless = -5,         // SOF3: lossless coding
+  kLossless = -5,         // lossless in YCbCr or YCCK, or arithmetic coded
   kPrecision = -6,        // sample precision other than 8 bits (12-bit)
-  kFourComponents = -7,   // CMYK or YCCK
-  kTruncatedProgressive = -8,  // libjpeg would apply block smoothing
+  kTruncated = -8,        // CMYK, YCCK or lossless, cut short
   kSampling = -9,         // sampling factors libjpeg cannot upsample
-  kHierarchical = -10,    // SOF5-SOF7: differential (hierarchical) coding
+  kHierarchical = -10,    // SOF5-SOF7, SOF13-SOF15: differential coding
   kComponents = -11,      // 2 components, or more than 4
+  kPillowScale = -12,     // CMYK, YCCK or lossless at scale_num below 8
 };
 
 struct Error {
@@ -119,7 +135,9 @@ struct HuffTable {
   uint16_t lookup[1 << kLookahead] = {};  // (code length << 8) | symbol
 };
 
-void derive(HuffTable* t, bool is_dc) {
+// jdhuff.c jpeg_make_d_derived_tbl; a DC table's symbols are at most
+// `max_dc` (15, and 16 in lossless files)
+void derive(HuffTable* t, bool is_dc, int max_dc) {
   char huffsize[257];
   uint32_t huffcode[257];
   int p = 0;
@@ -164,7 +182,7 @@ void derive(HuffTable* t, bool is_dc) {
   }
   if (is_dc) {
     for (int i = 0; i < numsymbols; i++)
-      if (t->vals[i] > 15) fail(kCorrupt);
+      if (t->vals[i] > max_dc) fail(kCorrupt);
   }
 }
 
@@ -199,11 +217,83 @@ struct Component {
   bool latched = false;             // its quantisation table, latched at
   uint16_t quant[64] = {};          // its first scan (jdinput.c)
   int coef_bits[64];                // progressive: -1 until a scan sent it
+  int prev_coef_bits[64];           // coef_bits before its latest scan
   int dc_tbl = 0, ac_tbl = 0;
+  // lossless: a sample a data unit, bw x bh of them (whole MCUs)
+  std::vector<int32_t> diff;        // the decoded differences, then each
+                                    // row undifferenced in place
+  std::vector<uint8_t> samples;     // undifferenced, point transform undone
   int16_t* block(int row, int col) {
     return coef.data() + (static_cast<size_t>(row) * bw + col) * 64;
   }
 };
+
+constexpr int kArithTables = 16;
+
+// jaricom.c: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 |
+// Next_Index_LPS (T.81 Table D.3), and state 113, the fixed
+// probability 0.5
+#define V(i, qe, nlps, nmps, sw) \
+  ((int64_t{qe} << 16) | ((nmps) << 8) | ((sw) << 7) | (nlps))
+const int64_t kAritab[114] = {
+    V(0, 0x5a1d, 1, 1, 1),      V(1, 0x2586, 14, 2, 0),
+    V(2, 0x1114, 16, 3, 0),     V(3, 0x080b, 18, 4, 0),
+    V(4, 0x03d8, 20, 5, 0),     V(5, 0x01da, 23, 6, 0),
+    V(6, 0x00e5, 25, 7, 0),     V(7, 0x006f, 28, 8, 0),
+    V(8, 0x0036, 30, 9, 0),     V(9, 0x001a, 33, 10, 0),
+    V(10, 0x000d, 35, 11, 0),   V(11, 0x0006, 9, 12, 0),
+    V(12, 0x0003, 10, 13, 0),   V(13, 0x0001, 12, 13, 0),
+    V(14, 0x5a7f, 15, 15, 1),   V(15, 0x3f25, 36, 16, 0),
+    V(16, 0x2cf2, 38, 17, 0),   V(17, 0x207c, 39, 18, 0),
+    V(18, 0x17b9, 40, 19, 0),   V(19, 0x1182, 42, 20, 0),
+    V(20, 0x0cef, 43, 21, 0),   V(21, 0x09a1, 45, 22, 0),
+    V(22, 0x072f, 46, 23, 0),   V(23, 0x055c, 48, 24, 0),
+    V(24, 0x0406, 49, 25, 0),   V(25, 0x0303, 51, 26, 0),
+    V(26, 0x0240, 52, 27, 0),   V(27, 0x01b1, 54, 28, 0),
+    V(28, 0x0144, 56, 29, 0),   V(29, 0x00f5, 57, 30, 0),
+    V(30, 0x00b7, 59, 31, 0),   V(31, 0x008a, 60, 32, 0),
+    V(32, 0x0068, 62, 33, 0),   V(33, 0x004e, 63, 34, 0),
+    V(34, 0x003b, 32, 35, 0),   V(35, 0x002c, 33, 9, 0),
+    V(36, 0x5ae1, 37, 37, 1),   V(37, 0x484c, 64, 38, 0),
+    V(38, 0x3a0d, 65, 39, 0),   V(39, 0x2ef1, 67, 40, 0),
+    V(40, 0x261f, 68, 41, 0),   V(41, 0x1f33, 69, 42, 0),
+    V(42, 0x19a8, 70, 43, 0),   V(43, 0x1518, 72, 44, 0),
+    V(44, 0x1177, 73, 45, 0),   V(45, 0x0e74, 74, 46, 0),
+    V(46, 0x0bfb, 75, 47, 0),   V(47, 0x09f8, 77, 48, 0),
+    V(48, 0x0861, 78, 49, 0),   V(49, 0x0706, 79, 50, 0),
+    V(50, 0x05cd, 48, 51, 0),   V(51, 0x04de, 50, 52, 0),
+    V(52, 0x040f, 50, 53, 0),   V(53, 0x0363, 51, 54, 0),
+    V(54, 0x02d4, 52, 55, 0),   V(55, 0x025c, 53, 56, 0),
+    V(56, 0x01f8, 54, 57, 0),   V(57, 0x01a4, 55, 58, 0),
+    V(58, 0x0160, 56, 59, 0),   V(59, 0x0125, 57, 60, 0),
+    V(60, 0x00f6, 58, 61, 0),   V(61, 0x00cb, 59, 62, 0),
+    V(62, 0x00ab, 61, 63, 0),   V(63, 0x008f, 61, 32, 0),
+    V(64, 0x5b12, 65, 65, 1),   V(65, 0x4d04, 80, 66, 0),
+    V(66, 0x412c, 81, 67, 0),   V(67, 0x37d8, 82, 68, 0),
+    V(68, 0x2fe8, 83, 69, 0),   V(69, 0x293c, 84, 70, 0),
+    V(70, 0x2379, 86, 71, 0),   V(71, 0x1edf, 87, 72, 0),
+    V(72, 0x1aa9, 87, 73, 0),   V(73, 0x174e, 72, 74, 0),
+    V(74, 0x1424, 72, 75, 0),   V(75, 0x119c, 74, 76, 0),
+    V(76, 0x0f6b, 74, 77, 0),   V(77, 0x0d51, 75, 78, 0),
+    V(78, 0x0bb6, 77, 79, 0),   V(79, 0x0a40, 77, 48, 0),
+    V(80, 0x5832, 80, 81, 1),   V(81, 0x4d1c, 88, 82, 0),
+    V(82, 0x438e, 89, 83, 0),   V(83, 0x3bdd, 90, 84, 0),
+    V(84, 0x34ee, 91, 85, 0),   V(85, 0x2eae, 92, 86, 0),
+    V(86, 0x299a, 93, 87, 0),   V(87, 0x2516, 86, 71, 0),
+    V(88, 0x5570, 88, 89, 1),   V(89, 0x4ca9, 95, 90, 0),
+    V(90, 0x44d9, 96, 91, 0),   V(91, 0x3e22, 97, 92, 0),
+    V(92, 0x3824, 99, 93, 0),   V(93, 0x32b4, 99, 94, 0),
+    V(94, 0x2e17, 93, 86, 0),   V(95, 0x56a8, 95, 96, 1),
+    V(96, 0x4f46, 101, 97, 0),  V(97, 0x47e5, 102, 98, 0),
+    V(98, 0x41cf, 103, 99, 0),  V(99, 0x3c3d, 104, 100, 0),
+    V(100, 0x375e, 99, 93, 0),  V(101, 0x5231, 105, 102, 0),
+    V(102, 0x4c0f, 106, 103, 0), V(103, 0x4639, 107, 104, 0),
+    V(104, 0x415e, 103, 99, 0), V(105, 0x5627, 105, 106, 1),
+    V(106, 0x50e7, 108, 107, 0), V(107, 0x4b85, 109, 103, 0),
+    V(108, 0x5597, 110, 109, 0), V(109, 0x504f, 111, 107, 0),
+    V(110, 0x5a10, 110, 111, 1), V(111, 0x5522, 112, 109, 0),
+    V(112, 0x59eb, 112, 111, 1), V(113, 0x5a1d, 113, 113, 0)};
+#undef V
 
 struct Decoder {
   const uint8_t* data;
@@ -211,7 +301,8 @@ struct Decoder {
   size_t pos = 0;
 
   // header state
-  bool saw_sof = false, progressive = false;
+  bool saw_sof = false, progressive = false, arithmetic = false,
+       lossless = false;
   int precision = 8, width = 0, height = 0;
   std::vector<Component> comps;
   int max_h = 1, max_v = 1, mcus_x = 0, mcus_y = 0;
@@ -221,30 +312,54 @@ struct Decoder {
   int restart_interval = 0;
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = 0;
+  // DAC conditioning (jdmarker.c get_soi's defaults)
+  uint8_t arith_dc_L[kArithTables], arith_dc_U[kArithTables],
+      arith_ac_K[kArithTables];
 
   // scan state
   int unread_marker = 0;
   uint64_t buf = 0;
   int bits = 0;
   bool insufficient = false;
+  int insufficient_row = -1;        // the iMCU row where the data ran out
+  bool hit_end = false;             // a read past the data's last byte
   int next_restart = 0;
   int restarts_to_go = 0;
   int last_dc[4] = {};
   unsigned eobrun = 0;
   std::vector<Component*> scan;
   int ss = 0, se = 63, ah = 0, al = 0;
+  int input_scan_number = 0;
+  // block smoothing: the iMCU row of the MCU being decoded, and the last
+  // iMCU row that the latest scan decoded from data (jdcoefct.c)
+  int cur_imcu_row = 0, last_good_imcu_row = 0;
 
-  Decoder(const uint8_t* d, size_t n) : data(d), len(n) {}
+  // jdarith.c's decoder
+  int64_t ac_c = 0, ac_a = 0;
+  int ac_ct = 0;
+  int dc_context[4] = {};
+  uint8_t dc_stats[kArithTables][64], ac_stats[kArithTables][256];
+  uint8_t fixed_bin = 113;
+
+  Decoder(const uint8_t* d, size_t n) : data(d), len(n) {
+    for (int i = 0; i < kArithTables; i++) {
+      arith_dc_L[i] = 0;
+      arith_dc_U[i] = 1;
+      arith_ac_K[i] = 5;
+    }
+  }
 
   // ---------------------------------------------------------------- bytes
-  // Past the end the source yields an EOI marker, as jpeg_mem_src's fake
-  // FF D9 does.
-  int byte() { return pos < len ? data[pos++] : -1; }
-
-  int header_byte() {
-    if (pos >= len) fail(kCorrupt);
-    return data[pos++];
+  // Past the end the source yields FF D9 FF D9 ..., as jpeg_mem_src's
+  // fill_input_buffer inserts a fake EOI marker each time it runs dry;
+  // a header cut short reads those bytes as its own.
+  int byte() {
+    if (pos < len) return data[pos++];
+    hit_end = true;
+    return (pos++ - len) % 2 ? 0xD9 : 0xFF;
   }
+
+  int header_byte() { return byte(); }
 
   int header_u16() {
     int hi = header_byte();
@@ -255,15 +370,10 @@ struct Decoder {
   int next_marker() {
     for (;;) {
       int c = byte();
-      if (c < 0) return 0xD9;
-      while (c != 0xFF) {
-        c = byte();
-        if (c < 0) return 0xD9;
-      }
+      while (c != 0xFF) c = byte();
       do {
         c = byte();
       } while (c == 0xFF);
-      if (c < 0) return 0xD9;
       if (c != 0) return c;
     }
   }
@@ -278,18 +388,10 @@ struct Decoder {
     if (unread_marker == 0) {
       while (bits < kMinGetBits) {
         int c = byte();
-        if (c < 0) {
-          unread_marker = 0xD9;
-          break;
-        }
         if (c == 0xFF) {
           do {
             c = byte();
           } while (c == 0xFF);
-          if (c < 0) {
-            unread_marker = 0xD9;
-            break;
-          }
           if (c == 0) {
             c = 0xFF;
           } else {
@@ -302,6 +404,7 @@ struct Decoder {
       }
     }
     if (unread_marker != 0 && nbits > bits) {
+      if (!insufficient) insufficient_row = cur_imcu_row;
       insufficient = true;
       buf <<= kMinGetBits - bits;
       bits = kMinGetBits;
@@ -370,6 +473,8 @@ struct Decoder {
     }
   }
 
+  // jdhuff.c / jdarith.c process_restart: past the RSTn marker, the
+  // predictions and (arithmetic) the statistics reset
   void process_restart() {
     bits = 0;
     if (unread_marker == 0) unread_marker = next_marker();
@@ -381,7 +486,193 @@ struct Decoder {
     for (int& dc : last_dc) dc = 0;
     eobrun = 0;
     restarts_to_go = restart_interval;
+    if (arithmetic) {
+      reset_arith_stats();
+      return;
+    }
     if (unread_marker == 0) insufficient = false;
+  }
+
+  // ----------------------------------------------------------- arithmetic
+  // jdarith.c start_pass / process_restart: the statistics of the scan's
+  // tables zeroed, the predictions and the coder reset
+  void reset_arith_stats() {
+    for (size_t i = 0; i < scan.size(); i++) {
+      const Component* c = scan[i];
+      if (!progressive || (ss == 0 && ah == 0)) {
+        if (c->dc_tbl >= kArithTables) fail(kCorrupt);
+        std::memset(dc_stats[c->dc_tbl], 0, sizeof(dc_stats[0]));
+        last_dc[i] = 0;
+        dc_context[i] = 0;
+      }
+      if (!progressive || ss) {
+        if (c->ac_tbl >= kArithTables) fail(kCorrupt);
+        std::memset(ac_stats[c->ac_tbl], 0, sizeof(ac_stats[0]));
+      }
+    }
+    ac_c = 0;
+    ac_a = 0;
+    ac_ct = -16;  // read two bytes into C first
+  }
+
+  // jdarith.c arith_decode: one binary decision with the bin `st`. At a
+  // marker, and past the data's end, the coder reads zero bytes.
+  int arith_decode(uint8_t* st) {
+    while (ac_a < 0x8000) {
+      if (--ac_ct < 0) {
+        int v = 0;
+        if (!unread_marker) {
+          v = byte();
+          if (v == 0xFF) {
+            do {
+              v = byte();
+            } while (v == 0xFF);
+            if (v == 0) {
+              v = 0xFF;
+            } else {
+              unread_marker = v;
+              v = 0;
+            }
+          }
+        }
+        ac_c = (ac_c << 8) | v;
+        if ((ac_ct += 8) < 0 && ++ac_ct == 0) ac_a = 0x8000;
+      }
+      ac_a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = ac_a - qe;
+    ac_a = temp;
+    temp <<= ac_ct;
+    if (ac_c >= temp) {
+      ac_c -= temp;
+      if (ac_a < qe) {  // conditional LPS exchange
+        ac_a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        ac_a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (ac_a < 0x8000) {  // conditional MPS exchange
+      if (ac_a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // Figures F.19-F.24: the DC difference of scan component `ci` into
+  // *diff; false (the coder in its error state) on a magnitude overflow
+  bool arith_dc_diff(int ci, int tbl, int* diff) {
+    uint8_t* st = dc_stats[tbl] + dc_context[ci];
+    *diff = 0;
+    if (arith_decode(st) == 0) {
+      dc_context[ci] = 0;
+      return true;
+    }
+    const int sign = arith_decode(st + 1);
+    st += 2 + sign;
+    int m = arith_decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;  // Table F.4: X1 = 20
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ac_ct = -1;
+          return false;
+        }
+        st += 1;
+      }
+    }
+    if (m < static_cast<int>((1L << arith_dc_L[tbl]) >> 1))
+      dc_context[ci] = 0;
+    else if (m > static_cast<int>((1L << arith_dc_U[tbl]) >> 1))
+      dc_context[ci] = 12 + sign * 4;
+    else
+      dc_context[ci] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    *diff = sign ? -v : v;
+    return true;
+  }
+
+  // Figure F.20 over k = ss_..se_, each value shifted left by `shift`
+  // (jdarith.c decode_mcu's AC part, decode_mcu_AC_first)
+  void arith_ac(int16_t* blk, int tbl, int ss_, int se_, int shift) {
+    for (int k = ss_; k <= se_; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (arith_decode(st)) break;  // EOB
+      while (arith_decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se_) {
+          ac_ct = -1;  // spectral overflow
+          return;
+        }
+      }
+      const int sign = arith_decode(&fixed_bin);
+      st += 2;
+      int m = arith_decode(st);
+      if (m != 0 && arith_decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= arith_ac_K[tbl] ? 189 : 217);
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ac_ct = -1;
+            return;
+          }
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (arith_decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] =
+          static_cast<int16_t>(static_cast<unsigned>(v) << shift);
+    }
+  }
+
+  // jdarith.c decode_mcu_AC_refine
+  void arith_ac_refine(int16_t* blk, int tbl) {
+    const int p1 = 1 << al;
+    const int m1 = -1 * (1 << al);
+    int kex = se;
+    for (; kex > 0; kex--)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && arith_decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {  // previously nonzero
+          if (arith_decode(st + 2))
+            *coef = static_cast<int16_t>(*coef < 0 ? *coef + m1 : *coef + p1);
+          break;
+        }
+        if (arith_decode(st + 1)) {  // newly nonzero
+          *coef = static_cast<int16_t>(arith_decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {
+          ac_ct = -1;
+          return;
+        }
+      }
+    }
   }
 
   // -------------------------------------------------------------- markers
@@ -389,7 +680,7 @@ struct Decoder {
     int length = header_u16();
     if (length < 2) fail(kCorrupt);
     pos += length - 2;
-    if (pos > len) pos = len;
+    if (pos > len) hit_end = true;
   }
 
   void read_app(int marker) {
@@ -397,8 +688,8 @@ struct Decoder {
     if (length < 0) fail(kCorrupt);
     size_t start = pos;
     int n = length < 14 ? length : 14;
-    if (start + n > len) n = static_cast<int>(len - start);
-    const uint8_t* b = data + start;
+    uint8_t b[14];
+    for (int i = 0; i < n; i++) b[i] = static_cast<uint8_t>(byte());
     if (marker == 0xE0 && n >= 14 && std::memcmp(b, "JFIF\0", 5) == 0)
       saw_jfif = true;
     if (marker == 0xEE && n >= 12 && std::memcmp(b, "Adobe", 5) == 0) {
@@ -406,7 +697,7 @@ struct Decoder {
       adobe_transform = b[11];
     }
     pos = start + length;
-    if (pos > len) pos = len;
+    if (pos > len) hit_end = true;
   }
 
   void read_dqt() {
@@ -453,15 +744,38 @@ struct Decoder {
     if (length != 0) fail(kCorrupt);
   }
 
+  // jdmarker.c get_dac
+  void read_dac() {
+    int length = header_u16() - 2;
+    while (length > 0) {
+      int index = header_byte();
+      int val = header_byte();
+      length -= 2;
+      if (index >= 2 * kArithTables) fail(kCorrupt);
+      if (index >= kArithTables) {
+        arith_ac_K[index - kArithTables] = static_cast<uint8_t>(val);
+      } else {
+        arith_dc_L[index] = static_cast<uint8_t>(val & 0x0F);
+        arith_dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if (arith_dc_L[index] > arith_dc_U[index]) fail(kCorrupt);
+      }
+    }
+    if (length != 0) fail(kCorrupt);
+  }
+
   void read_dri() {
     if (header_u16() != 4) fail(kCorrupt);
     restart_interval = header_u16();
   }
 
-  void read_sof(bool is_progressive) {
+  // SOF0-SOF2, SOF9, SOF10 and SOF3: the frame header
+  void read_sof(bool is_progressive, bool is_arithmetic = false,
+                bool is_lossless = false) {
     if (saw_sof) fail(kCorrupt);
     saw_sof = true;
     progressive = is_progressive;
+    arithmetic = is_arithmetic;
+    lossless = is_lossless;
     int length = header_u16();
     precision = header_byte();
     height = header_u16();
@@ -486,8 +800,7 @@ struct Decoder {
     if (precision != 8) fail(kPrecision);
     if (width > 65500 || height > 65500) fail(kCorrupt);
     int n = static_cast<int>(comps.size());
-    if (n == 4) fail(kFourComponents);
-    if (n != 1 && n != 3) fail(kComponents);
+    if (n != 1 && n != 3 && n != 4) fail(kComponents);
     max_h = max_v = 1;
     for (const Component& c : comps) {
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) fail(kCorrupt);
@@ -495,18 +808,27 @@ struct Decoder {
       max_h = c.h > max_h ? c.h : max_h;
       max_v = c.v > max_v ? c.v : max_v;
     }
-    mcus_x = (width + 8 * max_h - 1) / (8 * max_h);
-    mcus_y = (height + 8 * max_v - 1) / (8 * max_v);
+    // a data unit is a block of 8 x 8, or a sample in lossless files
+    const int du = lossless ? 1 : 8;
+    mcus_x = (width + du * max_h - 1) / (du * max_h);
+    mcus_y = (height + du * max_v - 1) / (du * max_v);
     for (Component& c : comps) {
       c.width_in_blocks = static_cast<int>(
-          (static_cast<int64_t>(width) * c.h + 8 * max_h - 1) / (8 * max_h));
+          (static_cast<int64_t>(width) * c.h + du * max_h - 1) /
+          (du * max_h));
       c.height_in_blocks = static_cast<int>(
-          (static_cast<int64_t>(height) * c.v + 8 * max_v - 1) /
-          (8 * max_v));
+          (static_cast<int64_t>(height) * c.v + du * max_v - 1) /
+          (du * max_v));
       c.bw = mcus_x * c.h;
       c.bh = mcus_y * c.v;
-      c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      if (lossless) {
+        c.diff.assign(static_cast<size_t>(c.bw) * c.bh, 0);
+        c.samples.assign(static_cast<size_t>(c.bw) * c.bh, 0);
+      } else {
+        c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      }
       for (int& b : c.coef_bits) b = -1;
+      for (int& b : c.prev_coef_bits) b = -1;
     }
   }
 
@@ -537,23 +859,31 @@ struct Decoder {
           setup_frame();
           break;
         case 0xC3:
+          read_sof(false, false, true);
+          setup_frame();
+          break;
+        case 0xC9:
+          read_sof(false, true);
+          setup_frame();
+          break;
+        case 0xCA:
+          read_sof(true, true);
+          setup_frame();
+          break;
+        case 0xCB:  // lossless, arithmetic coded: no reference decodes it
           fail(kLossless);
         case 0xC5:
         case 0xC6:
         case 0xC7:
-          fail(kHierarchical);
-        case 0xC9:
-        case 0xCA:
-        case 0xCB:
         case 0xCD:
         case 0xCE:
         case 0xCF:
-          fail(kArithmetic);
+          fail(kHierarchical);
         case 0xC4:
           read_dht();
           break;
-        case 0xCC:  // DAC: arithmetic conditioning, unused by Huffman
-          skip_variable();
+        case 0xCC:
+          read_dac();
           break;
         case 0xD8:
           fail(kCorrupt);  // a second SOI
@@ -615,20 +945,21 @@ struct Decoder {
     ah = a >> 4;
     al = a & 15;
     next_restart = 0;
+    input_scan_number++;
   }
 
   HuffTable& table(bool is_dc, int index) {
     if (index < 0 || index >= 4) fail(kCorrupt);
     HuffTable& t = is_dc ? dc_tables[index] : ac_tables[index];
     if (!t.defined) install_std(&t, is_dc, index);
-    derive(&t, is_dc);
+    derive(&t, is_dc, lossless ? 16 : 15);
     return t;
   }
 
   // ---------------------------------------------------------------- scans
   void start_scan() {
     for (Component* c : scan) {
-      if (c->latched) continue;
+      if (c->latched || lossless) continue;
       if (!qdefined[c->tq]) fail(kCorrupt);
       std::memcpy(c->quant, qtables[c->tq], sizeof(c->quant));
       c->latched = true;
@@ -639,23 +970,26 @@ struct Decoder {
     bits = 0;
     buf = 0;
     insufficient = false;
+    insufficient_row = -1;
     eobrun = 0;
     for (int& dc : last_dc) dc = 0;
     restarts_to_go = restart_interval;
   }
 
-  // Calls mcu(blocks) for each MCU of the scan in order, with the restart
-  // handling of decode_mcu around it.
-  template <typename F>
-  void for_each_mcu(F&& mcu) {
-    int16_t* blocks[10];
+  // Calls mcu(blocks, n) for each MCU of the scan in order, with the
+  // restart handling of decode_mcu around it; `unit` gives a data unit's
+  // address in its component.
+  template <typename U, typename F>
+  void for_each_mcu(U&& unit, F&& mcu) {
+    decltype(unit(scan[0], 0, 0)) units[10];
     if (scan.size() == 1) {
       Component* c = scan[0];
       for (int row = 0; row < c->height_in_blocks; row++)
         for (int col = 0; col < c->width_in_blocks; col++) {
           if (restart_interval && restarts_to_go == 0) process_restart();
-          blocks[0] = c->block(row, col);
-          mcu(blocks, 1);
+          cur_imcu_row = row / c->v;
+          units[0] = unit(c, row, col);
+          mcu(units, 1);
           if (restart_interval) restarts_to_go--;
         }
       return;
@@ -663,14 +997,22 @@ struct Decoder {
     for (int my = 0; my < mcus_y; my++)
       for (int mx = 0; mx < mcus_x; mx++) {
         if (restart_interval && restarts_to_go == 0) process_restart();
+        cur_imcu_row = my;
         int n = 0;
         for (Component* c : scan)
           for (int y = 0; y < c->v; y++)
             for (int x = 0; x < c->h; x++)
-              blocks[n++] = c->block(my * c->v + y, mx * c->h + x);
-        mcu(blocks, n);
+              units[n++] = unit(c, my * c->v + y, mx * c->h + x);
+        mcu(units, n);
         if (restart_interval) restarts_to_go--;
       }
+  }
+
+  template <typename F>
+  void for_each_block_mcu(F&& mcu) {
+    for_each_mcu([](Component* c, int row, int col) {
+      return c->block(row, col);
+    }, mcu);
   }
 
   // The scan component of each block of an MCU
@@ -683,15 +1025,31 @@ struct Decoder {
     return m;
   }
 
-  // jdhuff.c decode_mcu
+  // jdhuff.c decode_mcu, jdarith.c decode_mcu
   void sequential_scan() {
+    const std::vector<int> member = membership();
+    if (arithmetic) {
+      reset_arith_stats();
+      for_each_block_mcu([&](int16_t** blocks, int n) {
+        if (ac_ct == -1) return;  // the coder's error state
+        for (int b = 0; b < n; b++) {
+          const int ci = member[b];
+          int v;
+          if (!arith_dc_diff(ci, scan[ci]->dc_tbl, &v)) return;
+          last_dc[ci] = (last_dc[ci] + v) & 0xFFFF;
+          blocks[b][0] = static_cast<int16_t>(last_dc[ci]);
+          arith_ac(blocks[b], scan[ci]->ac_tbl, 1, 63, 0);
+          if (ac_ct == -1) return;
+        }
+      });
+      return;
+    }
     std::vector<const HuffTable*> dct, act;
     for (Component* c : scan) {
       dct.push_back(&table(true, c->dc_tbl));
       act.push_back(&table(false, c->ac_tbl));
     }
-    const std::vector<int> member = membership();
-    for_each_mcu([&](int16_t** blocks, int n) {
+    for_each_block_mcu([&](int16_t** blocks, int n) {
       if (insufficient) return;
       for (int b = 0; b < n; b++) {
         const int ci = member[b];
@@ -718,7 +1076,8 @@ struct Decoder {
     });
   }
 
-  // jdphuff.c start_pass_phuff_decoder: validate and record the progression
+  // jdphuff.c / jdarith.c start_pass: validate and record the progression
+  // (coef_bits, and the coef_bits before this scan for block smoothing)
   void progressive_scan() {
     bool bad = false;
     const bool dc_band = ss == 0;
@@ -731,16 +1090,22 @@ struct Decoder {
     if (ah != 0 && al != ah - 1) bad = true;
     if (al > 13) bad = true;
     if (bad) fail(kCorrupt);
-    for (Component* c : scan)
+    for (Component* c : scan) {
+      for (int k = ss < 1 ? ss : 1; k <= (se > 9 ? se : 9); k++)
+        c->prev_coef_bits[k] = input_scan_number > 1 ? c->coef_bits[k] : 0;
       for (int k = ss; k <= se; k++) c->coef_bits[k] = al;
-
+    }
+    if (arithmetic) {
+      arith_progressive_scan();
+      return;
+    }
     if (dc_band) {
       std::vector<const HuffTable*> dct;
       if (ah == 0)
         for (Component* c : scan) dct.push_back(&table(true, c->dc_tbl));
       const std::vector<int> member = membership();
       if (ah == 0) {
-        for_each_mcu([&](int16_t** blocks, int n) {
+        for_each_block_mcu([&](int16_t** blocks, int n) {
           if (insufficient) return;
           for (int b = 0; b < n; b++) {
             const int ci = member[b];
@@ -754,7 +1119,7 @@ struct Decoder {
         });
       } else {
         const int p1 = 1 << al;
-        for_each_mcu([&](int16_t** blocks, int n) {
+        for_each_block_mcu([&](int16_t** blocks, int n) {
           for (int b = 0; b < n; b++)
             if (get_bits(1)) blocks[b][0] |= static_cast<int16_t>(p1);
         });
@@ -763,7 +1128,7 @@ struct Decoder {
     }
     const HuffTable& act = table(false, scan[0]->ac_tbl);
     if (ah == 0) {
-      for_each_mcu([&](int16_t** blocks, int) {
+      for_each_block_mcu([&](int16_t** blocks, int) {
         if (insufficient) return;
         if (eobrun > 0) {
           eobrun--;
@@ -793,7 +1158,7 @@ struct Decoder {
     }
     const int p1 = 1 << al;
     const int m1 = -1 * (1 << al);
-    for_each_mcu([&](int16_t** blocks, int) {
+    for_each_block_mcu([&](int16_t** blocks, int) {
       if (insufficient) return;
       int16_t* blk = blocks[0];
       int k = ss;
@@ -835,9 +1200,116 @@ struct Decoder {
     });
   }
 
+  // jdarith.c decode_mcu_DC_first, _AC_first, _DC_refine, _AC_refine
+  void arith_progressive_scan() {
+    reset_arith_stats();
+    const std::vector<int> member = membership();
+    for_each_block_mcu([&](int16_t** blocks, int n) {
+      if (ac_ct == -1) return;
+      if (ss == 0 && ah == 0) {
+        for (int b = 0; b < n; b++) {
+          const int ci = member[b];
+          int v;
+          if (!arith_dc_diff(ci, scan[ci]->dc_tbl, &v)) return;
+          last_dc[ci] = (last_dc[ci] + v) & 0xFFFF;
+          blocks[b][0] = static_cast<int16_t>(
+              static_cast<unsigned>(last_dc[ci]) << al);
+        }
+      } else if (ss == 0) {
+        for (int b = 0; b < n; b++)
+          if (arith_decode(&fixed_bin))
+            blocks[b][0] = static_cast<int16_t>(blocks[b][0] | (1 << al));
+      } else if (ah == 0) {
+        arith_ac(blocks[0], scan[0]->ac_tbl, ss, se, al);
+      } else {
+        arith_ac_refine(blocks[0], scan[0]->ac_tbl);
+      }
+    });
+  }
+
+  // jdlhuff.c decode_mcus, jddiffct.c and jdlossls.c: each sample's
+  // difference, then each component's rows undifferenced (T.81 Table
+  // H.1's predictor `ss`, the first row of the scan and of each restart
+  // interval predicted from its left neighbour) and the point transform
+  // `al` undone
+  void lossless_scan() {
+    if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision)
+      fail(kCorrupt);
+    const int per_row = scan.size() == 1 ? scan[0]->width_in_blocks : mcus_x;
+    if (restart_interval % per_row) fail(kCorrupt);
+    std::vector<const HuffTable*> dct;
+    for (Component* c : scan) dct.push_back(&table(true, c->dc_tbl));
+    const std::vector<int> member = membership();
+    std::vector<bool> first_row(scan.size(), true);
+    std::vector<int> next_row(scan.size(), 0);
+    int mcu = 0;
+    auto undifference = [&](size_t i, int row) {
+      Component* c = scan[i];
+      int32_t* cur = c->diff.data() + static_cast<size_t>(row) * c->bw;
+      const int32_t* prev = cur - c->bw;
+      const int w = c->width_in_blocks;
+      int ra;
+      if (first_row[i]) {
+        ra = (cur[0] + (1 << (precision - al - 1))) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < w; x++) cur[x] = ra = (cur[x] + ra) & 0xFFFF;
+        first_row[i] = false;
+      } else {
+        int rb = prev[0], rc;
+        cur[0] = ra = (cur[0] + rb) & 0xFFFF;
+        for (int x = 1; x < w; x++) {
+          rc = rb;
+          rb = prev[x];
+          int64_t pred;
+          switch (ss) {
+            case 1: pred = ra; break;
+            case 2: pred = rb; break;
+            case 3: pred = rc; break;
+            case 4: pred = int64_t{ra} + rb - rc; break;
+            case 5: pred = ra + ((int64_t{rb} - rc) >> 1); break;
+            case 6: pred = rb + ((int64_t{ra} - rc) >> 1); break;
+            default: pred = (int64_t{ra} + rb) >> 1; break;
+          }
+          cur[x] = ra = static_cast<int>((cur[x] + pred) & 0xFFFF);
+        }
+      }
+      uint8_t* out = c->samples.data() + static_cast<size_t>(row) * c->bw;
+      for (int x = 0; x < w; x++)
+        out[x] = static_cast<uint8_t>(static_cast<unsigned>(cur[x]) << al);
+    };
+    for_each_mcu([](Component* c, int row, int col) {
+      return c->diff.data() + static_cast<size_t>(row) * c->bw + col;
+    }, [&](int32_t** units, int n) {
+      if (restart_interval && restarts_to_go == restart_interval &&
+          mcu > 0) {
+        // process_restart ran before this MCU row: start_pass_lossless
+        for (size_t i = 0; i < scan.size(); i++) first_row[i] = true;
+      }
+      for (int b = 0; b < n; b++) {
+        int s = 0;
+        if (!insufficient) {
+          s = decode_huff(*dct[member[b]]);
+          if (s == 16)
+            s = 32768;
+          else if (s)
+            s = extend(get_bits(s), s);
+        }
+        *units[b] = s;
+      }
+      if (++mcu % per_row) return;
+      // an MCU row is in: undifference its rows of each component
+      for (size_t i = 0; i < scan.size(); i++) {
+        Component* c = scan[i];
+        const int rows = scan.size() == 1 ? 1 : c->v;
+        for (int r = 0; r < rows && next_row[i] < c->height_in_blocks; r++)
+          undifference(i, next_row[i]++);
+      }
+    });
+  }
+
   // jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a progressive
   // file whose first AC coefficients some scan left unsent or unrefined
-  bool would_smooth() const {
+  bool smoothing_ok() const {
     if (!progressive) return false;
     static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
     bool useful = false;
@@ -857,13 +1329,18 @@ struct Decoder {
     for (;;) {
       read_sos();
       start_scan();
-      if (progressive)
+      if (lossless)
+        lossless_scan();
+      else if (progressive)
         progressive_scan();
       else
         sequential_scan();
+      // the iMCU rows after the one where the data ran out hold what the
+      // scans before this one sent
+      last_good_imcu_row =
+          insufficient_row < 0 ? mcus_y - 1 : insufficient_row;
       if (!read_markers(false)) break;
     }
-    if (would_smooth()) fail(kTruncatedProgressive);
   }
 };
 
@@ -1809,22 +2286,220 @@ inline uint8_t clamp255(int v) {
   return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
-int decode(const uint8_t* data, size_t len, int scale_num, uint8_t* out,
-           size_t cap, int* out_w, int* out_h) {
+// jdcoefct.c decompress_smooth_data for one component: each block's
+// first nine AC coefficients, where still zero and not known to full
+// precision, estimated from the DC values of its 5 x 5 neighbourhood
+// (and, where no AC coefficient was sent at all, its DC too), then the
+// IDCT. The coef_bits of an iMCU row after `last_good` are those from
+// before the latest scan.
+void smooth_idct(const Decoder& d, Component& c, const int* cur_bits,
+                 const int* prev_bits, const int16_t* q, IdctFn idct,
+                 int ssize, uint8_t* plane, int pw) {
+  const int64_t Q00 = c.quant[0], Q01 = c.quant[1], Q10 = c.quant[8],
+                Q20 = c.quant[16], Q11 = c.quant[9], Q02 = c.quant[2],
+                Q03 = c.quant[3], Q12 = c.quant[10], Q21 = c.quant[17],
+                Q30 = c.quant[24];
+  const int V = c.v, T = d.mcus_y;
+  const int last_col = c.width_in_blocks - 1;
+  int16_t ws[64];
+  for (int R = 0; R < T; R++) {
+    int block_rows = V;
+    if (R == T - 1) {
+      block_rows = c.height_in_blocks % V;
+      if (block_rows == 0) block_rows = V;
+    }
+    const int* bits = R > d.last_good_imcu_row ? prev_bits : cur_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; k++)
+      if (bits[k] != -1) change_dc = false;
+    for (int br = 0; br < block_rows; br++) {
+      // the rows above and below as libjpeg-turbo 2.1 picks them: by the
+      // block row within the iMCU row and the iMCU row's place
+      const int row = R * V + br;
+      const int prow = br > 0 || R > 0 ? row - 1 : row;
+      const int pprow = br > 1 || R > 1 ? row - 2 : prow;
+      const int nrow = br < block_rows - 1 || R < T - 1 ? row + 1 : row;
+      const int nnrow =
+          br < block_rows - 2 || R + 1 < T - 1 ? row + 2 : nrow;
+      auto dc = [&](int r, int col) { return int{c.block(r, col)[0]}; };
+      int DC01, DC02, DC03, DC04, DC05, DC06, DC07, DC08, DC09, DC10, DC11,
+          DC12, DC13, DC14, DC15, DC16, DC17, DC18, DC19, DC20, DC21, DC22,
+          DC23, DC24, DC25;
+      DC01 = DC02 = DC03 = DC04 = DC05 = dc(pprow, 0);
+      DC06 = DC07 = DC08 = DC09 = DC10 = dc(prow, 0);
+      DC11 = DC12 = DC13 = DC14 = DC15 = dc(row, 0);
+      DC16 = DC17 = DC18 = DC19 = DC20 = dc(nrow, 0);
+      DC21 = DC22 = DC23 = DC24 = DC25 = dc(nnrow, 0);
+      for (int bn = 0; bn <= last_col; bn++) {
+        std::memcpy(ws, c.block(row, bn), sizeof(ws));
+        if (bn == 0 && bn < last_col) {
+          DC04 = DC05 = dc(pprow, 1);
+          DC09 = DC10 = dc(prow, 1);
+          DC14 = DC15 = dc(row, 1);
+          DC19 = DC20 = dc(nrow, 1);
+          DC24 = DC25 = dc(nnrow, 1);
+        }
+        if (bn + 1 < last_col) {
+          DC05 = dc(pprow, bn + 2);
+          DC10 = dc(prow, bn + 2);
+          DC15 = dc(row, bn + 2);
+          DC20 = dc(nrow, bn + 2);
+          DC25 = dc(nnrow, bn + 2);
+        }
+        // pred = round(num / (Q << 8)), limited below 2^Al where Al > 0
+        auto estimate = [](int64_t num, int64_t q, int al, bool limit) {
+          int pred;
+          if (num >= 0) {
+            pred = static_cast<int>(((q << 7) + num) / (q << 8));
+            if (limit && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+          } else {
+            pred = static_cast<int>(((q << 7) - num) / (q << 8));
+            if (limit && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+            pred = -pred;
+          }
+          return static_cast<int16_t>(pred);
+        };
+        int al;
+        if ((al = bits[1]) != 0 && ws[1] == 0) {  // AC01
+          const int64_t num =
+              Q00 * (change_dc
+                         ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 +
+                            13 * DC07 - 13 * DC09 + 3 * DC10 - 3 * DC11 +
+                            38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 +
+                            13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 +
+                            DC24 + DC25)
+                         : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+          ws[1] = estimate(num, Q01, al, true);
+        }
+        if ((al = bits[2]) != 0 && ws[8] == 0) {  // AC10
+          const int64_t num =
+              Q00 * (change_dc
+                         ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 -
+                            DC06 + 13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 +
+                            DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 +
+                            DC21 + 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                         : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+          ws[8] = estimate(num, Q10, al, true);
+        }
+        if ((al = bits[3]) != 0 && ws[16] == 0) {  // AC20
+          const int64_t num =
+              Q00 * (change_dc
+                         ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 -
+                            5 * DC12 - 14 * DC13 - 5 * DC14 + 2 * DC17 +
+                            7 * DC18 + 2 * DC19 + DC23)
+                         : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 -
+                            DC23));
+          ws[16] = estimate(num, Q20, al, true);
+        }
+        if ((al = bits[4]) != 0 && ws[9] == 0) {  // AC11
+          const int64_t num =
+              Q00 * (change_dc
+                         ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 +
+                            9 * DC19 + DC21 - DC25)
+                         : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 -
+                            DC20 + DC22 - DC24 + DC04 - DC06 + 10 * DC07 -
+                            10 * DC09));
+          ws[9] = estimate(num, Q11, al, true);
+        }
+        if ((al = bits[5]) != 0 && ws[2] == 0) {  // AC02
+          const int64_t num =
+              Q00 * (change_dc
+                         ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 +
+                            7 * DC12 - 14 * DC13 + 7 * DC14 + DC15 +
+                            2 * DC17 - 5 * DC18 + 2 * DC19)
+                         : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 -
+                            DC15));
+          ws[2] = estimate(num, Q02, al, true);
+        }
+        if (change_dc) {
+          if ((al = bits[6]) != 0 && ws[3] == 0)  // AC03
+            ws[3] = estimate(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 +
+                                    DC17 - DC19),
+                             Q03, al, true);
+          if ((al = bits[7]) != 0 && ws[10] == 0)  // AC12
+            ws[10] = estimate(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 +
+                                     3 * DC18 - DC19),
+                              Q12, al, true);
+          if ((al = bits[8]) != 0 && ws[17] == 0)  // AC21
+            ws[17] = estimate(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 +
+                                     DC17 - DC19),
+                              Q21, al, true);
+          if ((al = bits[9]) != 0 && ws[24] == 0)  // AC30
+            ws[24] = estimate(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 -
+                                     2 * DC18 - DC19),
+                              Q30, al, true);
+          ws[0] = estimate(
+              Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+                     6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+                     8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 -
+                     8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 -
+                     6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                     2 * DC25),
+              Q00, 0, false);
+        }
+        idct(ws, q, plane + static_cast<size_t>(row) * ssize * pw +
+                        static_cast<size_t>(bn) * ssize,
+             pw);
+        DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
+        DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
+        DC11 = DC12; DC12 = DC13; DC13 = DC14; DC14 = DC15;
+        DC16 = DC17; DC17 = DC18; DC18 = DC19; DC19 = DC20;
+        DC21 = DC22; DC22 = DC23; DC23 = DC24; DC24 = DC25;
+      }
+    }
+  }
+}
+
+// The colour space libjpeg reads (jdapimin.c default_decompress_parms;
+// libjpeg-turbo 3's for lossless files, whose three components are RGB
+// unless a JFIF or an Adobe segment says YCbCr)
+enum ColourSpace { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
+
+ColourSpace colour_space(const Decoder& d) {
+  const int n = static_cast<int>(d.comps.size());
+  if (n == 1) return kGray;
+  if (n == 4) {
+    if (d.saw_adobe && d.adobe_transform != 0) return kYCCK;
+    return kCMYK;
+  }
+  if (d.saw_jfif) return kYCbCr;
+  if (d.saw_adobe) return d.adobe_transform == 0 ? kRGB : kYCbCr;
+  if (d.lossless) return kRGB;
+  const bool rgb_ids = d.comps[0].id == 'R' && d.comps[1].id == 'G' &&
+                       d.comps[2].id == 'B';
+  return rgb_ids ? kRGB : kYCbCr;
+}
+
+int decode(const uint8_t* data, size_t len, int scale_num, bool native,
+           uint8_t* out, size_t cap, int* out_w, int* out_h, int* channels) {
   if (scale_num < 1 || scale_num > 8) return kBadScale;
   Decoder d(data, len);
   d.decode_all();
+  const int n = static_cast<int>(d.comps.size());
+  const ColourSpace space = colour_space(d);
+  // libjpeg-turbo 2.1 decodes neither CMYK/YCCK to RGB nor lossless
+  // files; Pillow decodes them whole, at full size, and converts no
+  // colour in a lossless file
+  const bool pillow_only = n == 4 || d.lossless;
+  if (d.lossless && (space == kYCbCr || space == kYCCK)) return kLossless;
+  if (pillow_only && d.hit_end) return kTruncated;
+  if (pillow_only && scale_num != 8) return kPillowScale;
+  const int nout = native ? (n == 4 ? 4 : n == 1 ? 1 : 3) : 3;
 
   // jdmaster.c: output size and each component's scaled DCT size
   const int min_size = scale_num;
   const int ow = static_cast<int>(div_round_up(int64_t{d.width} * min_size, 8));
   const int oh = static_cast<int>(div_round_up(int64_t{d.height} * min_size, 8));
-  if (cap < static_cast<size_t>(ow) * oh * 3) return kCapacity;
-  const bool fancy = min_size > 1;
-  const int n = static_cast<int>(d.comps.size());
+  if (cap < static_cast<size_t>(ow) * oh * nout) return kCapacity;
+  const bool smooth = d.smoothing_ok();
   std::vector<std::vector<uint8_t>> full(n);
   for (int ci = 0; ci < n; ci++) {
     Component& c = d.comps[ci];
+    if (d.lossless) {  // one sample a data unit, box upsampling
+      upsample(c.samples, c.bw, c.width_in_blocks, c.height_in_blocks, c.h,
+               c.v, d.max_h, d.max_v, false, &full[ci], ow, oh);
+      continue;
+    }
     int ssize = min_size;
     while (ssize < 8 && (d.max_h * min_size) % (c.h * ssize * 2) == 0 &&
            (d.max_v * min_size) % (c.v * ssize * 2) == 0)
@@ -1839,36 +2514,35 @@ int decode(const uint8_t* data, size_t len, int scale_num, uint8_t* out,
     int16_t q[64];
     for (int i = 0; i < 64; i++) q[i] = static_cast<int16_t>(c.quant[i]);
     IdctFn idct = idct_for(ssize);
-    for (int by = 0; by < c.height_in_blocks; by++)
-      for (int bx = 0; bx < c.width_in_blocks; bx++)
-        idct(c.block(by, bx), q,
-             plane.data() + static_cast<size_t>(by) * ssize * pw +
-                 static_cast<size_t>(bx) * ssize,
-             pw);
+    if (smooth) {
+      int prev_bits[10];
+      for (int k = 1; k < 10; k++)
+        prev_bits[k] = d.input_scan_number > 1 ? c.prev_coef_bits[k] : -1;
+      smooth_idct(d, c, c.coef_bits, prev_bits, q, idct, ssize,
+                  plane.data(), pw);
+    } else {
+      for (int by = 0; by < c.height_in_blocks; by++)
+        for (int bx = 0; bx < c.width_in_blocks; bx++)
+          idct(c.block(by, bx), q,
+               plane.data() + static_cast<size_t>(by) * ssize * pw +
+                   static_cast<size_t>(bx) * ssize,
+               pw);
+    }
     const int h_in = c.h * ssize / min_size;
     const int v_in = c.v * ssize / min_size;
-    upsample(plane, pw, dw, dh, h_in, v_in, d.max_h, d.max_v, fancy,
+    upsample(plane, pw, dw, dh, h_in, v_in, d.max_h, d.max_v, min_size > 1,
              &full[ci], ow, oh);
   }
 
-  // jdapimin.c default_decompress_parms: the colour space
-  bool rgb_as_stored = false;
-  if (n == 3 && !d.saw_jfif) {
-    if (d.saw_adobe)
-      rgb_as_stored = d.adobe_transform == 0;
-    else
-      rgb_as_stored = d.comps[0].id == 'R' && d.comps[1].id == 'G' &&
-                      d.comps[2].id == 'B';
-  }
   const size_t npix = static_cast<size_t>(ow) * oh;
   if (n == 1) {
     const uint8_t* g = full[0].data();
     for (size_t i = 0; i < npix; i++)
-      out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = g[i];
-  } else if (rgb_as_stored) {
+      for (int k = 0; k < nout; k++) out[nout * i + k] = g[i];
+  } else if (space == kRGB) {
     for (size_t i = 0; i < npix; i++)
       for (int k = 0; k < 3; k++) out[3 * i + k] = full[k][i];
-  } else {
+  } else if (space == kYCbCr) {
     const uint8_t *yp = full[0].data(), *cbp = full[1].data(),
                   *crp = full[2].data();
     for (size_t i = 0; i < npix; i++) {
@@ -1878,9 +2552,38 @@ int decode(const uint8_t* data, size_t len, int scale_num, uint8_t* out,
           y + static_cast<int>((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
       out[3 * i + 2] = clamp255(y + kYcc.cb_b[cb]);
     }
+  } else {
+    // libjpeg's CMYK (jdcolor.c ycck_cmyk_convert for YCCK), inverted by
+    // Pillow's "CMYK;I" unpacker; as RGB, Convert.c cmyk2rgb
+    for (size_t i = 0; i < npix; i++) {
+      int cmyk[4];
+      if (space == kYCCK) {
+        const int y = full[0][i], cb = full[1][i], cr = full[2][i];
+        cmyk[0] = clamp255(255 - (y + kYcc.cr_r[cr]));
+        cmyk[1] = clamp255(255 - (y + static_cast<int>(
+                                          (kYcc.cb_g[cb] + kYcc.cr_g[cr]) >>
+                                          16)));
+        cmyk[2] = clamp255(255 - (y + kYcc.cb_b[cb]));
+      } else {
+        for (int k = 0; k < 3; k++) cmyk[k] = full[k][i];
+      }
+      cmyk[3] = full[3][i];
+      for (int& v : cmyk) v = 255 - v;
+      if (nout == 4) {
+        for (int k = 0; k < 4; k++)
+          out[4 * i + k] = static_cast<uint8_t>(cmyk[k]);
+        continue;
+      }
+      const int nk = 255 - cmyk[3];
+      for (int k = 0; k < 3; k++) {
+        const int tmp = cmyk[k] * nk + 128;
+        out[3 * i + k] = clamp255(nk - (((tmp >> 8) + tmp) >> 8));
+      }
+    }
   }
   *out_w = ow;
   *out_h = oh;
+  *channels = nout;
   return kOk;
 }
 
@@ -1914,14 +2617,15 @@ extern "C" int jpeg_decode_info(const uint8_t* data, size_t len, int* width,
 }
 
 extern "C" int jpeg_decode(const uint8_t* data, size_t len, int scale_num,
-                           uint8_t* out, size_t out_capacity, int* out_width,
-                           int* out_height) {
+                           int native, uint8_t* out, size_t out_capacity,
+                           int* out_width, int* out_height, int* channels) {
   try {
-    return decode(data, len, scale_num, out, out_capacity, out_width,
-                  out_height);
+    return decode(data, len, scale_num, native != 0, out, out_capacity,
+                  out_width, out_height, channels);
   } catch (const Error& e) {
     return e.code;
   } catch (...) {
     return kCorrupt;
   }
 }
+

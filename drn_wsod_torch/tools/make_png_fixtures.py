@@ -11,9 +11,14 @@ All made from the seed:
     bits (a short palette, indices past its end, a tRNS chunk), gray with
     alpha, RGB and RGBA, each row's filter type cycling through all five
     and the IDAT stream split into three chunks; an 8-bit RGB file for
-    each filter type alone; an interlaced file and a 16-bit one, which the
-    reader leaves to Pillow. Encoded by :func:`encode_png`, which chooses
-    the filters, as Pillow does not;
+    each filter type alone; interlaced (Adam7) files of every colour type
+    and depth, and 16-bit files of every colour type that has them (those
+    after the first interlaced and 16-bit ones drawn from a second random
+    stream, ``--seed`` + 1, which leaves the files before them unchanged).
+    Encoded by :func:`encode_png`, which chooses the filters, as Pillow
+    does not;
+  * ``voc/``: a VOC-sized (500 x 375) interlaced RGB file and a 16-bit RGB
+    one, smooth content, for ``chip_smoke.py``'s phase 29;
   * ``panoptic/``: a COCO panoptic-separated tree (layout of
     ``data/datasets/coco.py``'s builtin splits: ``annotations/
     {instances,panoptic}_{train,val}2017.json``, ``panoptic_{split}/`` RGB
@@ -175,6 +180,56 @@ def mode_files(rng: np.random.RandomState, h: int = 13, w: int = 17
     return files
 
 
+# (name, colour type, depth, channels) of the Adam7 and 16-bit files
+WIDE = [(f"gray{d}", 0, d, 1) for d in (1, 2, 4, 8, 16)] + \
+    [(f"palette{d}", 3, d, 1) for d in (1, 2, 4, 8)] + \
+    [(f"gray_alpha{d}", 4, d, 2) for d in (8, 16)] + \
+    [(f"rgb{d}", 2, d, 3) for d in (8, 16)] + \
+    [(f"rgba{d}", 6, d, 4) for d in (8, 16)]
+
+
+def wide_files(rng: np.random.RandomState, h: int = 13, w: int = 17
+               ) -> Dict[str, bytes]:
+    """{file name: PNG bytes}: every kind of ``WIDE`` interlaced, the
+    16-bit ones also plain (gray16 is in :func:`mode_files`), and an
+    interlaced file smaller than Adam7's 8 x 8 tile (empty passes)."""
+    cyc = (0, 1, 2, 3, 4)
+    files = {}
+    for name, colour, depth, ch in WIDE:
+        for interlace in (True, False):
+            if not interlace and (depth != 16 or colour == 0):
+                continue
+            samples = rng.randint(0, 1 << depth, (h, w, ch))
+            palette = (rng.randint(0, 256, (min(1 << depth, 200), 3))
+                       if colour == 3 else None)
+            key = f"adam7_{name}.png" if interlace else f"{name}.png"
+            files[key] = encode_png(samples, colour, depth, palette,
+                                    filters=cyc, idat_chunks=2,
+                                    interlace=interlace)
+    files["adam7_rgb8_3x5.png"] = encode_png(
+        rng.randint(0, 256, (3, 5, 3)), 2, 8, filters=cyc, interlace=True)
+    return files
+
+
+def voc_files(rng: np.random.RandomState, h: int = 375, w: int = 500
+              ) -> Dict[str, bytes]:
+    """The VOC-sized files: smooth RGB (two gradients and filled
+    rectangles), interlaced at 8 bits and plain at 16."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    c0, c1 = rng.uniform(0, 255, 3), rng.uniform(0, 255, 3)
+    t = (x / (w - 1) + y / (h - 1)) / 2
+    img = c0 * (1 - t[..., None]) + c1 * t[..., None]
+    for _ in range(4):
+        x0, y0 = rng.randint(0, w - 50), rng.randint(0, h - 50)
+        img[y0:y0 + rng.randint(20, 150), x0:x0 + rng.randint(20, 150)] = \
+            rng.uniform(0, 255, 3)
+    wide = np.clip(img * 257, 0, 65535).astype(np.int64)
+    return {"adam7_rgb8_500x375.png": encode_png(wide >> 8, 2, 8,
+                                                  filters=(4,),
+                                                  interlace=True),
+            "rgb16_500x375.png": encode_png(wide, 2, 16, filters=(4,))}
+
+
 def pillow_decodes(data: bytes) -> Dict:
     """Pillow's decode of PNG bytes: mode, dtype, shape and the sha256 of
     ``np.asarray`` and of ``convert("RGB")``."""
@@ -302,6 +357,10 @@ def build(seed: int = 0, out: Path = FIXTURE_DIR) -> Dict:
     rng = np.random.RandomState(seed)
     files: Dict[str, bytes] = {f"modes/{k}": v
                                for k, v in mode_files(rng).items()}
+    rng_wide = np.random.RandomState(seed + 1)
+    files.update({f"modes/{k}": v
+                  for k, v in wide_files(rng_wide).items()})
+    files.update({f"voc/{k}": v for k, v in voc_files(rng_wide).items()})
     coco = make_mask_fixtures.load_manifest()["coco"]
     trees, mapper_entries = {}, []
     mapper = DatasetMapper(sem_mapper_cfg(), is_train=True)

@@ -1,18 +1,18 @@
 """The port's PNG reader (``data/png.py``) against Pillow, on the CPU:
 
-  * under hypothesis: every mode and depth it takes (gray 1/2/4/8 bits,
+  * under hypothesis: every mode and depth (gray 1/2/4/8/16 bits,
     palette 1/2/4/8 bits with a short palette and tRNS, gray+alpha, RGB,
-    RGBA), sizes 1-97, each row's filter drawn from the five types, the
-    IDAT stream in 1-4 chunks (``tools/make_png_fixtures.py:encode_png``)
-    and Pillow's own files: ``decode_png`` equal to ``np.asarray(Image.
-    open(f))`` (values, dtype, shape) and ``decode_png_rgb`` to its
-    ``convert("RGB")``, with the C++ unfilter and its numpy twin;
+    RGBA at 8 and 16 bits), plain or interlaced (Adam7), sizes 1-97, each
+    row's filter drawn from the five types, the IDAT stream in 1-4 chunks
+    (``tools/make_png_fixtures.py:encode_png``) and Pillow's own files:
+    ``decode_png`` equal to ``np.asarray(Image.open(f))`` (values, dtype,
+    shape) and ``decode_png_rgb`` to its ``convert("RGB")``, with the C++
+    unfilter and its numpy twin;
   * the committed fixtures (``drn_wsod_torch/data/png_fixtures``): equal
     to a fresh build, each file to its manifest digests, the mapper's
     ``sem_seg`` canvases to theirs;
-  * interlaced and 16-bit files: Pillow's decode where it imports, a
-    ``ValueError`` naming the file and the feature where it does not;
-    CRC, zlib and filter-type faults raise;
+  * interlaced and 16-bit files decode as Pillow does, with or without
+    Pillow; CRC, zlib and filter-type faults raise, naming the file;
   * ``read_image`` on a PNG as the JAX package's (Pillow);
   * the label maps' nearest resize (``transforms.resize_nearest``)
     against Pillow's ``NEAREST`` under hypothesis.
@@ -34,8 +34,9 @@ from drn_wsod_torch.tools import make_png_fixtures as fx
 from drn_wsod_tpu.data.mapper import read_image as jax_read_image
 
 # (colour type, depth, channels)
-KINDS = [(0, 1, 1), (0, 2, 1), (0, 4, 1), (0, 8, 1), (3, 1, 1), (3, 2, 1),
-         (3, 4, 1), (3, 8, 1), (4, 8, 2), (2, 8, 3), (6, 8, 4)]
+KINDS = [(0, 1, 1), (0, 2, 1), (0, 4, 1), (0, 8, 1), (0, 16, 1), (3, 1, 1),
+         (3, 2, 1), (3, 4, 1), (3, 8, 1), (4, 8, 2), (4, 16, 2), (2, 8, 3),
+         (2, 16, 3), (6, 8, 4), (6, 16, 4)]
 
 
 def pillow(data: bytes):
@@ -51,8 +52,9 @@ def assert_same(got: np.ndarray, want: np.ndarray):
 @settings(max_examples=60, deadline=None)
 @given(kind=st.sampled_from(KINDS), h=st.integers(1, 97),
        w=st.integers(1, 97), chunks=st.integers(1, 4),
-       seed=st.integers(0, 2 ** 31 - 1), data=st.data())
-def test_decode_equals_pillow(kind, h, w, chunks, seed, data):
+       seed=st.integers(0, 2 ** 31 - 1), interlace=st.booleans(),
+       data=st.data())
+def test_decode_equals_pillow(kind, h, w, chunks, seed, interlace, data):
     colour, depth, ch = kind
     rng = np.random.RandomState(seed)
     filters = data.draw(st.lists(st.integers(0, 4), min_size=1, max_size=8))
@@ -64,7 +66,7 @@ def test_decode_equals_pillow(kind, h, w, chunks, seed, data):
         trns = bytes(rng.randint(0, 256, rng.randint(0, n + 1))
                      .astype(np.uint8)) or None
     raw = fx.encode_png(samples, colour, depth, palette, trns, filters,
-                        min(chunks, 1 + h))
+                        min(chunks, 1 + h), interlace)
     want, want_rgb = pillow(raw)
     for plain in (False, True):
         assert_same(png.decode_png(raw, plain), want)
@@ -123,15 +125,18 @@ def test_committed_fixtures_are_fresh(tmp_path):
 
 
 def test_fixtures_decode_to_their_digests():
+    """Every committed file, interlaced and 16-bit ones included, to the
+    digests of Pillow's decode."""
     manifest = fx.load_manifest()
     modes = {e["mode"] for e in manifest["files"].values()}
     assert {"1", "L", "P", "LA", "RGB", "RGBA", "I;16"} <= modes
+    names = {rel.split("/")[-1] for rel in manifest["files"]}
+    for name, colour, depth, ch in fx.WIDE:
+        assert f"adam7_{name}.png" in names
+        if depth == 16:
+            assert f"{name}.png" in names
     for rel, e in manifest["files"].items():
         data = (fx.FIXTURE_DIR / rel).read_bytes()
-        if e["mode"] == "I;16" or "interlaced" in rel:
-            with pytest.raises(png.PNGUnsupported):
-                png.decode_png(data)
-            continue
         for plain in (False, True):
             a = png.decode_png(data, plain)
             assert (str(a.dtype), list(a.shape)) == (e["dtype"], e["shape"])
@@ -175,6 +180,8 @@ def no_pillow(monkeypatch):
 @pytest.mark.parametrize("name,feature", [
     ("interlaced_rgb8.png", "interlaced"), ("gray16.png", "16-bit")])
 def test_fallback_to_pillow(name, feature):
+    """The files the reader once left to Pillow: its own decode now,
+    equal to Pillow's (which is present here)."""
     path = str(fx.FIXTURE_DIR / "modes" / name)
     with Image.open(path) as im:
         want, want_rgb = np.asarray(im), np.asarray(im.convert("RGB"))
@@ -184,14 +191,38 @@ def test_fallback_to_pillow(name, feature):
 
 @pytest.mark.parametrize("name,feature", [
     ("interlaced_rgb8.png", "interlaced"), ("gray16.png", "16-bit")])
-def test_without_pillow_names_file_and_feature(name, feature, no_pillow):
+def test_without_pillow_names_file_and_feature(name, feature, no_pillow,
+                                              tmp_path):
+    """Without Pillow the interlaced and 16-bit files decode to the
+    digests of Pillow's decode; a file cut short still names the file."""
+    e = fx.load_manifest()["files"][f"modes/{name}"]
     path = str(fx.FIXTURE_DIR / "modes" / name)
+    a = png.read_png(path)
+    assert (str(a.dtype), list(a.shape)) == (e["dtype"], e["shape"])
+    assert fx.digest(a) == e["sha256"]
+    assert fx.digest(png.read_png_rgb(path)) == e["rgb_sha256"]
+    cut = tmp_path / name
+    cut.write_bytes((fx.FIXTURE_DIR / "modes" / name).read_bytes()[:-20])
     for fn in (png.read_png, png.read_png_rgb):
-        with pytest.raises(ValueError, match=f"{name}.*{feature}"):
-            fn(path)
-    # the files it takes need no Pillow
-    assert png.read_png(str(fx.FIXTURE_DIR / "modes" / "rgb8.png")).shape == \
-        (13, 17, 3)
+        with pytest.raises(ValueError, match=name):
+            fn(str(cut))
+
+
+@pytest.mark.parametrize("name", [n for n, *_ in fx.WIDE])
+@pytest.mark.parametrize("interlace", [True, False],
+                         ids=["adam7", "plain"])
+def test_adam7_and_16bit_without_pillow(name, interlace, no_pillow):
+    """Each colour type and depth, interlaced and plain:
+    ``read_png`` (a label map) and ``read_png_rgb`` with Pillow blocked
+    against the digests of Pillow's ``np.asarray(Image.open(f))`` and
+    ``convert("RGB")``."""
+    rel = f"modes/adam7_{name}.png" if interlace else f"modes/{name}.png"
+    e = fx.load_manifest()["files"][rel]
+    path = str(fx.FIXTURE_DIR / rel)
+    a = png.read_png(path)
+    assert (str(a.dtype), list(a.shape)) == (e["dtype"], e["shape"])
+    assert fx.digest(a) == e["sha256"]
+    assert fx.digest(png.read_png_rgb(path)) == e["rgb_sha256"]
 
 
 def test_faults_raise(tmp_path):
