@@ -337,7 +337,24 @@ Phases (any failure exits non-zero):
      tree of those files named .JPEG; (d) the host ms of a 500x375 decode
      of each new path. Files under ``build/chip_smoke_ph29/``, removed at
      the end.
-Every path (4-8, 10-29) is run with the kernels' launch counts set to 0
+ 30. the closing slice ("closing_slice"): (a) the evaluation core
+     (``ops/csrc/eval_core.cpp``, built in phase 2 by the host's C++
+     compiler) under ``PascalVOCDetectionEvaluator`` on a VOC07-test-sized
+     draw (4952 images, 20 classes, difficult GT, up to 100 detections an
+     image with tied scores and IoUs of exactly 0.5): AP over IoU
+     0.50:0.95 and CorLoc at each threshold through the core, then each
+     class at IoU 0.5 through the core and through its numpy twin, the TP /
+     FP arrays, the CorLoc verdicts, AP and CorLoc equal to the bit, and
+     the host seconds of each path; (b) the six probes of
+     ``drn_wsod_torch/tools`` at reduced iterations: ``pool_sweep`` at the
+     flagship pool's shape on the uniform and VOC-like mixes (K1 in both
+     launch orders and K3 equal to the plain version, each launched once a
+     call, every time beside its bound), ``dispatch_probe`` (the card's
+     idle share of the flagship step), ``scan_k_probe`` (K 10, 20),
+     ``scan_variants_probe`` (K 10), ``cli_throughput`` (60 steps of
+     ``train_net.main`` from 16 JPEGs) and ``tta_probe``. Files under
+     ``build/chip_smoke_ph30/``, removed at the end.
+Every path (4-8, 10-30) is run with the kernels' launch counts set to 0
 just before it and read just after. The line before the kernels' JSON
 line names the JPEG decoder's compiler, its build seconds, the fixture
 decodes matched and the host decode times; the line before that gives the
@@ -375,9 +392,6 @@ PROBE_ITERS = 10
 EVAL_SIZES = ((375, 500), (500, 375), (333, 500), (500, 333), (500, 500),
               (500, 486), (281, 500), (500, 400))
 EVAL_WARMUP = 2
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 ops/s
-# outside the tensor cores
-PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
 
 
 class Fail(Exception):
@@ -428,22 +442,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def queued_ms(fn, calls: int) -> float:
-    """Device ms per call of ``fn`` with its host issue hidden: after a
-    warm-up call, ``calls`` calls are queued behind a sleep of about 50 ms
-    on the stream, so the card runs them back to back; CUDA events around
-    the calls. For work that takes the host about as long to issue as the
-    card to run (K3's partition, K4's tiny launches)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
+    """``drn_wsod_torch/tools/benchmark.py:queued_ms`` on the card,
+    imported at the call (as :func:`roi_pool_bound`)."""
+    from drn_wsod_torch.tools.benchmark import queued_ms as queued
+
+    return queued(fn, calls)
 
 
 def host_us(fn, calls: int) -> float:
@@ -457,14 +460,6 @@ def host_us(fn, calls: int) -> float:
     elapsed = time.perf_counter() - t
     torch.cuda.synchronize()
     return elapsed / calls * 1e6
-
-
-def identity_order(boxes):
-    """(B, P) int32 0..P-1 in each row on the boxes' device: K1's launch
-    with its blocks taking the RoIs in RoI order."""
-    B, P = boxes.shape[:2]
-    return torch.arange(P, dtype=torch.int32,
-                        device=boxes.device).expand(B, P).contiguous()
 
 
 def ptxas_report(log: str):
@@ -538,22 +533,12 @@ def pool_inputs(dev, generator):
     return feats, boxes.to(dev), scale.to(dev)
 
 
-def roi_pool_bound(feats, boxes, scale, out, spatial_scale: float,
-                   epilogue_ops: int = 1):
-    """Least time for this call: bytes moved once (map, boxes, scales read;
-    output written) over HBM rate, against this data's max comparisons
-    (cells of every bin times channels) plus ``epilogue_ops`` multiplies per
-    output over the float32 rate. Returns (ms, "bytes" | "operations")."""
-    from drn_wsod_torch.ops.roi_pool import bin_cells
+def roi_pool_bound(*args, **kwargs):
+    """``drn_wsod_torch/ops/roi_pool.py:roi_pool_bound``, imported at the
+    call (``main`` puts the package beside this script on the path)."""
+    from drn_wsod_torch.ops.roi_pool import roi_pool_bound as bound
 
-    H, W, C = feats.shape[-3:]
-    cells = bin_cells(boxes, spatial_scale, H, W).sum().item()
-    ops = cells * C + epilogue_ops * out.numel()
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (feats, boxes, scale, out))
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return bound(*args, **kwargs)
 
 
 def _launch_counts():
@@ -875,7 +860,7 @@ def phase3_k1_reads(feats, boxes, scale, ms, tag) -> None:
     def k1():
         return rp.roi_pool_batched(feats, boxes, 0.125, 7, scale)
 
-    ident = identity_order(boxes)
+    ident = rp.roi_order(boxes)
 
     def roi_order():
         return rp._launch_batched(feats, boxes, 0.125, 7, scale, ident)
@@ -923,7 +908,7 @@ def phase3_k2_split(tf, tb, ts, tag) -> None:
     f, b, s = tf[0], tb[0], ts[0]
     q, ch_scale = rp.int8_quantize(f)
     orders = {"top-row order": rp.top_row_order(b[None])[0],
-              "RoI order": identity_order(b[None])[0]}
+              "RoI order": rp.roi_order(b[None])[0]}
     out = torch.empty((b.shape[0], 7, 7, f.shape[2]), dtype=f.dtype,
                       device=f.device)
     k1_ms = queued_ms(lambda: rp.roi_pool_batched(tf, tb, 0.125, 7, ts), 20)
@@ -973,6 +958,8 @@ def band_launch_bound(f, part, resolution=7, band_rows=48):
     """Least time of K3's band launch alone: the short RoIs' outputs
     written once and the staged bands (one per nonempty run, all channels)
     read once, at HBM rate. Returns (ms, output bytes, band bytes)."""
+    from drn_wsod_torch.ops.roi_pool import PEAK_BYTES_S
+
     H, W, C = f.shape[-3:]
     runs = (part.run_start.diff() > 0).sum().item()
     out_b = part.short.sum().item() * resolution ** 2 * C * f.element_size()
@@ -1017,7 +1004,7 @@ def phase3_banded(feats, boxes, scale, tag) -> dict:
         def k1():
             return rp.roi_pool_batched(f, b, 0.125, 7, s)
 
-        ident = identity_order(b)
+        ident = rp.roi_order(b)
 
         def k1_roi_order():
             return rp._launch_batched(f, b, 0.125, 7, s, ident)
@@ -1146,6 +1133,7 @@ def phase3_narrow_max(dev, tag) -> dict:
     rate, 200 launches issued with the card idle), and ``torch.maximum`` of
     the halves where torch has it for the dtype."""
     from drn_wsod_torch.ops import narrow_max as nm
+    from drn_wsod_torch.ops.roi_pool import PEAK_BYTES_S
 
     gen = torch.Generator(device=dev).manual_seed(4)
     kernels = {}
@@ -7393,6 +7381,223 @@ def phase29_image_formats(dev, tag) -> dict:
     return run["launches"]
 
 
+PH30_IMAGES, PH30_CLASSES, PH30_DETS = 4952, 20, 100
+PH30_SCORES = np.linspace(0.05, 1.0, 20)  # few values: ties
+PH30_SWEEP_ITERS = 5
+
+
+def ph30_voc_data(rs):
+    """A VOC07-test-sized evaluation: (gt_by_image, detections). 4952
+    images of VOC sizes (``EVAL_SIZES``), 1-5 GT boxes each over the 20
+    classes (1-based pixel-inclusive, even widths; 15% difficult), 0-100
+    detections each (``TEST.DETECTIONS_PER_IMAGE``) as the model hands
+    them to the evaluator ((image id, 0-based XYXY boxes, scores, classes)):
+    jittered copies of a GT box of its class, its left half (an IoU of
+    exactly 0.5 with it), and random boxes of any class; scores from 20
+    values."""
+    gt, dets = {}, []
+    for i in range(PH30_IMAGES):
+        H, W = EVAL_SIZES[i % len(EVAL_SIZES)]
+        n = rs.randint(1, 6)
+        w = 2 * rs.randint(8, W // 4, n)
+        h = rs.randint(16, H // 2, n)
+        x1 = rs.randint(1, W - w + 1)
+        y1 = rs.randint(1, H - h + 1)
+        cls = rs.randint(0, PH30_CLASSES, n)
+        diff = rs.uniform(size=n) < 0.15
+        image_id = f"{i:06d}"
+        gt[image_id] = [{"category_id": int(c), "difficult": int(d),
+                         "bbox": [float(a), float(b), float(a + ww - 1),
+                                  float(b + hh - 1)]}
+                        for c, d, a, b, ww, hh in zip(cls, diff, x1, y1, w, h)]
+        m = rs.randint(0, PH30_DETS + 1)
+        src = rs.randint(0, n, m)
+        kind = rs.randint(0, 3, m)
+        jitter = rs.uniform(-6, 6, (m, 4)) * (kind == 0)[:, None]
+        # 1-based boxes; the evaluator adds 1 to x1 and y1 of its input
+        boxes = np.stack([x1[src], y1[src], x1[src] + w[src] - 1,
+                          y1[src] + h[src] - 1], 1).astype(np.float64)
+        boxes += jitter
+        half = kind == 1
+        boxes[half, 2] = x1[src[half]] + w[src[half]] // 2 - 1
+        rx, ry = rs.uniform(0, W - 20, m), rs.uniform(0, H - 20, m)
+        rand = kind == 2
+        boxes[rand] = np.stack([rx, ry, rx + rs.uniform(8, W / 2, m),
+                                ry + rs.uniform(8, H / 2, m)], 1)[rand]
+        boxes[:, :2] -= 1.0
+        classes = np.where(rand, rs.randint(0, PH30_CLASSES, m), cls[src])
+        dets.append((image_id, boxes, rs.choice(PH30_SCORES, m), classes))
+    return gt, dets
+
+
+def ph30_eval_core(tag, core_build: dict) -> str:
+    """(a): the VOC evaluator on a VOC07-test-sized draw through the C++
+    core (AP over IoU 0.50:0.95, CorLoc at each threshold), then class by
+    class at IoU 0.5 through the core and through the numpy twin: the
+    TP / FP arrays, the CorLoc verdicts, AP and CorLoc equal to the bit.
+    Host seconds of each path (the card takes no part). Returns the
+    summary line."""
+    from drn_wsod_torch.data.datasets.voc import VOC_CLASS_NAMES
+    from drn_wsod_torch.evaluation import voc_eval
+
+    t = time.perf_counter()
+    gt, dets = ph30_voc_data(np.random.RandomState(30))
+    ev = voc_eval.PascalVOCDetectionEvaluator(VOC_CLASS_NAMES, gt, 2007)
+    for image_id, boxes, scores, classes in dets:
+        ev.process_single(image_id, boxes, scores, classes)
+    draw_s = time.perf_counter() - t
+    n_dets = sum(len(d[1]) for d in dets)
+    n_gt = sum(len(a) for a in gt.values())
+    t = time.perf_counter()
+    res = ev.evaluate()
+    full_s = time.perf_counter() - t
+    values = [res["bbox"][k] for k in ("AP", "AP50", "AP75")] + \
+        [res["bbox CorLoc"][k] for k in ("CL", "CL50", "CL75")]
+    if not all(math.isfinite(v) and 0 <= v <= 100 for v in values):
+        raise Fail(f"phase 30: (a) evaluator metrics {res}")
+    by_class = ev.state_dict()
+    secs = {True: 0.0, False: 0.0}
+    at_half = 0
+    for c, name in enumerate(VOC_CLASS_NAMES):
+        d = by_class.get(c, [])
+        got = {}
+        for native in (True, False):
+            t = time.perf_counter()
+            ap_cl = (voc_eval.voc_eval_class(d, gt, c, 0.5, True, native),
+                     voc_eval.voc_eval_corloc_class(d, gt, c, 0.5, native))
+            secs[native] += time.perf_counter() - t
+            got[native] = (voc_eval.match_class(d, gt, c, 0.5, native),
+                           voc_eval.corloc_verdicts(d, gt, c, 0.5, native),
+                           *ap_cl)
+        (tp, fp, npos), verdict, ap, cl = got[True]
+        (tp2, fp2, npos2), verdict2, ap2, cl2 = got[False]
+        if not (np.array_equal(tp, tp2) and np.array_equal(fp, fp2)
+                and npos == npos2 and np.array_equal(verdict, verdict2)):
+            raise Fail(f"phase 30: (a) class {name}: the C++ core's TP / FP "
+                       "or CorLoc verdicts differ from the numpy twin's")
+        if ap != ap2 or cl != cl2 or ap * 100.0 != \
+                res["bbox"]["AP50_per_class"][name]:
+            raise Fail(f"phase 30: (a) class {name}: AP {ap!r} / {ap2!r}, "
+                       f"CorLoc {cl!r} / {cl2!r}, the evaluator's AP50 "
+                       f"{res['bbox']['AP50_per_class'][name]!r}")
+        at_half += len(d)
+    line = (f"phase 30: (a) the evaluation core (ops/csrc/eval_core.cpp, "
+            f"built in phase 2 by {core_build['compiler']}) on {PH30_IMAGES} "
+            f"images, {PH30_CLASSES} classes, "
+            f"{n_gt} GT, {n_dets} detections (drawn in {draw_s:.2f} s): "
+            f"evaluate() (AP over IoU 0.50:0.95 and CorLoc at each) "
+            f"{full_s:.3f} s of host time through the C++ core; at IoU 0.5, "
+            f"AP + CorLoc of every class: C++ {secs[True]:.3f} s, numpy "
+            f"twin {secs[False]:.3f} s ({secs[False] / secs[True]:.1f}x); "
+            f"TP / FP, verdicts, AP and CorLoc equal to the bit for "
+            f"{at_half} detections; AP {res['bbox']['AP']:.4f} AP50 "
+            f"{res['bbox']['AP50']:.4f} CL50 "
+            f"{res['bbox CorLoc']['CL50']:.4f} {tag}")
+    print(line, flush=True)
+    return line
+
+
+def host_state() -> str:
+    """What of the process can slow the host's issue: its live threads by
+    name, the objects the garbage collector tracks, its resident memory,
+    the machine's load average, torch's intra-op threads and the card's
+    allocated and reserved memory."""
+    import collections
+    import gc
+    import threading
+
+    names = collections.Counter(
+        re.sub(r"[-_]?\d+$", "", t.name) for t in threading.enumerate())
+    try:
+        rss = next(int(line.split()[1]) / 2 ** 20
+                   for line in open("/proc/self/status")
+                   if line.startswith("VmRSS:"))
+    except (OSError, StopIteration):
+        rss = float("nan")
+    return (f"{sum(names.values())} threads ({dict(names)}), "
+            f"{len(gc.get_objects())} gc-tracked objects, RSS {rss:.2f} GiB, "
+            f"load average {os.getloadavg()}, torch threads "
+            f"{torch.get_num_threads()}, card allocated "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, reserved "
+            f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+
+
+def ph30_probes(dev, work: Path, tag) -> dict:
+    """(b): each probe's ``run`` at reduced iterations on the card.
+    ``pool_sweep`` at its full shape, its K1 (both launch orders) and K3
+    equal to the plain version on both mixes and launched once a call;
+    ``dispatch_probe`` (the idle share); ``scan_k_probe`` at K 10 and 20;
+    ``scan_variants_probe`` at K 10; ``cli_throughput`` for 60 steps from
+    16 images; ``tta_probe``. Returns the launches of them all."""
+    from drn_wsod_torch.engine import defaults
+    from drn_wsod_torch.ops import roi_pool as rp
+    from drn_wsod_torch.tools import (cli_throughput, dispatch_probe,
+                                      pool_sweep, scan_k_probe,
+                                      scan_variants_probe, tta_probe)
+
+    reset_launches()
+    t = time.perf_counter()
+    rows = pool_sweep.run(PH30_SWEEP_ITERS, dev, emit=lambda r: print(
+        "\n".join("phase 30: (b) pool_sweep " + line
+                  for line in pool_sweep.format_sweep(r, tag)), flush=True))
+    launches = read_launches()
+    k3_calls = sum(r.calls for r in rows)
+    k1_calls = 2 * k3_calls          # two launch orders
+    want = {"roi_pool": k1_calls, "roi_pool_banded": k3_calls,
+            "roi_pool_banded_rest": k3_calls}
+    if {k: launches[k] for k in want} != want:
+        raise Fail(f"phase 30: (b) pool_sweep launches {launches}, want "
+                   f"{want}")
+    if any(d != 0.0 for r in rows for d in r.max_diff.values()):
+        raise Fail(f"phase 30: (b) pool_sweep kernel vs plain: "
+                   f"{[r.max_diff for r in rows]}")
+    print(f"phase 30: (b) pool_sweep in {time.perf_counter() - t:.1f} s: "
+          f"K1 (both orders) and K3 exact on both mixes, launches {want} "
+          f"{tag}", flush=True)
+    print(f"phase 30: (b) host state before dispatch_probe: {host_state()}",
+          flush=True)
+    r = dispatch_probe.run(device=dev)
+    print("\n".join("phase 30: (b) dispatch_probe " + line
+                    for line in dispatch_probe.format_result(r, tag)),
+          flush=True)
+    if not (r["trace"]["busy_ms"] > 0 and r["idle_share"] < 1.0):
+        raise Fail(f"phase 30: (b) dispatch_probe saw no card time: {r}")
+    scan_k_probe.run(ks=(10, 20), steps=20, device=dev, emit=lambda row:
+                     print("phase 30: (b) scan_k_probe "
+                           + scan_k_probe.format_row(row, tag), flush=True))
+    scan_variants_probe.run(k=10, device=dev, emit=lambda row: print(
+        "phase 30: (b) scan_variants_probe "
+        + scan_variants_probe.format_row(row, tag), flush=True))
+    with mock.patch.object(defaults, "setup_logger", entry_logger):
+        cli = cli_throughput.run(iters=60, images=16, root=work / "cli",
+                                 device=dev)
+    close_logging()
+    print(f"phase 30: (b) cli_throughput {json.dumps(cli)} {tag}",
+          flush=True)
+    tta_probe.run(iters=2, device=dev, emit=lambda row: print("\n".join(
+        "phase 30: (b) tta_probe " + line
+        for line in tta_probe.format_row(row, tag)), flush=True))
+    torch.cuda.synchronize()
+    return read_launches()
+
+
+def phase30_closing_slice(dev, tag, core_build: dict) -> dict:
+    """The closing slice: (a) ``ph30_eval_core``, (b) ``ph30_probes``.
+    Files under ``build/chip_smoke_ph30/``, removed at the end. Returns
+    the launches of (b)."""
+    import shutil
+
+    t = time.perf_counter()
+    ph30_eval_core(tag, core_build)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_ph30"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    launches = ph30_probes(dev, work, tag)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 30: {time.perf_counter() - t:.1f} s {tag}", flush=True)
+    return launches
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7424,16 +7629,19 @@ def main() -> int:
     # sources
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         host = pool.submit(_build.build_host, "jpeg_decode")
         encoder = pool.submit(_build.build_host, "jpeg_encode")
+        core = pool.submit(_build.build_host, "eval_core")
         logs = _build.build_all()
         host_build, encoder_build = host.result(), encoder.result()
+        core_build = core.result()
     print(f"phase 2: built {sorted(logs)} in "
           f"{time.perf_counter() - t0:.2f} s, one nvcc per source in parallel "
           f"{tag}; the JPEG decoder by {host_build['compiler']} in "
           f"{host_build['seconds']:.2f} s, the JPEG encoder in "
-          f"{encoder_build['seconds']:.2f} s", flush=True)
+          f"{encoder_build['seconds']:.2f} s, the evaluation core in "
+          f"{core_build['seconds']:.2f} s", flush=True)
     for name, log in logs.items():
         for kernel, lines in ptxas_report(log):
             print(f"  {name}: {kernel}: {'; '.join(lines)}")
@@ -7491,6 +7699,8 @@ def main() -> int:
         paths["last_slice"] = phase28_last_slice(dev, tag)
         torch.cuda.empty_cache()
         paths["image_formats"] = phase29_image_formats(dev, tag)
+        torch.cuda.empty_cache()
+        paths["closing_slice"] = phase30_closing_slice(dev, tag, core_build)
     except Fail as e:
         print(f"FAIL {e}")
         return 1

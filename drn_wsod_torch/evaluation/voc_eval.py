@@ -5,8 +5,14 @@ The VOC devkit's arithmetic: +1 pixel areas, greedy per-image GT matching in
 descending confidence (a stable sort, so tied detections keep their order),
 the 11-point (VOC07) or area AP. CorLoc counts an image of a class as
 correct when its highest-scoring detection of the class overlaps a GT box
-above the threshold. The JAX package runs the matching in a native C core
-when it is built; the port builds no host C++ and runs this numpy path.
+above the threshold.
+
+The matching runs in the host C++ core ``ops/csrc/eval_core.cpp``
+(``native.py``: ``voc_match``, ``voc_corloc``), fed the arrays the JAX
+package feeds its native core, built at first use; a failed build raises.
+The numpy loops of the JAX package's fallback stay as the core's plain
+twin, reached only through ``native=False``: both give the same TP / FP
+arrays and verdicts, so the same AP and CorLoc to the bit.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from collections import defaultdict
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from .. import native as _native
 
 logger = logging.getLogger(__name__)
 
@@ -89,22 +97,38 @@ def _sorted_dets(dets):
     return [image_ids[i] for i in order], BB[order]
 
 
-def voc_eval_class(dets, gt_by_image, class_id: int, ovthresh: float,
-                   use_07_metric: bool) -> float:
-    """AP of one class. ``dets``: a list of (image_id, score, x1, y1, x2,
-    y2) in VOC 1-based coordinates."""
-    class_recs, npos, _ = _gather_class_gt(gt_by_image, class_id)
-    if len(dets) == 0:
-        return 0.0
-    image_ids, BB = _sorted_dets(dets)
+def _class_arrays(dets, gt_by_image, class_id):
+    """The core's inputs for one class: detections in descending
+    confidence (a stable sort) with their image's index in ``gt_by_image``
+    (-1 for an image it does not list), and the class's GT boxes grouped
+    by image with offsets and difficult flags."""
+    images = list(gt_by_image)
+    index = {im: i for i, im in enumerate(images)}
+    gt_boxes, gt_diff, offsets = [], [], [0]
+    for im in images:
+        for a in gt_by_image[im]:
+            if a["category_id"] == class_id:
+                gt_boxes.append(a["bbox"])
+                gt_diff.append(bool(a.get("difficult", 0)))
+        offsets.append(len(gt_boxes))
+    image_ids, det_boxes = _sorted_dets(dets)
+    det_img = np.array([index.get(im, -1) for im in image_ids], np.int32)
+    return (det_boxes, det_img,
+            np.asarray(gt_boxes, np.float64).reshape(-1, 4),
+            np.asarray(gt_diff, np.uint8), np.asarray(offsets, np.int64))
 
+
+def _match_plain(dets, gt_by_image, class_id, ovthresh):
+    """The core's ``voc_match`` in numpy: (tp, fp) uint8 (D,), npos."""
+    class_recs, npos, _ = _gather_class_gt(gt_by_image, class_id)
+    image_ids, BB = _sorted_dets(dets)
     nd = len(image_ids)
-    tp = np.zeros(nd)
-    fp = np.zeros(nd)
+    tp = np.zeros(nd, np.uint8)
+    fp = np.zeros(nd, np.uint8)
     for d in range(nd):
         R = class_recs.get(image_ids[d])
         if R is None:
-            fp[d] = 1.0
+            fp[d] = 1
             continue
         ovmax, jmax = -np.inf, -1
         if R.bbox.size > 0:
@@ -114,46 +138,115 @@ def voc_eval_class(dets, gt_by_image, class_id: int, ovthresh: float,
         if ovmax > ovthresh:
             if not R.difficult[jmax]:
                 if not R.det[jmax]:
-                    tp[d] = 1.0
+                    tp[d] = 1
                     R.det[jmax] = True
                 else:
-                    fp[d] = 1.0
+                    fp[d] = 1
         else:
-            fp[d] = 1.0
+            fp[d] = 1
+    return tp, fp, npos
 
-    fp = np.cumsum(fp)
-    tp = np.cumsum(tp)
+
+def match_class(dets, gt_by_image, class_id: int, ovthresh: float,
+                native: bool = True):
+    """VOC's greedy matching of one class's detections (a list of
+    (image_id, score, x1, y1, x2, y2), VOC 1-based) in descending
+    confidence: (tp, fp) uint8 arrays (D,) and npos, the count of
+    non-difficult GT boxes. ``native=False`` runs the numpy twin."""
+    if not native:
+        return _match_plain(dets, gt_by_image, class_id, ovthresh)
+    arrays = _class_arrays(dets, gt_by_image, class_id)
+    return (*_native.voc_match(*arrays, ovthresh),
+            int((arrays[3] == 0).sum()))
+
+
+def _ap(tp: np.ndarray, fp: np.ndarray, npos: int,
+        use_07_metric: bool) -> float:
+    fp = np.cumsum(fp.astype(np.float64))
+    tp = np.cumsum(tp.astype(np.float64))
     rec = tp / float(max(npos, 1))
     prec = tp / np.maximum(tp + fp, np.finfo(np.float64).eps)
     return voc_ap(rec, prec, use_07_metric)
 
 
-def voc_eval_corloc_class(dets, gt_by_image, class_id: int,
-                          ovthresh: float) -> float:
-    """CorLoc of one class: per image, only its highest-scoring detection
-    counts, correct if it overlaps any GT box of the class above the
-    threshold; over the images with a non-difficult GT box of the class."""
-    class_recs, _, npos_im = _gather_class_gt(gt_by_image, class_id)
-    if len(dets) == 0 or npos_im == 0:
-        return 0.0
-    image_ids, BB = _sorted_dets(dets)
+def _core_ap(arrays, ovthresh: float, use_07_metric: bool) -> float:
+    """AP of one class from its :func:`_class_arrays` through the core."""
+    tp, fp = _native.voc_match(*arrays, ovthresh)
+    return _ap(tp, fp, int((arrays[3] == 0).sum()), use_07_metric)
 
-    T, F = set(), set()
+
+def voc_eval_class(dets, gt_by_image, class_id: int, ovthresh: float,
+                   use_07_metric: bool, native: bool = True) -> float:
+    """AP of one class. ``dets``: a list of (image_id, score, x1, y1, x2,
+    y2) in VOC 1-based coordinates."""
+    if len(dets) == 0:
+        return 0.0
+    if native:
+        return _core_ap(_class_arrays(dets, gt_by_image, class_id),
+                        ovthresh, use_07_metric)
+    return _ap(*_match_plain(dets, gt_by_image, class_id, ovthresh),
+               use_07_metric)
+
+
+def _corloc_plain(dets, gt_by_image, class_id, ovthresh):
+    """The core's ``voc_corloc`` in numpy: verdicts int8 in the order of
+    ``gt_by_image``."""
+    class_recs, _, _ = _gather_class_gt(gt_by_image, class_id)
+    index = {im: i for i, im in enumerate(gt_by_image)}
+    verdict = np.full(len(index), -1, np.int8)
+    image_ids, BB = _sorted_dets(dets)
     for d in range(len(image_ids)):
         iid = image_ids[d]
-        if iid in T or iid in F:
-            continue
         R = class_recs.get(iid)
-        if R is None or len(R.difficult) == 0 or all(R.difficult):
+        if R is None or verdict[index[iid]] != -1:
+            continue
+        if len(R.difficult) == 0 or all(R.difficult):
             continue
         ovmax = -np.inf
         if R.bbox.size > 0:
             ovmax = _voc_overlaps(R.bbox, BB[d]).max()
-        if ovmax > ovthresh:
-            T.add(iid)
-        else:
-            F.add(iid)
-    return len(T) / float(npos_im)
+        verdict[index[iid]] = 1 if ovmax > ovthresh else 0
+    return verdict
+
+
+def corloc_verdicts(dets, gt_by_image, class_id: int, ovthresh: float,
+                    native: bool = True) -> np.ndarray:
+    """CorLoc's verdict on each image of ``gt_by_image``, in its order:
+    int8, 1 where the image's highest-scoring detection of the class
+    overlaps one of its GT boxes above the threshold, 0 where not, -1 where
+    the image has no detection or no non-difficult GT box of the class.
+    ``native=False`` runs the numpy twin."""
+    if not native:
+        return _corloc_plain(dets, gt_by_image, class_id, ovthresh)
+    return _native.voc_corloc(*_class_arrays(dets, gt_by_image, class_id),
+                              ovthresh)
+
+
+def _core_corloc(arrays, ovthresh: float) -> float:
+    """CorLoc of one class from its :func:`_class_arrays` through the
+    core, over the images with a non-difficult GT box of the class."""
+    _, _, _, gt_diff, offsets = arrays
+    image = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+    npos_im = len(np.unique(image[gt_diff == 0]))
+    if len(arrays[0]) == 0 or npos_im == 0:
+        return 0.0
+    verdict = _native.voc_corloc(*arrays, ovthresh)
+    return float((verdict == 1).sum()) / float(npos_im)
+
+
+def voc_eval_corloc_class(dets, gt_by_image, class_id: int,
+                          ovthresh: float, native: bool = True) -> float:
+    """CorLoc of one class: per image, only its highest-scoring detection
+    counts, correct if it overlaps any GT box of the class above the
+    threshold; over the images with a non-difficult GT box of the class."""
+    if native:
+        return _core_corloc(_class_arrays(dets, gt_by_image, class_id),
+                            ovthresh)
+    _, _, npos_im = _gather_class_gt(gt_by_image, class_id)
+    if len(dets) == 0 or npos_im == 0:
+        return 0.0
+    verdict = _corloc_plain(dets, gt_by_image, class_id, ovthresh)
+    return float((verdict == 1).sum()) / float(npos_im)
 
 
 class PascalVOCDetectionEvaluator:
@@ -199,13 +292,18 @@ class PascalVOCDetectionEvaluator:
         corlocs = defaultdict(list)
         for cls_id, _name in enumerate(self._class_names):
             dets = self._dets.get(cls_id, [])
+            # one class's arrays serve every threshold: the same AP and
+            # CorLoc as voc_eval_class / voc_eval_corloc_class, whose
+            # array building is most of their host time
+            arrays = _class_arrays(dets, self._gt, cls_id) if dets else None
             for thresh in range(50, 100, 5):
+                t = thresh / 100.0
                 aps[thresh].append(
-                    voc_eval_class(dets, self._gt, cls_id, thresh / 100.0,
-                                   self._use_07) * 100.0)
+                    0.0 if arrays is None else
+                    _core_ap(arrays, t, self._use_07) * 100.0)
                 corlocs[thresh].append(
-                    voc_eval_corloc_class(dets, self._gt, cls_id,
-                                          thresh / 100.0) * 100.0)
+                    0.0 if arrays is None else
+                    _core_corloc(arrays, t) * 100.0)
         mAP = {t: float(np.mean(v)) for t, v in aps.items()}
         mCL = {t: float(np.mean(v)) for t, v in corlocs.items()}
         logger.info("AP50 per class: " +

@@ -1,5 +1,6 @@
 """The port's host-side native code: the JPEG decoder (counterpart of
-``drn_wsod_tpu/native.py``'s JPEG binding) and a JPEG encoder.
+``drn_wsod_tpu/native.py``'s JPEG binding), a JPEG encoder and the
+evaluation core.
 
 ``ops/csrc/jpeg_decode.cpp`` is a decoder of its own, with no libjpeg. It
 decodes every file that libjpeg-turbo (the JAX package's binding) or
@@ -20,6 +21,16 @@ instead (L, RGB, or CMYK as ``np.asarray(Image.open(f))`` holds it).
 ``ops/csrc/jpeg_encode.cpp`` writes the bytes of Pillow's default
 ``Image.save`` of an RGB image (baseline, quality 75, 4:2:0, the standard
 Huffman tables, a JFIF header), built the same way: :func:`jpeg_encode`.
+
+``ops/csrc/eval_core.cpp`` is the evaluation core (counterpart of
+``drn_wsod_tpu/native.py``'s ``voc_match``, ``voc_corloc`` and
+``coco_match``, with their signatures and results): the greedy matching of
+VOC AP and CorLoc, which ``evaluation/voc_eval.py`` runs, and COCO's, which
+no evaluator calls, as in the JAX package. It builds the same way, at
+first use, into ``build/``. Where the JAX package's core does not build, it
+warns and its evaluator falls back to numpy; here a missing compiler or a
+failed build raises, and the numpy twin runs only where the caller asks
+for it (``voc_eval.py``'s ``native=False``).
 """
 
 from __future__ import annotations
@@ -32,6 +43,10 @@ import numpy as np
 from .ops import _build
 
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _intp = ctypes.POINTER(ctypes.c_int)
 
 # the decoder's status codes (jpeg_decode.cpp `Status`) -> the feature;
@@ -145,3 +160,72 @@ def jpeg_encode(rgb: np.ndarray) -> bytes:
         raise ValueError(f"jpeg_encode failed (status {rc}) for a "
                          f"{w}x{h} image")
     return out[:n.value].tobytes()
+
+
+# ------------------------------------------------------------ evaluation core
+def _eval_fn(symbol: str, *argtypes):
+    return _build.bind_host("eval_core", symbol, *argtypes, restype=None)
+
+
+_VOC_ARGS = (_f64p, _i32p, ctypes.c_int64, _f64p, _u8p, _i64p,
+             ctypes.c_int64, ctypes.c_double)
+
+
+def _voc_arrays(det_boxes, det_img, gt_boxes, gt_difficult, gt_offsets):
+    return (np.ascontiguousarray(det_boxes, np.float64).reshape(-1, 4),
+            np.ascontiguousarray(det_img, np.int32),
+            np.ascontiguousarray(gt_boxes, np.float64).reshape(-1, 4),
+            np.ascontiguousarray(gt_difficult, np.uint8),
+            np.ascontiguousarray(gt_offsets, np.int64))
+
+
+def voc_match(det_boxes: np.ndarray, det_img: np.ndarray,
+              gt_boxes: np.ndarray, gt_difficult: np.ndarray,
+              gt_offsets: np.ndarray, ovthresh: float):
+    """VOC's greedy matching of one class over a dataset: detections
+    (D, 4) in descending confidence with their image index (-1: an image
+    the GT does not list), GT (G, 4) grouped by image with (n_images + 1,)
+    offsets and difficult flags. Returns (tp, fp) uint8 arrays of shape
+    (D,)."""
+    boxes, img, gt, diff, off = _voc_arrays(det_boxes, det_img, gt_boxes,
+                                            gt_difficult, gt_offsets)
+    D = len(boxes)
+    tp = np.zeros(D, dtype=np.uint8)
+    fp = np.zeros(D, dtype=np.uint8)
+    _eval_fn("voc_match", *_VOC_ARGS, _u8p, _u8p)(
+        boxes, img, D, gt, diff, off, len(off) - 1, float(ovthresh), tp, fp)
+    return tp, fp
+
+
+def voc_corloc(det_boxes: np.ndarray, det_img: np.ndarray,
+               gt_boxes: np.ndarray, gt_difficult: np.ndarray,
+               gt_offsets: np.ndarray, ovthresh: float) -> np.ndarray:
+    """CorLoc's verdict per image on :func:`voc_match`'s arrays: int8, 1
+    localized, 0 missed, -1 not judged (no detection, or no non-difficult
+    GT box)."""
+    boxes, img, gt, diff, off = _voc_arrays(det_boxes, det_img, gt_boxes,
+                                            gt_difficult, gt_offsets)
+    verdict = np.zeros(len(off) - 1, dtype=np.int8)
+    _eval_fn("voc_corloc", *_VOC_ARGS, _i8p)(
+        boxes, img, len(boxes), gt, diff, off, len(off) - 1,
+        float(ovthresh), verdict)
+    return verdict
+
+
+def coco_match(det_boxes: np.ndarray, gt_boxes: np.ndarray,
+               gt_ignore: np.ndarray, iou_thrs: np.ndarray):
+    """COCO's greedy matching of one class in one image at T thresholds
+    (detections in descending score, no +1 in the IoU, ignored GT boxes
+    matched last and never used up). Returns (tp, ign) uint8 arrays of
+    shape (T, D)."""
+    boxes = np.ascontiguousarray(det_boxes, np.float64).reshape(-1, 4)
+    gt = np.ascontiguousarray(gt_boxes, np.float64).reshape(-1, 4)
+    thrs = np.ascontiguousarray(iou_thrs, np.float64)
+    D, G, T = len(boxes), len(gt), len(thrs)
+    tp = np.zeros((T, D), dtype=np.uint8)
+    ign = np.zeros((T, D), dtype=np.uint8)
+    _eval_fn("coco_match", _f64p, ctypes.c_int64, _f64p, _u8p,
+             ctypes.c_int64, _f64p, ctypes.c_int64, _u8p, _u8p)(
+        boxes, D, gt, np.ascontiguousarray(gt_ignore, np.uint8), G, thrs, T,
+        tp, ign)
+    return tp, ign

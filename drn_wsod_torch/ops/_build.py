@@ -7,9 +7,10 @@ takes seconds; the stale sources build in parallel, one ``nvcc`` each. A
 library is stale when it is older than its source or than any shared header
 (``csrc/*.cuh``). A missing ``nvcc`` or a failed build raises.
 
-The host code among the sources (``csrc/<name>.cpp``, the JPEG decoder)
-builds alike with the host's C++ compiler (:func:`build_host`): it needs
-no ``nvcc``, so it builds on a machine without CUDA too.
+The host code among the sources (``csrc/<name>.cpp``: the JPEG decoder and
+encoder, the PNG row filters, the evaluation core) builds alike with the
+host's C++ compiler (:func:`build_host`): it needs no ``nvcc``, so it
+builds on a machine without CUDA too.
 
 The wrappers issue their launches alike, through helpers that keep the
 host's per-call work small: :func:`bind` sets a C entry point's prototype
@@ -35,6 +36,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "drn_wsod_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+# flags of one host source on top of HOST_FLAGS: the evaluation core's IoU
+# must round as numpy's does, each product apart (a compiler may otherwise
+# fuse a multiply-add where the target has FMA)
+HOST_EXTRA_FLAGS = {"eval_core": ("-ffp-contract=off",)}
 
 
 def _nvcc() -> str:
@@ -109,8 +114,9 @@ def build_host(name: str) -> dict:
     compiler = _host_compiler()
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([compiler, *HOST_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
+    proc = subprocess.run([compiler, *HOST_FLAGS,
+                           *HOST_EXTRA_FLAGS.get(name, ()), "-o", str(tmp),
+                           str(src)], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -131,12 +137,14 @@ def load_host(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def bind_host(library: str, symbol: str, *argtypes) -> ctypes._CFuncPtr:
+def bind_host(library: str, symbol: str, *argtypes,
+              restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of ``csrc/<library>.cpp`` with its
-    prototype set once, as :func:`bind` does for the CUDA sources."""
+    prototype set once, as :func:`bind` does for the CUDA sources
+    (``restype`` None for a ``void`` function)."""
     fn = getattr(load_host(library), symbol)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 

@@ -124,6 +124,37 @@ def roi_cells(boxes: torch.Tensor, spatial_scale: float, H: int, W: int
     return (w.clamp(min=0) * h.clamp(min=0)).reshape(boxes.shape[:-1])
 
 
+# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 ops/s
+# outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
+
+
+def roi_pool_bound(feats, boxes, scale, out, spatial_scale: float,
+                   epilogue_ops: int = 1):
+    """Least time on an H100 for one batched RoIPool call: bytes moved once
+    (map, boxes, scales read; output written) over the HBM rate, against
+    this data's max comparisons (cells of every bin times channels, as
+    :func:`bin_cells` counts them) plus ``epilogue_ops`` multiplies per
+    output over the float32 rate. Returns (ms, "bytes" | "operations")."""
+    H, W, C = feats.shape[-3:]
+    cells = bin_cells(boxes, spatial_scale, H, W).sum().item()
+    ops = cells * C + epilogue_ops * out.numel()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (feats, boxes, scale, out))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def roi_order(boxes: torch.Tensor) -> torch.Tensor:
+    """(B, P, 4) boxes -> (B, P) int32 0..P-1 in each row on the boxes'
+    device: K1's blocks taking each image's RoIs in RoI order, the launch
+    without :func:`top_row_order`."""
+    B, P = boxes.shape[:2]
+    return torch.arange(P, dtype=torch.int32,
+                        device=boxes.device).expand(B, P).contiguous()
+
+
 def top_row_order(boxes: torch.Tensor) -> torch.Tensor:
     """(B, P, 4) boxes -> (B, P) int32: each image's RoIs in the order of
     their top edge (y1), the order in which the blocks of K1 (and of K3's

@@ -23,6 +23,11 @@ calls after one warm-up (the calls queue back to back; the events fence
 once), ``data`` and every task on the CPU by the host clock. It prints
 and returns its numbers; it is a tool, not a benchmark of record, and
 writes no file of results.
+
+It also holds what the probes of ``drn_wsod_torch/tools`` share: the
+timers (:func:`timed_ms`, :func:`queued_ms`, :func:`sync`), the card's
+tag (:func:`card_tag`), the seeded train step (:func:`seeded_train_step`)
+and the probes' lr (``PROBE_LR``).
 """
 
 from __future__ import annotations
@@ -35,6 +40,15 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+
+# the lr of the probes that train for tens of steps (``tools/
+# dispatch_probe.py``, ``scan_k_probe.py``, ``scan_variants_probe.py``,
+# ``cli_throughput.py``): from random weights the flagship YAML's 0.01
+# drives the losses to NaN within about 20 steps of one batch on an H100,
+# and the Trainer's guard then stops the run. The lr is a scalar of the
+# update: it changes no launch and no shape.
+PROBE_LR = ("SOLVER.BASE_LR", "1e-4")
 
 
 def timed_ms(fn: Callable[[], object], iters: int, dev: torch.device
@@ -57,6 +71,44 @@ def timed_ms(fn: Callable[[], object], iters: int, dev: torch.device
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def sync(dev: torch.device) -> None:
+    """Wait for the card's queued work where ``dev`` is CUDA (the host
+    clock's fence); nothing elsewhere."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def card_tag(dev: torch.device) -> str:
+    """"[name, power limit]" of the card as nvidia-smi reports them where
+    ``dev`` is CUDA, else "[cpu]": the tag every probe line carries."""
+    from .ablate_bench import card
+
+    return f"[{card()}]" if torch.device(dev).type == "cuda" else "[cpu]"
+
+
+def queued_ms(fn: Callable[[], object], calls: int = 20,
+              dev: torch.device | str | None = None) -> float:
+    """Device ms per call of ``fn`` with its host issue hidden ("queued"):
+    after a warm-up call, ``calls`` calls are queued behind a sleep of
+    about 50 ms on the stream, so the card runs them back to back; CUDA
+    events around the calls. For work that takes the host about as long
+    to issue as the card to run. ``dev`` None is the card; on another
+    device this is :func:`timed_ms`, the host clock."""
+    if dev is not None and torch.device(dev).type != "cuda":
+        return timed_ms(fn, calls, torch.device(dev))
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def _model(cfg, dev):
     from ..models import build_model
 
@@ -64,22 +116,29 @@ def _model(cfg, dev):
     return build_model(cfg, device=dev, generator=gen)
 
 
+def seeded_train_step(cfg, dev):
+    """``(step, state)``: ``make_train_step`` of the config's model from
+    seeded random weights and its optimizer state; a call updates the
+    state in place."""
+    from ..engine import create_train_state, make_train_step
+    from ..solver import build_optimizer
+
+    model = _model(cfg, dev)
+    tx = build_optimizer(cfg, model)
+    return make_train_step(model, tx), create_train_state(model, tx)
+
+
 def benchmark_train_synthetic(cfg, iters: int = 20, device=None,
                               size: int = 704) -> Dict[str, float]:
     from ..device import resolve_device
-    from ..engine import create_train_state, make_train_step
-    from ..solver import build_optimizer
     from ..synthetic import synthetic_batch
 
     dev = resolve_device(device)
     B = max(cfg.SOLVER.IMS_PER_BATCH, 1)
-    model = _model(cfg, dev)
+    step, state = seeded_train_step(cfg, dev)
     batch = synthetic_batch(B, size, size,
                             cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
                             cfg.MODEL.ROI_HEADS.NUM_CLASSES, device=dev)
-    tx = build_optimizer(cfg, model)
-    state = create_train_state(model, tx)
-    step = make_train_step(model, tx)
     ms = timed_ms(lambda: step(state, batch, 0), iters, dev)
     out = {"ms_per_iter": ms, "img_per_s": B * 1e3 / ms}
     print(f"train: {ms:.1f} ms/iter, {out['img_per_s']:.2f} img/s")

@@ -120,12 +120,23 @@ def write_panoptic_tree(root, split: str, seed: int = 1):
 
 @pytest.fixture
 def clean_catalogs():
-    """Both packages' catalogs as they were before the test."""
-    before = [(pkg, set(pkg.DatasetCatalog.list())) for pkg in (pdata, jdata)]
+    """Both packages' dataset and metadata catalogs empty for the test,
+    and put back exactly as they were after it. An earlier test in the
+    same process may have left builtin names (VOC, COCO, LVIS, Cityscapes,
+    the web sets) registered in one package's catalog and not in the
+    other's, through a ``register_all_*`` or a CLI's ``main``; the
+    registrations under test would then add different names in the two."""
+    saved = [(pkg, dict(pkg.DatasetCatalog._registry),
+              dict(pkg.MetadataCatalog._map)) for pkg in (pdata, jdata)]
+    for pkg, _, _ in saved:
+        pkg.DatasetCatalog.clear()
+        pkg.MetadataCatalog.clear()
     yield
-    for pkg, names in before:
-        for name in set(pkg.DatasetCatalog.list()) - names:
-            pkg.DatasetCatalog.remove(name)
+    for pkg, registry, metadata in saved:
+        pkg.DatasetCatalog.clear()
+        pkg.DatasetCatalog._registry.update(registry)
+        pkg.MetadataCatalog.clear()
+        pkg.MetadataCatalog._map.update(metadata)
 
 
 def _registered(pkg, register, root):

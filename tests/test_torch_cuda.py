@@ -1925,3 +1925,22 @@ def test_data_parallel_full_width_is_float_order(cuda, tmp_path, dropout):
           f"{worst[3]:.3g} x against the process with its products blocked "
           f"by image, which blocking alone moves by {worst[4]:.3g}")
     assert loss < 1e-4 and not bad, bad
+
+
+def test_pool_sweep_kernels_exact_on_both_mixes(cuda):
+    """``tools/pool_sweep.py`` at a small P on the card: K1 in both launch
+    orders and K3 equal to the plain version on the uniform and the
+    VOC-like mix, each variant launched once a call."""
+    from drn_wsod_torch.tools import pool_sweep
+
+    k1, k3 = rp.roi_pool_batched.launches, dict(rp.roi_pool_banded.launches)
+    rows = pool_sweep.run(iters=2, device=cuda, B=2, S=704, P=256, C=64)
+    assert [r.mix for r in rows] == ["uniform", "voc"]
+    for r in rows:
+        assert r.max_diff == {"K1 top-row order": 0.0, "K1 RoI order": 0.0,
+                              "K3 banded": 0.0}, r.mix
+        assert r.bound_ms > 0 and all(ms > 0 for ms in r.ms.values())
+    banded = sum(r.calls for r in rows)
+    assert rp.roi_pool_batched.launches - k1 == 2 * banded
+    assert {k: v - k3[k] for k, v in rp.roi_pool_banded.launches.items()} \
+        == {"roi_pool_banded": banded, "roi_pool_banded_rest": banded}

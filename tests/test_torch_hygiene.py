@@ -334,3 +334,17 @@ def test_last_slice_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
                                                 "--out", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_closing_slice_modules_are_covered():
+    """The evaluation core's source builds with no native/ file, and the
+    probes and the core's binding are among the sources checked above."""
+    for tool in ("pool_sweep", "dispatch_probe", "scan_k_probe",
+                 "scan_variants_probe", "cli_throughput", "tta_probe"):
+        assert f"drn_wsod_torch/tools/{tool}.py" in SOURCES
+    for module in ("native.py", "evaluation/voc_eval.py", "ops/_build.py"):
+        assert f"drn_wsod_torch/{module}" in SOURCES
+    core = (ROOT / "drn_wsod_torch" / "ops" / "csrc" / "eval_core.cpp")
+    assert "#include \"" not in core.read_text()
+    assert "native/" not in (ROOT / "drn_wsod_torch" / "ops"
+                             / "_build.py").read_text()
