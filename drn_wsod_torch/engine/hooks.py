@@ -20,6 +20,7 @@ import time
 from typing import Callable, Optional
 
 from ..parallel.mesh import broadcast_buffers
+from ..utils import tracing
 from .events import get_event_storage
 
 logger = logging.getLogger(__name__)
@@ -71,10 +72,6 @@ class IterationTimer(HookBase):
         chunk = getattr(self.trainer, "last_chunk_step_time", None)
         if chunk is not None:
             storage.put_scalar("time", chunk, smoothing_hint=True)
-        prof = getattr(self.trainer, "last_prefetch_profile", None)
-        if prof:
-            storage.put_scalars(smoothing_hint=True, **{
-                f"prefetch/{k}": float(v) for k, v in prof.items()})
 
 
 class PeriodicWriter(HookBase):
@@ -113,8 +110,10 @@ class PeriodicCheckpointer(HookBase):
 
 class ProfilerHook(HookBase):
     """Traces ``num_iters`` iterations from ``start_iter`` with
-    ``torch.profiler`` (CPU, and CUDA where the card is used) and writes a
-    Chrome trace to ``output_dir/trace_iter{start}.json``."""
+    ``torch.profiler`` (CPU, and CUDA where the card is used) and the
+    program's own spans (``utils/tracing.py``, on for the same window),
+    and writes one Chrome trace to ``output_dir/trace_iter{start}.json``:
+    the spans lie on their threads over the operators and kernels."""
 
     def __init__(self, output_dir: str, start_iter: int = 10,
                  num_iters: int = 5):
@@ -132,6 +131,7 @@ class ProfilerHook(HookBase):
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self._prof = torch.profiler.profile(activities=acts)
             self._prof.__enter__()
+            tracing.enable()
 
     def after_step(self):
         if self.trainer.iter + 1 >= self._stop and self._prof is not None:
@@ -143,10 +143,12 @@ class ProfilerHook(HookBase):
 
     def _finish(self):
         prof, self._prof = self._prof, None
+        tracing.disable()
         prof.__exit__(None, None, None)
         os.makedirs(self._dir, exist_ok=True)
         path = os.path.join(self._dir, f"trace_iter{self._start}.json")
         prof.export_chrome_trace(path)
+        tracing.merge_chrome_trace(path, *tracing.drain())
         logger.info(f"Saved profiler trace to {path}")
 
 

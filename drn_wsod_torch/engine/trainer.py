@@ -36,6 +36,7 @@ from ..ops import csc as csc_lib
 from ..parallel import context
 from ..solver.build import SGD
 from ..structures.batch import WSODBatch
+from ..utils import tracing
 from .events import EventStorage
 from .hooks import HookBase
 
@@ -72,7 +73,8 @@ def make_train_step(model: nn.Module, tx: SGD,
 
     def train_step(state: TrainState, batch: WSODBatch, seed: int):
         gen = step_generator(seed, state.step, batch.image.device)
-        losses = state.model(batch, train=True, generator=gen)
+        with tracing.span("train.forward"):
+            losses = state.model(batch, train=True, generator=gen)
         return state, _apply_gradients(state, tx, losses, loss_weights)
 
     return train_step
@@ -89,12 +91,14 @@ def _apply_gradients(state: TrainState, tx: SGD, losses: dict,
     if loss_weights:
         losses = {k: v * loss_weights.get(k, 1.0) for k, v in losses.items()}
     total = sum(losses[k] for k in sorted(losses))
-    grads = torch.autograd.grad(total, list(params.values()),
-                                allow_unused=True)
-    grads = {n: torch.zeros_like(p) if g is None else g
-             for (n, p), g in zip(params.items(), grads)}
-    grads = context.reduce_gradients(grads)
-    tx.update(grads, state.opt_state, params)
+    with tracing.span("train.backward"):
+        grads = torch.autograd.grad(total, list(params.values()),
+                                    allow_unused=True)
+    with tracing.span("train.update"):
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(params.items(), grads)}
+        grads = context.reduce_gradients(grads)
+        tx.update(grads, state.opt_state, params)
     state.step += 1
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["total_loss"] = total.detach()
@@ -162,7 +166,8 @@ def make_multi_train_step(raw_step: Callable) -> Callable:
                    seed: int):
         per_step = []
         for batch in batches:
-            state, metrics = raw_step(state, batch, seed)
+            with tracing.span("train.step", id=state.step):
+                state, metrics = raw_step(state, batch, seed)
             per_step.append(metrics)
         return state, {k: torch.stack([m[k] for m in per_step])
                        for k in per_step[0]}
@@ -230,7 +235,6 @@ class Trainer:
         self.storage: Optional[EventStorage] = None
         self.last_batch = None
         self.last_chunk_step_time = None   # set at fences
-        self.last_prefetch_profile = None  # set by the chunk prefetch thread
         self._last_fence_time = None
         self._last_fence_iter = None
         self._pending_metrics = None
@@ -321,7 +325,7 @@ class Trainer:
         while True:
             yield self.to_device(self._next_host_batch())
 
-    def _prefetch(self, sizes: Sequence[int], depth: int, profile: bool):
+    def _prefetch(self, sizes: Sequence[int], depth: int):
         """A thread that pulls ``sizes[i]`` batches at a time, copies them
         ahead, and queues (batches, event); yields them on the loop's
         thread, each arrived on the loop's stream."""
@@ -334,14 +338,10 @@ class Trainer:
                       if self.device.type == "cuda"
                       else contextlib.nullcontext()):
                     for k in sizes:
-                        t0 = time.perf_counter()
-                        host = [self._next_host_batch() for _ in range(k)]
-                        t1 = time.perf_counter()
-                        batches, event = self._copy_ahead(host, stream)
-                        if profile:
-                            self.last_prefetch_profile = {
-                                "pull_s": t1 - t0,
-                                "copy_issue_s": time.perf_counter() - t1}
+                        with tracing.span("prefetch.pull"):
+                            host = [self._next_host_batch() for _ in range(k)]
+                        with tracing.span("prefetch.copy"):
+                            batches, event = self._copy_ahead(host, stream)
                         q.put((batches, event))
                 q.put(_STOP)
             except BaseException as e:  # noqa: BLE001 - re-raised below
@@ -363,17 +363,26 @@ class Trainer:
         """One batch at a time, up to ``2 * prefetch_chunks`` ahead, at
         most ``n`` pulled (a finite iterator is not consumed past this
         call's horizon)."""
-        for batches in self._prefetch([1] * n, 2 * self._prefetch_chunks,
-                                      profile=False):
+        for batches in self._prefetch([1] * n, 2 * self._prefetch_chunks):
             yield batches[0]
 
     # ------------------------------------------------------------- the loop
-    def run_step(self):
-        t0 = time.perf_counter()
-        batch = next(self._batches)
-        data_time = time.perf_counter() - t0
+    def _waited(self, t0: int, steps: int) -> float:
+        """Record the wait for batches since ``t0`` (perf_counter_ns) as
+        the span ``train.data_wait``; returns its seconds a step, the
+        ``data_time`` of each of the ``steps`` it fed."""
+        t1 = time.perf_counter_ns()
+        tracing.record("train.data_wait", t0, t1, id=self.state.step)
+        return (t1 - t0) * 1e-9 / steps
 
-        self.state, metrics = self._step_fn(self.state, batch, self._seed)
+    def run_step(self):
+        t0 = time.perf_counter_ns()
+        batch = next(self._batches)
+        data_time = self._waited(t0, 1)
+
+        with tracing.span("train.step", id=self.state.step):
+            self.state, metrics = self._step_fn(self.state, batch,
+                                                self._seed)
         self.last_batch = batch
         self._pending_metrics = metrics
         self._pending_data_time = data_time
@@ -400,18 +409,18 @@ class Trainer:
             it += sizes[-1]
         if self._prefetch_chunks <= 0:
             for k in sizes:
-                t0 = time.perf_counter()
+                t0 = time.perf_counter_ns()
                 chunk = [self.to_device(self._next_host_batch())
                          for _ in range(k)]
-                yield chunk, k, (time.perf_counter() - t0) / k
+                yield chunk, k, self._waited(t0, k)
             return
-        stream = self._prefetch(sizes, self._prefetch_chunks, profile=True)
+        stream = self._prefetch(sizes, self._prefetch_chunks)
         while True:
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             chunk = next(stream, None)
             if chunk is None:
                 return
-            yield chunk, len(chunk), (time.perf_counter() - t0) / len(chunk)
+            yield chunk, len(chunk), self._waited(t0, len(chunk))
 
     def _run_chunked(self, start_iter: int, max_iter: int):
         it = start_iter
@@ -422,8 +431,9 @@ class Trainer:
                     h.before_step()
             self._pending_data_time = data_time
             t0 = time.perf_counter()
-            self.state, metrics = self._multi_step_fn(
-                self.state, chunk, self._seed)
+            with tracing.span("train.chunk", id=self.state.step):
+                self.state, metrics = self._multi_step_fn(
+                    self.state, chunk, self._seed)
             self.last_batch = chunk[-1]
             for j in range(k):
                 self.iter = it + j
@@ -451,7 +461,9 @@ class Trainer:
         values = [torch.as_tensor(self._pending_metrics[k]).reshape(-1)
                   for k in names]
         sizes = [v.numel() for v in values]
-        host = torch.cat([v.detach().double() for v in values]).cpu().numpy()
+        with tracing.span("train.flush", id=self.state.step):
+            host = torch.cat([v.detach().double() for v in values]
+                             ).cpu().numpy()
         per_name = dict(zip(names, np.split(host, np.cumsum(sizes)[:-1])))
         bad = {k: v.tolist() for k, v in per_name.items()
                if not np.isfinite(v).all()}

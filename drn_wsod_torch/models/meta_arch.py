@@ -70,6 +70,7 @@ from ..ops.roi_pool import roi_pool_batched
 from ..parallel import context
 from ..structures import boxes as box_ops
 from ..structures.batch import WSODBatch
+from ..utils import tracing
 from .heads import fast_rcnn as fast_rcnn_lib
 from .heads import keypoint as keypoint_lib
 from .heads import oicr as oicr_lib
@@ -202,6 +203,7 @@ class GeneralizedRCNNWSL(nn.Module):
                              persistent=False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std),
                              persistent=False)
+        self._seen_shapes = set()   # (B, H, W) of every image batch run
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -248,9 +250,18 @@ class GeneralizedRCNNWSL(nn.Module):
 
         The NCHW view of an NHWC tensor is ``channels_last`` memory, which
         cuDNN prefers, and the NHWC view of the channels_last output is
-        contiguous, as the pool kernel needs."""
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and not self.freeze_backbone):
+        contiguous, as the pool kernel needs.
+
+        A (B, H, W) this model has not run before adds one to the counter
+        ``model.first_shape``: such a call is where cuDNN builds its
+        plans."""
+        shape = tuple(image.shape[:3])
+        if shape not in self._seen_shapes:
+            self._seen_shapes.add(shape)
+            tracing.count("model.first_shape")
+        with tracing.span("model.backbone"), \
+                torch.set_grad_enabled(torch.is_grad_enabled()
+                                       and not self.freeze_backbone):
             x = self.preprocess(image).permute(0, 3, 1, 2)
             out = self.backbone(x)
             if self.pyramid_strides is not None:
@@ -309,10 +320,12 @@ class GeneralizedRCNNWSL(nn.Module):
                         ) -> torch.Tensor:
         """RoI pool + objectness scaling + DAN: -> (B, P, D). The DAN's
         dropout runs where a ``generator`` is given (training)."""
-        pooled = self.pool(feats, proposals, prop_mask, objectness)
+        with tracing.span("model.pool"):
+            pooled = self.pool(feats, proposals, prop_mask, objectness)
         B, P = pooled.shape[:2]
-        return self.box_head(pooled.reshape(B * P, -1),
-                             generator).reshape(B, P, -1)
+        with tracing.span("model.box_head"):
+            return self.box_head(pooled.reshape(B * P, -1),
+                                 generator).reshape(B, P, -1)
 
     def proposal_scores(self, batch: WSODBatch) -> torch.Tensor:
         """WSDDN per-proposal scores (B, P, C) with dropout off: the
@@ -321,7 +334,8 @@ class GeneralizedRCNNWSL(nn.Module):
         feats = self.features(batch.image)
         box_feats = self.pooled_features(
             feats, batch.proposals, batch.proposal_mask, batch.objectness)
-        return self.box_predictor(box_feats, batch.proposal_mask)
+        with tracing.span("model.predictor"):
+            return self.box_predictor(box_feats, batch.proposal_mask)
 
     # ------------------------------------------------------------------ train
     def forward(self, batch: WSODBatch, *, train: bool = True,
@@ -351,7 +365,8 @@ class GeneralizedRCNNWSL(nn.Module):
             feats, batch.proposals, batch.proposal_mask, batch.objectness,
             generator if train else None)
 
-        scores = self.box_predictor(box_feats, batch.proposal_mask)
+        with tracing.span("model.predictor"):
+            scores = self.box_predictor(box_feats, batch.proposal_mask)
         if csc_w is not None:
             pos, neg = csc_lib.csc_loss(scores, *csc_w, self.mean_loss)
             losses = {"loss_cls_pos": pos, "loss_cls_neg": neg}
@@ -366,28 +381,33 @@ class GeneralizedRCNNWSL(nn.Module):
         img_evidence = wsddn_lib.image_probs(scores).detach()
         prev_scores = scores.detach()
         for k, branch in enumerate(self.box_refinery):
-            cls_logits, deltas = branch(box_feats)
-            if self.head_type == "PCL":
-                # proposal-cluster targets; background in column 0
-                losses[f"loss_cls_r{k}"] = pcl_lib.pcl_branch_loss(
-                    cls_logits, prev_scores, batch.proposals,
-                    batch.proposal_mask, batch.labels)
+            with tracing.span("model.refine"):
+                cls_logits, deltas = branch(box_feats)
+                if self.head_type == "PCL":
+                    # proposal-cluster targets; background in column 0
+                    losses[f"loss_cls_r{k}"] = pcl_lib.pcl_branch_loss(
+                        cls_logits, prev_scores, batch.proposals,
+                        batch.proposal_mask, batch.labels)
+                    prev_scores = oicr_lib.branch_probs(
+                        cls_logits)[..., 1:].detach()
+                    continue
+                with tracing.span("model.refine.mine"):
+                    pgt = oicr_lib.mine_pgt(prev_scores, batch.proposals,
+                                            batch.proposal_mask,
+                                            batch.labels, img_evidence)
+                    targets = oicr_lib.label_proposals(
+                        pgt, batch.proposals, batch.proposal_mask)
+                with tracing.span("model.refine.loss"):
+                    losses[f"loss_cls_r{k}"] = oicr_lib.refinement_loss(
+                        cls_logits, targets)
+                    if self.refine_reg[k]:
+                        losses[f"loss_box_reg_r{k}"] = \
+                            oicr_lib.refinement_box_loss(
+                                deltas, batch.proposals, targets,
+                                batch.proposal_mask, self.num_classes,
+                                self.reg_weights)
                 prev_scores = oicr_lib.branch_probs(
-                    cls_logits)[..., 1:].detach()
-                continue
-            pgt = oicr_lib.mine_pgt(prev_scores, batch.proposals,
-                                    batch.proposal_mask, batch.labels,
-                                    img_evidence)
-            targets = oicr_lib.label_proposals(pgt, batch.proposals,
-                                               batch.proposal_mask)
-            losses[f"loss_cls_r{k}"] = oicr_lib.refinement_loss(cls_logits,
-                                                                targets)
-            if self.refine_reg[k]:
-                losses[f"loss_box_reg_r{k}"] = oicr_lib.refinement_box_loss(
-                    deltas, batch.proposals, targets, batch.proposal_mask,
-                    self.num_classes, self.reg_weights)
-            prev_scores = oicr_lib.branch_probs(
-                cls_logits)[..., :self.num_classes].detach()
+                    cls_logits)[..., :self.num_classes].detach()
         return losses
 
     def seg_losses(self, feats: torch.Tensor, batch: WSODBatch,
@@ -649,12 +669,14 @@ class GeneralizedRCNNWSL(nn.Module):
             return torch.where(mask, torch.softmax(cls_logits, -1), 0.0), boxes
 
         if self.head_type == "WSDDN" or self.refine_k == 0:
-            scores = self.box_predictor(box_feats, batch.proposal_mask)
+            with tracing.span("model.predictor"):
+                scores = self.box_predictor(box_feats, batch.proposal_mask)
             scores = torch.where(mask, scores, 0.0)
             return wsddn_lib.append_background(scores), batch.proposals
 
-        logits, deltas = zip(*(branch(box_feats)
-                               for branch in self.box_refinery))
+        with tracing.span("model.refine"):
+            logits, deltas = zip(*(branch(box_feats)
+                                   for branch in self.box_refinery))
         if self.refine_reg[-1]:
             scores = oicr_lib.branch_probs(logits[-1])
             boxes = box_ops.apply_deltas(deltas[-1], batch.proposals,

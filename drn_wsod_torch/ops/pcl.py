@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from ..parallel import context
 from ..structures import boxes as box_ops
+from ..utils import tracing
 
 # block length of XLA's rewrite of a long cumulative reduce_window
 _SCAN_BLOCK = 16
@@ -256,6 +257,10 @@ def pcl_branch_loss(cls_logits: torch.Tensor, prev_scores: torch.Tensor,
     """The batch's PCL loss: clusters mined from the previous branch's
     scores, then the cluster-supervised loss, averaged over images (of the
     global batch under a mesh shard)."""
-    clusters = mine_pcl_clusters(prev_scores, proposals, prop_mask, labels,
-                                 max_centers=max_centers, graph_iou=graph_iou)
-    return context.mean(pcl_loss(cls_logits, clusters, proposals, prop_mask))
+    with tracing.span("model.refine.mine"):
+        clusters = mine_pcl_clusters(prev_scores, proposals, prop_mask,
+                                     labels, max_centers=max_centers,
+                                     graph_iou=graph_iou)
+    with tracing.span("model.refine.loss"):
+        return context.mean(pcl_loss(cls_logits, clusters, proposals,
+                                     prop_mask))

@@ -36,6 +36,7 @@ from .ops.resize import scale_linear
 from .structures import boxes as box_ops
 from .structures.batch import WSODBatch
 from .structures.boxes import unique_boxes_mask
+from .utils import tracing
 
 
 def enumerate_views(image_hw, min_sizes, max_size: int, flip: bool):
@@ -322,9 +323,10 @@ def make_group_scorer(model, flips: Sequence[bool], bucket: int):
 
     @torch.inference_mode()
     def run(raw, hw0, new_hw, boxes, mask, objectness, labels):
-        batch, inv = _device_view_batch(raw, hw0, new_hw, tuple(flips),
-                                        bucket, boxes, mask, objectness,
-                                        labels)
+        with tracing.span("tta.view_build"):
+            batch, inv = _device_view_batch(raw, hw0, new_hw, tuple(flips),
+                                            bucket, boxes, mask, objectness,
+                                            labels)
         scores, bxs = model.inference_scores(batch)
         return _sum_inverted(scores, bxs, inv)
 
@@ -398,7 +400,13 @@ class GeneralizedRCNNWithTTAAVG:
         """Detections of one decoded (H, W, 3) image, in ``INPUT.FORMAT``
         channel order, with the record's proposals and annotations; numpy
         arrays: boxes (topk, 4), scores, classes, valid, all_scores
-        (P, C+1), all_boxes."""
+        (P, C+1), all_boxes. Traced as the span ``tta.image``, identified
+        by the record's ``image_id``."""
+        with tracing.span("tta.image", id=record.get("image_id")):
+            return self._detect_image(image, record)
+
+    def _detect_image(self, image: np.ndarray,
+                      record: dict) -> Dict[str, np.ndarray]:
         dev = self.device
         boxes = np.asarray(record["proposal_boxes"], dtype=np.float32)
         logits = np.asarray(record["proposal_objectness_logits"],
@@ -431,25 +439,30 @@ class GeneralizedRCNNWithTTAAVG:
                          (pboxes, pmask, pobj, labels))
             prop_mask = args[1]
             for bucket, bucket_views in groups.items():
-                scorer = make_group_scorer(
-                    self.model, [f for _, _, f in bucket_views], bucket)
-                s, b = scorer(raw_d, (H0, W0),
-                              [(nh, nw) for nh, nw, _ in bucket_views],
-                              *args)
-                sum_scores = s if sum_scores is None else sum_scores + s
-                sum_boxes = b if sum_boxes is None else sum_boxes + b
+                with tracing.span("tta.group"):
+                    scorer = make_group_scorer(
+                        self.model, [f for _, _, f in bucket_views], bucket)
+                    s, b = scorer(raw_d, (H0, W0),
+                                  [(nh, nw) for nh, nw, _ in bucket_views],
+                                  *args)
+                    sum_scores = s if sum_scores is None else sum_scores + s
+                    sum_boxes = b if sum_boxes is None else sum_boxes + b
         else:
             for bucket_views in groups.values():
-                batch, inv = build_view_batch(
-                    image, boxes, logits, labels, self.min_sizes,
-                    self.max_size, self.flip, self.buckets,
-                    self.num_proposals, views=bucket_views)
-                batch = batch.to(dev)
-                s, b = self._score(batch,
-                                   {k: v.to(dev) for k, v in inv.items()})
-                prop_mask = batch.proposal_mask[0]
-                sum_scores = s if sum_scores is None else sum_scores + s
-                sum_boxes = b if sum_boxes is None else sum_boxes + b
-        dets = self._finalize(sum_scores, sum_boxes, float(n_views),
-                              prop_mask)
-        return {k: v.cpu().numpy() for k, v in dets.items()}
+                with tracing.span("tta.group"):
+                    with tracing.span("tta.view_build"):
+                        batch, inv = build_view_batch(
+                            image, boxes, logits, labels, self.min_sizes,
+                            self.max_size, self.flip, self.buckets,
+                            self.num_proposals, views=bucket_views)
+                        batch = batch.to(dev)
+                        inv = {k: v.to(dev) for k, v in inv.items()}
+                    s, b = self._score(batch, inv)
+                    prop_mask = batch.proposal_mask[0]
+                    sum_scores = s if sum_scores is None else sum_scores + s
+                    sum_boxes = b if sum_boxes is None else sum_boxes + b
+        with tracing.span("tta.finalize"):
+            dets = self._finalize(sum_scores, sum_boxes, float(n_views),
+                                  prop_mask)
+        with tracing.span("tta.readback"):
+            return {k: v.cpu().numpy() for k, v in dets.items()}

@@ -10,6 +10,7 @@ equal; wall times are left out of the comparison."""
 import json
 import logging
 import sys
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 from drn_wsod_torch import engine as peng
 from drn_wsod_torch.engine import trainer as ptrainer
 from drn_wsod_torch.structures import WSODBatch
+from drn_wsod_torch.utils import tracing
 from drn_wsod_tpu import engine as jeng
 from drn_wsod_tpu.engine import hooks as jhooks
 
@@ -314,6 +316,29 @@ def test_profiler_hook_writes_chrome_trace(tmp_path):
     trace = json.loads((tmp_path / "trace_iter1.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("mm" in n for n in names)
+    # the program's spans of the same window (the prefetch thread may have
+    # pulled every batch before it), on their threads and on the trace's
+    # clock: each data wait and read-back inside the operators' range
+    spans = [e for e in trace["traceEvents"]
+             if e.get("cat") == "program_span"]
+    by = {}
+    for e in spans:
+        by.setdefault(e["name"], []).append(e)
+    assert {"train.step", "train.data_wait", "train.flush"} <= set(by) <= {
+        "train.step", "train.data_wait", "train.flush", "prefetch.pull",
+        "prefetch.copy"}
+    assert [e["args"]["id"] for e in by["train.step"]] == [1, 2]
+    assert len(by["train.data_wait"]) == 2 and len(by["train.flush"]) == 1
+    assert {e["tid"] for e in by["train.data_wait"]} == \
+        {threading.get_native_id()}
+    ops = [e for e in trace["traceEvents"]
+           if e.get("ph") == "X" and e.get("cat") != "program_span"]
+    lo = min(e["ts"] for e in ops) - 1e3
+    hi = max(e["ts"] + e["dur"] for e in ops) + 1e3
+    for e in by["train.data_wait"] + by["train.flush"]:
+        assert lo <= e["ts"] and e["ts"] + e["dur"] <= hi
+    assert trace["programCounters"] == {}
+    assert not tracing.enabled() and tracing.drain() == ([], {})
 
 
 def test_writers_without_tensorboard(tmp_path, monkeypatch, caplog):
